@@ -1,0 +1,270 @@
+"""Force computation at a sync point [G2: accel.c ::
+compute_accelerations(), gravtree.c, hydra.c].
+
+Counterpart of ``gadget_leicester_tpu/models/forces.py:31-363, 590-921``
+(``comoving_factors``, ``softening_table``, ``compute_forces``,
+``_treepm_gravity``, ``compute_sph``), for the slice this package covers:
+periodic TreePM gravity and block-packed SPH. Order, as in the reference:
+short-range gravity -> long-range PM (PM steps only) -> SPH density
+(adaptive h) -> SPH hydro.
+
+Kernels on this path: A (short-range gravity, ``ops/cells.py``), B (PM
+deposit, ``ops/pm_tiles.py``), C and D (SPH density and hydro,
+``ops/sph_blocks.py``). The FFTs and the CIC gather are PyTorch's own
+operators, as the JAX package leaves them to XLA. The JAX package's
+near-idle "entries" tier is a speed choice and is not ported: every sync
+point runs the flag-gated dense kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from gadget_leicester_tpu_torch.core.config import GAMMA, SimConfig, SimOptions
+from gadget_leicester_tpu_torch.core.cosmology import hubble_function
+from gadget_leicester_tpu_torch.core.state import SimState
+from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
+                                                     grav_grid_geometry,
+                                                     refresh,
+                                                     resolve_gravity_mode,
+                                                     resolve_sph_backend,
+                                                     sph_blocks_geometry)
+from gadget_leicester_tpu_torch.ops.cells import (grav_tile_flags,
+                                                  pack_cells_soa,
+                                                  shortrange_gravity_tiles)
+from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
+                                                      merge_rows)
+from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
+                                               pm_forces_periodic)
+from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
+from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
+from gadget_leicester_tpu_torch.ops.sph_blocks import (build_block_lists,
+                                                       density_adaptive_blocks,
+                                                       hydro_force_blocks)
+
+
+class ComovingFactors(NamedTuple):
+    """All a(t)-dependent factors of one force pass (0-d float32)."""
+
+    atime: torch.Tensor           # a (1 for physical)
+    hubble_a: torch.Tensor        # H(a) (1 for physical)
+    hubble_a2_flow: torch.Tensor  # a^2 H for the pairwise Hubble flow
+    hubble_a2_norm: torch.Tensor  # a^2 H for the DtEntropy normalisation
+    fac_mu: torch.Tensor          # a^{3(gamma-1)/2 - 1}
+    a3inv: torch.Tensor           # 1/a^3
+
+
+def comoving_factors(cfg: SimConfig, ti_current: torch.Tensor):
+    dev = ti_current.device
+    if not cfg.comoving_integration_on:
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        return ComovingFactors(one, one, torch.zeros_like(one), one, one, one)
+    a = torch.exp(ti_current.to(torch.float32) * cfg.timebase_interval) \
+        * cfg.time_begin
+    h_a = hubble_function(a, cfg.omega0, cfg.omega_lambda,
+                          cfg.hubble_internal)
+    ha2 = a * a * h_a
+    fac_mu = a ** (3.0 * (GAMMA - 1.0) / 2.0) / a
+    return ComovingFactors(a, h_a, ha2, ha2, fac_mu, 1.0 / a ** 3)
+
+
+def softening_table(cfg: SimConfig, atime: torch.Tensor) -> torch.Tensor:
+    """[6] per-type softening with comoving -> physical capping
+    [G2: gravtree.c :: set_softenings()]."""
+    vals = []
+    for e, mp in zip(cfg.softenings, cfg.softenings_max_phys):
+        e32 = torch.full((), e, dtype=torch.float32, device=atime.device)
+        if cfg.comoving_integration_on and mp > 0:
+            vals.append(torch.minimum(e32, mp / atime))
+        else:
+            vals.append(e32)
+    return torch.stack(vals)
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
+                    n_gas_max: int) -> None:
+    """Refuse every configuration outside the ported slice."""
+    if opts.dtype != "f32":
+        _refuse("dtype f64", "the kernels are float32")
+    if opts.cooling != "none":
+        _refuse(f"cooling={opts.cooling!r}", "ROADMAP queue 1 item 13")
+    if opts.sinks:
+        _refuse("sinks", "ROADMAP queue 1 item 13")
+    if opts.nogravity or opts.adaptive_gravsoft_forgas:
+        _refuse("nogravity / adaptive gas softening",
+                "ROADMAP queue 1 item 12")
+    if opts.isotherm_eqs:
+        _refuse("isotherm_eqs", "ROADMAP queue 1 item 12")
+    mode = resolve_gravity_mode(opts, n_max)
+    if mode != "treepm" or not opts.periodic:
+        _refuse(f"gravity mode {mode!r} (periodic={opts.periodic})",
+                "ROADMAP queue 1 item 12")
+    if n_gas_max > 1:
+        backend = resolve_sph_backend(opts, n_gas_max)
+        if backend != "blocks":
+            _refuse(f"sph_backend {backend!r}", "ROADMAP queue 1 item 12")
+
+
+def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
+                   do_sph: bool = True, do_pm: bool = True,
+                   stats: dict | None = None) -> SimState:
+    """One full force computation at the current sync point: p.acc
+    (short-range, active particles only), p.acc_pm (only when ``do_pm``,
+    frozen otherwise), p.pot (PM piece), and the SPH fields of active
+    gas. ``stats`` (optional dict) receives ``density_iters``."""
+    check_supported(cfg, opts, state.n_max, state.n_gas_max)
+    p = state.p
+    fac = comoving_factors(cfg, state.ti_current)
+    # the active set: only these particles receive fresh forces
+    active = (p.ti_endstep == state.ti_current) & p.alive
+    eps = softening_table(cfg, fac.atime)
+    soft = SOFTFAC * eps[p.ptype.long()]
+
+    acc, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
+        state, cfg, opts, soft, do_pm, active)
+    state = dataclasses.replace(
+        state, overflow_flags=state.overflow_flags | sr_ovf.to(torch.int32))
+    acc = acc * cfg.grav_internal
+    pot_pm = pot_pm * cfg.grav_internal
+    zero3 = torch.zeros_like(acc)
+    # inactive particles keep their frozen acc (gated tiles returned 0)
+    acc = torch.where(active[:, None], acc, p.acc)
+    acc = torch.where(p.alive[:, None], acc, zero3)
+    acc_pm = torch.where(p.alive[:, None], acc_pm, zero3)
+    total = acc + acc_pm
+    p = dataclasses.replace(p, acc=acc, acc_pm=acc_pm, pot=pot_pm,
+                            pot_pm=pot_pm,
+                            old_acc=torch.sqrt((total * total).sum(-1)))
+    state = dataclasses.replace(state, p=p)
+    if do_sph and state.n_gas_max > 1:
+        state = compute_sph(state, cfg, opts, fac, active[:state.n_gas_max],
+                            stats)
+    return state
+
+
+def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
+                    soft, do_pm: bool, active):
+    """Short-range gravity through kernel A on the cached cell grid and,
+    on PM steps, long-range PM through kernel B, cuFFT and a CIC gather.
+    Returns (acc_sr, pot_pm, overflow, acc_pm scaled by G, state with the
+    updated grid cache)."""
+    p = state.p
+    box = float(cfg.box_size)
+    g = opts.pmgrid
+    asmth_len = ASMTH * box / g
+    rcut = RCUT * asmth_len
+    n_cells, cap, margin = grav_grid_geometry(cfg, opts, p.n_max)
+
+    def build():
+        return build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
+                               capacity=cap)
+
+    grids = state.grids
+    if grids is not None:
+        count_now = p.alive.sum().to(torch.int32)
+        cl, disp, count, _ = refresh(grids.grav, grids.grav_disp,
+                                     grids.grav_count, margin, count_now,
+                                     build)
+        state = dataclasses.replace(state, grids=dataclasses.replace(
+            grids, grav=cl, grav_disp=disp, grav_count=count))
+    else:
+        cl = build()
+
+    # one pack shared by kernel A and the PM deposit (kernel B)
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+    flags = grav_tile_flags(cl, active)
+    out = shortrange_gravity_tiles(soa, flags, n_cells, box, asmth_len, rcut)
+    acc_sr = merge_rows(out, cl, 3)
+    acc_sr = torch.where(p.alive[:, None], acc_sr, torch.zeros_like(acc_sr))
+
+    if do_pm:
+        rho_grid = pm_deposit_tiles(soa, n_cells, box, g)
+        acc_pm = pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
+                                    rho_grid=rho_grid) * cfg.grav_internal
+        pot_pm = torch.zeros_like(p.pot)
+    else:
+        acc_pm = p.acc_pm
+        pot_pm = p.pot_pm / max(cfg.grav_internal, 1e-37)
+    return acc_sr, pot_pm, cl.overflow, acc_pm, state
+
+
+def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
+                fac: ComovingFactors, active, stats: dict | None = None):
+    """density (kernel C in the Newton loop) -> hydro (kernel D)
+    [G2: accel.c ordering]. Inactive gas keeps its drift-forecast fields;
+    a particle dropped by a full subcell comes back with rho = 0 and keeps
+    its forecast too (the sticky overflow bit 2 asks for a larger
+    capacity)."""
+    gas = state.gas
+    ng = gas.n_gas_max
+    p = state.p
+    pos_g, mass_g = p.pos[:ng], p.mass[:ng]
+    gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+    active_g = active & gas_mask
+    eps_gas = softening_table(cfg, fac.atime)[0]
+    min_hsml = cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas
+    box = float(cfg.box_size)
+    n_blocks, subcap = sph_blocks_geometry(cfg, opts, ng)
+
+    def build_blocks():
+        return build_block_lists(pos_g, gas_mask, 0.0, box,
+                                 n_blocks=n_blocks, subcap=subcap)
+
+    subcell = box / (2 * n_blocks)
+    grids = state.grids
+    if grids is not None:
+        count_now = gas_mask.sum().to(torch.int32)
+        cls, disp, count, _ = refresh(grids.sph, grids.sph_disp,
+                                      grids.sph_count,
+                                      2.0 * KAPPA_SPH * subcell,
+                                      count_now, build_blocks)
+        state = dataclasses.replace(state, grids=dataclasses.replace(
+            grids, sph=cls, sph_disp=disp, sph_count=count))
+    else:
+        cls = build_blocks()
+    # h cap: the correctness contract of the 8-block stencil, leaving
+    # 2 kappa of the fine-cell edge for staleness
+    max_hsml = (1.0 - 2.0 * KAPPA_SPH) * subcell
+    hsml_in = torch.clamp(gas.hsml, max=max_hsml)
+    dres, cls = density_adaptive_blocks(
+        pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask,
+        des_num_ngb=cfg.des_num_ngb, max_dev=cfg.max_num_ngb_deviation,
+        box=box, cls=cls, min_hsml=min_hsml, max_hsml=max_hsml,
+        active=active)
+    if stats is not None:
+        stats.setdefault("density_iters", []).append(dres.iters)
+
+    take = active_g & (dres.rho > 0)
+    rho = torch.where(take, dres.rho, gas.density)
+    hsml = torch.where(take, dres.hsml, gas.hsml)
+    dhsml = torch.where(take, dres.dhsml_factor, gas.dhsml_density_factor)
+    div_vel = torch.where(take, dres.div_vel, gas.div_vel)
+    curl_vel = torch.where(take, dres.curl_vel, gas.curl_vel)
+    num_ngb = torch.where(take, dres.num_ngb_eff, gas.num_ngb)
+    pressure = torch.where(gas_mask, gas.entropy_pred * rho ** GAMMA,
+                           torch.zeros_like(rho))
+
+    hres = hydro_force_blocks(
+        cls, pos_g, gas.vel_pred, mass_g, hsml, rho, pressure, dhsml,
+        div_vel, curl_vel, gas_mask, visc_const=cfg.art_bulk_visc_const,
+        box=box, hubble_a2_flow=fac.hubble_a2_flow,
+        hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu,
+        active=active)
+    hydro_acc = torch.where(take[:, None], hres.acc, gas.hydro_acc)
+    dt_entropy = torch.where(take, hres.dt_entropy, gas.dt_entropy)
+    msv = torch.where(take, hres.max_signal_vel, gas.max_signal_vel)
+    ovf = cls[0].overflow.to(torch.int32) * 2
+    gas = dataclasses.replace(
+        gas, density=rho, hsml=hsml, pressure=pressure, div_vel=div_vel,
+        curl_vel=curl_vel, dhsml_density_factor=dhsml, num_ngb=num_ngb,
+        hydro_acc=hydro_acc, dt_entropy=dt_entropy, max_signal_vel=msv)
+    return dataclasses.replace(state, gas=gas,
+                               overflow_flags=state.overflow_flags | ovf)
+
