@@ -89,21 +89,9 @@ __global__ void shortrange_gravity_kernel(const float* __restrict__ soa,
         for (int k = 0; k < len; ++k) {
           const float m = s_m[k];
           if (m == 0.f) continue;  // parked slot: uniform across the block
-          const float dx = tx - s_x[k];
-          const float dy = ty - s_y[k];
-          const float dz = tz - s_z[k];
-          const float r2 = dx * dx + dy * dy + dz * dz;
-          if (!(r2 < rcut2 && r2 > 0.f)) continue;
-          const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
-          const float r = r2 * rinv;
-          const float hh = fmaxf(th, s_h[k]);
-          const float hhinv = fminf(thinv, s_hinv[k]);
-          float fac = glt::grav_fac_nodiv(r, rinv, hh, hhinv);
-          fac = fac * glt::trunc_p10(fminf(r * half_inv_asmth, 2.25f));
-          const float w = m * fac;
-          ax -= w * dx;
-          ay -= w * dy;
-          az -= w * dz;
+          glt::gravity_pair(tx, ty, tz, th, thinv, s_x[k], s_y[k], s_z[k], m,
+                            s_h[k], s_hinv[k], half_inv_asmth, rcut2, ax, ay,
+                            az);
         }
       }
     }

@@ -63,9 +63,7 @@ __global__ void sph_density_kernel(const float* __restrict__ soa_e,
       tvz = tile[6 * lanes + t];
       hinv = glt::inv_or_zero(h[static_cast<size_t>(b) * lanes + t]);
     }
-    const float hinv2 = hinv * hinv;
-    const float hinv3 = hinv2 * hinv;
-    float rho = 0.f, drhodh = 0.f, divv = 0.f, rx = 0.f, ry = 0.f, rz = 0.f;
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int g = 0; g < 8; ++g) {
       const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
       const int src = (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) *
@@ -92,40 +90,15 @@ __global__ void sph_density_kernel(const float* __restrict__ soa_e,
         for (int k = 0; k < len; ++k) {
           const float m = s_m[k];
           if (m == 0.f) continue;  // parked slot: uniform across the block
-          const float dx = (tx - s_x[k]) + shx;
-          const float dy = (ty - s_y[k]) + shy;
-          const float dz = (tz - s_z[k]) + shz;
-          const float r2 = dx * dx + dy * dy + dz * dz;
-          const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
-          const float r = r2 * rinv;
-          const float u = r * hinv;
-          if (!(u < 1.0f)) continue;  // outside the support: all terms 0
-          const float wu = glt::w4_u(u);
-          const float du = glt::w4_du(u);
-          const float w = glt::kNorm3d * hinv3 * wu;
-          const float dwdh = -glt::kNorm3d * hinv3 * hinv * (3.0f * wu + u * du);
-          const float dwdr = glt::kNorm3d * hinv2 * hinv2 * du;
-          const float fac = m * dwdr * rinv;
-          const float dvx = tvx - s_vx[k];
-          const float dvy = tvy - s_vy[k];
-          const float dvz = tvz - s_vz[k];
-          const float vdotr = dvx * dx + dvy * dy + dvz * dz;
-          rho += m * w;
-          drhodh += m * dwdh;
-          divv -= fac * vdotr;
-          rx += fac * (dvy * dz - dvz * dy);
-          ry += fac * (dvz * dx - dvx * dz);
-          rz += fac * (dvx * dy - dvy * dx);
+          glt::density_pair((tx - s_x[k]) + shx, (ty - s_y[k]) + shy,
+                            (tz - s_z[k]) + shz, tvx - s_vx[k],
+                            tvy - s_vy[k], tvz - s_vz[k], m, hinv, acc);
         }
       }
     }
     if (live) {
-      o[t] = rho;
-      o[lanes + t] = drhodh;
-      o[2 * lanes + t] = divv;
-      o[3 * lanes + t] = rx;
-      o[4 * lanes + t] = ry;
-      o[5 * lanes + t] = rz;
+#pragma unroll
+      for (int r = 0; r < 6; ++r) o[r * lanes + t] = acc[r];
     }
   }
 }

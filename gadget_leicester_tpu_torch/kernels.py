@@ -1,12 +1,13 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
-The four kernels (A short-range gravity, B PM deposit, C SPH density,
-D SPH hydro) are compiled on first use with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, written under
-``build/torch_kernels/<hash of the sources and flags>/`` at the root of the
-checkout, and loaded with ``ctypes``. Every C entry returns
-``cudaGetLastError()`` after its launch; :func:`launch` raises when that
-is not 0. A failed build raises with nvcc's output.
+The seven kernels (A short-range gravity, B PM deposit, C SPH density,
+D SPH hydro, and the active-entry twins E, F, G of A, C, D) are compiled
+on first use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
+interface, written under ``build/torch_kernels/<hash of the sources and
+flags>/`` at the root of the checkout, and loaded with ``ctypes``. Every C
+entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
+raises when that is not 0. A failed build raises with nvcc's output.
 
 ``launches`` counts, per kernel, the launches its wrapper made; only the
 wrappers add to it, and only where they launch the kernel (a CPU tensor
@@ -36,10 +37,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("shortrange_gravity.cu", "pm_deposit.cu", "sph_density.cu",
-           "sph_hydro.cu")
+           "sph_hydro.cu", "shortrange_gravity_entries.cu",
+           "sph_density_entries.cu", "sph_hydro_entries.cu")
 HEADERS = ("glt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +52,11 @@ SIGNATURES = {
     "pm_deposit": (_P, _P, _I, _I, _I, _F, _F, _P),
     "sph_density": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_hydro": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "shortrange_gravity_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                   _P),
+    "sph_density_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                          _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}
@@ -93,17 +100,35 @@ def build() -> Path:
         build_info.update(seconds=0.0, path=str(lib_path), log="(cached)")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libglt_kernels.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = os.getpid()
+    objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    try:
+        # every pipe is drained before any result is judged, so no nvcc
+        # is left blocked on a full pipe
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, out in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} "
+                                   f"({proc.returncode}):\n{out}")
+        tmp = out_dir / f"libglt_kernels.{tag}.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_info.update(seconds=time.time() - t0, path=str(lib_path),
-                      log=proc.stdout + proc.stderr)
+                      log="".join(logs))
     return lib_path
 
 

@@ -10,10 +10,16 @@ short-range gravity -> long-range PM (PM steps only) -> SPH density
 
 Kernels on this path: A (short-range gravity, ``ops/cells.py``), B (PM
 deposit, ``ops/pm_tiles.py``), C and D (SPH density and hydro,
-``ops/sph_blocks.py``). The FFTs and the CIC gather are PyTorch's own
-operators, as the JAX package leaves them to XLA. The JAX package's
-near-idle "entries" tier is a speed choice and is not ported: every sync
-point runs the flag-gated dense kernels.
+``ops/sph_blocks.py``), and at near-idle sync points their active-entry
+twins E, F and G. The FFTs and the CIC gather are PyTorch's own
+operators, as the JAX package leaves them to XLA.
+
+Two tiers, by the JAX package's rule (:func:`use_entries`): a sync point
+at which few particles are active compacts them into entries of at most
+``ENTRY_LANES`` targets of one cell (gravity) or even block (SPH) and
+runs E, F and G over the entries; any other runs the flag-gated dense
+kernels A, C and D. Density and hydro take the same tier, from one count.
+The tier decides speed only: both give the same forces.
 """
 
 from __future__ import annotations
@@ -32,7 +38,11 @@ from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
                                                      resolve_gravity_mode,
                                                      resolve_sph_backend,
                                                      sph_blocks_geometry)
-from gadget_leicester_tpu_torch.ops.cells import (grav_tile_flags,
+from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
+                                                  build_active_entries,
+                                                  count_active_entries,
+                                                  grav_tile_flags,
+                                                  gravity_entries,
                                                   pack_cells_soa,
                                                   shortrange_gravity_tiles)
 from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
@@ -41,9 +51,10 @@ from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
                                                pm_forces_periodic)
 from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
 from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
-from gadget_leicester_tpu_torch.ops.sph_blocks import (build_block_lists,
-                                                       density_adaptive_blocks,
-                                                       hydro_force_blocks)
+from gadget_leicester_tpu_torch.ops.sph_blocks import (
+    build_block_lists, count_block_entries, density_adaptive_blocks,
+    density_adaptive_blocks_entries, hydro_force_blocks,
+    hydro_force_blocks_entries)
 
 
 class ComovingFactors(NamedTuple):
@@ -86,6 +97,18 @@ def softening_table(cfg: SimConfig, atime: torch.Tensor) -> torch.Tensor:
 
 def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def use_entries(n_active: torch.Tensor, count_entries, k_max: int) -> bool:
+    """The tier rule [JAX forces.py:285-290, :685-691]: the active-entry
+    kernels when the active count leaves them in play (n_active <=
+    ENTRY_LANES k_max) and the entries fit (``count_entries()`` <= k_max),
+    the dense kernels otherwise. The entry count is taken only past the
+    first test, as the reference's ``lax.cond`` does, so a busy sync point
+    reads one host boolean and a near-idle one two."""
+    if not bool(n_active <= k_max * ENTRY_LANES):
+        return False
+    return bool(count_entries() <= k_max)
 
 
 def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
@@ -151,8 +174,9 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
 
 def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
                     soft, do_pm: bool, active):
-    """Short-range gravity through kernel A on the cached cell grid and,
-    on PM steps, long-range PM through kernel B, cuFFT and a CIC gather.
+    """Short-range gravity through kernel A (kernel E at a near-idle sync
+    point) on the cached cell grid and, on PM steps, long-range PM through
+    kernel B, cuFFT and a CIC gather.
     Returns (acc_sr, pot_pm, overflow, acc_pm scaled by G, state with the
     updated grid cache)."""
     p = state.p
@@ -177,11 +201,20 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
     else:
         cl = build()
 
-    # one pack shared by kernel A and the PM deposit (kernel B)
+    # one pack shared by kernel A or E and the PM deposit (kernel B)
     soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
-    flags = grav_tile_flags(cl, active)
-    out = shortrange_gravity_tiles(soa, flags, n_cells, box, asmth_len, rcut)
-    acc_sr = merge_rows(out, cl, 3)
+    # entry capacity sized for ~1% spread activity, with room for spill
+    k_max = max(256, (3 * n_cells ** 3) // 2)
+    if use_entries(active.sum(), lambda: count_active_entries(cl, active),
+                   k_max):
+        ec, es, _ = build_active_entries(cl, active, ENTRY_LANES, k_max)
+        acc_sr = gravity_entries(cl, soa, ec, es, p.pos, p.mass, soft,
+                                 p.alive, box, asmth_len, rcut)
+    else:
+        flags = grav_tile_flags(cl, active)
+        out = shortrange_gravity_tiles(soa, flags, n_cells, box, asmth_len,
+                                       rcut)
+        acc_sr = merge_rows(out, cl, 3)
     acc_sr = torch.where(p.alive[:, None], acc_sr, torch.zeros_like(acc_sr))
 
     if do_pm:
@@ -197,11 +230,11 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
 
 def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
                 fac: ComovingFactors, active, stats: dict | None = None):
-    """density (kernel C in the Newton loop) -> hydro (kernel D)
-    [G2: accel.c ordering]. Inactive gas keeps its drift-forecast fields;
-    a particle dropped by a full subcell comes back with rho = 0 and keeps
-    its forecast too (the sticky overflow bit 2 asks for a larger
-    capacity)."""
+    """density (kernel C in the Newton loop) -> hydro (kernel D), or F
+    and G at a near-idle sync point [G2: accel.c ordering]. Inactive gas
+    keeps its drift-forecast fields; a particle dropped by a full subcell
+    comes back with rho = 0 and keeps its forecast too (the sticky
+    overflow bit 2 asks for a larger capacity)."""
     gas = state.gas
     ng = gas.n_gas_max
     p = state.p
@@ -233,11 +266,22 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     # 2 kappa of the fine-cell edge for staleness
     max_hsml = (1.0 - 2.0 * KAPPA_SPH) * subcell
     hsml_in = torch.clamp(gas.hsml, max=max_hsml)
-    dres, cls = density_adaptive_blocks(
-        pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask,
-        des_num_ngb=cfg.des_num_ngb, max_dev=cfg.max_num_ngb_deviation,
-        box=box, cls=cls, min_hsml=min_hsml, max_hsml=max_hsml,
-        active=active)
+    k_max = 2 * n_blocks ** 3
+    entries = None
+    if use_entries(active_g.sum(),
+                   lambda: count_block_entries(cls[0], active_g), k_max):
+        entries = build_active_entries(cls[0], active_g, ENTRY_LANES,
+                                       k_max)[:2]
+    dkw = dict(des_num_ngb=cfg.des_num_ngb,
+               max_dev=cfg.max_num_ngb_deviation, box=box, cls=cls,
+               min_hsml=min_hsml, max_hsml=max_hsml)
+    if entries is None:
+        dres, cls = density_adaptive_blocks(
+            pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask, active=active,
+            **dkw)
+    else:
+        dres = density_adaptive_blocks_entries(
+            pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask, *entries, **dkw)
     if stats is not None:
         stats.setdefault("density_iters", []).append(dres.iters)
 
@@ -251,12 +295,15 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     pressure = torch.where(gas_mask, gas.entropy_pred * rho ** GAMMA,
                            torch.zeros_like(rho))
 
-    hres = hydro_force_blocks(
-        cls, pos_g, gas.vel_pred, mass_g, hsml, rho, pressure, dhsml,
-        div_vel, curl_vel, gas_mask, visc_const=cfg.art_bulk_visc_const,
-        box=box, hubble_a2_flow=fac.hubble_a2_flow,
-        hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu,
-        active=active)
+    hkw = dict(visc_const=cfg.art_bulk_visc_const, box=box,
+               hubble_a2_flow=fac.hubble_a2_flow,
+               hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu)
+    fields = (cls, pos_g, gas.vel_pred, mass_g, hsml, rho, pressure, dhsml,
+              div_vel, curl_vel, gas_mask)
+    if entries is None:
+        hres = hydro_force_blocks(*fields, active=active, **hkw)
+    else:
+        hres = hydro_force_blocks_entries(*fields, *entries, **hkw)
     hydro_acc = torch.where(take[:, None], hres.acc, gas.hydro_acc)
     dt_entropy = torch.where(take, hres.dt_entropy, gas.dt_entropy)
     msv = torch.where(take, hres.max_signal_vel, gas.max_signal_vel)

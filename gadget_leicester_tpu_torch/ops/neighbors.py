@@ -7,7 +7,8 @@ equal those of the JAX package's ``argsort``), and placed into a
 ``[cells, capacity]`` table; excess particles of a full cell are dropped
 and reported through ``overflow`` (the caller re-runs with a bigger
 capacity). ``gslot`` is the inverse map used to merge kernel outputs back
-to particles with one row gather.
+to particles with one row gather; :func:`scatter_rows` merges the
+active-entry kernels' outputs with one drop-mode row scatter.
 """
 
 from __future__ import annotations
@@ -39,6 +40,20 @@ def merge_rows(out: torch.Tensor, cl: CellList, n_rows: int,
     gidx = torch.where(cl.gslot >= 0, cl.gslot,
                        torch.full_like(cl.gslot, c * cap))
     return rows[gidx.long()]
+
+
+def scatter_rows(out: torch.Tensor, pidx: torch.Tensor, valid: torch.Tensor,
+                 n: int, fill=None) -> torch.Tensor:
+    """Active-entry output ``[K, R, L]`` -> ``[n, R]``: each valid lane's
+    row goes to its particle ``pidx`` [K, L] through a dump row at index
+    ``n`` (the drop-mode scatter of the JAX package); particles no lane
+    holds get ``fill`` [R] (zeros by default)."""
+    _, r, _ = out.shape
+    res = out.new_zeros(n + 1, r) if fill is None else \
+        fill.to(out.dtype).expand(n + 1, r).clone()
+    dst = torch.where(valid, pidx, torch.full_like(pidx, n)).reshape(-1)
+    res[dst.long()] = out.transpose(1, 2).reshape(-1, r)
+    return res[:n]
 
 
 def segment_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:

@@ -6,14 +6,20 @@ There the JAX package runs shortrange_gravity_cells and cic_deposit while
 the port runs kernels A and B's plain versions: the same physics through
 independent code. Plus the slice's semantics the ROADMAP pins: inactive
 particles keep their frozen fields; an over-capacity cell sets the sticky
-overflow bit and its dropped particles keep their forecast fields."""
+overflow bit and its dropped particles keep their forecast fields. And
+the tier rule of models/forces.py: a full-active sync point takes the
+dense kernels, a near-idle one (chip_smoke.make_near_idle) the
+active-entry kernels E, F, G, and matches the JAX package's dense step
+from the same state."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import make_near_idle, tier
 from gadget_leicester_tpu.core.config import SimOptions as JOptions
 from gadget_leicester_tpu.core.config import \
     parse_parameter_text as j_parse
@@ -97,9 +103,11 @@ def runs():
     j_init = jsim.state
     jax_traj = [_jax_dict(j_init)]
     st = j_init
-    for _ in range(N_STEPS):
+    for i in range(N_STEPS):
         st = j_step(st, jcfg, jopts)
         jax_traj.append(_jax_dict(st))
+        if i == 0:
+            j_after_one = st
 
     cfg = parse_parameter_text(PARAM)
     opts = SimOptions(**OPTS)
@@ -110,10 +118,13 @@ def runs():
     for _ in range(N_STEPS):
         sim.step()
         port_traj.append(to_numpy(sim.state))
-    t_carried = to_numpy(sync_point_step(from_numpy(jax_traj[0], "cpu"),
-                                         cfg, opts))
+    with tier() as carried_tiers:
+        t_carried = to_numpy(sync_point_step(from_numpy(jax_traj[0], "cpu"),
+                                             cfg, opts))
     return dict(jax=jax_traj, port=port_traj, t_carried=t_carried,
-                cfg=cfg, opts=opts, init_state=init_state)
+                carried_tiers=carried_tiers, cfg=cfg, opts=opts,
+                init_state=init_state, jcfg=jcfg, jopts=jopts,
+                j_after_one=j_after_one)
 
 
 def test_init_state_matches(runs):
@@ -196,3 +207,34 @@ def test_overflow_sets_sticky_bit_and_keeps_forecast(runs):
     again = compute_forces(after, cfg, runs["opts"], do_pm=False)
     assert int(again.overflow_flags) & 2
     assert torch.isfinite(again.gas.density).all()
+
+
+def test_full_active_step_takes_dense_tier(runs):
+    """Every particle active (the carried first sync point): gravity and
+    SPH both take the dense kernels, decided by the active count alone (the
+    entry count is never taken, as behind the reference's lax.cond)."""
+    log = runs["carried_tiers"]
+    assert len(log) == 2 and not any(took for *_, took in log)
+    assert log[0][0] == int(runs["jax"][0]["p.alive"].sum())
+    assert [n_entries for _, n_entries, *_ in log] == [None, None]
+
+
+def test_near_idle_step_takes_entries_tier_and_matches_jax(runs):
+    """From the state after 1 sync point, 3% of the particles made active
+    alone (chip_smoke.make_near_idle): gravity and SPH both take the
+    active-entry tier, and the port's step matches the JAX package's step
+    from the same state (its dense path with use_pallas off: independent
+    code) by the slice's bounds."""
+    idle = make_near_idle(from_numpy(runs["jax"][1], "cpu"), 0.03, 7)
+    with tier() as log:
+        got = to_numpy(sync_point_step(idle, runs["cfg"], runs["opts"]))
+    assert len(log) == 2 and all(took for *_, took in log)
+    n_active = int(np.asarray(runs["jax"][1]["p.alive"]).sum() * 0.03 + 0.5)
+    assert log[0][0] == n_active
+    jst = runs["j_after_one"]
+    jidle = dataclasses.replace(jst, p=dataclasses.replace(
+        jst.p, ti_endstep=jnp.asarray(idle.p.ti_endstep.numpy())))
+    want = _jax_dict(j_step(jidle, runs["jcfg"], runs["jopts"]))
+    assert int(got["ti_current"]) == int(want["ti_current"]) > int(
+        runs["jax"][1]["ti_current"])
+    assert_states_close(got, want)
