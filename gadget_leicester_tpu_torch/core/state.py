@@ -202,6 +202,13 @@ def to_numpy(state: SimState) -> dict:
     return out
 
 
+def field_manifest() -> list:
+    """The keys of :func:`to_numpy`, in its order: the layout tag of a
+    restart dump."""
+    return [f"{g}.{fld.name}" for g, cls in _GROUPS.items()
+            for fld in dataclasses.fields(cls)] + list(_SCALARS)
+
+
 def from_numpy(arrays: dict, device) -> SimState:
     """Build a state from a dict keyed like :func:`to_numpy`'s output.
     Keys outside the state's fields (a JAX ``rng_key``) are ignored; a

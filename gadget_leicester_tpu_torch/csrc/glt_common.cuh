@@ -80,6 +80,40 @@ __device__ __forceinline__ float trunc_p10(float x) {
   return p;
 }
 
+// softened potential factor phi / (G m) with no division
+// (grav_pot_nodiv): the spline inside h, -1/r outside
+__device__ __forceinline__ float grav_pot_nodiv(float r, float rinv, float h,
+                                                float hinv) {
+  const float u = r * hinv;
+  if (u < 0.5f) {
+    return hinv * (-2.8f + u * u * (5.333333333333f + u * u * (6.4f * u - 9.6f)));
+  }
+  if (u < 1.0f) {
+    const float uinv = h * rinv;
+    return hinv * (-3.2f + 0.066666666667f * uinv +
+                   u * u * (10.666666666667f +
+                            u * (-16.0f + u * (9.6f - 2.133333333333f * u))));
+  }
+  return -rinv;
+}
+
+// erfc(x) as a degree-10 polynomial on x in [0, 2.25] (the JAX package's
+// _ERFC_P10, max |err| 5.2e-7; ops/softening.py ERFC_P10)
+__device__ __forceinline__ float erfc_p10(float x) {
+  float p = -0.000708430614f;
+  p = p * x + 0.0086528472f;
+  p = p * x + -0.0418223107f;
+  p = p * x + 0.0932881235f;
+  p = p * x + -0.0643211737f;
+  p = p * x + -0.0737919465f;
+  p = p * x + -0.0145173017f;
+  p = p * x + 0.379212313f;
+  p = p * x + -0.000326738866f;
+  p = p * x + -1.1283663f;
+  p = p * x + 0.999999923f;
+  return p;
+}
+
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
@@ -115,6 +149,33 @@ __device__ __forceinline__ void gravity_pair(float tx, float ty, float tz,
   ax -= w * dx;
   ay -= w * dy;
   az -= w * dz;
+}
+
+// Short-range gravity and potential (H): gravity_pair's arithmetic, and
+// adds to pot the erfc-truncated softened potential m grav_pot(r)
+// erfc(r / (2 asmth)). Kept apart from gravity_pair so that A's and E's
+// code stays as it was.
+__device__ __forceinline__ void gravity_potential_pair(
+    float tx, float ty, float tz, float th, float thinv, float sx, float sy,
+    float sz, float m, float sh, float shinv, float half_inv_asmth,
+    float rcut2, float& ax, float& ay, float& az, float& pot) {
+  const float dx = tx - sx;
+  const float dy = ty - sy;
+  const float dz = tz - sz;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  if (!(r2 < rcut2 && r2 > 0.f)) return;
+  const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
+  const float r = r2 * rinv;
+  const float hh = fmaxf(th, sh);
+  const float hhinv = fminf(thinv, shinv);
+  const float x = fminf(r * half_inv_asmth, 2.25f);
+  const float fac = grav_fac_nodiv(r, rinv, hh, hhinv) * trunc_p10(x);
+  const float pfac = grav_pot_nodiv(r, rinv, hh, hhinv) * erfc_p10(x);
+  const float w = m * fac;
+  ax -= w * dx;
+  ay -= w * dy;
+  az -= w * dz;
+  pot += m * pfac;
 }
 
 // SPH density (C, F): adds the pair at separation (dx, dy, dz) and

@@ -1,7 +1,8 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
-The seven kernels (A short-range gravity, B PM deposit, C SPH density,
-D SPH hydro, and the active-entry twins E, F, G of A, C, D) are compiled
+The eight kernels (A short-range gravity, B PM deposit, C SPH density,
+D SPH hydro, the active-entry twins E, F, G of A, C, D, and H short-range
+gravity with the potential) are compiled
 on first use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
 started together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
@@ -38,7 +39,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("shortrange_gravity.cu", "pm_deposit.cu", "sph_density.cu",
            "sph_hydro.cu", "shortrange_gravity_entries.cu",
-           "sph_density_entries.cu", "sph_hydro_entries.cu")
+           "sph_density_entries.cu", "sph_hydro_entries.cu",
+           "shortrange_potential.cu")
 HEADERS = ("glt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -57,6 +59,7 @@ SIGNATURES = {
     "sph_density_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                           _P),
+    "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

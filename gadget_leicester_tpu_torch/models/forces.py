@@ -1,9 +1,10 @@
 """Force computation at a sync point [G2: accel.c ::
 compute_accelerations(), gravtree.c, hydra.c].
 
-Counterpart of ``gadget_leicester_tpu/models/forces.py:31-363, 590-921``
+Counterpart of ``gadget_leicester_tpu/models/forces.py:31-451, 590-921``
 (``comoving_factors``, ``softening_table``, ``compute_forces``,
-``_treepm_gravity``, ``compute_sph``), for the slice this package covers:
+``_treepm_gravity``, ``compute_potential``, ``compute_sph``), for the
+slice this package covers:
 periodic TreePM gravity and block-packed SPH. Order, as in the reference:
 short-range gravity -> long-range PM (PM steps only) -> SPH density
 (adaptive h) -> SPH hydro.
@@ -12,7 +13,9 @@ Kernels on this path: A (short-range gravity, ``ops/cells.py``), B (PM
 deposit, ``ops/pm_tiles.py``), C and D (SPH density and hydro,
 ``ops/sph_blocks.py``), and at near-idle sync points their active-entry
 twins E, F and G. The FFTs and the CIC gather are PyTorch's own
-operators, as the JAX package leaves them to XLA.
+operators, as the JAX package leaves them to XLA. The full potential of
+the diagnostics (:func:`compute_potential`, outside the step) runs kernel
+H on a fresh cell list.
 
 Two tiers, by the JAX package's rule (:func:`use_entries`): a sync point
 at which few particles are active compacts them into entries of at most
@@ -25,6 +28,7 @@ The tier decides speed only: both give the same forces.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -44,11 +48,13 @@ from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   grav_tile_flags,
                                                   gravity_entries,
                                                   pack_cells_soa,
-                                                  shortrange_gravity_tiles)
+                                                  shortrange_gravity_tiles,
+                                                  shortrange_potential_tiles)
 from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
                                                       merge_rows)
 from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
-                                               pm_forces_periodic)
+                                               pm_forces_periodic,
+                                               pm_potential_periodic)
 from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
 from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
 from gadget_leicester_tpu_torch.ops.sph_blocks import (
@@ -125,6 +131,8 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
                 "ROADMAP queue 1 item 12")
     if opts.isotherm_eqs:
         _refuse("isotherm_eqs", "ROADMAP queue 1 item 12")
+    if opts.forcetest > 0:
+        _refuse("forcetest", "ROADMAP queue 1 item 11")
     mode = resolve_gravity_mode(opts, n_max)
     if mode != "treepm" or not opts.periodic:
         _refuse(f"gravity mode {mode!r} (periodic={opts.periodic})",
@@ -226,6 +234,45 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
         acc_pm = p.acc_pm
         pot_pm = p.pot_pm / max(cfg.grav_internal, 1e-37)
     return acc_sr, pot_pm, cl.overflow, acc_pm, state
+
+
+def compute_potential(state: SimState, cfg: SimConfig,
+                      opts: SimOptions) -> SimState:
+    """The full gravitational potential of every particle, on demand
+    [G2: potential.c :: compute_potential()]: for the energy statistics
+    and the OUTPUTPOTENTIAL snapshot block; the step's p.pot carries only
+    the PM piece. TreePM: the PM mesh potential, plus the erfc-truncated
+    softened short-range sum of kernel H on a FRESH cell list (the cached
+    grid of the step may be stale and coarsened), plus the PM self-term
+    m / (sqrt(pi) asmth); times G, 0 where not alive. The fresh list's
+    overflow sets bit 1 of ``overflow_flags``."""
+    check_supported(cfg, opts, state.n_max, state.n_gas_max)
+    p = state.p
+    fac = comoving_factors(cfg, state.ti_current)
+    soft = SOFTFAC * softening_table(cfg, fac.atime)[p.ptype.long()]
+    box = float(cfg.box_size)
+    g = opts.pmgrid
+    asmth_len = ASMTH * box / g
+    rcut = RCUT * asmth_len
+    n_cells = max(3, int(box / rcut))
+    cap = opts.sr_capacity if opts.sr_capacity > 0 else 128
+    cap = max(128, ((cap + 127) // 128) * 128)
+    pot_pm = pm_potential_periodic(p.pos, p.mass, p.alive, box, g)
+    cl = build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
+                         capacity=cap)
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+    flags = torch.ones(n_cells ** 3, dtype=torch.int32, device=soa.device)
+    out = shortrange_potential_tiles(soa, flags, n_cells, box, asmth_len,
+                                     rcut)
+    pot_sr = merge_rows(out, cl, 1, row0=3)[:, 0]
+    # the mesh potential holds each particle's own smoothed cloud,
+    # -m / (sqrt(pi) asmth); take it out [G2: potential.c]
+    pot = pot_pm + pot_sr + p.mass / (math.sqrt(math.pi) * asmth_len)
+    pot = pot * cfg.grav_internal
+    pot = torch.where(p.alive, pot, torch.zeros_like(pot))
+    return dataclasses.replace(
+        state, p=dataclasses.replace(p, pot=pot),
+        overflow_flags=state.overflow_flags | cl.overflow.to(torch.int32))
 
 
 def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,

@@ -1,21 +1,24 @@
 """Cell tiles for TreePM short-range gravity, the active-entry lists, and
-the wrappers of kernels A and E.
+the wrappers of kernels A, E and H.
 
 Counterpart of ``gadget_leicester_tpu/ops/pallas_cells.py``:
 ``pack_cells_soa`` (:38, relative mode), ``_cell_centers`` (:92),
 ``cell_activity_flags`` (:423), ``shortrange_gravity_pallas_dma9``
 (:669, here :func:`shortrange_gravity_tiles`), ``grav_tile_flags``
 (:741), ``ENTRY_LANES`` (:758), ``count_active_entries`` (:790),
-``build_active_entries`` (:801) and ``shortrange_gravity_pallas_entries``
+``build_active_entries`` (:801), ``shortrange_gravity_pallas_entries``
 (:973, here :func:`gravity_entries` around the kernel wrapper
-:func:`shortrange_gravity_entries`).
+:func:`shortrange_gravity_entries`) and ``shortrange_gravity_pallas_dma``
+(:433, with_potential, here :func:`shortrange_potential_tiles`).
 
 Kernel A (``csrc/shortrange_gravity.cu``) takes the ``[C, 8, cap]`` pack
 directly and walks the 27 neighbour cells itself; the TPU kernel's
 z-padded column layout is a DMA device and is not carried over. Kernel E
 (``csrc/shortrange_gravity_entries.cu``) runs A's physics for the few
-active targets of each entry against the same pack. Their plain versions
-are in ``ops/gravity_short.py``.
+active targets of each entry against the same pack. Kernel H
+(``csrc/shortrange_potential.cu``) adds the potential row to A's sums,
+for the full potential of the diagnostics. Their plain versions are in
+``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.gravity_short import (
-    shortrange_gravity_entries_plain, shortrange_gravity_tiles_plain)
+    shortrange_gravity_entries_plain, shortrange_gravity_tiles_plain,
+    shortrange_potential_tiles_plain)
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
                                                       scatter_rows)
 
@@ -90,28 +94,47 @@ def grav_tile_flags(cl: CellList, active) -> torch.Tensor:
     return out[:c]
 
 
-def shortrange_gravity_tiles(soa: torch.Tensor, flags: torch.Tensor,
-                             n_cells: int, box: float, asmth: float,
-                             rcut: float) -> torch.Tensor:
-    """Kernel A: short-range accelerations of the packed targets, [C, 3,
-    cap], zeros in cells whose flag is 0. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def _tiles_call(name: str, plain, n_rows: int, soa: torch.Tensor,
+                flags: torch.Tensor, n_cells: int, box: float, asmth: float,
+                rcut: float) -> torch.Tensor:
+    """Check the arguments of tile kernel ``name`` (A or H), then run its
+    plain version on CPU tensors or launch it on CUDA tensors: out [C,
+    n_rows, cap]."""
     c, rows, cap = soa.shape
     if c != n_cells ** 3 or rows != 8:
         raise ValueError(f"soa shape {tuple(soa.shape)} does not match "
                          f"{n_cells}^3 cells of 8 rows")
     kernels.check(soa, "soa", torch.float32)
     kernels.check(flags, "flags", torch.int32, (c,), soa.device)
-    kernels.note_call("shortrange_gravity",
-                      (soa, flags, n_cells, box, asmth, rcut))
+    kernels.note_call(name, (soa, flags, n_cells, box, asmth, rcut))
     if not kernels.on_cuda(soa, flags):
-        return shortrange_gravity_tiles_plain(soa, flags, n_cells, box,
-                                              asmth, rcut)
-    out = torch.empty(c, 3, cap, dtype=soa.dtype, device=soa.device)
-    kernels.launch("shortrange_gravity", soa.data_ptr(), flags.data_ptr(),
-                   out.data_ptr(), n_cells, cap, box / n_cells,
-                   0.5 / asmth, rcut * rcut)
+        return plain(soa, flags, n_cells, box, asmth, rcut)
+    out = torch.empty(c, n_rows, cap, dtype=soa.dtype, device=soa.device)
+    kernels.launch(name, soa.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                   n_cells, cap, box / n_cells, 0.5 / asmth, rcut * rcut)
     return out
+
+
+def shortrange_gravity_tiles(soa: torch.Tensor, flags: torch.Tensor,
+                             n_cells: int, box: float, asmth: float,
+                             rcut: float) -> torch.Tensor:
+    """Kernel A: short-range accelerations of the packed targets, [C, 3,
+    cap], zeros in cells whose flag is 0. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    return _tiles_call("shortrange_gravity", shortrange_gravity_tiles_plain,
+                       3, soa, flags, n_cells, box, asmth, rcut)
+
+
+def shortrange_potential_tiles(soa: torch.Tensor, flags: torch.Tensor,
+                               n_cells: int, box: float, asmth: float,
+                               rcut: float) -> torch.Tensor:
+    """Kernel H: [C, 4, cap], kernel A's accelerations as rows 0-2 and the
+    erfc-truncated softened potential as row 3 (no G), zeros in cells
+    whose flag is 0. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    return _tiles_call("shortrange_potential",
+                       shortrange_potential_tiles_plain, 4, soa, flags,
+                       n_cells, box, asmth, rcut)
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,27 @@
 """The plain short-range gravity sum over cell tiles: the plain versions
-of kernels A and E.
+of kernels A, E and H.
 
 Counterpart of ``gadget_leicester_tpu/ops/gravity_short.py ::
 shortrange_gravity_cells`` (:32), the erfc-truncated softened pair sum
 [G2: forcetree.c :: force_treeevaluate_shortrange()]. Here it works on
-the same ``[C, 8, cap]`` cell-relative pack as kernels A and E
+the same ``[C, 8, cap]`` cell-relative pack as kernels A, E and H
 (``ops/cells.py :: shortrange_gravity_tiles``,
-``shortrange_gravity_entries``), with the float32 arithmetic of the TPU
-kernels in relative mode (``ops/pallas_cells.py :: _make_kernel_dma9``,
-``_make_kernel_entries``). It is the CPU path of those kernels and the
-reference the card is checked against, not a separate backend.
+``shortrange_gravity_entries``, ``shortrange_potential_tiles``), with the
+float32 arithmetic of the TPU kernels (``ops/pallas_cells.py ::
+_make_kernel_dma9``, ``_make_kernel_entries`` in relative mode, and
+``_make_kernel_dma`` with ``with_potential``, whose absolute coordinates
+and per-tile wrap shift H replaces by the relative pack). It is the CPU
+path of those kernels and the reference the card is checked against, not
+a separate backend.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gadget_leicester_tpu_torch.ops.softening import grav_fac_nodiv
+from gadget_leicester_tpu_torch.ops.softening import (erfc_trunc,
+                                                      grav_fac_nodiv,
+                                                      grav_pot_nodiv)
 
 # trunc(x) = erfc(x) + 2x/sqrt(pi) exp(-x^2) as a degree-10 polynomial on
 # x = r/(2 asmth) in [0, 2.25] (max |err| 6.5e-6) — the JAX package's
@@ -44,9 +49,13 @@ def _trunc_p10(x):
 
 
 def _stencil_sums(t, soa, cells, n_cells: int, box: float, asmth: float,
-                  rcut: float) -> torch.Tensor:
+                  rcut: float, with_potential: bool = False) -> torch.Tensor:
     """Accelerations [K, 3, L] of the targets ``t`` [K, 8, L] (rows as in
-    the pack) of cells ``cells`` [K] from the 27 cells around each."""
+    the pack) of cells ``cells`` [K] from the 27 cells around each; with
+    ``with_potential``, [K, 4, L] with the erfc-truncated softened
+    potential as row 3. A target meets its own pack slot at r2 == 0
+    exactly (the centre cell's shift is 0), so the self-pair adds
+    nothing."""
     src_ids, offs = stencil_sources(n_cells, cells)
     s = soa[src_ids]                                   # [K, 27, 8, cap]
     shift = offs.to(soa.dtype) * (box / n_cells)       # [27, 3]
@@ -66,8 +75,12 @@ def _stencil_sums(t, soa, cells, n_cells: int, box: float, asmth: float,
     fac = fac * _trunc_p10(torch.clamp(r * (0.5 / asmth), max=2.25))
     ok = (r2 < rcut * rcut) & (r2 > 0.0)
     w = torch.where(ok, sm[:, None, :] * fac, torch.zeros_like(fac))
-    return -torch.stack([(w * dx).sum(-1), (w * dy).sum(-1),
-                         (w * dz).sum(-1)], 1)
+    rows = [-(w * dx).sum(-1), -(w * dy).sum(-1), -(w * dz).sum(-1)]
+    if with_potential:
+        pfac = grav_pot_nodiv(r, rinv, hh, hhinv) * erfc_trunc(r, asmth)
+        rows.append(torch.where(ok, sm[:, None, :] * pfac,
+                                torch.zeros_like(pfac)).sum(-1))
+    return torch.stack(rows, 1)
 
 
 def _chunk(lanes: int, cap: int) -> int:
@@ -77,16 +90,29 @@ def _chunk(lanes: int, cap: int) -> int:
 
 
 def shortrange_gravity_tiles_plain(soa, flags, n_cells: int, box: float,
-                                   asmth: float, rcut: float) -> torch.Tensor:
-    """Plain PyTorch version of kernel A: out [C, 3, cap] (no G)."""
+                                   asmth: float, rcut: float,
+                                   with_potential: bool = False):
+    """Plain PyTorch version of kernel A: out [C, 3, cap] (no G); with
+    ``with_potential``, kernel H's [C, 4, cap] with the erfc-truncated
+    softened potential as row 3. Zeros in cells whose flag is 0."""
     c, _, cap = soa.shape
     chunk = _chunk(cap, cap)
-    out = torch.zeros(c, 3, cap, dtype=soa.dtype, device=soa.device)
+    out = torch.zeros(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
+                      device=soa.device)
     todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
-        out[tc] = _stencil_sums(soa[tc], soa, tc, n_cells, box, asmth, rcut)
+        out[tc] = _stencil_sums(soa[tc], soa, tc, n_cells, box, asmth, rcut,
+                                with_potential)
     return out
+
+
+def shortrange_potential_tiles_plain(soa, flags, n_cells: int, box: float,
+                                     asmth: float, rcut: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel H: out [C, 4, cap] (no G), rows ax,
+    ay, az and the erfc-truncated softened potential."""
+    return shortrange_gravity_tiles_plain(soa, flags, n_cells, box, asmth,
+                                          rcut, with_potential=True)
 
 
 def shortrange_gravity_entries_plain(soa, entry_cell, tgt, n_cells: int,

@@ -1,9 +1,9 @@
 """Periodic particle-mesh long-range gravity [G2: pm_periodic.c ::
 pmforce_periodic()].
 
-Counterpart of ``gadget_leicester_tpu/ops/pm.py:31-197``
-(``cic_deposit``, ``cic_gather_vec``, ``greens_function``,
-``pm_forces_periodic``):
+Counterpart of ``gadget_leicester_tpu/ops/pm.py:31-197, 301-312``
+(``cic_deposit``, ``cic_gather``, ``cic_gather_vec``, ``greens_function``,
+``pm_forces_periodic``, ``pm_potential_periodic``):
 
   CIC deposit -> rfftn -> Green's function
   (-4 pi / k^2) exp(-k^2 asmth^2) CIC-deconvolution -> FD4 gradient as
@@ -12,7 +12,8 @@ Counterpart of ``gadget_leicester_tpu/ops/pm.py:31-197``
 The FFTs are ``torch.fft`` (cuFFT on the card), as the JAX package leaves
 them to ``jnp.fft``; the gather is a plain row gather. The deposit on the
 main path is kernel B (``ops/pm_tiles.py``); :func:`cic_deposit` is the
-point-scatter form, kept as an independent check of it.
+point-scatter form, kept as an independent check of it, and the deposit
+of :func:`pm_potential_periodic`, as in the JAX package.
 
 Asmth/Rcut convention [G2: allvars.h ASMTH=1.25, RCUT=4.5]: the long/short
 split scale is asmth = 1.25 mesh cells; the short-range force is cut at
@@ -54,6 +55,11 @@ def cic_deposit(pos, weight, box: float, n: int) -> torch.Tensor:
                 grid.index_add_(0, (ix * n + iy) * n + iz,
                                 weight * wx * wy * wz)
     return grid.reshape(n, n, n)
+
+
+def cic_gather(field, pos, box: float, n: int) -> torch.Tensor:
+    """CIC interpolation of a scalar mesh field [n, n, n] to [N]."""
+    return cic_gather_vec(field[..., None], pos, box, n)[:, 0]
 
 
 def cic_gather_vec(field, pos, box: float, n: int) -> torch.Tensor:
@@ -129,3 +135,18 @@ def pm_forces_periodic(pos, mass, alive, box: float, n: int,
     force = torch.stack(comp, dim=-1)
     out = cic_gather_vec(force, posw, box, n)
     return torch.where(alive[:, None], out, torch.zeros_like(out))
+
+
+def pm_potential_periodic(pos, mass, alive, box: float,
+                          n: int) -> torch.Tensor:
+    """Long-range potential [N] at the particle positions (no G), for the
+    energy diagnostics and the TreePM potential: the point deposit
+    (:func:`cic_deposit`, not kernel B, as in the JAX package), the
+    Green's function and a CIC gather of the mesh potential."""
+    m = torch.where(alive, mass, torch.zeros_like(mass))
+    posw = torch.remainder(pos, box)
+    rho = cic_deposit(posw, m, box, n)
+    g_k = greens_function(n, box, pos.device)
+    phi = torch.fft.irfftn(g_k * torch.fft.rfftn(rho) / (box / n) ** 3,
+                           s=(n, n, n))
+    return cic_gather(phi, posw, box, n)

@@ -1,0 +1,101 @@
+"""The port's command line as a user runs it, in a child process where jax
+cannot be imported: ``python -m gadget_leicester_tpu_torch param.txt
+[0|1] --device cpu`` on an lcdm_gas 2x17^3 IC file (5,120 gas slots, so
+sph_backend "auto" resolves to blocks with no flag), then a resume from
+its restart dump; without ``--device`` it asks for the card and stops
+here; the flags that are not ported stop with their ROADMAP items."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+N_SIDE = 17
+# the CLI run with jax made unimportable (the card's machine has none)
+CODE = ("import runpy, sys; sys.modules['jax'] = None; "
+        "sys.modules['jaxlib'] = None; "
+        "sys.argv = ['gadget_leicester_tpu_torch'] + sys.argv[1:]; "
+        "runpy.run_module('gadget_leicester_tpu_torch', run_name='__main__', "
+        "alter_sys=True)")
+# statistics at the first sync point only, a restart dump after every one
+CADENCE = """
+TimeBetStatistics 1.0
+TimeOfFirstSnapshot 2.0
+TimeBetSnapshot 2.0
+CpuTimeBetRestartFile 0.0
+"""
+
+
+def cli(*args, timeout=240):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", CODE, *map(str, args)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    ics, out = tmp / "ics.dat", tmp / "out"
+    n = chip_smoke.write_ics(str(ics), N_SIDE)
+    param = tmp / "run.param"
+    param.write_text(chip_smoke.run_param_text(N_SIDE, str(ics), str(out),
+                                               CADENCE))
+    first = cli(param, 0, "--device", "cpu", "--max-steps", 1)
+    rows_first = np.loadtxt(out / "energy.txt", ndmin=2) \
+        if (out / "energy.txt").exists() else None
+    resumed = cli(param, 1, "--device", "cpu", "--max-steps", 1)
+    return dict(n=n, param=param, out=out, first=first,
+                rows_first=rows_first, resumed=resumed)
+
+
+def test_cli_runs_on_cpu_without_jax(runs):
+    """Exit 0; the "particles" and "done:" lines; a 28-column energy.txt
+    row, info.txt, timings.txt and a restart dump."""
+    proc = runs["first"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"N={runs['n']} particles on cpu" in proc.stdout
+    assert "done: 1 steps" in proc.stdout
+    rows = runs["rows_first"]
+    assert rows.shape == (1, 28) and np.isfinite(rows).all()
+    for name in ("info.txt", "timings.txt", "cpu.txt", "restart.npz"):
+        assert (runs["out"] / name).exists(), name
+
+
+def test_cli_restart_flag_1_resumes(runs):
+    """Restart flag 1 loads the dump of step 1 and goes on: exit 0, the
+    step count and the time go on from the dump's, and energy.txt gains the
+    resumed run's row."""
+    proc = runs["resumed"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "done: 2 steps" in proc.stdout
+    assert chip_smoke._done_time(proc) > chip_smoke._done_time(runs["first"])
+    rows = np.loadtxt(runs["out"] / "energy.txt", ndmin=2)
+    assert rows.shape == (2, 28) and rows[1, 0] > rows[0, 0]
+    info = (runs["out"] / "info.txt").read_text()
+    assert info.count("Begin Step") == 2
+
+
+def test_cli_defaults_to_the_card(runs):
+    """With no --device the run asks for CUDA; where there is none it stops
+    with a message naming it, exit code not 0, and writes nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: the default run would go to it")
+    proc = cli(runs["param"], 0)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr and "--device cpu" in proc.stderr
+
+
+@pytest.mark.parametrize("flag,item", [(("--devices", "4"), "item 14"),
+                                       (("--makeglass", "8"), "item 13")])
+def test_cli_refuses_what_is_not_ported(runs, flag, item):
+    proc = cli(runs["param"], 0, "--device", "cpu", *flag)
+    assert proc.returncode != 0
+    assert f"ROADMAP queue 1 {item}" in proc.stderr

@@ -1,10 +1,11 @@
-"""Kernels A-G on the card against their plain versions on the same CUDA
+"""Kernels A-H on the card against their plain versions on the same CUDA
 tensors (marked ``cuda``: they skip where there is no card; on the H100
 run ``python -m pytest --noconftest tests/test_torch_cuda.py``). A-D get
 the arguments the path gives each wrapper while it initialises a 2x12^3
-box; E-G those of a near-idle sync point of that box
-(``chip_smoke.make_near_idle``). chip_smoke.py runs the same comparisons
-and the main path; these keep them in the test suite."""
+box, H those of the full potential of the initialised box; E-G those of a
+near-idle sync point of that box (``chip_smoke.make_near_idle``).
+chip_smoke.py runs the same comparisons and the main path; these keep
+them in the test suite."""
 
 import pytest
 import torch
@@ -71,3 +72,15 @@ def test_kernel_matches_plain_on_card(recorded, name, gated):
 def test_entry_kernel_matches_plain_on_card(recorded_idle, name, off):
     """All entries, and every other entry switched off (-1)."""
     _check(recorded_idle, name, 1 if off else 0)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_potential_kernel_matches_plain_on_card(recorded, gated):
+    """Kernel H, all tiles and every other tile gated off."""
+    _check(recorded, "shortrange_potential", -1 if gated else 0)
+
+
+def test_potential_kernel_forces_match_kernel_a(recorded):
+    """H's rows 0-2 against kernel A on H's arguments, within A's bound
+    (chip_smoke.check_potential_forces raises outside it)."""
+    chip_smoke.check_potential_forces(recorded, "n_side=12")
