@@ -7,21 +7,25 @@ Needs one CUDA device, the CUDA toolkit (``nvcc``) and this checkout; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the eight kernels of ``gadget_leicester_tpu_torch/csrc``
+2. build: compile the ten kernels of ``gadget_leicester_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
    PyTorch version, in float32 and in float64 (all tiles, and every other
    tile gated off), within the bound stated at ``TOL``; H's force rows
-   also against kernel A on the same arguments;
+   also against kernel A on the same arguments; the coarse-cell SPH
+   kernels I/J and K the same way, on the small box with
+   ``sph_backend="cells"`` (periodic) and on a vacuum blob, at capacities
+   128 and 256;
 4. slice: 2 sync points of the small box on the card against the same on
    the CPU (the plain versions), by the bounds of tests/test_torch_slice;
    the full potential of the state after 1 of them, card against CPU;
    then, from that state, a near-idle sync point (:func:`make_near_idle`)
    on the card against the CPU, through the active-entry kernels E-G,
    whose arguments are replayed as in phase 3 (all entries, and every
-   other entry switched off);
+   other entry switched off); then the small box with
+   ``sph_backend="cells"``, card against CPU;
 5. main path: lcdm_gas 2x128^3 with pmgrid = auto_pmgrid(2 * 128^3),
    ``Simulation(..., device="cuda")``, ``set_ics`` and 6 steps, with the
    kernels' launch counts of that run;
@@ -39,6 +43,12 @@ imports nothing of JAX. Phases, each printing its own lines:
    and not E, F, G), the two held to each other; each timed 3 times and
    once by phases; E, F and G replayed on the arguments of the entries
    run, with their times beside their plain versions';
+8b. the coarse-cell SPH backend at full width (:func:`phase_cells`):
+   lcdm_gas 2x128^3 with ``sph_backend="cells"``, ``set_ics`` and 6 sync
+   points through kernels I/J and K (C and D not launched); its SPH
+   fields after ``set_ics`` held against the block backend's on the same
+   ICs; I and K replayed and timed on its arguments; the synced phases of
+   its SPH pass; a near-idle sync point, which this backend sweeps whole;
 9. the command line at full width: a 2x128^3 IC file and parameter file
    (with an ``.opts`` sidecar asking for OUTPUTPOTENTIAL), ``python -m
    gadget_leicester_tpu_torch param 0`` in a child process for up to
@@ -46,7 +56,14 @@ imports nothing of JAX. Phases, each printing its own lines:
    ``TimeBetStatistics``, a snapshot and restart dumps; its energy.txt held
    to the Layzer-Irvine gate (|dE_LI|/|W| < 1e-3 on every row, up to a row
    at a >= 0.25) and printed beside ``docs/li_gate_128.md``; then restart
-   flag 1 for 2 more sync points.
+   flag 1 for 2 more sync points;
+10. the vacuum gas run (:func:`phase_gassphere`): an Evrard-sphere IC file
+   and ``parameterfiles/gassphere.param`` with its paths and TimeMax set,
+   ``python -m gadget_leicester_tpu_torch param 0`` in a child process to
+   t = 0.5 (direct gravity, all-pairs SPH), its energy.txt and final
+   momentum held to the bounds of ``tests/test_gassphere_e2e.py``; then,
+   on that run's last state, one SPH pass through the coarse-cell backend
+   in vacuum mode held against the all-pairs pass.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -100,13 +117,19 @@ CpuTimeBetRestartFile 8.0
 TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "sph_density": 1e-4, "sph_hydro": 1e-4,
        "shortrange_gravity_entries": 1e-4, "sph_density_entries": 1e-4,
-       "sph_hydro_entries": 1e-4, "shortrange_potential": 1e-4}
+       "sph_hydro_entries": 1e-4, "shortrange_potential": 1e-4,
+       "sph_cells_density": 1e-4, "sph_cells_hydro": 1e-4}
 F32_FACTOR = 4.0
 
+# the coarse-cell SPH grids of the small comparisons, (cells per axis,
+# slots per cell): 4,096 gas of the 2x16^3 box or 3,000 of the vacuum blob
+# overflow neither
+SMALL_CELL_GRIDS = ((4, 128), (3, 256))
 DENSE = ("shortrange_gravity", "pm_deposit", "sph_density", "sph_hydro")
 ENTRIES = ("shortrange_gravity_entries", "sph_density_entries",
            "sph_hydro_entries")
 POTENTIAL = ("shortrange_potential",)
+CELLS = ("sph_cells_density", "sph_cells_hydro")
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -129,13 +152,23 @@ KERNELS = {
     "shortrange_potential": (
         "gadget_leicester_tpu_torch/csrc/shortrange_potential.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:433"),
+    # I and its grid twin J (pallas_cells.py:1276) are two TPU schedules of
+    # one function: one kernel
+    "sph_cells_density": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_density.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1251"),
+    "sph_cells_hydro": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_hydro.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1363"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
 FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "shortrange_gravity_entries": 1, "sph_density_entries": 3,
-             "sph_hydro_entries": 4, "shortrange_potential": 1}
-PARAMS_ARG = 6           # kernel D's (hubble_a2_flow, fac_mu)
+             "sph_hydro_entries": 4, "shortrange_potential": 1,
+             "sph_cells_density": 2}
+# where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
+PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
 # The bound of each kernel (the least time the card could take): the
 # larger of its float32 operations over PEAK_FLOPS and its bytes (each
 # input tensor read once, the output written once) over PEAK_BYTES; the
@@ -152,11 +185,13 @@ PEAK_BYTES = 3.35e12
 TEST_OPS = {"shortrange_gravity": 10, "shortrange_gravity_entries": 10,
             "shortrange_potential": 10, "sph_density": 13,
             "sph_density_entries": 13, "sph_hydro": 15,
-            "sph_hydro_entries": 15}
+            "sph_hydro_entries": 15, "sph_cells_density": 13,
+            "sph_cells_hydro": 15}
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
                 "shortrange_potential": 77, "sph_density": 73,
                 "sph_density_entries": 73, "sph_hydro": 86,
-                "sph_hydro_entries": 86}
+                "sph_hydro_entries": 86, "sph_cells_density": 73,
+                "sph_cells_hydro": 86}
 OPS_PER_DEPOSIT = 44
 
 _PKG = "gadget_leicester_tpu_torch"
@@ -274,15 +309,18 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def setup(n_side: int):
-    """cfg, opts and IC arrays of the lcdm_gas box at ``n_side``."""
+def setup(n_side: int, **opt_overrides):
+    """cfg, opts and IC arrays of the lcdm_gas box at ``n_side``;
+    ``opt_overrides`` replace fields of the options (block SPH by
+    default)."""
     from gadget_leicester_tpu_torch.core.config import (SimOptions,
                                                         auto_pmgrid,
                                                         parse_parameter_text)
     from gadget_leicester_tpu_torch.models.ics import lcdm_gas_ics
     cfg = parse_parameter_text(param_text(n_side))
     opts = SimOptions(periodic=True, pmgrid=auto_pmgrid(2 * n_side ** 3),
-                      gravity_mode="treepm", sph_backend="blocks")
+                      gravity_mode="treepm",
+                      sph_backend="blocks").replace(**opt_overrides)
     ics = lcdm_gas_ics(n_side=n_side, box=cfg.box_size, omega0=0.3,
                        omega_b=0.04, hubble=cfg.hubble_internal,
                        g=cfg.grav_internal)
@@ -302,14 +340,14 @@ def recorded_inputs():
         kernels.recording = False
 
 
-def record_init(n_side: int, device) -> dict:
+def record_init(n_side: int, device, **opt_overrides) -> dict:
     """The arguments the path gives each kernel wrapper while ``set_ics``
     initialises the lcdm_gas box at ``n_side`` (two full force passes,
     the first a PM step), and kernel H's while the full potential of the
     initialised state is computed."""
     from gadget_leicester_tpu_torch.models.forces import compute_potential
     from gadget_leicester_tpu_torch.models.simulation import Simulation
-    cfg, opts, ics = setup(n_side)
+    cfg, opts, ics = setup(n_side, **opt_overrides)
     pos, vel, mass, ptype, u = ics
     with recorded_inputs() as rec:
         state = Simulation(cfg, opts, device).set_ics(pos, vel, mass, ptype,
@@ -318,12 +356,56 @@ def record_init(n_side: int, device) -> dict:
     return dict(rec)
 
 
+def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
+                       seed: int = 5) -> dict:
+    """The arguments kernels I/J and K get from one SPH pass of the
+    coarse-cell backend in vacuum mode over a seeded blob: ``n`` gas
+    particles uniform in the unit sphere, unequal masses, a radial infall
+    with noise; the grid is the blob's bounding box, as
+    ``models/forces.py`` takes it. Raises if a cell overflowed."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import gas_bounding_grid
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3))
+    x *= (rng.uniform(size=n) ** (1 / 3) / np.linalg.norm(x, axis=1))[:, None]
+    v = -0.3 * x + 0.05 * rng.normal(size=(n, 3))
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(device)
+
+    pos, vel = dev(x), dev(v)
+    mass = dev(rng.uniform(0.5, 1.5, size=n) / n)
+    gas_mask = torch.ones(n, dtype=torch.bool, device=pos.device)
+    origin, extent = gas_bounding_grid(pos, gas_mask)
+    with recorded_inputs() as rec:
+        res, cl = sc.density_adaptive_cells(
+            pos, vel, mass, torch.full_like(mass, 0.2), gas_mask, 33.0, 2.0,
+            box=1.0, n_cells=n_cells, capacity=cap,
+            max_hsml=extent / n_cells, periodic=False, origin=origin,
+            extent=extent)
+        sc.hydro_force_cells(cl, pos, vel, mass, res.hsml, res.rho,
+                             0.05 * res.rho ** (5.0 / 3.0), res.dhsml_factor,
+                             res.div_vel, res.curl_vel, gas_mask,
+                             visc_const=0.8, box=1.0)
+    if bool(cl.overflow):
+        raise AssertionError(f"the vacuum blob overflowed {n_cells}^3 cells "
+                             f"of {cap} slots")
+    return dict(rec)
+
+
 def kernel_pairs() -> dict:
     """{kernel: (wrapper, plain version)}; both take the wrapper's
     arguments."""
     from gadget_leicester_tpu_torch.ops import cells, gravity_short, pm_tiles
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
     return {
+        "sph_cells_density": (sc.density_sums_cells,
+                              sc.density_sums_cells_plain),
+        "sph_cells_hydro": (sc.hydro_sums_cells, sc.hydro_sums_cells_plain),
         "shortrange_gravity": (cells.shortrange_gravity_tiles,
                                gravity_short.shortrange_gravity_tiles_plain),
         "pm_deposit": (pm_tiles.pm_deposit_tiles,
@@ -346,14 +428,12 @@ def kernel_pairs() -> dict:
 def cases(name: str, recorded: dict) -> list:
     """(label, arguments) of each comparison on the arguments
     ``recorded[name]``: every tile on, every other tile gated off, and for
-    kernel D also the gated case without the Hubble-flow term; for E, F
-    and G, all entries and every other entry switched off (-1). B has no
-    tile flags: one case."""
+    kernels D and K also the last case without the Hubble-flow term; for
+    E, F and G, all entries and every other entry switched off (-1). B
+    and K have no tile flags."""
     import torch
     args = recorded[name]
     i = FLAGS_ARG.get(name)
-    if i is None:
-        return [("all tiles", args)]
     if name in ENTRIES:
         ids = args[i]
         if name == "sph_density_entries":
@@ -366,18 +446,21 @@ def cases(name: str, recorded: dict) -> list:
         return [(label, args[:i] + (e,) + args[i + 1:])
                 for label, e in (("all entries", ids),
                                  ("every other entry off", off))]
-    out = []
-    for label in ("all tiles", "gated"):
-        flags = torch.ones_like(args[i])
-        if label == "gated":
-            flags[1::2] = 0
-        out.append((label, args[:i] + (flags,) + args[i + 1:]))
-    if name == "sph_hydro":
-        gated = out[1][1]
-        params = gated[PARAMS_ARG].clone()
+    out = [("all tiles", args)]
+    if i is not None:
+        out = []
+        for label in ("all tiles", "gated"):
+            flags = torch.ones_like(args[i])
+            if label == "gated":
+                flags[1::2] = 0
+            out.append((label, args[:i] + (flags,) + args[i + 1:]))
+    if name in PARAMS_ARG:
+        j = PARAMS_ARG[name]
+        label, last = out[-1]
+        params = last[j].clone()
         params[0] = 0.0
-        out.append(("gated, no Hubble flow", gated[:PARAMS_ARG] + (params,)
-                    + gated[PARAMS_ARG + 1:]))
+        out.append((f"{label}, no Hubble flow",
+                    last[:j] + (params,) + last[j + 1:]))
     return out
 
 
@@ -459,6 +542,41 @@ def _targets(name: str, args: tuple):
             tidx[e])
 
 
+def cells_pair_count(name: str, args: tuple) -> tuple:
+    """:func:`pair_count` of the coarse-cell kernels I/J and K: the live
+    pairs of the 27-cell stencil (sources of cells beyond a vacuum grid's
+    edge left out), and those with r < h_i (density) or 0 < r <
+    max(h_i, h_j) (hydro)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    if name == "sph_cells_density":
+        soa, h_slots, flags, n, box, periodic = args
+        cells = torch.nonzero(flags > 0).flatten()
+        live_row = 3
+    else:
+        soa, _, n, box, periodic, _ = args
+        cells = torch.arange(soa.shape[0], device=soa.device)
+        live_row = 12
+    stencil = in_cut = 0
+    for k0 in range(0, cells.numel(), 64):
+        k = cells[k0:k0 + 64]
+        t = soa[k]
+        s, inside = sc._gather_sources(soa, k, n, box, periodic,
+                                       (0, 1, 2, 7, live_row))
+        _, _, _, r, _, r2 = sc._pair_geometry(t, s)
+        if name == "sph_cells_density":
+            ok = r < h_slots[k][:, :, None]
+        else:
+            ok = (r < torch.maximum(t[:, 7, :, None], s[3][:, None, :])) \
+                & (r2 > 0.0)
+        pair = (t[:, live_row] > 0)[:, :, None] \
+            & ((s[4] > 0) & inside)[:, None, :]
+        stencil += int(pair.sum())
+        in_cut += int((pair & ok).sum())
+    return stencil, in_cut
+
+
 def pair_count(name: str, args: tuple) -> tuple:
     """(pairs of a live target and a live source in the target's stencil,
     the pairs among them inside the cut) over the tiles or entries that
@@ -470,6 +588,8 @@ def pair_count(name: str, args: tuple) -> tuple:
     if name == "pm_deposit":
         n = int((args[0][:, 3] != 0).sum())
         return n, n
+    if name in CELLS:
+        return cells_pair_count(name, args)
     t_all, live_all, where_all, h_all, tid_all = _targets(name, args)
     gravity = name.startswith("shortrange")
     if gravity:
@@ -602,6 +722,16 @@ def phase_kernels(results: dict, device="cuda", n_small=N_SIDE_SMALL):
     recorded = record_init(n_small, device)
     check_kernels(recorded, f"n_side={n_small}", results, DENSE + POTENTIAL)
     check_potential_forces(recorded, f"n_side={n_small}")
+    # I/J and K: the small box under the coarse-cell backend (periodic)
+    # and a vacuum blob, each at both capacities
+    for grid, cap in SMALL_CELL_GRIDS:
+        recorded = record_init(n_small, device, sph_backend="cells",
+                               sph_grid=grid, sph_capacity=cap)
+        check_kernels(recorded, f"n_side={n_small} periodic {grid}^3 cells "
+                      f"x {cap}", results, CELLS)
+        recorded = record_vacuum_blob(device, grid, cap)
+        check_kernels(recorded, f"vacuum blob {grid}^3 cells x {cap}",
+                      results, CELLS)
 
 
 def report_close(phase: str, what: str, res: dict) -> None:
@@ -614,27 +744,34 @@ def report_close(phase: str, what: str, res: dict) -> None:
         f"most {MAX_EXCLUDED} per field)")
 
 
-def phase_slice(device="cuda", n_small=N_SIDE_SMALL):
-    """Returns the card's state after 1 sync point."""
+def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
+                potential=True, **opt_overrides):
+    """``steps`` sync points of the small box (options as :func:`setup`
+    gives them) on the card against the CPU, and with ``potential`` the
+    full potential after 1 of them. Returns the card's state after 1 sync
+    point."""
     from gadget_leicester_tpu_torch.core.state import (assert_states_close,
                                                        from_numpy, to_numpy)
     from gadget_leicester_tpu_torch.models.forces import compute_potential
     from gadget_leicester_tpu_torch.models.simulation import Simulation
-    cfg, opts, ics = setup(n_small)
+    cfg, opts, ics = setup(n_small, **opt_overrides)
     pos, vel, mass, ptype, u = ics
     runs = {}
     for dev in (device, "cpu"):
         sim = Simulation(cfg, opts, dev)
         sim.set_ics(pos, vel, mass, ptype, u=u)
         runs[dev] = [to_numpy(sim.state)]
-        for _ in range(SLICE_STEPS):
+        for _ in range(steps):
             sim.step()
             if dev == device and len(runs[dev]) == 1:
                 after_one = sim.state
             runs[dev].append(to_numpy(sim.state))
     for i, (g, c) in enumerate(zip(runs[device], runs["cpu"])):
-        report_close("slice", f"after {i} steps, ti_current "
-                     f"{int(g['ti_current'])}", assert_states_close(g, c))
+        report_close("slice", f"sph_backend {opts.sph_backend}, after {i} "
+                     f"steps, ti_current {int(g['ti_current'])}",
+                     assert_states_close(g, c))
+    if not potential:
+        return after_one
     # the full potential (kernel H on the card) of one state on both
     one = to_numpy(after_one)
     pots = {dev: to_numpy(compute_potential(from_numpy(one, dev), cfg, opts))
@@ -779,20 +916,27 @@ def phase_idle_small(results: dict, after_one, device="cuda",
     check_kernels(recorded, f"2x{n_small}^3 near-idle", results, ENTRIES)
 
 
-def phase_main(results: dict, card: str, device="cuda",
-               n_side=N_SIDE_MAIN):
-    """Returns the simulation and the arguments each kernel wrapper got
-    last."""
-    import dataclasses
+SPH_FIELDS = ("density", "hsml", "hydro_acc", "dt_entropy")
+# which kernels a full-active main path launches, by SPH backend
+PATH_KERNELS = {
+    "auto": DENSE,
+    "cells": ("shortrange_gravity", "pm_deposit") + CELLS,
+}
 
+
+def phase_main(results: dict, card: str, device="cuda",
+               n_side=N_SIDE_MAIN, sph_backend="auto", phase="main"):
+    """The full-active main path under ``sph_backend``: ``set_ics`` and
+    ``MAIN_STEPS`` sync points, the launch counts set to 0 just before and
+    read just after. Returns the simulation, the arguments each kernel
+    wrapper got last, and the SPH fields ``set_ics`` left."""
     import torch
 
     from gadget_leicester_tpu_torch import kernels
     from gadget_leicester_tpu_torch.core import timeline
     from gadget_leicester_tpu_torch.models.simulation import Simulation
-    cfg, opts, ics = setup(n_side)
     # bench.py's options: sph_backend "auto" resolves to blocks at 2x128^3
-    opts = dataclasses.replace(opts, sph_backend="auto")
+    cfg, opts, ics = setup(n_side, sph_backend=sph_backend)
     pos, vel, mass, ptype, u = ics
     sim = Simulation(cfg, opts, device)
     step_s, updates = [], 0
@@ -802,6 +946,7 @@ def phase_main(results: dict, card: str, device="cuda",
         sim.set_ics(pos, vel, mass, ptype, u=u)
         sync(device)
         init_s = time.time() - t0
+        init_sph = {f: getattr(sim.state.gas, f).clone() for f in SPH_FIELDS}
         for _ in range(MAIN_STEPS):
             st = sim.state
             ti_next = timeline.min_active_ti_end(st.p.ti_endstep, st.p.alive)
@@ -815,15 +960,16 @@ def phase_main(results: dict, card: str, device="cuda",
         counts = dict(kernels.launches)
     recorded = dict(rec)
     st = sim.state
-    say("main", f"pmgrid {opts.pmgrid}, {st.n_max} slots, init {init_s:.3f} s"
+    say(phase, f"sph_backend {sph_backend}, pmgrid {opts.pmgrid}, "
+        f"{st.n_max} slots, init {init_s:.3f} s"
         f" ({card})")
-    say("main", "per-step seconds " + ", ".join(f"{s:.3f}" for s in step_s)
+    say(phase, "per-step seconds " + ", ".join(f"{s:.3f}" for s in step_s)
         + f" ({card})")
-    say("main", f"{updates} particle updates in {sum(step_s):.3f} s: "
+    say(phase, f"{updates} particle updates in {sum(step_s):.3f} s: "
         f"{updates / sum(step_s):.1f} updates/s ({card})")
-    say("main", f"Newton sweeps per density pass: "
+    say(phase, f"Newton sweeps per density pass: "
         f"{sim.stats.get('density_iters')}")
-    say("main", f"launches {counts}; ti_current {int(st.ti_current)}, "
+    say(phase, f"launches {counts}; ti_current {int(st.ti_current)}, "
         f"overflow_flags {int(st.overflow_flags)}")
     for name, t in (("p.pos", st.p.pos), ("p.vel", st.p.vel),
                     ("p.acc", st.p.acc), ("p.acc_pm", st.p.acc_pm),
@@ -836,17 +982,19 @@ def phase_main(results: dict, card: str, device="cuda",
         raise AssertionError(f"overflow_flags {int(st.overflow_flags)}")
     if int(st.ti_current) <= 0:
         raise AssertionError("ti_current did not advance")
-    # every sync point from the ICs is full-active: the dense tier
-    for name in DENSE:
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-        results.setdefault(name, {})["launches"] = counts[name]
-    for name in ENTRIES:
-        if counts[name] != 0:
-            raise AssertionError(f"kernel {name} was launched on the "
-                                 "full-active main path")
-    return sim, recorded
+    # every sync point from the ICs is full-active: the dense tier, and
+    # the SPH kernels of this backend alone
+    for name, n in counts.items():
+        if name in PATH_KERNELS[sph_backend]:
+            if n <= 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"the {sph_backend} main path")
+            # A and B keep the count of the first path that ran them
+            results.setdefault(name, {}).setdefault("launches", n)
+        elif n != 0:
+            raise AssertionError(f"kernel {name} was launched {n} times on "
+                                 f"the full-active {sph_backend} main path")
+    return sim, recorded, init_sph
 
 
 @contextlib.contextmanager
@@ -1082,6 +1230,281 @@ def phase_potential(results: dict, state, card: str, device="cuda",
     check_potential_forces(recorded, f"2x{n_side}^3")
 
 
+# phase 8b: cells against blocks after ``set_ics`` on the same ICs, per
+# field as a share of its largest value, on the gas whose h is under both
+# backends' caps. Two decompositions and two kernels sum the same pairs in
+# another order; cells sees absolute float32 coordinates (a rounding of
+# 4e-3 kpc/h at 50 Mpc/h against h ~ 780 kpc/h) where blocks sees
+# block-relative ones, and the near-uniform ICs' pressure forces cancel to
+# a few percent of their pair terms, so the hydro rows get the wider bound.
+# A gas particle whose Newton solve stops a sweep apart (|N_eff - 33| < 2
+# lets h differ by 2%) falls outside: at most CELLS_VS_BLOCKS_OUT of the
+# compared gas may. A fault is O(1) on most rows.
+CELLS_VS_BLOCKS = {"density": 1e-4, "hsml": 1e-4, "hydro_acc": 2e-3,
+                   "dt_entropy": 2e-3}
+CELLS_VS_BLOCKS_OUT = 1e-4
+# the parts of an SPH pass under the coarse-cell backend, timed as in TIMED
+CELLS_TIMED = (
+    (f"{_PKG}.models.forces", "compute_sph", "SPH"),
+    (f"{_PKG}.models.forces", "density_adaptive_cells", "  density"),
+    (f"{_PKG}.ops.sph_cells", "build_cell_list", "    cell list"),
+    (f"{_PKG}.ops.sph_cells", "pack_sph_soa", "    pack"),
+    (f"{_PKG}.ops.sph_cells", "density_sums_cells", "    kernel I/J"),
+    (f"{_PKG}.models.forces", "hydro_force_cells", "  hydro"),
+    (f"{_PKG}.ops.sph_cells", "pack_hydro_cells", "    pack, 16 rows"),
+    (f"{_PKG}.ops.sph_cells", "hydro_sums_cells", "    kernel K"),
+    (f"{_PKG}.ops.sph_cells", "merge_rows", "    merge"),
+)
+
+
+def compare_sph_fields(phase: str, what: str, got: dict, want: dict, keep,
+                       bounds: dict, out_share: float) -> None:
+    """Hold the SPH fields ``got`` to ``want`` on the rows ``keep``: per
+    field, the rows farther apart than ``bounds[field]`` of the field's
+    largest |want| are at most ``out_share`` of the kept rows."""
+    import torch
+    n = int(keep.sum())
+    for f, tol in bounds.items():
+        g, w = got[f][keep].double(), want[f][keep].double()
+        d = (g - w).abs().reshape(n, -1).amax(-1)
+        scale = float(w.abs().max()) or 1.0
+        n_out = int((d > tol * scale).sum())
+        say(phase, f"{what}: {f} median {float(d.median()) / scale:.2e}, "
+            f"largest {float(d.max()) / scale:.2e} of the largest value; "
+            f"{n_out} of {n} rows beyond {tol:g} (at most "
+            f"{int(out_share * n)})")
+        if not bool(torch.isfinite(d).all()) or n_out > out_share * n:
+            raise AssertionError(f"{what}: {f} disagrees")
+
+
+def phase_cells(results: dict, blocks_init: dict, card: str, device="cuda",
+                n_side=N_SIDE_MAIN) -> None:
+    """The coarse-cell SPH backend at full width (phase 8b)."""
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
+                                                         sph_blocks_geometry,
+                                                         sph_cells_geometry)
+    sim, recorded, cells_init = phase_main(results, card, device, n_side,
+                                           sph_backend="cells", phase="cells")
+    cfg, opts = sim.cfg, sim.opts
+    st = sim.state
+    ng = st.n_gas_max
+    n_cells, cap = sph_cells_geometry(cfg, opts, ng)
+    gas_mask = st.p.alive[:ng] & (st.p.ptype[:ng] == 0)
+    most, mean = fullest_cell(st.p.pos[:ng], gas_mask, cfg.box_size, n_cells)
+    cap_c = cfg.box_size / n_cells
+    at_cap = int((st.gas.hsml[gas_mask] >= 0.999 * cap_c).sum())
+    say("cells", f"SPH cell list {n_cells}^3 cells x {cap} slots: fullest "
+        f"cell {most}, mean {mean:.1f}; h cap {cap_c:.1f}, {at_cap} gas at "
+        f"it, mean h {float(st.gas.hsml[gas_mask].mean()):.1f}")
+    iters = sim.stats["density_iters"]
+    if kernels.launches["sph_cells_density"] != len(iters) + sum(iters) or \
+            kernels.launches["sph_cells_hydro"] != len(iters):
+        raise AssertionError("kernels I/J and K were not launched once per "
+                             "Newton sweep and once per SPH pass")
+    # two decompositions, two kernels, one answer
+    n_blocks, _ = sph_blocks_geometry(cfg, setup(n_side)[1], ng)
+    cap_b = (1.0 - 2.0 * KAPPA_SPH) * cfg.box_size / (2 * n_blocks)
+    keep = gas_mask & (blocks_init["hsml"] < 0.999 * cap_b) \
+        & (cells_init["hsml"] < 0.999 * cap_c)
+    say("cells", f"after set_ics, cells vs blocks on {int(keep.sum())} of "
+        f"{int(gas_mask.sum())} gas with h under both caps (blocks "
+        f"{cap_b:.1f}, cells {cap_c:.1f})")
+    compare_sph_fields("cells", "cells vs blocks", cells_init, blocks_init,
+                       keep, CELLS_VS_BLOCKS, CELLS_VS_BLOCKS_OUT)
+    del cells_init
+    check_kernels(recorded, f"2x{n_side}^3", results, CELLS, timed=True)
+    del recorded
+    kernels.recorded.clear()
+    with phase_timer(device, CELLS_TIMED) as totals:
+        sim.step(2)
+    say("cells", f"SPH pass under cells, a device sync around each part, 2 "
+        f"sync points ({card}):")
+    say_phases("cells", totals, 2, CELLS_TIMED)
+    # a near-idle sync point: gravity takes its entries tier, this backend
+    # sweeps all gas all the same
+    idle = make_near_idle(sim.state, IDLE_FRAC_MAIN, IDLE_SEED)
+    times = []
+    for _ in range(IDLE_REPS):
+        sim.state = copy.deepcopy(idle)
+        kernels.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        sim.step()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    say("cells", "near-idle sync point under cells (no gate on the SPH "
+        "sweep): " + ", ".join(f"{1e3 * t:.3f}" for t in times)
+        + f" ms; launches {dict(kernels.launches)} ({card})")
+    with phase_timer(device, CELLS_TIMED) as totals:
+        sim.state = copy.deepcopy(idle)
+        sim.step()
+    say_phases("cells", totals, 1, CELLS_TIMED)
+    if not bool(torch.isfinite(sim.state.gas.density).all()):
+        raise AssertionError("gas.density is not finite after the near-idle "
+                             "sync point")
+
+
+# phase 10: the bounds of tests/test_gassphere_e2e.py
+GASSPHERE_T_END = 0.5
+GASSPHERE_DRIFT = 0.02       # max |E_tot - E_tot(0)| over energy.txt's rows
+GASSPHERE_MOMENTUM = 5e-4    # each component of the final momentum
+# the vacuum cells pass against the all-pairs pass on the run's last
+# state, per field as a share of its largest value: the same pairs summed
+# in another order through other code; no row may fall outside (the
+# all-pairs pass solves from the h the cells pass converged to, so no
+# Newton solve stops apart)
+VACUUM_VS_DENSE = {"density": 1e-4, "hsml": 1e-4, "hydro_acc": 1e-4,
+                   "dt_entropy": 1e-4}
+
+
+def write_gassphere_ics(path: str) -> int:
+    """``gassphere_ics()`` (the stock 1472-particle Evrard sphere) as a
+    format-1 GADGET IC file; returns the particle count."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.io.snapshot import (Header, SnapshotData,
+                                                        write_snapshot)
+    from gadget_leicester_tpu_torch.models.ics import gassphere_ics
+    pos, vel, mass, _, u = gassphere_ics(mode="grid")
+    n = len(pos)
+    h = Header()
+    h.npart[0] = n
+    h.npart_total = h.npart.copy()
+    write_snapshot(path, SnapshotData(
+        header=h, pos=pos.astype(np.float32), vel=vel.astype(np.float32),
+        ids=np.arange(1, n + 1, dtype=np.uint32),
+        mass=mass.astype(np.float32), u=u.astype(np.float32)), fmt=1)
+    return n
+
+
+def gassphere_param_text(ics: str, outdir: str, t_end: float) -> str:
+    """``parameterfiles/gassphere.param`` with its IC file, output
+    directory and TimeMax set, and a restart dump after every sync point
+    (the last one is the run's final state)."""
+    root = Path(__file__).resolve().parent
+    out = []
+    for line in (root / "parameterfiles" / "gassphere.param").read_text() \
+            .splitlines():
+        key = line.split()[0] if line.split() else ""
+        new = {"InitCondFile": ics, "OutputDir": outdir, "TimeMax": t_end,
+               "CpuTimeBetRestartFile": 0.0}.get(key)
+        out.append(line if new is None else f"{key}  {new}")
+    return "\n".join(out) + "\n"
+
+
+def vacuum_cells_vs_dense(phase: str, state, cfg, opts, n_cells: int,
+                          cap: int) -> None:
+    """One SPH pass of ``state`` through the coarse-cell backend in vacuum
+    mode (kernels I/J and K on a CUDA state) held against the all-pairs
+    pass from the same h, by :data:`VACUUM_VS_DENSE`."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.forces import (gas_bounding_grid,
+                                                          comoving_factors,
+                                                          compute_sph)
+    ng = state.n_gas_max
+    active = state.p.alive[:ng].clone()
+    fac = comoving_factors(cfg, state.ti_current)
+    state = dataclasses.replace(state, overflow_flags=torch.zeros_like(
+        state.overflow_flags))
+    o_cells = dataclasses.replace(opts, sph_backend="cells", sph_grid=n_cells,
+                                  sph_capacity=cap)
+    kernels.reset_launches()
+    got = compute_sph(state, cfg, o_cells, fac, active)
+    counts = dict(kernels.launches)
+    if int(got.overflow_flags) != 0:
+        raise AssertionError(f"{n_cells}^3 cells x {cap} overflowed")
+    gas_mask = active & (state.p.ptype[:ng] == 0)
+    edge = float(gas_bounding_grid(state.p.pos[:ng], gas_mask)[1]) / n_cells
+    h_cap = float(got.gas.hsml[active].max())
+    if h_cap >= 0.999 * edge:
+        raise AssertionError(f"h reaches the cell edge {edge:.4f}: the "
+                             "all-pairs pass has no such cap")
+    # the all-pairs pass starts from the converged h: both solves then stop
+    # at the seed sweep unless they disagree
+    start = dataclasses.replace(state, gas=dataclasses.replace(
+        state.gas, hsml=got.gas.hsml))
+    want = compute_sph(start, cfg,
+                       dataclasses.replace(opts, sph_backend="dense"), fac,
+                       active)
+    again = compute_sph(start, cfg, o_cells, fac, active)
+    say(phase, f"vacuum cells pass {n_cells}^3 cells x {cap} slots on "
+        f"{int(active.sum())} gas: launches {counts}, largest h "
+        f"{h_cap:.4f} under the cell edge {edge:.4f}")
+    fields = {f: getattr(again.gas, f) for f in SPH_FIELDS}
+    compare_sph_fields(phase, "vacuum cells vs all-pairs", fields,
+                       {f: getattr(want.gas, f) for f in SPH_FIELDS}, active,
+                       VACUUM_VS_DENSE, 0.0)
+
+
+def phase_gassphere(card: str, device="cuda") -> None:
+    """The vacuum gas run (phase 10). The run's directory is deleted at
+    the end."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.core.config import (options_from_config,
+                                                        read_parameter_file)
+    from gadget_leicester_tpu_torch.io.restart import load_restart
+    from gadget_leicester_tpu_torch.utils.diagnostics import \
+        energy_statistics
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "gassphere_run"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        out = work / "out"
+        n = write_gassphere_ics(str(work / "gassphere_ics.dat"))
+        param = work / "gassphere.param"
+        param.write_text(gassphere_param_text(
+            str(work / "gassphere_ics.dat"), str(out), GASSPHERE_T_END))
+        proc, wall = _cli(root, param, 0, "--device", device)
+        rows = np.loadtxt(out / "energy.txt", ndmin=2)
+        if rows.shape[1] != 28 or not np.isfinite(rows).all():
+            raise AssertionError("energy.txt: wrong columns or not finite")
+        e_tot = rows[:, 1] + rows[:, 2] + rows[:, 3]
+        drift = float(np.abs(e_tot - e_tot[0]).max())
+        step_s = [float(line.split("t=")[1].split("s")[0]) for line in
+                  (out / "timings.txt").read_text().splitlines()
+                  if line.startswith("Step=")]
+        say("gassphere", f"{n} gas, {len(step_s)} sync points to t = "
+            f"{_done_time(proc):g} in {wall:.1f} s wall with start-up, "
+            f"{1e3 * sum(step_s) / len(step_s):.2f} ms per sync point "
+            f"({card})")
+        say("gassphere", f"energy.txt {len(rows)} rows: t=0 Eint "
+            f"{rows[0, 1]:.5f} Epot {rows[0, 2]:.5f} Ekin {rows[0, 3]:.2e}; "
+            f"t={rows[-1, 0]:g} Eint {rows[-1, 1]:.5f} Epot "
+            f"{rows[-1, 2]:.5f} Ekin {rows[-1, 3]:.5f}; largest "
+            f"|E - E(0)| {drift:.3e} (bound {GASSPHERE_DRIFT})")
+        cfg = read_parameter_file(str(param))
+        state, _ = load_restart(str(out / "restart"), device)
+        opts = options_from_config(cfg, n_particles=n)
+        es = energy_statistics(state, cfg, opts)
+        mom = [float(x) for x in es.momentum]
+        say("gassphere", f"final state t = {rows[-1, 0]:g}: momentum "
+            f"{mom} (bound {GASSPHERE_MOMENTUM} each), mass "
+            f"{float(es.mass):.7f}")
+        if _done_time(proc) < GASSPHERE_T_END or \
+                rows[-1, 0] < GASSPHERE_T_END - 0.05:
+            raise AssertionError("the run did not reach t = 0.5")
+        if drift >= GASSPHERE_DRIFT:
+            raise AssertionError(f"energy drift {drift:.3e}")
+        if max(abs(x) for x in mom) >= GASSPHERE_MOMENTUM:
+            raise AssertionError(f"momentum {mom}")
+        # the collapse proceeds: Epot falls, Ekin grows
+        if not (rows[-1, 2] < rows[0, 2] - 0.05 and rows[-1, 3] > 0.01):
+            raise AssertionError("the sphere did not collapse")
+        for grid, cap in ((4, 256), (3, 512)):
+            vacuum_cells_vs_dense("gassphere", state, cfg, opts, grid, cap)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def li_reference() -> list:
     """(a, T, W, U, drift) rows of the JAX package's 2x128^3 run, from the
     table of ``docs/li_gate_128.md``."""
@@ -1261,7 +1684,10 @@ def main() -> int:
     results: dict = {}
     phase_kernels(results)
     phase_idle_small(results, phase_slice())
-    sim, recorded = phase_main(results, card)
+    grid, cap = SMALL_CELL_GRIDS[0]
+    phase_slice(steps=1, potential=False, sph_backend="cells", sph_grid=grid,
+                sph_capacity=cap)
+    sim, recorded, blocks_init = phase_main(results, card)
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
     del recorded
@@ -1275,11 +1701,17 @@ def main() -> int:
     kernels.recorded.clear()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_cells(results, blocks_init, card)
+    del blocks_init
+    kernels.recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_cli(card)
+    phase_gassphere(card)
 
     # no single PyTorch call computes any of these functions (an
-    # erfc-truncated softened pair sum, an SPH kernel sum, the CIC deposit
-    # of a cell pack): library_ms is null
+    # erfc-truncated softened pair sum, an SPH kernel sum over a cell or
+    # block stencil, the CIC deposit of a cell pack): library_ms is null
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": results[name]["launches"],
              "max_abs_err": results[name]["max_abs_err"],

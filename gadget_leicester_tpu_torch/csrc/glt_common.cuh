@@ -121,7 +121,8 @@ __device__ __forceinline__ int wrap(int i, int n) {
 
 // The pair arithmetic below is shared by a dense kernel and its
 // active-entry twin (A and E, C and F; G repeats D's), so the two tiers of
-// a force differ only in the order of their sums.
+// a force differ only in the order of their sums. The coarse-cell density
+// kernel (I/J) shares C's; the coarse-cell hydro kernel (K) spells out D's.
 
 // Short-range gravity (A, E): adds to (ax, ay, az) the pull of a source at
 // (sx, sy, sz), already shifted by its stencil offset, of mass m and
@@ -178,7 +179,7 @@ __device__ __forceinline__ void gravity_potential_pair(
   pot += m * pfac;
 }
 
-// SPH density (C, F): adds the pair at separation (dx, dy, dz) and
+// SPH density (C, F and the coarse-cell I/J): adds the pair at separation (dx, dy, dz) and
 // relative velocity (dvx, dvy, dvz) (target minus source) of a source of
 // mass m to a target's sums acc = (rho, drho/dh, div v, rot v x, y, z),
 // for the target's 1/h = hinv. Pairs outside the support add nothing.

@@ -3,26 +3,33 @@ compute_accelerations(), gravtree.c, hydra.c].
 
 Counterpart of ``gadget_leicester_tpu/models/forces.py:31-451, 590-921``
 (``comoving_factors``, ``softening_table``, ``compute_forces``,
-``_treepm_gravity``, ``compute_potential``, ``compute_sph``), for the
-slice this package covers:
-periodic TreePM gravity and block-packed SPH. Order, as in the reference:
-short-range gravity -> long-range PM (PM steps only) -> SPH density
-(adaptive h) -> SPH hydro.
+``_treepm_gravity``, ``compute_potential``, ``compute_sph``). Gravity:
+periodic TreePM, or direct summation (small vacuum runs). SPH: the
+block-packed, the coarse-cell or the all-pairs backend
+(``SimOptions.sph_backend``; ``auto`` takes all-pairs at <= 4096 gas
+slots and blocks above). Order, as in the reference: short-range gravity
+-> long-range PM (PM steps only) -> SPH density (adaptive h) -> SPH
+hydro.
 
-Kernels on this path: A (short-range gravity, ``ops/cells.py``), B (PM
-deposit, ``ops/pm_tiles.py``), C and D (SPH density and hydro,
-``ops/sph_blocks.py``), and at near-idle sync points their active-entry
-twins E, F and G. The FFTs and the CIC gather are PyTorch's own
-operators, as the JAX package leaves them to XLA. The full potential of
-the diagnostics (:func:`compute_potential`, outside the step) runs kernel
-H on a fresh cell list.
+Kernels on these paths: A (short-range gravity, ``ops/cells.py``), B (PM
+deposit, ``ops/pm_tiles.py``), C and D (block SPH density and hydro,
+``ops/sph_blocks.py``) and at near-idle sync points their active-entry
+twins E, F and G; I/J and K (coarse-cell SPH density and hydro,
+``ops/sph_cells.py``). The FFTs, the CIC gather, direct gravity and the
+all-pairs SPH sums are PyTorch's own operators, as the JAX package leaves
+them to XLA. The full potential of the diagnostics
+(:func:`compute_potential`, outside the step) runs kernel H on a fresh
+cell list, or the direct sum.
 
-Two tiers, by the JAX package's rule (:func:`use_entries`): a sync point
-at which few particles are active compacts them into entries of at most
-``ENTRY_LANES`` targets of one cell (gravity) or even block (SPH) and
-runs E, F and G over the entries; any other runs the flag-gated dense
-kernels A, C and D. Density and hydro take the same tier, from one count.
-The tier decides speed only: both give the same forces.
+Two tiers under TreePM and block SPH, by the JAX package's rule
+(:func:`use_entries`): a sync point at which few particles are active
+compacts them into entries of at most ``ENTRY_LANES`` targets of one cell
+(gravity) or even block (SPH) and runs E, F and G over the entries; any
+other runs the flag-gated dense kernels A, C and D. Density and hydro take
+the same tier, from one count. The tier decides speed only: both give the
+same forces. The coarse-cell backend has neither tier nor gate, as in the
+reference: every sync point sweeps all gas, and the inactive keep their
+frozen fields.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
                                                      refresh,
                                                      resolve_gravity_mode,
                                                      resolve_sph_backend,
-                                                     sph_blocks_geometry)
+                                                     sph_blocks_geometry,
+                                                     sph_cells_geometry)
 from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   build_active_entries,
                                                   count_active_entries,
@@ -50,6 +58,7 @@ from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   pack_cells_soa,
                                                   shortrange_gravity_tiles,
                                                   shortrange_potential_tiles)
+from gadget_leicester_tpu_torch.ops.gravity_direct import direct_gravity
 from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
                                                       merge_rows)
 from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
@@ -61,6 +70,10 @@ from gadget_leicester_tpu_torch.ops.sph_blocks import (
     build_block_lists, count_block_entries, density_adaptive_blocks,
     density_adaptive_blocks_entries, hydro_force_blocks,
     hydro_force_blocks_entries)
+from gadget_leicester_tpu_torch.ops.sph_cells import (density_adaptive_cells,
+                                                      hydro_force_cells)
+from gadget_leicester_tpu_torch.ops.sph_dense import (density_adaptive,
+                                                      hydro_force)
 
 
 class ComovingFactors(NamedTuple):
@@ -134,22 +147,29 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
     if opts.forcetest > 0:
         _refuse("forcetest", "ROADMAP queue 1 item 11")
     mode = resolve_gravity_mode(opts, n_max)
-    if mode != "treepm" or not opts.periodic:
+    if mode not in ("treepm", "direct") or \
+            (mode == "treepm" and not opts.periodic):
         _refuse(f"gravity mode {mode!r} (periodic={opts.periodic})",
-                "ROADMAP queue 1 item 12")
+                "ROADMAP queue 1 item 12: tree, Ewald and zoom PM")
     if n_gas_max > 1:
         backend = resolve_sph_backend(opts, n_gas_max)
-        if backend != "blocks":
-            _refuse(f"sph_backend {backend!r}", "ROADMAP queue 1 item 12")
+        if backend not in ("blocks", "cells", "dense"):
+            raise ValueError(f"unknown sph_backend {backend!r}")
+        if backend == "blocks" and not opts.periodic:
+            _refuse("sph_backend 'blocks' on a vacuum grid",
+                    "ROADMAP queue 1 item 12: the non-relative block "
+                    "kernels")
 
 
 def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
                    do_sph: bool = True, do_pm: bool = True,
                    stats: dict | None = None) -> SimState:
     """One full force computation at the current sync point: p.acc
-    (short-range, active particles only), p.acc_pm (only when ``do_pm``,
-    frozen otherwise), p.pot (PM piece), and the SPH fields of active
-    gas. ``stats`` (optional dict) receives ``density_iters``."""
+    (short-range or direct, active particles only), p.acc_pm (TreePM, only
+    when ``do_pm``, frozen otherwise; zeros under direct gravity), p.pot
+    (the PM piece under TreePM, the whole potential under direct gravity),
+    and the SPH fields of active gas. ``stats`` (optional dict) receives
+    ``density_iters``."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
     p = state.p
     fac = comoving_factors(cfg, state.ti_current)
@@ -158,19 +178,33 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     eps = softening_table(cfg, fac.atime)
     soft = SOFTFAC * eps[p.ptype.long()]
 
-    acc, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
-        state, cfg, opts, soft, do_pm, active)
-    state = dataclasses.replace(
-        state, overflow_flags=state.overflow_flags | sr_ovf.to(torch.int32))
+    if resolve_gravity_mode(opts, state.n_max) == "treepm":
+        acc, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
+            state, cfg, opts, soft, do_pm, active)
+        state = dataclasses.replace(
+            state,
+            overflow_flags=state.overflow_flags | sr_ovf.to(torch.int32))
+        pot_pm = pot_pm * cfg.grav_internal
+        pot = pot_pm
+    else:
+        acc, pot = direct_gravity(p.pos, p.mass, soft, p.alive,
+                                  box=float(cfg.box_size),
+                                  periodic=opts.periodic)
+        acc_pm = torch.zeros_like(acc)
+        pot_pm = torch.zeros_like(pot)
+        pot = pot * cfg.grav_internal
     acc = acc * cfg.grav_internal
-    pot_pm = pot_pm * cfg.grav_internal
+    if cfg.comoving_integration_on and not opts.periodic:
+        # a comoving run with vacuum boundaries: the homogeneous
+        # background's term [G2: gravtree.c comoving correction]
+        acc = acc + 0.5 * cfg.omega0 * cfg.hubble_internal ** 2 * p.pos
     zero3 = torch.zeros_like(acc)
     # inactive particles keep their frozen acc (gated tiles returned 0)
     acc = torch.where(active[:, None], acc, p.acc)
     acc = torch.where(p.alive[:, None], acc, zero3)
     acc_pm = torch.where(p.alive[:, None], acc_pm, zero3)
     total = acc + acc_pm
-    p = dataclasses.replace(p, acc=acc, acc_pm=acc_pm, pot=pot_pm,
+    p = dataclasses.replace(p, acc=acc, acc_pm=acc_pm, pot=pot,
                             pot_pm=pot_pm,
                             old_acc=torch.sqrt((total * total).sum(-1)))
     state = dataclasses.replace(state, p=p)
@@ -245,12 +279,19 @@ def compute_potential(state: SimState, cfg: SimConfig,
     softened short-range sum of kernel H on a FRESH cell list (the cached
     grid of the step may be stale and coarsened), plus the PM self-term
     m / (sqrt(pi) asmth); times G, 0 where not alive. The fresh list's
-    overflow sets bit 1 of ``overflow_flags``."""
+    overflow sets bit 1 of ``overflow_flags``. Direct gravity: the
+    potential of the direct sum."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
     p = state.p
     fac = comoving_factors(cfg, state.ti_current)
     soft = SOFTFAC * softening_table(cfg, fac.atime)[p.ptype.long()]
     box = float(cfg.box_size)
+    if resolve_gravity_mode(opts, state.n_max) == "direct":
+        _, pot = direct_gravity(p.pos, p.mass, soft, p.alive, box=box,
+                                periodic=opts.periodic)
+        pot = torch.where(p.alive, pot * cfg.grav_internal,
+                          torch.zeros_like(pot))
+        return dataclasses.replace(state, p=dataclasses.replace(p, pot=pot))
     g = opts.pmgrid
     asmth_len = ASMTH * box / g
     rcut = RCUT * asmth_len
@@ -275,21 +316,25 @@ def compute_potential(state: SimState, cfg: SimConfig,
         overflow_flags=state.overflow_flags | cl.overflow.to(torch.int32))
 
 
-def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
-                fac: ComovingFactors, active, stats: dict | None = None):
-    """density (kernel C in the Newton loop) -> hydro (kernel D), or F
-    and G at a near-idle sync point [G2: accel.c ordering]. Inactive gas
-    keeps its drift-forecast fields; a particle dropped by a full subcell
-    comes back with rho = 0 and keeps its forecast too (the sticky
-    overflow bit 2 asks for a larger capacity)."""
-    gas = state.gas
-    ng = gas.n_gas_max
-    p = state.p
-    pos_g, mass_g = p.pos[:ng], p.mass[:ng]
-    gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
-    active_g = active & gas_mask
-    eps_gas = softening_table(cfg, fac.atime)[0]
-    min_hsml = cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas
+def gas_bounding_grid(pos_g, gas_mask):
+    """(origin [3], extent 0-d) of a vacuum SPH grid: the gas bounding
+    box, padded by 1% of its longest side, as one cube; device tensors,
+    no host sync."""
+    inf = torch.full_like(pos_g, float("inf"))
+    lo = torch.where(gas_mask[:, None], pos_g, inf).amin(0)
+    hi = torch.where(gas_mask[:, None], pos_g, -inf).amax(0)
+    pad_w = 0.01 * (hi - lo).max() + 1e-6
+    return lo - pad_w, (hi - lo).max() + 2 * pad_w
+
+
+def _sph_blocks(state, cfg, opts, fields, active, active_g, dkw, hkw):
+    """Block backend: kernels C and D on the cached (even, odd) lists, or
+    F and G over the active entries at a near-idle sync point. Returns
+    (DensityResult, hydro(fields), overflow, state with the updated
+    cache); h is capped 2 kappa below the fine-cell edge, the correctness
+    contract of the 8-block stencil under staleness."""
+    pos_g, vel_g, mass_g, hsml0, gas_mask = fields
+    ng = pos_g.shape[0]
     box = float(cfg.box_size)
     n_blocks, subcap = sph_blocks_geometry(cfg, opts, ng)
 
@@ -309,26 +354,102 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
             grids, sph=cls, sph_disp=disp, sph_count=count))
     else:
         cls = build_blocks()
-    # h cap: the correctness contract of the 8-block stencil, leaving
-    # 2 kappa of the fine-cell edge for staleness
     max_hsml = (1.0 - 2.0 * KAPPA_SPH) * subcell
-    hsml_in = torch.clamp(gas.hsml, max=max_hsml)
+    hsml_in = torch.clamp(hsml0, max=max_hsml)
     k_max = 2 * n_blocks ** 3
     entries = None
     if use_entries(active_g.sum(),
                    lambda: count_block_entries(cls[0], active_g), k_max):
         entries = build_active_entries(cls[0], active_g, ENTRY_LANES,
                                        k_max)[:2]
-    dkw = dict(des_num_ngb=cfg.des_num_ngb,
-               max_dev=cfg.max_num_ngb_deviation, box=box, cls=cls,
-               min_hsml=min_hsml, max_hsml=max_hsml)
+    dkw = dict(dkw, box=box, cls=cls, max_hsml=max_hsml)
     if entries is None:
         dres, cls = density_adaptive_blocks(
-            pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask, active=active,
-            **dkw)
+            pos_g, vel_g, mass_g, hsml_in, gas_mask, active=active, **dkw)
     else:
         dres = density_adaptive_blocks_entries(
-            pos_g, gas.vel_pred, mass_g, hsml_in, gas_mask, *entries, **dkw)
+            pos_g, vel_g, mass_g, hsml_in, gas_mask, *entries, **dkw)
+
+    def hydro(*sph_fields):
+        args = (cls, pos_g, vel_g, mass_g, *sph_fields, gas_mask)
+        if entries is None:
+            return hydro_force_blocks(*args, active=active, box=box, **hkw)
+        return hydro_force_blocks_entries(*args, *entries, box=box, **hkw)
+
+    return dres, hydro, cls[0].overflow, state
+
+
+def _sph_cells(cfg, opts, fields, dkw, hkw):
+    """Coarse-cell backend: kernels I/J and K on a fresh cell list, every
+    gas particle a target (no ``active`` reaches it, as in the reference).
+    Periodic: the box; vacuum: the gas bounding box, unit ``box``. h is
+    capped at the cell edge. Returns (DensityResult, hydro(fields),
+    overflow)."""
+    pos_g, vel_g, mass_g, hsml0, gas_mask = fields
+    n_cells, cap = sph_cells_geometry(cfg, opts, pos_g.shape[0])
+    if opts.periodic:
+        origin, extent = 0.0, float(cfg.box_size)
+        box = extent
+    else:
+        origin, extent = gas_bounding_grid(pos_g, gas_mask)
+        box = 1.0
+    max_hsml = extent / n_cells
+    dres, cl = density_adaptive_cells(
+        pos_g, vel_g, mass_g, torch.clamp(hsml0, max=max_hsml), gas_mask,
+        box=box, n_cells=n_cells, capacity=cap, max_hsml=max_hsml,
+        periodic=opts.periodic, origin=origin, extent=extent, **dkw)
+
+    def hydro(*sph_fields):
+        return hydro_force_cells(cl, pos_g, vel_g, mass_g, *sph_fields,
+                                 gas_mask, box=box, **hkw)
+
+    return dres, hydro, cl.overflow
+
+
+def _sph_dense(cfg, opts, fields, dkw, hkw):
+    """All-pairs backend (small gas counts): no list, no cap on h, no
+    overflow. Returns (DensityResult, hydro(fields))."""
+    pos_g, vel_g, mass_g, hsml0, gas_mask = fields
+    geom = dict(box=float(cfg.box_size), periodic=opts.periodic)
+    dres = density_adaptive(pos_g, vel_g, mass_g, hsml0, gas_mask, **dkw,
+                            **geom)
+
+    def hydro(*sph_fields):
+        return hydro_force(pos_g, vel_g, mass_g, *sph_fields, gas_mask,
+                           **hkw, **geom)
+
+    return dres, hydro
+
+
+def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
+                fac: ComovingFactors, active, stats: dict | None = None):
+    """density (adaptive h) -> hydro [G2: accel.c ordering], through the
+    backend ``resolve_sph_backend`` names. Inactive gas keeps its
+    drift-forecast fields; a particle dropped by a full cell or subcell
+    comes back with rho = 0 and keeps its forecast too (the sticky
+    overflow bit 2 asks for a larger capacity)."""
+    gas = state.gas
+    ng = gas.n_gas_max
+    p = state.p
+    gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+    active_g = active & gas_mask
+    eps_gas = softening_table(cfg, fac.atime)[0]
+    fields = (p.pos[:ng], gas.vel_pred, p.mass[:ng], gas.hsml, gas_mask)
+    dkw = dict(des_num_ngb=cfg.des_num_ngb,
+               max_dev=cfg.max_num_ngb_deviation,
+               min_hsml=cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas)
+    hkw = dict(visc_const=cfg.art_bulk_visc_const,
+               hubble_a2_flow=fac.hubble_a2_flow,
+               hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu)
+    backend = resolve_sph_backend(opts, ng)
+    ovf = None
+    if backend == "blocks":
+        dres, hydro, ovf, state = _sph_blocks(state, cfg, opts, fields,
+                                              active, active_g, dkw, hkw)
+    elif backend == "cells":
+        dres, hydro, ovf = _sph_cells(cfg, opts, fields, dkw, hkw)
+    else:
+        dres, hydro = _sph_dense(cfg, opts, fields, dkw, hkw)
     if stats is not None:
         stats.setdefault("density_iters", []).append(dres.iters)
 
@@ -342,23 +463,15 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     pressure = torch.where(gas_mask, gas.entropy_pred * rho ** GAMMA,
                            torch.zeros_like(rho))
 
-    hkw = dict(visc_const=cfg.art_bulk_visc_const, box=box,
-               hubble_a2_flow=fac.hubble_a2_flow,
-               hubble_a2_norm=fac.hubble_a2_norm, fac_mu=fac.fac_mu)
-    fields = (cls, pos_g, gas.vel_pred, mass_g, hsml, rho, pressure, dhsml,
-              div_vel, curl_vel, gas_mask)
-    if entries is None:
-        hres = hydro_force_blocks(*fields, active=active, **hkw)
-    else:
-        hres = hydro_force_blocks_entries(*fields, *entries, **hkw)
+    hres = hydro(hsml, rho, pressure, dhsml, div_vel, curl_vel)
     hydro_acc = torch.where(take[:, None], hres.acc, gas.hydro_acc)
     dt_entropy = torch.where(take, hres.dt_entropy, gas.dt_entropy)
     msv = torch.where(take, hres.max_signal_vel, gas.max_signal_vel)
-    ovf = cls[0].overflow.to(torch.int32) * 2
+    flags = state.overflow_flags
+    if ovf is not None:
+        flags = flags | ovf.to(torch.int32) * 2
     gas = dataclasses.replace(
         gas, density=rho, hsml=hsml, pressure=pressure, div_vel=div_vel,
         curl_vel=curl_vel, dhsml_density_factor=dhsml, num_ngb=num_ngb,
         hydro_acc=hydro_acc, dt_entropy=dt_entropy, max_signal_vel=msv)
-    return dataclasses.replace(state, gas=gas,
-                               overflow_flags=state.overflow_flags | ovf)
-
+    return dataclasses.replace(state, gas=gas, overflow_flags=flags)

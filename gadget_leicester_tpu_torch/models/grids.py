@@ -2,8 +2,8 @@
 domain are rebuilt on a cadence, not every sync point].
 
 Counterpart of ``gadget_leicester_tpu/models/grids.py`` (``GridCache``,
-``grav_grid_geometry``, ``sph_blocks_geometry``, ``make_grid_cache``,
-``note_drift``, ``refresh``). The cell ASSIGNMENTS are cached across sync
+``grav_grid_geometry``, ``sph_blocks_geometry``, ``sph_cells_geometry``,
+``make_grid_cache``, ``note_drift``, ``refresh``). The cell ASSIGNMENTS are cached across sync
 points; pair forces always read fresh positions. A pair within range r is
 found while r + 2 * (displacement since the build) <= cell edge, so each
 grid carries a margin and a running displacement, and is rebuilt when
@@ -11,10 +11,13 @@ grid carries a margin and a running displacement, and is rebuilt when
 traces that decision with ``lax.cond``, :func:`refresh` reads one host
 boolean.
 
-Geometry: the short-range capacity is rounded up to 128 on every device,
-as the JAX package's Pallas path does; the CPU branch's ``8 N / n^3``
-capacity is not used. Results do not depend on capacity while no cell
-overflows.
+Geometry: the short-range and coarse-cell SPH capacities are rounded up
+to 128 on every device, as the JAX package's Pallas path does; its CPU
+branch's ``8 N / n^3`` and ``6 N / n^3`` capacities are not used. Results
+do not depend on capacity while no cell overflows. The coarse-cell SPH
+list is not cached: every force pass builds it fresh, so its h cap is the
+whole cell edge (the ``sph`` slot of the cache stays None for it, and for
+the all-pairs backend).
 """
 
 from __future__ import annotations
@@ -91,6 +94,19 @@ def sph_blocks_geometry(cfg: SimConfig, opts: SimOptions, ng: int):
         n_blocks = max(2, int(round(
             (ng / (8 * 0.78 * subcap)) ** (1.0 / 3.0))))
     return n_blocks, subcap
+
+
+def sph_cells_geometry(cfg: SimConfig, opts: SimOptions, ng: int):
+    """(n_cells, capacity) of the coarse-cell SPH path: a mean occupancy
+    of ~100 gas particles per cell (a cell edge of ~4.6 interparticle
+    spacings, above the h of ~2 spacings that DesNumNgb 33-50 implies),
+    the capacity rounded up to a multiple of 128."""
+    if opts.sph_grid > 0:
+        n_cells = opts.sph_grid
+    else:
+        n_cells = max(3, int(round((ng / 100.0) ** (1.0 / 3.0))))
+    cap = opts.sph_capacity if opts.sph_capacity > 0 else 128
+    return n_cells, max(128, ((cap + 127) // 128) * 128)
 
 
 def make_grid_cache(device) -> GridCache:

@@ -1,15 +1,55 @@
-"""Initial conditions of the lcdm_gas workload.
+"""Initial conditions of the lcdm_gas and gassphere workloads.
 
-Counterpart of ``gadget_leicester_tpu/models/ics.py:109-170``
-(``lcdm_gas_ics``): the same numpy code, copied so that the port needs no
-JAX package, and so that the same seed gives bit-identical arrays. The
-other generators of that module (gassphere, galaxy, cluster, disc) belong
-to workloads not yet ported (ROADMAP queue 1 item 12).
+Counterpart of ``gadget_leicester_tpu/models/ics.py:30-66, 109-170``
+(``gassphere_ics``, ``lcdm_gas_ics``): the same numpy code, copied so that
+the port needs no JAX package, and so that the same seed gives
+bit-identical arrays. The other generators of that module (galaxy,
+cluster, disc) belong to workloads not yet ported (ROADMAP queue 1 item
+12).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _random_directions(n: int, rng: np.random.Generator) -> np.ndarray:
+    v = rng.normal(size=(n, 3))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def gassphere_ics(n_gas: int = 1472, seed: int = 7, mode: str = "grid"):
+    """Evrard collapse: rho(r) = M/(2 pi R^2 r), M=R=1, u=0.05.
+
+    mode="grid": deterministic stretched lattice (matches how the stock IC
+    was built: a uniform grid mapped r -> r_new so M(<r) ~ r^2);
+    mode="random": equal-mass radius sampling r = R*sqrt(xi).
+    """
+    if mode == "grid":
+        # cubic lattice inside unit sphere, then stretch radii:
+        # uniform density has M(<r) ~ r^3; target profile needs M(<r) ~ r^2,
+        # so r_new = r_old^{3/2} (unit sphere).
+        side = int(np.ceil((n_gas * 6 / np.pi) ** (1 / 3)))
+        g = (np.arange(side) + 0.5) / side * 2.0 - 1.0
+        xyz = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        r = np.linalg.norm(xyz, axis=1)
+        inside = r < 1.0
+        xyz, r = xyz[inside], r[inside]
+        r_safe = np.maximum(r, 1e-10)
+        xyz = xyz * (r_safe[:, None] ** 0.5)  # r_new = r^{3/2} => scale r^{1/2}
+        n = len(xyz)
+    else:
+        rng = np.random.default_rng(seed)
+        xi = rng.uniform(size=n_gas)
+        r = np.sqrt(xi)
+        xyz = _random_directions(n_gas, rng) * r[:, None]
+        n = n_gas
+    pos = xyz
+    vel = np.zeros_like(pos)
+    mass = np.full(n, 1.0 / n)
+    ptype = np.zeros(n, np.int32)
+    u = np.full(n, 0.05)
+    return pos, vel, mass, ptype, u
 
 
 def lcdm_gas_ics(n_side: int = 32, box: float = 50000.0, z_init: float = 10.0,

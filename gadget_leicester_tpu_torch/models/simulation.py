@@ -50,7 +50,8 @@ from gadget_leicester_tpu_torch.models.forces import (check_supported,
                                                       comoving_factors,
                                                       compute_forces,
                                                       compute_potential)
-from gadget_leicester_tpu_torch.models.grids import make_grid_cache
+from gadget_leicester_tpu_torch.models.grids import (make_grid_cache,
+                                                     resolve_sph_backend)
 from gadget_leicester_tpu_torch.utils.diagnostics import (
     LayzerIrvineTracker, energy_statistics)
 from gadget_leicester_tpu_torch.utils.logfiles import RunLogs
@@ -62,15 +63,26 @@ def potential_pass(state: SimState, cfg: SimConfig,
     return compute_potential(state, cfg, opts)
 
 
+def uses_pm_split(opts: SimOptions) -> bool:
+    """Does this configuration run the two-timescale TreePM machinery?"""
+    return opts.periodic and opts.pmgrid > 0 and not opts.nogravity and \
+        opts.gravity_mode in ("auto", "treepm")
+
+
 def sync_point_step(state: SimState, cfg: SimConfig, opts: SimOptions,
                     stats: dict | None = None) -> SimState:
-    """One sync-point iteration [G2: run.c]. TreePM (the only gravity
-    the port runs) keeps PM on its own global timestep: the next sync
-    point is the earlier of the particle bins' end and the PM step end;
-    PM forces recompute only at PM steps. Overflow bits are sticky."""
-    ti_next = torch.minimum(
-        timeline.min_active_ti_end(state.p.ti_endstep, state.p.alive),
-        state.pm_ti_endstep)
+    """One sync-point iteration [G2: run.c]. TreePM keeps PM on its own
+    global timestep: the next sync point is the earlier of the particle
+    bins' end and the PM step end; PM forces recompute only at PM steps.
+    A run without a PM mesh (direct gravity) has no PM step: the particle
+    bins alone set the sync points and ``pm_ti_endstep`` stays 0.
+    Overflow bits are sticky."""
+    ti_next = timeline.min_active_ti_end(state.p.ti_endstep, state.p.alive)
+    if not uses_pm_split(opts):
+        state = integrate.drift_all(state, cfg, opts, ti_next)
+        state = compute_forces(state, cfg, opts, stats=stats)
+        return integrate.advance_and_find_timesteps(state, cfg, opts)
+    ti_next = torch.minimum(ti_next, state.pm_ti_endstep)
     state = integrate.drift_all(state, cfg, opts, ti_next)
     is_pm_step = bool(state.ti_current == state.pm_ti_endstep)
     state = compute_forces(state, cfg, opts, do_pm=is_pm_step, stats=stats)
@@ -294,13 +306,16 @@ class Simulation:
     def _bump_capacities(self, ovf: int, t_now: float) -> None:
         """The sticky overflow bits say some cell dropped particles since
         the last reading [G2: gravtree.c realloc on overflow]: double the
-        SPH subcell capacity (bit 2), add 128 to the short-range one (bit
-        1), clear the bits, rebuild the grid cache and note it in
-        info.txt."""
+        SPH capacity (bit 2; from 32 slots a subcell for the block
+        backend, 128 a cell for the coarse cells), add 128 to the
+        short-range one (bit 1), clear the bits, rebuild the grid cache
+        and note it in info.txt."""
         new_opts = self.opts
         if ovf & 2:
-            new_opts = dataclasses.replace(
-                new_opts, sph_capacity=(new_opts.sph_capacity or 32) * 2)
+            backend = resolve_sph_backend(new_opts, self.state.n_gas_max)
+            cur = new_opts.sph_capacity or (32 if backend == "blocks"
+                                            else 128)
+            new_opts = dataclasses.replace(new_opts, sph_capacity=cur * 2)
         if ovf & 1:
             new_opts = dataclasses.replace(
                 new_opts, sr_capacity=(new_opts.sr_capacity or 128) + 128)

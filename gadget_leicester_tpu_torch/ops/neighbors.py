@@ -6,7 +6,8 @@ into a uniform grid, sorted by cell id with a STABLE sort (so slot ranks
 equal those of the JAX package's ``argsort``), and placed into a
 ``[cells, capacity]`` table; excess particles of a full cell are dropped
 and reported through ``overflow`` (the caller re-runs with a bigger
-capacity). ``gslot`` is the inverse map used to merge kernel outputs back
+capacity). A periodic grid wraps cell coordinates; a vacuum grid (the gas
+bounding box of a run without a box) clamps them to its edge cells. ``gslot`` is the inverse map used to merge kernel outputs back
 to particles with one row gather; :func:`scatter_rows` merges the
 active-entry kernels' outputs with one drop-mode row scatter.
 """
@@ -27,7 +28,8 @@ class CellList:
     origin: torch.Tensor    # [3]
     inv_cell: torch.Tensor  # [3] 1/cell_size
     gslot: torch.Tensor     # [N] int32 flat slot in cells (-1 dead/dropped)
-    n_cells: int            # per axis; every grid of the port is periodic
+    n_cells: int            # per axis
+    periodic: bool = True   # wrapped cell coordinates (False: clamped)
 
 
 def merge_rows(out: torch.Tensor, cl: CellList, n_rows: int,
@@ -67,18 +69,29 @@ def segment_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
     return i_arr - first
 
 
-def build_cell_list(pos: torch.Tensor, mask: torch.Tensor, origin: float,
-                    extent: float, n_cells: int, capacity: int) -> CellList:
-    """Bin ``pos`` into a periodic n_cells^3 grid over [origin, origin +
-    extent). Masked particles land in no cell; a full cell drops its
-    excess."""
+def _axes3(v, like: torch.Tensor) -> torch.Tensor:
+    """A float, a 0-d tensor or a [3] tensor as a [3] tensor like ``like``
+    (a device tensor stays on the device: no host sync)."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).expand(
+        3).clone()
+
+
+def build_cell_list(pos: torch.Tensor, mask: torch.Tensor, origin, extent,
+                    n_cells: int, capacity: int,
+                    periodic: bool = True) -> CellList:
+    """Bin ``pos`` into an n_cells^3 grid over [origin, origin + extent)
+    (``origin``, ``extent``: a float or a tensor, per axis or one for all).
+    Cell coordinates wrap on a periodic grid and are clamped to the edge
+    cells otherwise. Masked particles land in no cell; a full cell drops
+    its excess."""
     n = pos.shape[0]
     dev = pos.device
-    origin_t = torch.full((3,), float(origin), dtype=pos.dtype, device=dev)
-    extent_t = torch.full((3,), float(extent), dtype=pos.dtype, device=dev)
-    inv_cell = float(n_cells) / extent_t
-    coords = torch.remainder(
-        torch.floor((pos - origin_t) * inv_cell).to(torch.int32), n_cells)
+    origin_t = _axes3(origin, pos)
+    extent_t = _axes3(extent, pos)
+    inv_cell = torch.full_like(extent_t, n_cells) / extent_t
+    coords = torch.floor((pos - origin_t) * inv_cell).to(torch.int32)
+    coords = torch.remainder(coords, n_cells) if periodic else \
+        coords.clamp(0, n_cells - 1)
     cid_real = (coords[:, 0] * n_cells + coords[:, 1]) * n_cells \
         + coords[:, 2]
     total = n_cells ** 3
@@ -104,4 +117,5 @@ def build_cell_list(pos: torch.Tensor, mask: torch.Tensor, origin: float,
         cells=cells[:total].contiguous(),
         cell_of=torch.where(mask, cid_real, torch.full_like(cid_real, -1)),
         counts=counts[:total], overflow=overflow, origin=origin_t,
-        inv_cell=inv_cell, gslot=gslot, n_cells=n_cells)
+        inv_cell=inv_cell, gslot=gslot, n_cells=n_cells,
+        periodic=periodic)

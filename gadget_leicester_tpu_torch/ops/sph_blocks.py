@@ -30,16 +30,15 @@ from __future__ import annotations
 import torch
 
 from gadget_leicester_tpu_torch import kernels
-from gadget_leicester_tpu_torch.core.config import GAMMA, GAMMA_MINUS1
 from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   cell_activity_flags,
                                                   entry_particles)
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList, merge_rows,
                                                       scatter_rows,
                                                       segment_ranks)
-from gadget_leicester_tpu_torch.ops.sph_dense import (DensityResult,
-                                                      HydroResult,
-                                                      density_adaptive_generic)
+from gadget_leicester_tpu_torch.ops.sph_dense import (
+    DENSITY_FILL, DensityResult, HydroResult, density_adaptive_generic,
+    density_columns, density_result, hydro_params, hydro_result, hydro_table)
 from gadget_leicester_tpu_torch.ops.sph_kernels import (kernel_dw_dr,
                                                         kernel_w_and_dwdh)
 
@@ -443,22 +442,6 @@ def _block_flags(cl_e: CellList, active, gas_mask):
     return cell_activity_flags(cl_e, active & gas_mask)
 
 
-# a particle that no slot holds: rho 0, dhsml 1, div 0, curl 0, ngb 0, h 1
-_DENSITY_FILL = (0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
-
-
-def _density_columns(res: DensityResult) -> torch.Tensor:
-    """[S, 6] per-slot fields in the order of _DENSITY_FILL."""
-    return torch.stack([res.rho, res.dhsml_factor, res.div_vel, res.curl_vel,
-                        res.num_ngb_eff, res.hsml], -1)
-
-
-def _density_result(vals: torch.Tensor, iters: int) -> DensityResult:
-    return DensityResult(rho=vals[:, 0], dhsml_factor=vals[:, 1],
-                         div_vel=vals[:, 2], curl_vel=vals[:, 3],
-                         num_ngb_eff=vals[:, 4], hsml=vals[:, 5], iters=iters)
-
-
 def density_adaptive_blocks(pos, vel, mass, hsml0, gas_mask,
                             des_num_ngb: float, max_dev: float, box: float,
                             cls, max_hsml: float, min_hsml: float = 0.0,
@@ -500,11 +483,11 @@ def density_adaptive_blocks(pos, vel, mass, hsml0, gas_mask,
 
     # one row gather over the inverse slot map; dropped/dead particles
     # take the fill row
-    slots = _density_columns(res)
-    slots = torch.cat([slots, slots.new_tensor([_DENSITY_FILL])], 0)
+    slots = density_columns(res)
+    slots = torch.cat([slots, slots.new_tensor([DENSITY_FILL])], 0)
     gidx = torch.where(cl_e.gslot >= 0, cl_e.gslot,
                        torch.full_like(cl_e.gslot, b * lanes)).long()
-    return _density_result(slots[gidx], res.iters), cls
+    return density_result(slots[gidx], res.iters), cls
 
 
 def density_adaptive_blocks_entries(pos, vel, mass, hsml0, gas_mask,
@@ -548,10 +531,10 @@ def density_adaptive_blocks_entries(pos, vel, mass, hsml0, gas_mask,
         sweep, mass_slots.reshape(-1), h0_slots.reshape(-1),
         valid.reshape(-1), des_num_ngb, max_dev, min_hsml=min_hsml,
         max_hsml=max_hsml)
-    slots = _density_columns(res).reshape(k, lt, 6).transpose(1, 2)
+    slots = density_columns(res).reshape(k, lt, 6).transpose(1, 2)
     vals = scatter_rows(slots, pidx, valid, pos.shape[0],
-                        fill=slots.new_tensor(_DENSITY_FILL))
-    return _density_result(vals, res.iters)
+                        fill=slots.new_tensor(DENSITY_FILL))
+    return density_result(vals, res.iters)
 
 
 def count_block_entries(cl_e: CellList, active,
@@ -569,24 +552,6 @@ def count_block_entries(cl_e: CellList, active,
     counts = torch.zeros(nb ** 3, dtype=torch.int32, device=bid.device)
     counts.index_add_(0, bid.long(), active.to(torch.int32))
     return ((counts + lanes - 1) // lanes).sum()
-
-
-def _hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor, div_vel,
-                 curl_vel, fac_mu) -> torch.Tensor:
-    """[N, 16] rows x, y, z, m, vx, vy, vz, h, rho, P/rho^2 f, c_sound,
-    Balsara, valid (1), 0, 0, 0; row 13 stays 0 (the self-pair is excluded
-    by the int32 particle indices instead)."""
-    rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
-    c_snd = torch.sqrt(GAMMA * pressure / rho_safe)
-    p_over_rho2 = pressure / rho_safe ** 2 * dhsml_factor
-    h_safe = torch.where(hsml > 0, hsml, torch.ones_like(hsml))
-    balsara = div_vel.abs() / (div_vel.abs() + curl_vel
-                               + 1e-4 * c_snd / h_safe / fac_mu)
-    zero = torch.zeros_like(mass)
-    return torch.stack(
-        [pos[:, 0], pos[:, 1], pos[:, 2], mass, vel[:, 0], vel[:, 1],
-         vel[:, 2], hsml, rho, p_over_rho2, c_snd, balsara,
-         torch.ones_like(mass), zero, zero, zero], dim=1)
 
 
 def _hydro_rows(cl: CellList, table16, idx, valid, centers,
@@ -614,23 +579,18 @@ def _pack16(cl: CellList, table16, gas_mask, centers, box: float):
     return rows.transpose(1, 2).contiguous(), ids.contiguous()
 
 
-def _hydro_params(hubble_a2_flow, fac_mu: torch.Tensor) -> torch.Tensor:
-    return torch.stack([torch.as_tensor(hubble_a2_flow, dtype=fac_mu.dtype,
-                                        device=fac_mu.device), fac_mu])
-
-
 def pack_hydro_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                       dhsml_factor, div_vel, curl_vel, gas_mask, box: float,
                       hubble_a2_flow, fac_mu, active=None):
     """Kernel D's inputs: (soa_a, soa_b, src16, idx_e, idx_o, flags,
     params) from the particle fields, as one [N, 16]-row gather per list
-    (rows of :func:`_hydro_table`, soa_a = rows 0-7, soa_b = rows
+    (rows of :func:`hydro_table`, soa_a = rows 0-7, soa_b = rows
     8-15)."""
     cl_e, cl_o = cls
     nb = cl_e.n_cells
     lf = box / (2 * nb)
     fac_mu = torch.as_tensor(fac_mu, dtype=pos.dtype, device=pos.device)
-    table16 = _hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor,
+    table16 = hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor,
                            div_vel, curl_vel, fac_mu)
     rows_e, idx_e = _pack16(cl_e, table16, gas_mask,
                             block_centers(nb, "even", lf, cl_e.origin), box)
@@ -638,21 +598,7 @@ def pack_hydro_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                            block_centers(nb, "odd", lf, cl_o.origin), box)
     return (rows_e[:, :8].contiguous(), rows_e[:, 8:].contiguous(), src16,
             idx_e, idx_o, _block_flags(cl_e, active, gas_mask),
-            _hydro_params(hubble_a2_flow, fac_mu))
-
-
-def _hydro_result(res5, rho, gas_mask, hubble_a2_norm) -> HydroResult:
-    """HydroResult from the merged [Ng, 5] sums: dA/dt gets its factor
-    (gamma - 1) / (a^2 H rho^(gamma - 1)); non-gas rows are 0."""
-    rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
-    norm = torch.as_tensor(hubble_a2_norm, dtype=rho.dtype, device=rho.device)
-    dt_ent = res5[:, 3] * GAMMA_MINUS1 / (norm * rho_safe ** GAMMA_MINUS1)
-    zero = torch.zeros_like(rho)
-    return HydroResult(
-        acc=torch.where(gas_mask[:, None], res5[:, :3],
-                        torch.zeros_like(res5[:, :3])),
-        dt_entropy=torch.where(gas_mask, dt_ent, zero),
-        max_signal_vel=torch.where(gas_mask, res5[:, 4], zero))
+            hydro_params(hubble_a2_flow, fac_mu))
 
 
 def hydro_force_blocks(cls, pos, vel, mass, hsml, rho, pressure,
@@ -668,7 +614,7 @@ def hydro_force_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                               hubble_a2_flow, fac_mu, active)
     out = hydro_sums_blocks(*packs, cl_e.n_cells, box / (2 * cl_e.n_cells),
                             visc_const)
-    return _hydro_result(merge_rows(out, cl_e, 5), rho, gas_mask,
+    return hydro_result(merge_rows(out, cl_e, 5), rho, gas_mask,
                          hubble_a2_norm)
 
 
@@ -684,7 +630,7 @@ def hydro_force_blocks_entries(cls, pos, vel, mass, hsml, rho, pressure,
     nb = cl_e.n_cells
     lf = box / (2 * nb)
     fac_mu = torch.as_tensor(fac_mu, dtype=pos.dtype, device=pos.device)
-    table16 = _hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor,
+    table16 = hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor,
                            div_vel, curl_vel, fac_mu)
     src16, idx_o = _pack16(cl_o, table16, gas_mask,
                            block_centers(nb, "odd", lf, cl_o.origin), box)
@@ -695,6 +641,6 @@ def hydro_force_blocks_entries(cls, pos, vel, mass, hsml, rho, pressure,
     tidx = torch.where(valid, pidx, torch.full_like(pidx, -1))
     out = hydro_sums_blocks_entries(
         tgt16.transpose(1, 2).contiguous(), tidx.contiguous(), src16, idx_o,
-        entry_blk, _hydro_params(hubble_a2_flow, fac_mu), nb, lf, visc_const)
-    return _hydro_result(scatter_rows(out, pidx, valid, pos.shape[0]), rho,
+        entry_blk, hydro_params(hubble_a2_flow, fac_mu), nb, lf, visc_const)
+    return hydro_result(scatter_rows(out, pidx, valid, pos.shape[0]), rho,
                          gas_mask, hubble_a2_norm)

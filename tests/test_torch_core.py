@@ -15,12 +15,14 @@ from gadget_leicester_tpu.core import config as jconfig
 from gadget_leicester_tpu.core import cosmology as jcosmo
 from gadget_leicester_tpu.core import state as jstate
 from gadget_leicester_tpu.core import timeline as jtimeline
+from gadget_leicester_tpu.models.ics import gassphere_ics as j_gassphere_ics
 from gadget_leicester_tpu.models.ics import lcdm_gas_ics as j_lcdm_gas_ics
 from gadget_leicester_tpu_torch.core import config as tconfig
 from gadget_leicester_tpu_torch.core import cosmology as tcosmo
 from gadget_leicester_tpu_torch.core import state as tstate
 from gadget_leicester_tpu_torch.core import timeline as ttimeline
-from gadget_leicester_tpu_torch.models.ics import lcdm_gas_ics
+from gadget_leicester_tpu_torch.models.ics import (gassphere_ics,
+                                                   lcdm_gas_ics)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAM_FILES = sorted(glob.glob(os.path.join(REPO, "parameterfiles",
@@ -205,3 +207,18 @@ def test_lcdm_gas_ics_identical():
             assert b is None
         else:
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_gas=300),
+                                dict(mode="random", seed=5, n_gas=200)],
+                         ids=["stock_grid", "small_grid", "random"])
+def test_gassphere_ics_identical(kw):
+    """The copied Evrard-sphere generator gives the reference's arrays bit
+    for bit: the stretched lattice (1,791 particles for the stock n_gas =
+    1472) and the seeded random sphere."""
+    got, want = gassphere_ics(**kw), j_gassphere_ics(**kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    if not kw:
+        assert len(got[0]) == 1791

@@ -1,11 +1,13 @@
-"""Kernels A-H on the card against their plain versions on the same CUDA
+"""Kernels A-K on the card against their plain versions on the same CUDA
 tensors (marked ``cuda``: they skip where there is no card; on the H100
 run ``python -m pytest --noconftest tests/test_torch_cuda.py``). A-D get
 the arguments the path gives each wrapper while it initialises a 2x12^3
 box, H those of the full potential of the initialised box; E-G those of a
 near-idle sync point of that box (``chip_smoke.make_near_idle``).
-chip_smoke.py runs the same comparisons and the main path; these keep
-them in the test suite."""
+I/J and K get those of a 2x12^3 box initialised with
+``sph_backend="cells"`` (periodic) and of a vacuum blob, at capacities
+128 and 256. chip_smoke.py runs the same comparisons and the main path;
+these keep them in the test suite."""
 
 import pytest
 import torch
@@ -84,3 +86,41 @@ def test_potential_kernel_forces_match_kernel_a(recorded):
     """H's rows 0-2 against kernel A on H's arguments, within A's bound
     (chip_smoke.check_potential_forces raises outside it)."""
     chip_smoke.check_potential_forces(recorded, "n_side=12")
+
+
+CELL_CASES = [("periodic", 4, 128), ("periodic", 3, 256),
+              ("vacuum", 4, 128), ("vacuum", 3, 256)]
+
+
+@pytest.fixture(scope="module")
+def recorded_cells():
+    """{(mode, cells per axis, capacity): the wrappers' arguments} of
+    kernels I/J and K."""
+    _need_card()
+    return {(mode, grid, cap): (
+        chip_smoke.record_init(12, "cuda", sph_backend="cells",
+                               sph_grid=grid, sph_capacity=cap)
+        if mode == "periodic" else
+        chip_smoke.record_vacuum_blob("cuda", grid, cap))
+        for mode, grid, cap in CELL_CASES}
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("mode,grid,cap", CELL_CASES)
+@pytest.mark.parametrize("name", sorted(chip_smoke.CELLS))
+def test_cells_kernel_matches_plain_on_card(recorded_cells, name, mode, grid,
+                                            cap, case):
+    """I/J: all cells, and every other cell gated off; K: with and without
+    the Hubble-flow term."""
+    _check(recorded_cells[mode, grid, cap], name, case)
+
+
+def test_cells_backend_needs_a_card_on_cuda_tensors():
+    """On CUDA tensors the wrappers launch their kernels: the launch
+    counts grow and the plain versions are not what answered."""
+    _need_card()
+    rec = chip_smoke.record_vacuum_blob("cuda", 4, 128)
+    kern, _ = chip_smoke.kernel_pairs()["sph_cells_hydro"]
+    before = kernels.launches["sph_cells_hydro"]
+    out = kern(*rec["sph_cells_hydro"])
+    assert out.is_cuda and kernels.launches["sph_cells_hydro"] == before + 1

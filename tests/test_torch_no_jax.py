@@ -1,7 +1,9 @@
 """The port must run where jax is not installed (the machine with the
 card has none): with jax made unimportable, every module of the port
 (the run loop's I/O, diagnostics and CLI modules among them) and
-chip_smoke.py import, and one sync point of a 2x10^3 box runs on the CPU."""
+chip_smoke.py import, and on the CPU one sync point of a 2x10^3 box runs
+under the block and the coarse-cell SPH backend, and two of a small Evrard
+sphere under direct gravity and all-pairs SPH."""
 
 import os
 import pathlib
@@ -22,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 new = {"__main__", "io.restart", "io.snapshot", "io.state_io",
-       "utils.diagnostics", "utils.logfiles"}
+       "utils.diagnostics", "utils.logfiles", "ops.sph_cells",
+       "ops.gravity_direct", "ops.sph_dense"}
 assert {pkg.__name__ + "." + m for m in new} <= set(names), names
 import chip_smoke
 from gadget_leicester_tpu_torch.core.config import SimOptions, parse_parameter_text
@@ -40,6 +43,20 @@ sim.step()
 import torch
 assert torch.isfinite(sim.state.p.pos).all()
 assert int(sim.state.overflow_flags) == 0
+# the coarse-cell backend, and the vacuum gas path (direct gravity,
+# all-pairs SPH)
+sim = Simulation(cfg, opts.replace(sph_backend="cells"), "cpu")
+sim.set_ics(pos, vel, mass, ptype, u=u)
+sim.step()
+assert torch.isfinite(sim.state.gas.density).all()
+assert int(sim.state.overflow_flags) == 0
+from gadget_leicester_tpu_torch.models.ics import gassphere_ics
+gcfg = parse_parameter_text(chip_smoke.gassphere_param_text("x", "y", 0.5))
+pos, vel, mass, ptype, u = gassphere_ics(n_gas=200)
+gsim = Simulation(gcfg, SimOptions(periodic=False), "cpu")
+gsim.set_ics(pos, vel, mass, ptype, u=u)
+gsim.step(2)
+assert torch.isfinite(gsim.state.p.vel).all() and int(gsim.state.ti_current) > 0
 leaked = sorted(m for m in sys.modules
                 if m == "gadget_leicester_tpu" or m.startswith("gadget_leicester_tpu."))
 assert not leaked, leaked
