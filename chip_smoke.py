@@ -7,8 +7,9 @@ Needs one CUDA device, the CUDA toolkit (``nvcc``) and this checkout; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the ten kernels of ``gadget_leicester_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+2. build: compile the twelve kernel sources of
+   ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+   once);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -17,7 +18,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    also against kernel A on the same arguments; the coarse-cell SPH
    kernels I/J and K the same way, on the small box with
    ``sph_backend="cells"`` (periodic) and on a vacuum blob, at capacities
-   128 and 256;
+   128 and 256; kernel L (the cell-window PM gather) on the small box's
+   mesh stack with 3 and 4 components, at fresh and at drifted positions
+   (some beyond the window); kernel M (short-range gravity in absolute
+   coordinates) on the small box, periodic with the TreePM truncation, and
+   on a vacuum blob on a clamped grid without it;
 4. slice: 2 sync points of the small box on the card against the same on
    the CPU (the plain versions), by the bounds of tests/test_torch_slice;
    the full potential of the state after 1 of them, card against CPU;
@@ -63,7 +68,24 @@ imports nothing of JAX. Phases, each printing its own lines:
    t = 0.5 (direct gravity, all-pairs SPH), its energy.txt and final
    momentum held to the bounds of ``tests/test_gassphere_e2e.py``; then,
    on that run's last state, one SPH pass through the coarse-cell backend
-   in vacuum mode held against the all-pairs pass.
+   in vacuum mode held against the all-pairs pass;
+11. kernel L at full width (:func:`phase_gather`): from the 2x128^3 state
+   phase 5 left, one PM step's mesh stack (kernel B's deposit,
+   ``pm_forces_periodic(..., return_field=True)``), then
+   ``pm_gather_tiles`` over the cached gravity cell list, with its real
+   staleness, for 3 and 4 components, held to the row gather on the same
+   mesh; L timed alone and with its pack and merge, beside the row gather
+   and ``torch.nn.functional.grid_sample``;
+12. kernel M at full width (:func:`phase_gravity_cells`): on the same
+   state, ``shortrange_gravity_fresh`` with the TreePM asmth and rcut on
+   the potential pass's fresh grid, held to its float64 plain version and
+   to kernel H's force rows on the same fresh list, timed beside A and H;
+13. the tree runs (:func:`phase_tree`): ``parameterfiles/galaxy.param`` and
+   ``cluster.param`` on their 20,000-particle ICs through ``python -m
+   gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
+   the bounds of ``tests/test_galaxy_cluster_e2e.py``; one tree force
+   computation of the galaxy ICs against the direct sum; a small periodic
+   box through the Ewald tree against the exact periodic sum.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -118,7 +140,8 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "sph_density": 1e-4, "sph_hydro": 1e-4,
        "shortrange_gravity_entries": 1e-4, "sph_density_entries": 1e-4,
        "sph_hydro_entries": 1e-4, "shortrange_potential": 1e-4,
-       "sph_cells_density": 1e-4, "sph_cells_hydro": 1e-4}
+       "sph_cells_density": 1e-4, "sph_cells_hydro": 1e-4,
+       "pm_gather": 1e-5, "shortrange_gravity_cells": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -130,6 +153,8 @@ ENTRIES = ("shortrange_gravity_entries", "sph_density_entries",
            "sph_hydro_entries")
 POTENTIAL = ("shortrange_potential",)
 CELLS = ("sph_cells_density", "sph_cells_hydro")
+GATHER = ("pm_gather",)
+GRAVITY_CELLS = ("shortrange_gravity_cells",)
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -160,6 +185,11 @@ KERNELS = {
     "sph_cells_hydro": (
         "gadget_leicester_tpu_torch/csrc/sph_cells_hydro.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:1363"),
+    "pm_gather": ("gadget_leicester_tpu_torch/csrc/pm_gather.cu",
+                  "gadget_leicester_tpu/ops/pm_tiles.py:231"),
+    "shortrange_gravity_cells": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1581"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
@@ -179,7 +209,15 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
 # pays the test of the cut, TEST_OPS; the pairs inside the cut (0 < r <
 # rcut for gravity, r < h or max(h_i, h_j) for SPH, counted on the
 # recorded arguments) pay OPS_PER_PAIR in all, for the branch beyond the
-# softening. Kernel B: its live slots times OPS_PER_DEPOSIT.
+# softening. Kernel B: its live slots times OPS_PER_DEPOSIT. Kernel L: its
+# live slots times 15 (the mesh coordinate, floor and the six weights)
+# plus, for each of 8 corners, 2 for its weight and an FMA per component;
+# its bytes are the four pack rows it reads (x, y, z and the valid row),
+# the mesh and the output. Kernel M: A's 10-operation test and, on a
+# periodic grid, 12 for the per-pair minimum image (per axis a multiply, a
+# round and an FMA) on every live stencil pair; a pair inside the cut pays
+# A's 50 in all plus the 12 and 2 for the exact r < rcut test, less 22
+# where the truncation polynomial is off (asmth = 0).
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TEST_OPS = {"shortrange_gravity": 10, "shortrange_gravity_entries": 10,
@@ -193,6 +231,8 @@ OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
                 "sph_hydro_entries": 86, "sph_cells_density": 73,
                 "sph_cells_hydro": 86}
 OPS_PER_DEPOSIT = 44
+MIN_IMAGE_OPS = 12
+TRUNC_OPS = 22
 
 _PKG = "gadget_leicester_tpu_torch"
 # phase 7: the functions a sync point spends its time in, each timed with
@@ -396,6 +436,125 @@ def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
     return dict(rec)
 
 
+def record_gather_small(device, n_side: int, k: int, drifted: bool,
+                        seed: int = 11) -> dict:
+    """The arguments kernel L's wrapper gets from ``pm_gather_tiles`` on
+    the lcdm_gas box at ``n_side``: the mesh stack of one PM step with
+    ``k`` components (3 forces, or 4 with the potential), the gravity cell
+    list built at the ICs, and the positions read either there or, with
+    ``drifted``, after a seeded drift of up to half the list's margin with
+    1% of the particles moved by up to two cells, beyond any window. The
+    gathered values are held to the row gather on the same mesh."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.models.grids import grav_grid_geometry
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
+                                                   pm_forces_periodic)
+    from gadget_leicester_tpu_torch.ops.pm_tiles import pm_gather_tiles
+    cfg, opts, (pos, _, mass, _, _) = setup(n_side)
+    box, g = float(cfg.box_size), opts.pmgrid
+    n_cells, cap, margin = grav_grid_geometry(cfg, opts, len(pos))
+    pos_t = torch.as_tensor(pos, dtype=torch.float32).to(device)
+    mass_t = torch.as_tensor(mass, dtype=torch.float32).to(device)
+    alive = torch.ones(len(pos), dtype=torch.bool, device=pos_t.device)
+    alive[::17] = False
+    cl = build_cell_list(pos_t, alive, 0.0, box, n_cells=n_cells,
+                         capacity=cap)
+    if bool(cl.overflow):
+        raise AssertionError("the small box overflowed its gravity cells")
+    if drifted:
+        rng = np.random.default_rng(seed)
+        d = rng.uniform(-margin / 2, margin / 2, pos.shape)
+        far = rng.uniform(size=len(pos)) < 0.01
+        d[far] = rng.uniform(-2 * box / n_cells, 2 * box / n_cells,
+                             (int(far.sum()), 3))
+        pos_t = pos_t + torch.as_tensor(d, dtype=torch.float32).to(device)
+    field = pm_forces_periodic(pos_t, mass_t, alive, box, g,
+                               return_field=True, with_potential=k == 4)
+    with recorded_inputs() as rec:
+        got = pm_gather_tiles(field, cl, pos_t, alive, box, g, n_cells,
+                              margin * g / box)
+    want = cic_gather_vec(field, torch.remainder(pos_t, box), box, g)
+    want = torch.where(alive[:, None], want, torch.zeros_like(want))
+    check_gather_values("kernels", f"n_side={n_side} K={k} "
+                        f"{'drifted' if drifted else 'fresh'}", got, want)
+    return dict(rec)
+
+
+# the cell-window gather against the row gather on the same mesh, per
+# component as a share of its largest value: the two take the mesh
+# coordinate from a cell-relative and from an absolute float32 position,
+# which differ by up to 2e-5 mesh cells at 192 cells a box, times the
+# field's change across a mesh cell (a fraction of its largest value)
+GATHER_VS_ROWS = 1e-4
+
+
+def check_gather_values(phase: str, what: str, got, want) -> float:
+    """Hold ``pm_gather_tiles``' values to the row gather's
+    (:data:`GATHER_VS_ROWS`); returns the largest share."""
+    import torch
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: wrong shape or not finite")
+    worst = max(float((got[:, k] - want[:, k]).abs().max())
+                / (float(want[:, k].abs().max()) or 1.0)
+                for k in range(got.shape[1]))
+    ok = worst <= GATHER_VS_ROWS
+    say(phase, f"pm_gather_tiles vs row gather, {what}: largest difference "
+        f"{worst:.2e} of a component's largest value (bound "
+        f"{GATHER_VS_ROWS:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the cell-window gather disagrees "
+                             "with the row gather")
+    return worst
+
+
+def record_gravity_cells_small(device, n_side: int, periodic: bool,
+                               seed: int = 5) -> dict:
+    """The arguments kernel M's wrapper gets from
+    ``shortrange_gravity_fresh``: periodic, on the lcdm_gas box at
+    ``n_side`` with the TreePM asmth and rcut and the potential pass's
+    grid; vacuum, on a seeded blob of 3,000 unequal masses inside the unit
+    box on a clamped 4^3 grid, plain softened gravity cut at the cell
+    edge. Raises if a cell overflowed."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.ops.gravity_short import \
+        shortrange_gravity_fresh
+    from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
+    if periodic:
+        cfg, opts, (pos, _, mass, _, _) = setup(n_side)
+        box = float(cfg.box_size)
+        asmth = ASMTH * box / opts.pmgrid
+        rcut = RCUT * asmth
+        n_cells = max(3, int(box / rcut))
+        soft = np.full(len(pos), 2.8 * box / n_side / 30)
+    else:
+        rng = np.random.default_rng(seed)
+        n = 3000
+        x = rng.normal(size=(n, 3))
+        x *= (rng.uniform(size=n) ** (1 / 3) / np.linalg.norm(x, axis=1))[:, None]
+        pos, mass = 0.5 + 0.45 * x, rng.uniform(0.5, 1.5, size=n) / n
+        box, asmth, rcut, n_cells = 1.0, 0.0, 0.25, 4
+        soft = rng.uniform(0.01, 0.05, size=n)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(device)
+
+    alive = torch.ones(len(pos), dtype=torch.bool, device=dev(mass).device)
+    alive[::13] = False
+    with recorded_inputs() as rec:
+        acc, ovf = shortrange_gravity_fresh(
+            dev(pos), dev(mass), dev(soft), alive, box, n_cells,
+            capacity=256, asmth=asmth, rcut=rcut, periodic=periodic)
+    if bool(ovf) or not bool(torch.isfinite(acc).all()):
+        raise AssertionError("kernel M's small case overflowed or is not "
+                             "finite")
+    return dict(rec)
+
+
 def kernel_pairs() -> dict:
     """{kernel: (wrapper, plain version)}; both take the wrapper's
     arguments."""
@@ -422,6 +581,11 @@ def kernel_pairs() -> dict:
         "shortrange_potential": (
             cells.shortrange_potential_tiles,
             gravity_short.shortrange_potential_tiles_plain),
+        "pm_gather": (pm_tiles.pm_gather_windows,
+                      pm_tiles.pm_gather_windows_plain),
+        "shortrange_gravity_cells": (
+            cells.shortrange_gravity_cells,
+            gravity_short.shortrange_gravity_cells_plain),
     }
 
 
@@ -577,6 +741,34 @@ def cells_pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
+def gravity_cells_pair_count(args: tuple) -> tuple:
+    """:func:`pair_count` of kernel M: the live pairs of the 27-cell
+    stencil on the absolute pack (cells beyond a clamped grid's edge left
+    out), and those with 0 < r < rcut after the per-pair minimum image."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    soa, n, box, periodic, _, rcut = args
+    cells = torch.nonzero((soa[:, 5] > 0).any(-1)).flatten()
+    stencil = in_cut = 0
+    for k0 in range(0, cells.numel(), 64):
+        k = cells[k0:k0 + 64]
+        ids, inside = gs.stencil_cells(n, k, periodic)
+        t, s = soa[k], soa[ids]
+        d2 = 0.0
+        for a in range(3):
+            d = t[:, a, :, None] - s[:, :, a].flatten(1)[:, None, :]
+            if periodic:
+                d = d - box * torch.round(d * (1.0 / box))
+            d2 = d2 + d * d
+        sl = ((s[:, :, 5] > 0) & inside[:, :, None]).flatten(1)
+        pair = (t[:, 5] > 0)[:, :, None] & sl[:, None, :]
+        r = torch.sqrt(d2)
+        stencil += int(pair.sum())
+        in_cut += int((pair & (r < rcut) & (r > 0.0)).sum())
+    return stencil, in_cut
+
+
 def pair_count(name: str, args: tuple) -> tuple:
     """(pairs of a live target and a live source in the target's stencil,
     the pairs among them inside the cut) over the tiles or entries that
@@ -590,6 +782,11 @@ def pair_count(name: str, args: tuple) -> tuple:
         return n, n
     if name in CELLS:
         return cells_pair_count(name, args)
+    if name == "pm_gather":
+        n = int((args[0][:, 5] > 0).sum())
+        return n, n
+    if name == "shortrange_gravity_cells":
+        return gravity_cells_pair_count(args)
     t_all, live_all, where_all, h_all, tid_all = _targets(name, args)
     gravity = name.startswith("shortrange")
     if gravity:
@@ -644,13 +841,25 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
     ``args`` (into ``out``), by the rule at PEAK_FLOPS."""
     import torch
     stencil, in_cut = pair_count(name, args)
+    nbytes = out.numel() * out.element_size() + sum(
+        a.numel() * a.element_size() for a in args if torch.is_tensor(a))
     if name == "pm_deposit":
         ops = stencil * OPS_PER_DEPOSIT
+    elif name == "pm_gather":
+        soa, field = args[:2]
+        ops = stencil * (15 + 8 * (2 + 2 * field.shape[-1]))
+        nbytes -= soa.numel() * soa.element_size() // 2   # 4 of 8 rows read
+    elif name == "shortrange_gravity_cells":
+        periodic, asmth = args[3], args[4]
+        test = TEST_OPS["shortrange_gravity"] \
+            + (MIN_IMAGE_OPS if periodic else 0)
+        inside = OPS_PER_PAIR["shortrange_gravity"] + 2 \
+            + (MIN_IMAGE_OPS if periodic else 0) \
+            - (0 if asmth > 0 else TRUNC_OPS)
+        ops = stencil * test + in_cut * (inside - test)
     else:
         ops = (stencil * TEST_OPS[name]
                + in_cut * (OPS_PER_PAIR[name] - TEST_OPS[name]))
-    nbytes = out.numel() * out.element_size() + sum(
-        a.numel() * a.element_size() for a in args if torch.is_tensor(a))
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return {"pairs": stencil, "in_cut": in_cut, "ops": ops, "bytes": nbytes,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -732,6 +941,19 @@ def phase_kernels(results: dict, device="cuda", n_small=N_SIDE_SMALL):
         recorded = record_vacuum_blob(device, grid, cap)
         check_kernels(recorded, f"vacuum blob {grid}^3 cells x {cap}",
                       results, CELLS)
+    # L: 3 and 4 components, fresh and drifted positions
+    for k in (3, 4):
+        for drifted in (False, True):
+            recorded = record_gather_small(device, n_small, k, drifted)
+            check_kernels(recorded, f"n_side={n_small} K={k} "
+                          f"{'drifted' if drifted else 'fresh'}", results,
+                          GATHER)
+    # M: periodic with the truncation, vacuum without
+    for periodic in (True, False):
+        recorded = record_gravity_cells_small(device, n_small, periodic)
+        check_kernels(recorded, f"n_side={n_small} periodic" if periodic
+                      else "vacuum blob 4^3 cells x 256", results,
+                      GRAVITY_CELLS)
 
 
 def report_close(phase: str, what: str, res: dict) -> None:
@@ -929,7 +1151,8 @@ def phase_main(results: dict, card: str, device="cuda",
     """The full-active main path under ``sph_backend``: ``set_ics`` and
     ``MAIN_STEPS`` sync points, the launch counts set to 0 just before and
     read just after. Returns the simulation, the arguments each kernel
-    wrapper got last, and the SPH fields ``set_ics`` left."""
+    wrapper got last, the SPH fields ``set_ics`` left, and the launch
+    counts."""
     import torch
 
     from gadget_leicester_tpu_torch import kernels
@@ -994,7 +1217,7 @@ def phase_main(results: dict, card: str, device="cuda",
         elif n != 0:
             raise AssertionError(f"kernel {name} was launched {n} times on "
                                  f"the full-active {sph_backend} main path")
-    return sim, recorded, init_sph
+    return sim, recorded, init_sph, counts
 
 
 @contextlib.contextmanager
@@ -1286,8 +1509,8 @@ def phase_cells(results: dict, blocks_init: dict, card: str, device="cuda",
     from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
                                                          sph_blocks_geometry,
                                                          sph_cells_geometry)
-    sim, recorded, cells_init = phase_main(results, card, device, n_side,
-                                           sph_backend="cells", phase="cells")
+    sim, recorded, cells_init, _ = phase_main(
+        results, card, device, n_side, sph_backend="cells", phase="cells")
     cfg, opts = sim.cfg, sim.opts
     st = sim.state
     ng = st.n_gas_max
@@ -1380,19 +1603,61 @@ def write_gassphere_ics(path: str) -> int:
     return n
 
 
+def stock_param_text(name: str, ics: str, outdir: str, t_end: float,
+                     **replace) -> str:
+    """``parameterfiles/<name>.param`` with its IC file, output directory
+    and TimeMax set, and any further ``key=value`` of ``replace``."""
+    root = Path(__file__).resolve().parent
+    values = dict(replace, InitCondFile=ics, OutputDir=outdir, TimeMax=t_end)
+    out = []
+    for line in (root / "parameterfiles" / f"{name}.param").read_text() \
+            .splitlines():
+        key = line.split()[0] if line.split() else ""
+        out.append(f"{key}  {values[key]}" if key in values else line)
+    return "\n".join(out) + "\n"
+
+
 def gassphere_param_text(ics: str, outdir: str, t_end: float) -> str:
     """``parameterfiles/gassphere.param`` with its IC file, output
     directory and TimeMax set, and a restart dump after every sync point
     (the last one is the run's final state)."""
-    root = Path(__file__).resolve().parent
-    out = []
-    for line in (root / "parameterfiles" / "gassphere.param").read_text() \
-            .splitlines():
-        key = line.split()[0] if line.split() else ""
-        new = {"InitCondFile": ics, "OutputDir": outdir, "TimeMax": t_end,
-               "CpuTimeBetRestartFile": 0.0}.get(key)
-        out.append(line if new is None else f"{key}  {new}")
-    return "\n".join(out) + "\n"
+    return stock_param_text("gassphere", ics, outdir, t_end,
+                            CpuTimeBetRestartFile=0.0)
+
+
+def tree_ics(which: str, n: int = 20000):
+    """(pos, vel, mass, ptype) of the stock collisionless workloads at
+    ``n`` particles, as ``parameterfiles/make_ics.py`` makes them:
+    ``galaxy``, two Plummer spheres on a collision orbit; ``cluster``, one
+    Plummer sphere of 1e13 Msun/h and 500 kpc/h, off the origin, for the
+    comoving run with vacuum boundaries."""
+    from gadget_leicester_tpu_torch.models import ics
+    if which == "galaxy":
+        return ics.galaxy_collision_ics(n_each=n // 2)[:4]
+    pos, vel, mass, ptype, _ = ics.plummer_ics(n, total_mass=1000.0, a=500.0,
+                                               g=43007.1)
+    return pos + 25000.0, vel, mass, ptype
+
+
+def write_tree_ics(path: str, which: str, n: int = 20000) -> int:
+    """:func:`tree_ics` as a format-1 GADGET IC file, types in file order;
+    returns the particle count."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.io.snapshot import (Header, SnapshotData,
+                                                        write_snapshot)
+    pos, vel, mass, ptype = tree_ics(which, n)
+    order = np.argsort(ptype, kind="stable")
+    h = Header()
+    for t in range(6):
+        h.npart[t] = int((ptype == t).sum())
+    h.npart_total = h.npart.copy()
+    write_snapshot(path, SnapshotData(
+        header=h, pos=pos[order].astype(np.float32),
+        vel=vel[order].astype(np.float32),
+        ids=np.arange(1, len(pos) + 1, dtype=np.uint32),
+        mass=mass[order].astype(np.float32), u=None), fmt=1)
+    return len(pos)
 
 
 def vacuum_cells_vs_dense(phase: str, state, cfg, opts, n_cells: int,
@@ -1503,6 +1768,384 @@ def phase_gassphere(card: str, device="cuda") -> None:
             vacuum_cells_vs_dense("gassphere", state, cfg, opts, grid, cap)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _main_gravity_inputs(state, n_side: int):
+    """(cfg, opts, box, force softening [N]) of the 2x``n_side``^3 state,
+    as ``compute_forces`` takes them."""
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          softening_table)
+    from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
+    cfg, opts, _ = setup(n_side)
+    fac = comoving_factors(cfg, state.ti_current)
+    soft = SOFTFAC * softening_table(cfg, fac.atime)[state.p.ptype.long()]
+    return cfg, opts, float(cfg.box_size), soft
+
+
+def phase_gather(results: dict, state, main_counts: dict, card: str,
+                 device="cuda", n_side=N_SIDE_MAIN) -> None:
+    """Kernel L at full width (phase 11): the mesh stack of one PM step of
+    ``state`` and the cell-window gather over the cached gravity cell
+    list, against the row gather. The launch counts are set to 0 just
+    before the two gathers (3 and 4 components) and read just after."""
+    import torch
+    import torch.nn.functional as F
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.grids import grav_grid_geometry
+    from gadget_leicester_tpu_torch.ops.cells import pack_cells_soa
+    from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
+    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
+                                                   pm_forces_periodic)
+    from gadget_leicester_tpu_torch.ops.pm_tiles import (pm_deposit_tiles,
+                                                         pm_gather_tiles,
+                                                         pm_gather_windows,
+                                                         window_geometry)
+    cfg, opts, box, soft = _main_gravity_inputs(state, n_side)
+    p = state.p
+    g = opts.pmgrid
+    n_cells, cap, margin = grav_grid_geometry(cfg, opts, p.n_max)
+    cl = state.grids.grav
+    if cl is None or cl.n_cells != n_cells:
+        raise AssertionError("the state carries no cached gravity cell list")
+    margin_pm = margin * g / box
+    w, _ = window_geometry(g, n_cells, margin_pm)
+    say("gather", f"the main path's own launches of pm_gather: "
+        f"{main_counts['pm_gather']} (its step keeps the row gather, as the "
+        "reference's does)")
+    if main_counts["pm_gather"] != 0:
+        raise AssertionError("the main path launched kernel L")
+    say("gather", f"cached gravity cell list {n_cells}^3 cells x "
+        f"{cl.cells.shape[1]} slots, displacement since its build "
+        f"{float(state.grids.grav_disp):.2f} of margin {margin:.2f} kpc/h; "
+        f"pmgrid {g}, window {w}^3 mesh cells ({w ** 3 * 16} bytes at K = 4)")
+    # one PM step's mesh, as the step makes it: kernel B's deposit of the
+    # step's pack, the FFTs, and the stack instead of the row gather
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+    rho = pm_deposit_tiles(soa, n_cells, box, g)
+    fields = {k: pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
+                                    rho_grid=rho, return_field=True,
+                                    with_potential=k == 4) for k in (3, 4)}
+    del soa, rho
+    posw = torch.remainder(p.pos, box)
+    recs = {}
+    kernels.reset_launches()
+    for k, field in fields.items():
+        with recorded_inputs() as rec:
+            got = pm_gather_tiles(field, cl, p.pos, p.alive, box, g, n_cells,
+                                  margin_pm)
+        recs[k] = dict(rec)
+        sync(device)
+        want = cic_gather_vec(field, posw, box, g)
+        want = torch.where(p.alive[:, None], want, torch.zeros_like(want))
+        check_gather_values("gather", f"2x{n_side}^3 K={k}, cached list",
+                            got, want)
+        del got, want
+    counts = dict(kernels.launches)
+    say("gather", f"launches {counts}")
+    if counts["pm_gather"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError("the two gathers did not launch kernel L twice "
+                             "and nothing else")
+    results.setdefault("pm_gather", {})["launches"] = counts["pm_gather"]
+    check_kernels(recs[4], f"2x{n_side}^3 K=4", results, GATHER, timed=True)
+    ms4 = results["pm_gather"]["ms"]
+    check_kernels(recs[3], f"2x{n_side}^3 K=3", results, GATHER, timed=True)
+    del recs
+    kernels.recorded.clear()
+    # the whole gathers beside each other, on the K = 3 stack the step uses
+    field = fields[3]
+    whole, _ = time_ms(lambda: pm_gather_tiles(field, cl, p.pos, p.alive, box,
+                                               g, n_cells, margin_pm), 5)
+    # what a PM step would add, where the gravity pack exists already
+    # (rows 0-2 and 5 are all L reads of it): the kernel and the merge
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+
+    def in_step():
+        out = merge_rows(pm_gather_windows(soa, field, n_cells, box, g,
+                                           margin_pm), cl, 3)
+        return torch.where(p.alive[:, None], out, torch.zeros_like(out))
+
+    step_ms, got = time_ms(in_step, 5)
+    del soa
+
+    def rows():
+        out = cic_gather_vec(field, posw, box, g)
+        return torch.where(p.alive[:, None], out, torch.zeros_like(out))
+
+    rows_ms, want = time_ms(rows, 5)
+    check_gather_values("gather", f"2x{n_side}^3 K=3, on the step's pack",
+                        got, want)
+    del got
+    # one PyTorch call for the same function: trilinear grid_sample on the
+    # mesh padded by one periodic plane a side (index = u + 1; the grid's
+    # x is the mesh's last axis)
+    pad = field.permute(3, 0, 1, 2)
+    for dim in (1, 2, 3):
+        pad = torch.cat([pad.narrow(dim, g - 1, 1), pad,
+                         pad.narrow(dim, 0, 1)], dim)
+    pad = pad[None].contiguous()
+    u = posw * (g / box)
+    grid = (2.0 * (u + 1.0) / (g + 1) - 1.0).flip(-1)[None, :, None, None, :]
+    lib_ms, lib = time_ms(lambda: F.grid_sample(
+        pad, grid.contiguous(), mode="bilinear", padding_mode="border",
+        align_corners=True), 5)
+    lib = lib[0, :, :, 0, 0].t()
+    lib = torch.where(p.alive[:, None], lib, torch.zeros_like(lib))
+    lib_err = float((lib - want).abs().max()) / float(want.abs().max())
+    results["pm_gather"]["library_ms"] = lib_ms
+    say("gather", f"K=3 at 2x{n_side}^3, pmgrid {g}: kernel L alone "
+        f"{results['pm_gather']['ms']:.3f} ms (K=4 {ms4:.3f}); with the "
+        f"merge, on the step's pack, {step_ms:.3f} ms; with a pack of its "
+        f"own and the merge {whole:.3f} ms; row gather {rows_ms:.3f} ms; "
+        f"grid_sample "
+        f"{lib_ms:.3f} ms (within {lib_err:.1e} of the row gather; its "
+        f"padded mesh and grid made outside the timing) ({card})")
+
+
+# kernel M against kernel H's force rows on one fresh cell list: the same
+# pairs and the same pair function, from absolute float32 coordinates
+# (0.004 kpc/h at 50 Mpc/h) against cell-relative ones, summed where the
+# net short-range force cancels; as shares of the largest |acc|
+M_VS_H_MAX = 5e-3
+M_VS_H_MEDIAN = 1e-4
+
+
+def phase_gravity_cells(results: dict, state, main_counts: dict, card: str,
+                        device="cuda", n_side=N_SIDE_MAIN) -> None:
+    """Kernel M at full width (phase 12): ``shortrange_gravity_fresh`` on
+    ``state`` with the TreePM asmth and rcut on the potential pass's
+    grid, the launch counts set to 0 just before and read just after."""
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.ops.cells import (
+        pack_cells_soa, shortrange_potential_tiles)
+    from gadget_leicester_tpu_torch.ops.gravity_short import \
+        shortrange_gravity_fresh
+    from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
+                                                          merge_rows)
+    from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
+    cfg, opts, box, soft = _main_gravity_inputs(state, n_side)
+    p = state.p
+    asmth = ASMTH * box / opts.pmgrid
+    rcut = RCUT * asmth
+    n_cells = max(3, int(box / rcut))
+    cap = max(128, (((opts.sr_capacity or 128) + 127) // 128) * 128)
+    if main_counts["shortrange_gravity_cells"] != 0:
+        raise AssertionError("the main path launched kernel M")
+    say("gravity_cells", "the main path's own launches of "
+        "shortrange_gravity_cells: 0 (nothing in the step calls it, as in "
+        "the reference)")
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        acc, ovf = shortrange_gravity_fresh(
+            p.pos, p.mass, soft, p.alive, box, n_cells, capacity=cap,
+            asmth=asmth, rcut=rcut, periodic=True)
+        sync(device)
+        counts = dict(kernels.launches)
+    recorded = dict(rec)
+    say("gravity_cells", f"fresh {n_cells}^3 cells x {cap} slots, asmth "
+        f"{asmth:.2f}, rcut {rcut:.2f} kpc/h: launches {counts}")
+    if counts["shortrange_gravity_cells"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError("shortrange_gravity_fresh did not launch kernel "
+                             "M once and nothing else")
+    if bool(ovf) or not bool(torch.isfinite(acc).all()):
+        raise AssertionError("kernel M overflowed or is not finite")
+    results.setdefault("shortrange_gravity_cells", {})["launches"] = 1
+    # kernel H's force rows on the same fresh list (its relative pack)
+    cl = build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
+                         capacity=cap)
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+    flags = torch.ones(n_cells ** 3, dtype=torch.int32, device=soa.device)
+    acc_h = merge_rows(shortrange_potential_tiles(soa, flags, n_cells, box,
+                                                  asmth, rcut), cl, 3)
+    del soa, cl
+    scale = float(acc_h.abs().max())
+    d = (acc - acc_h).abs().amax(-1) / scale
+    worst, median = float(d.max()), float(d.median())
+    ok = worst <= M_VS_H_MAX and median <= M_VS_H_MEDIAN
+    say("gravity_cells", f"M vs kernel H's force rows on the same fresh "
+        f"list: largest |M - H| {worst:.2e}, median {median:.2e} of the "
+        f"largest |acc| (bounds {M_VS_H_MAX:g}, {M_VS_H_MEDIAN:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel M disagrees with kernel H's forces")
+    del acc, acc_h, d
+    check_kernels(recorded, f"2x{n_side}^3", results, GRAVITY_CELLS,
+                  timed=True)
+    say("gravity_cells", f"kernel M "
+        f"{results['shortrange_gravity_cells']['ms']:.3f} ms beside A "
+        f"{results['shortrange_gravity']['ms']:.3f} and H "
+        f"{results['shortrange_potential']['ms']:.3f} ms ({card})")
+
+
+# phase 13: the stock collisionless runs, TimeMax cut to fit; the bounds
+# of tests/test_galaxy_cluster_e2e.py (G = M = 1 units for the galaxy run,
+# as in the test) and of tests/test_tree.py
+GALAXY_T_END = 1.0
+GALAXY_DRIFT = 0.02          # |E - E(0)| / |E(0)| over energy.txt's rows
+GALAXY_MOMENTUM = 1e-3       # each component, final minus initial
+CLUSTER_A_END = 0.202
+CLUSTER_RADIUS = 1.2         # comoving half-mass radius, end over start
+TREE_VS_DIRECT = (2e-3, 1e-2)   # median and 99th percentile of |da| / |a|
+EWALD_VS_EXACT = (5e-3, 2e-2)   # median and 95th percentile of |da| / max|a|
+
+
+def _half_mass_radius(pos, mass) -> float:
+    import numpy as np
+    com = (mass[:, None] * pos).sum(0) / mass.sum()
+    r = np.linalg.norm(pos - com, axis=1)
+    order = np.argsort(r)
+    csum = np.cumsum(mass[order])
+    return float(r[order][np.searchsorted(csum, 0.5 * mass.sum())])
+
+
+def run_tree_workload(which: str, t_end: float, card: str, device="cuda"):
+    """``parameterfiles/<which>.param`` on its 20,000-particle ICs through
+    the command line in a child process to ``t_end``: (energy.txt rows,
+    final state on ``device``, cfg, opts, IC arrays, the time reached).
+    The run's directory is deleted at the end."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.core.config import (options_from_config,
+                                                        read_parameter_file)
+    from gadget_leicester_tpu_torch.io.restart import load_restart
+    root = Path(__file__).resolve().parent
+    work = root / "build" / f"{which}_run"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        out = work / "out"
+        n = write_tree_ics(str(work / "ics.dat"), which)
+        param = work / f"{which}.param"
+        param.write_text(stock_param_text(
+            which, str(work / "ics.dat"), str(out), t_end,
+            CpuTimeBetRestartFile=0.0))
+        proc, wall = _cli(root, param, 0, "--device", device)
+        rows = np.loadtxt(out / "energy.txt", ndmin=2)
+        if rows.shape[1] != 28 or not np.isfinite(rows).all():
+            raise AssertionError("energy.txt: wrong columns or not finite")
+        step_s = [float(line.split("t=")[1].split("s")[0]) for line in
+                  (out / "timings.txt").read_text().splitlines()
+                  if line.startswith("Step=")]
+        cpu = [line.split("#")[0].split() for line in
+               (out / "cpu.txt").read_text().splitlines()
+               if not line.startswith("Step")]
+        pot_s = [float(c[5]) for c in cpu if float(c[5]) > 0]
+        if "gravity=auto, pmgrid=0" not in proc.stdout:
+            raise AssertionError("the parameter file did not select the "
+                                 "tree by itself")
+        say("tree", f"{which}: {n} particles, {len(step_s)} sync points to t "
+            f"= {_done_time(proc):g} in {wall:.1f} s wall with start-up, "
+            f"{1e3 * sum(step_s) / len(step_s):.2f} ms per sync point, "
+            f"{len(pot_s)} potential passes of "
+            f"{1e3 * sum(pot_s) / max(len(pot_s), 1):.2f} ms with the energy "
+            f"statistics ({card})")
+        if _done_time(proc) < t_end * (1 - 1e-6):
+            raise AssertionError(f"{which} did not reach TimeMax {t_end}")
+        cfg = read_parameter_file(str(param))
+        state, _ = load_restart(str(out / "restart"), device)
+        opts = options_from_config(cfg, n_particles=n)
+        return rows, state, cfg, opts, tree_ics(which), _done_time(proc)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_tree(card: str, device="cuda") -> None:
+    """The tree-gravity path (phase 13)."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.models.grids import resolve_gravity_mode
+    from gadget_leicester_tpu_torch.ops.ewald import direct_periodic_forces
+    from gadget_leicester_tpu_torch.ops.gravity_direct import direct_gravity
+    from gadget_leicester_tpu_torch.ops.tree import tree_gravity
+    from gadget_leicester_tpu_torch.utils.diagnostics import \
+        energy_statistics
+    # galaxy: energy and momentum
+    rows, state, cfg, opts, (pos, vel, mass, _), _ = run_tree_workload(
+        "galaxy", GALAXY_T_END, card, device)
+    if resolve_gravity_mode(opts, state.n_max) != "tree":
+        raise AssertionError("the galaxy run did not take the tree")
+    e_tot = rows[:, 1] + rows[:, 2] + rows[:, 3]
+    drift = float(np.abs(e_tot - e_tot[0]).max() / abs(e_tot[0]))
+    es = energy_statistics(state, cfg, opts)
+    mom0 = (mass[:, None] * vel).sum(0)
+    dmom = [float(x) - float(m0) for x, m0 in zip(es.momentum, mom0)]
+    say("tree", f"galaxy energy.txt {len(rows)} rows: t=0 Epot "
+        f"{rows[0, 2]:.5f} Ekin {rows[0, 3]:.5f}; t={rows[-1, 0]:g} Epot "
+        f"{rows[-1, 2]:.5f} Ekin {rows[-1, 3]:.5f}; largest |E - E(0)| / "
+        f"|E(0)| {drift:.3e} (bound {GALAXY_DRIFT}); momentum change {dmom} "
+        f"(bound {GALAXY_MOMENTUM} each)")
+    if drift >= GALAXY_DRIFT:
+        raise AssertionError(f"galaxy energy drift {drift:.3e}")
+    if max(abs(x) for x in dmom) >= GALAXY_MOMENTUM:
+        raise AssertionError(f"galaxy momentum change {dmom}")
+    if not bool(torch.isfinite(state.p.pos).all()):
+        raise AssertionError("galaxy positions not finite")
+    del state
+    # cluster: finite, at its TimeMax, bound in comoving coordinates
+    rows, state, cfg, opts, (pos_c, _, mass_c, _), a_end = run_tree_workload(
+        "cluster", CLUSTER_A_END, card, device)
+    alive = state.p.alive.cpu().numpy()
+    x = state.p.pos.cpu().numpy()[alive]
+    if not np.isfinite(x).all() or \
+            not bool(torch.isfinite(state.p.vel).all()):
+        raise AssertionError("cluster state not finite")
+    r0 = _half_mass_radius(pos_c, mass_c)
+    r1 = _half_mass_radius(x.astype(np.float64),
+                           state.p.mass.cpu().numpy()[alive].astype(np.float64))
+    say("tree", f"cluster a {cfg.time_begin:g} -> {a_end:g}: comoving "
+        f"half-mass radius {r0:.2f} -> {r1:.2f} kpc/h (at most "
+        f"{CLUSTER_RADIUS} times its start)")
+    if not r1 < CLUSTER_RADIUS * r0:
+        raise AssertionError(f"cluster half-mass radius {r0} -> {r1}")
+    del state
+    # one force computation of the galaxy ICs against the direct sum
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    n = len(pos)
+    args = (dev(pos), dev(mass), torch.full((n,), 0.28, device=device),
+            torch.ones(n, dtype=torch.bool, device=device))
+    direct_ms, (acc_d, pot_d) = time_ms(lambda: direct_gravity(*args), 2)
+    old_acc = acc_d.norm(dim=-1)
+    for opening in (0, 1):
+        tree_ms, (acc_t, pot_t) = time_ms(lambda: tree_gravity(
+            *args, theta=0.5, opening=opening, old_acc=old_acc), 3)
+        err = (acc_t - acc_d).norm(dim=-1) / acc_d.norm(dim=-1).clamp_min(1e-10)
+        med, q99 = float(err.median()), float(err.quantile(0.99))
+        perr = float(((pot_t - pot_d).abs() / pot_d.abs().max())
+                     .quantile(0.99))
+        say("tree", f"galaxy ICs, {n} particles, opening criterion "
+            f"{opening}: tree {tree_ms:.2f} ms per force computation, "
+            f"direct sum {direct_ms:.2f} ms; |da| / |a| median {med:.2e}, "
+            f"99th percentile {q99:.2e} (bounds {TREE_VS_DIRECT}); potential "
+            f"99th percentile {perr:.2e} of the largest ({card})")
+        if med >= TREE_VS_DIRECT[0] or q99 >= TREE_VS_DIRECT[1] or \
+                perr >= TREE_VS_DIRECT[1]:
+            raise AssertionError("the tree disagrees with the direct sum")
+    # a small periodic box through the Ewald tree against the exact sum
+    rng = np.random.default_rng(6)
+    n, box = 160, 1.0
+    pos_p = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    mass_p = rng.uniform(0.5, 1.5, n)
+    acc_t, _ = tree_gravity(dev(pos_p), dev(mass_p),
+                            torch.full((n,), 0.004, device=device),
+                            torch.ones(n, dtype=torch.bool, device=device),
+                            theta=0.3, opening=0, depth=6, periodic=True,
+                            box=box)
+    oracle = direct_periodic_forces(pos_p.astype(np.float64), mass_p, box)
+    err = np.linalg.norm(acc_t.cpu().numpy() - oracle, axis=1) \
+        / np.abs(oracle).max()
+    med, q95 = float(np.median(err)), float(np.quantile(err, 0.95))
+    say("tree", f"periodic box of {n} through the Ewald tree vs the exact "
+        f"periodic sum: |da| / max |a| median {med:.2e}, 95th percentile "
+        f"{q95:.2e} (bounds {EWALD_VS_EXACT})")
+    if med >= EWALD_VS_EXACT[0] or q95 >= EWALD_VS_EXACT[1]:
+        raise AssertionError("the Ewald tree disagrees with the exact "
+                             "periodic sum")
 
 
 def li_reference() -> list:
@@ -1687,7 +2330,7 @@ def main() -> int:
     grid, cap = SMALL_CELL_GRIDS[0]
     phase_slice(steps=1, potential=False, sph_backend="cells", sph_grid=grid,
                 sph_capacity=cap)
-    sim, recorded, blocks_init = phase_main(results, card)
+    sim, recorded, blocks_init, main_counts = phase_main(results, card)
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
     del recorded
@@ -1697,6 +2340,9 @@ def main() -> int:
     phase_profile(sim, card)
     del sim
     phase_idle_main(results, main_state, card)
+    kernels.recorded.clear()
+    phase_gather(results, main_state, main_counts, card)
+    phase_gravity_cells(results, main_state, main_counts, card)
     del main_state
     kernels.recorded.clear()
     gc.collect()
@@ -1708,17 +2354,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(card)
     phase_gassphere(card)
+    phase_tree(card)
 
-    # no single PyTorch call computes any of these functions (an
-    # erfc-truncated softened pair sum, an SPH kernel sum over a cell or
-    # block stencil, the CIC deposit of a cell pack): library_ms is null
+    # no single PyTorch call computes an erfc-truncated softened pair sum,
+    # an SPH kernel sum over a cell or block stencil or the CIC deposit of
+    # a cell pack: library_ms is null, except for kernel L (grid_sample)
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": results[name]["launches"],
              "max_abs_err": results[name]["max_abs_err"],
              "ms": results[name]["ms"],
              "plain_ms": results[name]["plain_ms"],
              "bound_ms": results[name]["bound_ms"],
-             "bound_by": results[name]["bound_by"], "library_ms": None}
+             "bound_by": results[name]["bound_by"],
+             "library_ms": results[name].get("library_ms")}
             for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
-The ten kernels (A short-range gravity, B PM deposit, C SPH density,
-D SPH hydro, the active-entry twins E, F, G of A, C, D, H short-range
-gravity with the potential, and the coarse-cell SPH density I/J and hydro
-K) are compiled
+The kernels, twelve sources (A short-range gravity, B PM deposit, C SPH
+density, D SPH hydro, the active-entry twins E, F, G of A, C, D, H
+short-range gravity with the potential, the coarse-cell SPH density I/J
+and hydro K, L the cell-window PM gather, and M short-range gravity in
+absolute coordinates with the per-pair minimum image) are compiled
 on first use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
 started together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
@@ -42,7 +43,8 @@ SOURCES = ("shortrange_gravity.cu", "pm_deposit.cu", "sph_density.cu",
            "sph_hydro.cu", "shortrange_gravity_entries.cu",
            "sph_density_entries.cu", "sph_hydro_entries.cu",
            "shortrange_potential.cu", "sph_cells_density.cu",
-           "sph_cells_hydro.cu")
+           "sph_cells_hydro.cu", "pm_gather.cu",
+           "shortrange_gravity_cells.cu")
 HEADERS = ("glt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -64,6 +66,8 @@ SIGNATURES = {
     "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "sph_cells_density": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "sph_cells_hydro": (_P, _P, _P, _I, _I, _F, _I, _F, _P),
+    "pm_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

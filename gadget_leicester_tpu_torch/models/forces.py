@@ -1,10 +1,13 @@
 """Force computation at a sync point [G2: accel.c ::
 compute_accelerations(), gravtree.c, hydra.c].
 
-Counterpart of ``gadget_leicester_tpu/models/forces.py:31-451, 590-921``
+Counterpart of ``gadget_leicester_tpu/models/forces.py:31-468, 590-921``
 (``comoving_factors``, ``softening_table``, ``compute_forces``,
-``_treepm_gravity``, ``compute_potential``, ``compute_sph``). Gravity:
-periodic TreePM, or direct summation (small vacuum runs). SPH: the
+``_treepm_gravity``, ``compute_potential``, ``_tree_gravity``,
+``compute_sph``). Gravity: periodic TreePM, direct summation (small
+vacuum runs), or the Barnes-Hut tree (``ops/tree.py``: vacuum runs above
+``direct_threshold`` particles, and periodic runs without a PM mesh
+through the Ewald correction). SPH: the
 block-packed, the coarse-cell or the all-pairs backend
 (``SimOptions.sph_backend``; ``auto`` takes all-pairs at <= 4096 gas
 slots and blocks above). Order, as in the reference: short-range gravity
@@ -15,11 +18,11 @@ Kernels on these paths: A (short-range gravity, ``ops/cells.py``), B (PM
 deposit, ``ops/pm_tiles.py``), C and D (block SPH density and hydro,
 ``ops/sph_blocks.py``) and at near-idle sync points their active-entry
 twins E, F and G; I/J and K (coarse-cell SPH density and hydro,
-``ops/sph_cells.py``). The FFTs, the CIC gather, direct gravity and the
-all-pairs SPH sums are PyTorch's own operators, as the JAX package leaves
-them to XLA. The full potential of the diagnostics
+``ops/sph_cells.py``). The FFTs, the CIC gather, direct gravity, the
+tree and the all-pairs SPH sums are PyTorch's own operators, as the JAX
+package leaves them to XLA. The full potential of the diagnostics
 (:func:`compute_potential`, outside the step) runs kernel H on a fresh
-cell list, or the direct sum.
+cell list, the direct sum, or the tree.
 
 Two tiers under TreePM and block SPH, by the JAX package's rule
 (:func:`use_entries`): a sync point at which few particles are active
@@ -66,6 +69,7 @@ from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
                                                pm_potential_periodic)
 from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
 from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
+from gadget_leicester_tpu_torch.ops.tree import tree_gravity
 from gadget_leicester_tpu_torch.ops.sph_blocks import (
     build_block_lists, count_block_entries, density_adaptive_blocks,
     density_adaptive_blocks_entries, hydro_force_blocks,
@@ -147,10 +151,10 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
     if opts.forcetest > 0:
         _refuse("forcetest", "ROADMAP queue 1 item 11")
     mode = resolve_gravity_mode(opts, n_max)
-    if mode not in ("treepm", "direct") or \
+    if mode not in ("treepm", "direct", "tree") or \
             (mode == "treepm" and not opts.periodic):
         _refuse(f"gravity mode {mode!r} (periodic={opts.periodic})",
-                "ROADMAP queue 1 item 12: tree, Ewald and zoom PM")
+                "ROADMAP queue 1 item 12: vacuum and zoom PM")
     if n_gas_max > 1:
         backend = resolve_sph_backend(opts, n_gas_max)
         if backend not in ("blocks", "cells", "dense"):
@@ -167,7 +171,8 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     """One full force computation at the current sync point: p.acc
     (short-range or direct, active particles only), p.acc_pm (TreePM, only
     when ``do_pm``, frozen otherwise; zeros under direct gravity), p.pot
-    (the PM piece under TreePM, the whole potential under direct gravity),
+    (the PM piece under TreePM, the whole potential under direct or tree
+    gravity),
     and the SPH fields of active gas. ``stats`` (optional dict) receives
     ``density_iters``."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
@@ -178,7 +183,8 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     eps = softening_table(cfg, fac.atime)
     soft = SOFTFAC * eps[p.ptype.long()]
 
-    if resolve_gravity_mode(opts, state.n_max) == "treepm":
+    mode = resolve_gravity_mode(opts, state.n_max)
+    if mode == "treepm":
         acc, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
             state, cfg, opts, soft, do_pm, active)
         state = dataclasses.replace(
@@ -187,9 +193,12 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
         pot_pm = pot_pm * cfg.grav_internal
         pot = pot_pm
     else:
-        acc, pot = direct_gravity(p.pos, p.mass, soft, p.alive,
-                                  box=float(cfg.box_size),
-                                  periodic=opts.periodic)
+        if mode == "tree":
+            acc, pot = _tree_gravity(state, cfg, opts, soft)
+        else:
+            acc, pot = direct_gravity(p.pos, p.mass, soft, p.alive,
+                                      box=float(cfg.box_size),
+                                      periodic=opts.periodic)
         acc_pm = torch.zeros_like(acc)
         pot_pm = torch.zeros_like(pot)
         pot = pot * cfg.grav_internal
@@ -279,16 +288,21 @@ def compute_potential(state: SimState, cfg: SimConfig,
     softened short-range sum of kernel H on a FRESH cell list (the cached
     grid of the step may be stale and coarsened), plus the PM self-term
     m / (sqrt(pi) asmth); times G, 0 where not alive. The fresh list's
-    overflow sets bit 1 of ``overflow_flags``. Direct gravity: the
-    potential of the direct sum."""
+    overflow sets bit 1 of ``overflow_flags``. Direct and tree gravity:
+    the potential of the direct sum or of the tree walk at the current
+    positions."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
     p = state.p
     fac = comoving_factors(cfg, state.ti_current)
     soft = SOFTFAC * softening_table(cfg, fac.atime)[p.ptype.long()]
     box = float(cfg.box_size)
-    if resolve_gravity_mode(opts, state.n_max) == "direct":
-        _, pot = direct_gravity(p.pos, p.mass, soft, p.alive, box=box,
-                                periodic=opts.periodic)
+    mode = resolve_gravity_mode(opts, state.n_max)
+    if mode != "treepm":
+        if mode == "tree":
+            _, pot = _tree_gravity(state, cfg, opts, soft)
+        else:
+            _, pot = direct_gravity(p.pos, p.mass, soft, p.alive, box=box,
+                                    periodic=opts.periodic)
         pot = torch.where(p.alive, pot * cfg.grav_internal,
                           torch.zeros_like(pot))
         return dataclasses.replace(state, p=dataclasses.replace(p, pot=pot))
@@ -314,6 +328,21 @@ def compute_potential(state: SimState, cfg: SimConfig,
     return dataclasses.replace(
         state, p=dataclasses.replace(p, pot=pot),
         overflow_flags=state.overflow_flags | cl.overflow.to(torch.int32))
+
+
+def _tree_gravity(state: SimState, cfg: SimConfig, opts: SimOptions, soft):
+    """Barnes-Hut tree gravity (acc, pot; no G): vacuum, or periodic
+    without PM with the tabulated Ewald correction [G2:
+    force_treeevaluate_ewald_correction]. ``old_acc`` enters the relative
+    opening criterion without G, as the tree's own accelerations are."""
+    p = state.p
+    return tree_gravity(
+        p.pos, p.mass, soft, p.alive, theta=cfg.err_tol_theta,
+        opening=cfg.type_of_opening_criterion,
+        err_tol_force_acc=cfg.err_tol_force_acc,
+        old_acc=p.old_acc / max(cfg.grav_internal, 1e-37),
+        depth=opts.tree_depth, periodic=opts.periodic,
+        box=float(cfg.box_size))
 
 
 def gas_bounding_grid(pos_g, gas_mask):

@@ -1,11 +1,12 @@
-"""Initial conditions of the lcdm_gas and gassphere workloads.
+"""Initial conditions of the lcdm_gas, gassphere, galaxy and cluster
+workloads.
 
-Counterpart of ``gadget_leicester_tpu/models/ics.py:30-66, 109-170``
-(``gassphere_ics``, ``lcdm_gas_ics``): the same numpy code, copied so that
-the port needs no JAX package, and so that the same seed gives
-bit-identical arrays. The other generators of that module (galaxy,
-cluster, disc) belong to workloads not yet ported (ROADMAP queue 1 item
-12).
+Counterpart of ``gadget_leicester_tpu/models/ics.py:30-170``
+(``gassphere_ics``, ``plummer_ics``, ``galaxy_collision_ics``,
+``lcdm_gas_ics``): the same numpy code, copied so that the port needs no
+JAX package, and so that the same seed gives bit-identical arrays. The
+disc generator of that module belongs to a workload not yet ported
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -50,6 +51,46 @@ def gassphere_ics(n_gas: int = 1472, seed: int = 7, mode: str = "grid"):
     ptype = np.zeros(n, np.int32)
     u = np.full(n, 0.05)
     return pos, vel, mass, ptype, u
+
+
+def plummer_ics(n: int = 2000, total_mass: float = 1.0, a: float = 1.0,
+                seed: int = 11, g: float = 1.0):
+    """Isotropic Plummer sphere with equilibrium velocities (Aarseth et al.
+    1974 rejection sampling) — collisionless tree-gravity workload."""
+    rng = np.random.default_rng(seed)
+    x1 = rng.uniform(size=n)
+    r = a / np.sqrt(x1 ** (-2.0 / 3.0) - 1.0)
+    r = np.minimum(r, 20.0 * a)
+    pos = _random_directions(n, rng) * r[:, None]
+    # velocity sampling: q = v/v_esc, f(q) ~ q^2 (1-q^2)^{7/2}
+    q = np.zeros(n)
+    todo = np.ones(n, bool)
+    while todo.any():
+        k = int(todo.sum())
+        qq = rng.uniform(size=k)
+        yy = rng.uniform(size=k) * 0.1
+        ok = yy < qq**2 * (1.0 - qq**2) ** 3.5
+        idx = np.where(todo)[0][ok]
+        q[idx] = qq[ok]
+        todo[idx] = False
+    v_esc = np.sqrt(2.0 * g * total_mass) * (r**2 + a**2) ** (-0.25)
+    vel = _random_directions(n, rng) * (q * v_esc)[:, None]
+    mass = np.full(n, total_mass / n)
+    ptype = np.ones(n, np.int32)
+    return pos, vel, mass, ptype, None
+
+
+def galaxy_collision_ics(n_each: int = 1500, sep: float = 5.0,
+                         vrel: float = 0.3, seed: int = 13):
+    """Two Plummer spheres on a head-on collision orbit — the 'galaxy'
+    workload analog (pure collisionless gravity, multiple softenings)."""
+    p1 = plummer_ics(n_each, seed=seed)
+    p2 = plummer_ics(n_each, seed=seed + 1)
+    pos = np.concatenate([p1[0] - [sep / 2, 0, 0], p2[0] + [sep / 2, 0, 0]])
+    vel = np.concatenate([p1[1] + [vrel / 2, 0, 0], p2[1] - [vrel / 2, 0, 0]])
+    mass = np.concatenate([p1[2], p2[2]])
+    ptype = np.concatenate([np.ones(n_each, np.int32), 2 * np.ones(n_each, np.int32)])
+    return pos, vel, mass, ptype, None
 
 
 def lcdm_gas_ics(n_side: int = 32, box: float = 50000.0, z_init: float = 10.0,

@@ -1,15 +1,19 @@
 """Cell tiles for TreePM short-range gravity, the active-entry lists, and
-the wrappers of kernels A, E and H.
+the wrappers of kernels A, E, H and M.
 
 Counterpart of ``gadget_leicester_tpu/ops/pallas_cells.py``:
-``pack_cells_soa`` (:38, relative mode), ``_cell_centers`` (:92),
+``pack_cells_soa`` (:38; relative mode here :func:`pack_cells_soa`,
+absolute mode :func:`pack_cells_abs`), ``_cell_centers`` (:92),
 ``cell_activity_flags`` (:423), ``shortrange_gravity_pallas_dma9``
 (:669, here :func:`shortrange_gravity_tiles`), ``grav_tile_flags``
 (:741), ``ENTRY_LANES`` (:758), ``count_active_entries`` (:790),
 ``build_active_entries`` (:801), ``shortrange_gravity_pallas_entries``
 (:973, here :func:`gravity_entries` around the kernel wrapper
 :func:`shortrange_gravity_entries`) and ``shortrange_gravity_pallas_dma``
-(:433, with_potential, here :func:`shortrange_potential_tiles`).
+(:433, with_potential, here :func:`shortrange_potential_tiles`) and the
+kernel call of ``shortrange_gravity_pallas`` (:1581, here
+:func:`shortrange_gravity_cells`; its entry is ``ops/gravity_short.py ::
+shortrange_gravity_fresh``).
 
 Kernel A (``csrc/shortrange_gravity.cu``) takes the ``[C, 8, cap]`` pack
 directly and walks the 27 neighbour cells itself; the TPU kernel's
@@ -17,8 +21,10 @@ z-padded column layout is a DMA device and is not carried over. Kernel E
 (``csrc/shortrange_gravity_entries.cu``) runs A's physics for the few
 active targets of each entry against the same pack. Kernel H
 (``csrc/shortrange_potential.cu``) adds the potential row to A's sums,
-for the full potential of the diagnostics. Their plain versions are in
-``ops/gravity_short.py``.
+for the full potential of the diagnostics. Kernel M
+(``csrc/shortrange_gravity_cells.cu``) sums the same pair force on the
+absolute pack with a per-pair minimum image, on a periodic or a clamped
+grid. Their plain versions are in ``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import torch
 
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.gravity_short import (
-    shortrange_gravity_entries_plain, shortrange_gravity_tiles_plain,
-    shortrange_potential_tiles_plain)
+    shortrange_gravity_cells_plain, shortrange_gravity_entries_plain,
+    shortrange_gravity_tiles_plain, shortrange_potential_tiles_plain)
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
                                                       scatter_rows)
 
@@ -50,15 +56,18 @@ def cell_centers(cl: CellList) -> torch.Tensor:
 def _tile_rows(cl: CellList, idx, valid, centers, pos, mass,
                soft) -> torch.Tensor:
     """[..., L, 8] rows x, y, z (relative to ``centers`` [..., 3],
-    minimum-imaged), m, soft, 1, 1/soft, 0 of particles ``idx`` [..., L];
+    minimum-imaged; absolute, as the particles hold them, when ``centers``
+    is None), m, soft, 1, 1/soft, 0 of particles ``idx`` [..., L];
     slots that are not ``valid`` are parked at a FINITE offset of -7
     cells with m = 0: 1e30 would square to inf and leak NaN through
     0 * inf. The one arithmetic of the pack and of the entry targets."""
     i = idx.clamp_min(0).long()
     s = soft[i]
-    rel = pos[i] - centers[..., None, :]
-    ext = cl.n_cells / cl.inv_cell
-    rel = rel - ext * torch.round(rel / ext)
+    rel = pos[i]
+    if centers is not None:
+        rel = rel - centers[..., None, :]
+        ext = cl.n_cells / cl.inv_cell
+        rel = rel - ext * torch.round(rel / ext)
     rest = torch.stack([mass[i], s, torch.ones_like(s),
                         torch.where(s > 0, 1.0 / s, torch.zeros_like(s)),
                         torch.zeros_like(s)], -1)
@@ -73,6 +82,15 @@ def pack_cells_soa(cl: CellList, pos, mass, soft, alive) -> torch.Tensor:
     centre."""
     valid = (cl.cells >= 0) & alive[cl.cells.clamp_min(0).long()]
     rows = _tile_rows(cl, cl.cells, valid, cell_centers(cl), pos, mass, soft)
+    return rows.transpose(1, 2).contiguous()
+
+
+def pack_cells_abs(cl: CellList, pos, mass, soft, alive) -> torch.Tensor:
+    """[C, 8, cap] tiles of :func:`_tile_rows` in absolute coordinates
+    (the reference's ``pack_cells_soa(..., relative=False)``): kernel M's
+    pack, on a periodic or a clamped cell list."""
+    valid = (cl.cells >= 0) & alive[cl.cells.clamp_min(0).long()]
+    rows = _tile_rows(cl, cl.cells, valid, None, pos, mass, soft)
     return rows.transpose(1, 2).contiguous()
 
 
@@ -135,6 +153,36 @@ def shortrange_potential_tiles(soa: torch.Tensor, flags: torch.Tensor,
     return _tiles_call("shortrange_potential",
                        shortrange_potential_tiles_plain, 4, soa, flags,
                        n_cells, box, asmth, rcut)
+
+
+def shortrange_gravity_cells(soa: torch.Tensor, n_cells: int, box: float,
+                             periodic: bool, asmth: float,
+                             rcut: float) -> torch.Tensor:
+    """Kernel M: accelerations [C, 3, cap] (no G) of the slots of the
+    absolute pack ``soa`` from the 27 cells around each, pairs with 0 < r <
+    rcut, each pair's separation reduced to its minimum image on a
+    periodic grid; a clamped grid (``periodic`` False) reduces nothing and
+    skips stencil cells beyond its edge. ``asmth == 0`` switches the erfc
+    truncation off. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    c, rows, cap = soa.shape
+    if c != n_cells ** 3 or rows != 8:
+        raise ValueError(f"soa shape {tuple(soa.shape)} does not match "
+                         f"{n_cells}^3 cells of 8 rows")
+    if n_cells < 3:
+        raise ValueError("the 27-cell stencil needs n_cells >= 3: below it "
+                         "a periodic stencil meets a cell twice")
+    kernels.check(soa, "soa", torch.float32)
+    kernels.note_call("shortrange_gravity_cells",
+                      (soa, n_cells, box, periodic, asmth, rcut))
+    if not kernels.on_cuda(soa):
+        return shortrange_gravity_cells_plain(soa, n_cells, box, periodic,
+                                              asmth, rcut)
+    out = torch.empty(c, 3, cap, dtype=soa.dtype, device=soa.device)
+    kernels.launch("shortrange_gravity_cells", soa.data_ptr(), out.data_ptr(),
+                   n_cells, cap, box, int(bool(periodic)),
+                   0.5 / asmth if asmth > 0.0 else 0.0, rcut)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ Counterpart of ``gadget_leicester_tpu/ops/pm.py:31-197, 301-312``
   its k-space multiplier -> irfftn -> CIC gather.
 
 The FFTs are ``torch.fft`` (cuFFT on the card), as the JAX package leaves
-them to ``jnp.fft``; the gather is a plain row gather. The deposit on the
-main path is kernel B (``ops/pm_tiles.py``); :func:`cic_deposit` is the
+them to ``jnp.fft``; the gather of the main path is a plain row gather, as
+the reference's step keeps it (the cell-window gather, kernel L, takes
+the mesh stack of ``return_field``). The deposit on the main path is
+kernel B (``ops/pm_tiles.py``); :func:`cic_deposit` is the
 point-scatter form, kept as an independent check of it, and the deposit
 of :func:`pm_potential_periodic`, as in the JAX package.
 
@@ -112,12 +114,19 @@ def greens_function(n: int, box: float, device) -> torch.Tensor:
 
 
 def pm_forces_periodic(pos, mass, alive, box: float, n: int,
-                       rho_grid: torch.Tensor | None = None) -> torch.Tensor:
+                       rho_grid: torch.Tensor | None = None,
+                       with_potential: bool = False,
+                       return_field: bool = False):
     """Long-range accelerations [N, 3] (no G factor), periodic box, with
     the 4-point finite-difference gradient of the reference applied as its
     exact k-space multiplier D4(k) = i (8 sin(kh) - sin(2kh)) / (6h).
     ``rho_grid``: the mass mesh when the caller deposited it already
-    (kernel B); otherwise the alive particles are deposited here."""
+    (kernel B); otherwise the alive particles are deposited here.
+    ``with_potential``: the mesh potential rides as a fourth component of
+    the stack, and (acc, pot [N]) comes back. ``return_field``: no
+    per-particle gather; the mesh force stack [n, n, n, 3 (+1)] comes back
+    for the cell-window gather (kernel L, ``ops/pm_tiles.py ::
+    pm_gather_tiles``)."""
     posw = torch.remainder(pos, box)
     if rho_grid is None:
         m = torch.where(alive, mass, torch.zeros_like(mass))
@@ -132,9 +141,16 @@ def pm_forces_periodic(pos, mass, alive, box: float, n: int,
     for k in (kx[:, None, None], kx[None, :, None], kz[None, None, :]):
         d4 = (8.0 * torch.sin(k * h) - torch.sin(2.0 * k * h)) / (6.0 * h)
         comp.append(torch.fft.irfftn(-1j * d4 * phi_k, s=(n, n, n)))
+    if with_potential:
+        comp.append(torch.fft.irfftn(phi_k, s=(n, n, n)))
     force = torch.stack(comp, dim=-1)
+    if return_field:
+        return force
     out = cic_gather_vec(force, posw, box, n)
-    return torch.where(alive[:, None], out, torch.zeros_like(out))
+    out = torch.where(alive[:, None], out, torch.zeros_like(out))
+    if with_potential:
+        return out[:, :3], out[:, 3]
+    return out
 
 
 def pm_potential_periodic(pos, mass, alive, box: float,

@@ -1,4 +1,4 @@
-"""Kernels A-K on the card against their plain versions on the same CUDA
+"""Kernels A-M on the card against their plain versions on the same CUDA
 tensors (marked ``cuda``: they skip where there is no card; on the H100
 run ``python -m pytest --noconftest tests/test_torch_cuda.py``). A-D get
 the arguments the path gives each wrapper while it initialises a 2x12^3
@@ -6,7 +6,10 @@ box, H those of the full potential of the initialised box; E-G those of a
 near-idle sync point of that box (``chip_smoke.make_near_idle``).
 I/J and K get those of a 2x12^3 box initialised with
 ``sph_backend="cells"`` (periodic) and of a vacuum blob, at capacities
-128 and 256. chip_smoke.py runs the same comparisons and the main path;
+128 and 256. L gets those of ``pm_gather_tiles`` on the 2x12^3 box's
+mesh stack (3 and 4 components, fresh and drifted positions), M those of
+``shortrange_gravity_fresh`` on that box (periodic, truncated) and on a
+vacuum blob. chip_smoke.py runs the same comparisons and the main path;
 these keep them in the test suite."""
 
 import pytest
@@ -124,3 +127,55 @@ def test_cells_backend_needs_a_card_on_cuda_tensors():
     before = kernels.launches["sph_cells_hydro"]
     out = kern(*rec["sph_cells_hydro"])
     assert out.is_cuda and kernels.launches["sph_cells_hydro"] == before + 1
+
+
+@pytest.mark.parametrize("drifted", [False, True])
+@pytest.mark.parametrize("k", [3, 4])
+def test_gather_kernel_matches_plain_on_card(k, drifted):
+    """Kernel L on the small box's mesh stack: ``record_gather_small``
+    holds the gathered values to the row gather and raises outside
+    ``GATHER_VS_ROWS``; the kernel then against its plain version. The
+    drifted case moves 1% of the particles out of every window."""
+    _need_card()
+    before = kernels.launches["pm_gather"]
+    rec = chip_smoke.record_gather_small("cuda", 12, k, drifted)
+    assert kernels.launches["pm_gather"] == before + 1
+    assert rec["pm_gather"][1].shape[-1] == k
+    _check(rec, "pm_gather", 0)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_gravity_cells_kernel_matches_plain_on_card(periodic):
+    """Kernel M: periodic with the TreePM truncation and the per-pair
+    minimum image, and on a clamped grid with plain softened gravity."""
+    _need_card()
+    before = kernels.launches["shortrange_gravity_cells"]
+    rec = chip_smoke.record_gravity_cells_small("cuda", 12, periodic)
+    assert kernels.launches["shortrange_gravity_cells"] == before + 1
+    _check(rec, "shortrange_gravity_cells", 0)
+
+
+def test_gravity_cells_keeps_the_particle_on_the_box_edge_on_card():
+    """A float32 coordinate equal to the box: kernel M's per-pair minimum
+    image finds the neighbours across the seam, as the direct sum does."""
+    _need_card()
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops.gravity_direct import direct_gravity
+    from gadget_leicester_tpu_torch.ops.gravity_short import \
+        shortrange_gravity_fresh
+    rng = np.random.default_rng(9)
+    box, n = 10.0, 900
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    pos[:3] = [[box, 1.0, 1.0], [0.0, box, 0.5], [box, box, box]]
+    args = [torch.as_tensor(a, dtype=torch.float32).cuda() for a in (
+        pos, rng.uniform(0.5, 1.5, n), rng.uniform(0.05, 0.3, n))]
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    got, ovf = shortrange_gravity_fresh(*args, alive, box, 3, asmth=0.7,
+                                        rcut=3.15)
+    want, _ = direct_gravity(*args, alive, box=box, asmth=0.7, rcut=3.15,
+                             periodic=True, with_potential=False)
+    assert not bool(ovf)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float(got[:3].abs().amax(-1).min()) > 1e-3 * scale

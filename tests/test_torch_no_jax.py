@@ -2,8 +2,9 @@
 card has none): with jax made unimportable, every module of the port
 (the run loop's I/O, diagnostics and CLI modules among them) and
 chip_smoke.py import, and on the CPU one sync point of a 2x10^3 box runs
-under the block and the coarse-cell SPH backend, and two of a small Evrard
-sphere under direct gravity and all-pairs SPH."""
+under the block and the coarse-cell SPH backend, two of a small Evrard
+sphere under direct gravity and all-pairs SPH, and one of a Plummer sphere
+under the tree, with a periodic tree force through the Ewald table."""
 
 import os
 import pathlib
@@ -25,7 +26,7 @@ for name in names:
     importlib.import_module(name)
 new = {"__main__", "io.restart", "io.snapshot", "io.state_io",
        "utils.diagnostics", "utils.logfiles", "ops.sph_cells",
-       "ops.gravity_direct", "ops.sph_dense"}
+       "ops.gravity_direct", "ops.sph_dense", "ops.tree", "ops.ewald"}
 assert {pkg.__name__ + "." + m for m in new} <= set(names), names
 import chip_smoke
 from gadget_leicester_tpu_torch.core.config import SimOptions, parse_parameter_text
@@ -57,6 +58,19 @@ gsim = Simulation(gcfg, SimOptions(periodic=False), "cpu")
 gsim.set_ics(pos, vel, mass, ptype, u=u)
 gsim.step(2)
 assert torch.isfinite(gsim.state.p.vel).all() and int(gsim.state.ti_current) > 0
+# the tree path: a Plummer sphere through the tree, a periodic box through
+# the Ewald correction (its table is built under build/ewald/)
+from gadget_leicester_tpu_torch.models.ics import plummer_ics
+pos, vel, mass, ptype, _ = plummer_ics(300)
+tsim = Simulation(gcfg, SimOptions(periodic=False, gravity_mode="tree"), "cpu")
+tsim.set_ics(pos, vel, mass, ptype)
+tsim.step()
+assert torch.isfinite(tsim.state.p.acc).all() and tsim.state.p.acc.any()
+from gadget_leicester_tpu_torch.ops.tree import tree_gravity
+acc, pot = tree_gravity(torch.rand(64, 3), torch.ones(64), torch.full((64,), 0.01),
+                        torch.ones(64, dtype=torch.bool), opening=0, depth=4,
+                        periodic=True, box=1.0)
+assert torch.isfinite(acc).all()
 leaked = sorted(m for m in sys.modules
                 if m == "gadget_leicester_tpu" or m.startswith("gadget_leicester_tpu."))
 assert not leaked, leaked
