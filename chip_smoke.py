@@ -9,7 +9,7 @@ imports nothing of JAX. Phases, each printing its own lines:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the twelve kernel sources of
    ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once);
+   once; E's source holds its two modes);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -22,7 +22,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    mesh stack with 3 and 4 components, at fresh and at drifted positions
    (some beyond the window); kernel M (short-range gravity in absolute
    coordinates) on the small box, periodic with the TreePM truncation, and
-   on a vacuum blob on a clamped grid without it;
+   on a vacuum blob on a clamped grid without it; kernel E's potential
+   mode and kernel H on the arguments a near-idle sync point of the small
+   box with sinks gives them (the entries tier, and the tier forced dense:
+   the step's cached pack and gated flags), H's force rows also against
+   kernel A bit for bit;
 4. slice: 2 sync points of the small box on the card against the same on
    the CPU (the plain versions), by the bounds of tests/test_torch_slice;
    the full potential of the state after 1 of them, card against CPU;
@@ -30,7 +34,10 @@ imports nothing of JAX. Phases, each printing its own lines:
    on the card against the CPU, through the active-entry kernels E-G,
    whose arguments are replayed as in phase 3 (all entries, and every
    other entry switched off); then the small box with
-   ``sph_backend="cells"``, card against CPU;
+   ``sph_backend="cells"``, card against CPU; the small box with sinks
+   (the in-step potential), card against CPU, p.pot included; the small
+   Leicester disc of ``tests/test_torch_disc.py`` (400 gas, beta cooling,
+   accretion onto the star) for 20 sync points, card against CPU;
 5. main path: lcdm_gas 2x128^3 with pmgrid = auto_pmgrid(2 * 128^3),
    ``Simulation(..., device="cuda")``, ``set_ics`` and 6 steps, with the
    kernels' launch counts of that run;
@@ -85,7 +92,25 @@ imports nothing of JAX. Phases, each printing its own lines:
    gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
    the bounds of ``tests/test_galaxy_cluster_e2e.py``; one tree force
    computation of the galaxy ICs against the direct sum; a small periodic
-   box through the Ewald tree against the exact periodic sum.
+   box through the Ewald tree against the exact periodic sum;
+14. lcdm_gas 2x128^3 with sinks (:func:`phase_sinks`): ``set_ics`` and 6
+   sync points through kernel H on the step's pack (not A), with sink
+   formation above the 99.999th percentile of the initial gas density and
+   accretion within 2.8 gas softenings; gates: the in-step potential after
+   ``set_ics`` against ``compute_potential``, at least one sink, mass and
+   momentum across cooling and sinks, a finite state without overflow;
+   H replayed and timed on the step's arguments, and against A bit for
+   bit; the PM pass with and without the potential, cooling and the sink
+   functions timed; a near-idle sync point through E's potential mode
+   against the same with the tier forced dense (H), E's potential mode
+   replayed and timed;
+15. the Leicester disc (:func:`phase_disc`): ``parameterfiles/disc.param``
+   on ``disc_ics(n_gas=20000)`` through ``Simulation.run()`` (tree gravity,
+   coarse-cell SPH in vacuum, beta cooling, accretion onto the registered
+   star, the run loop's overflow recovery) to t = 0.5 or 150 sync points;
+   gates: finite, the alive mass kept, the accretion tally equal to the
+   dead; ``apply_cooling`` (beta, Stamatellos) on its last state, card
+   against CPU.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -96,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import gc
 import json
 import shutil
@@ -141,7 +167,8 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "shortrange_gravity_entries": 1e-4, "sph_density_entries": 1e-4,
        "sph_hydro_entries": 1e-4, "shortrange_potential": 1e-4,
        "sph_cells_density": 1e-4, "sph_cells_hydro": 1e-4,
-       "pm_gather": 1e-5, "shortrange_gravity_cells": 1e-4}
+       "pm_gather": 1e-5, "shortrange_gravity_cells": 1e-4,
+       "shortrange_potential_entries": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -152,6 +179,9 @@ DENSE = ("shortrange_gravity", "pm_deposit", "sph_density", "sph_hydro")
 ENTRIES = ("shortrange_gravity_entries", "sph_density_entries",
            "sph_hydro_entries")
 POTENTIAL = ("shortrange_potential",)
+# kernel E's potential mode: the entries tier of a step with the in-step
+# potential (sinks, Stamatellos cooling)
+POTENTIAL_ENTRIES = ("shortrange_potential_entries",)
 CELLS = ("sph_cells_density", "sph_cells_hydro")
 GATHER = ("pm_gather",)
 GRAVITY_CELLS = ("shortrange_gravity_cells",)
@@ -190,13 +220,17 @@ KERNELS = {
     "shortrange_gravity_cells": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:1581"),
+    # E's with_potential mode (kernel body :855, potential rows :941-964)
+    "shortrange_potential_entries": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_entries.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:973"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
 FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "shortrange_gravity_entries": 1, "sph_density_entries": 3,
              "sph_hydro_entries": 4, "shortrange_potential": 1,
-             "sph_cells_density": 2}
+             "sph_cells_density": 2, "shortrange_potential_entries": 1}
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
 PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
 # The bound of each kernel (the least time the card could take): the
@@ -221,12 +255,14 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TEST_OPS = {"shortrange_gravity": 10, "shortrange_gravity_entries": 10,
-            "shortrange_potential": 10, "sph_density": 13,
+            "shortrange_potential": 10, "shortrange_potential_entries": 10,
+            "sph_density": 13,
             "sph_density_entries": 13, "sph_hydro": 15,
             "sph_hydro_entries": 15, "sph_cells_density": 13,
             "sph_cells_hydro": 15}
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
-                "shortrange_potential": 77, "sph_density": 73,
+                "shortrange_potential": 77,
+                "shortrange_potential_entries": 77, "sph_density": 73,
                 "sph_density_entries": 73, "sph_hydro": 86,
                 "sph_hydro_entries": 86, "sph_cells_density": 73,
                 "sph_cells_hydro": 86}
@@ -245,9 +281,11 @@ TIMED = (
     (f"{_PKG}.models.forces", "count_active_entries", "  SR tier count"),
     (f"{_PKG}.models.forces", "grav_tile_flags", "  SR flags"),
     (f"{_PKG}.models.forces", "shortrange_gravity_tiles", "  kernel A"),
+    (f"{_PKG}.models.forces", "shortrange_potential_tiles", "  kernel H"),
     (f"{_PKG}.models.forces", "merge_rows", "  SR merge"),
     (f"{_PKG}.models.forces", "gravity_entries", "  SR entries"),
-    (f"{_PKG}.ops.cells", "shortrange_gravity_entries", "    kernel E"),
+    (f"{_PKG}.ops.cells", "shortrange_gravity_entries",
+     "    kernel E (either mode)"),
     (f"{_PKG}.models.forces", "pm_deposit_tiles", "  kernel B"),
     (f"{_PKG}.models.forces", "pm_forces_periodic", "  PM FFT + gather"),
     (f"{_PKG}.models.forces", "compute_sph", "SPH"),
@@ -264,6 +302,9 @@ TIMED = (
     (f"{_PKG}.ops.sph_blocks", "hydro_sums_blocks_entries", "    kernel G"),
     (f"{_PKG}.models.forces", "build_active_entries",
      "entry lists (gravity + SPH)"),
+    (f"{_PKG}.models.simulation", "apply_cooling", "cooling"),
+    (f"{_PKG}.models.simulation", "create_sinks", "sink formation"),
+    (f"{_PKG}.models.simulation", "accrete_onto_sinks", "accretion"),
     (f"{_PKG}.models.integrate", "advance_and_find_timesteps", "advance"),
     (f"{_PKG}.models.integrate", "pm_step_update", "PM step update"),
 )
@@ -349,15 +390,15 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def setup(n_side: int, **opt_overrides):
+def setup(n_side: int, param_extra: str = "", **opt_overrides):
     """cfg, opts and IC arrays of the lcdm_gas box at ``n_side``;
-    ``opt_overrides`` replace fields of the options (block SPH by
-    default)."""
+    ``param_extra`` is appended to the parameter text, ``opt_overrides``
+    replace fields of the options (block SPH by default)."""
     from gadget_leicester_tpu_torch.core.config import (SimOptions,
                                                         auto_pmgrid,
                                                         parse_parameter_text)
     from gadget_leicester_tpu_torch.models.ics import lcdm_gas_ics
-    cfg = parse_parameter_text(param_text(n_side))
+    cfg = parse_parameter_text(param_text(n_side) + param_extra)
     opts = SimOptions(periodic=True, pmgrid=auto_pmgrid(2 * n_side ** 3),
                       gravity_mode="treepm",
                       sph_backend="blocks").replace(**opt_overrides)
@@ -586,6 +627,12 @@ def kernel_pairs() -> dict:
         "shortrange_gravity_cells": (
             cells.shortrange_gravity_cells,
             gravity_short.shortrange_gravity_cells_plain),
+        # E's potential mode: the same wrapper and plain version
+        "shortrange_potential_entries": (
+            functools.partial(cells.shortrange_gravity_entries,
+                              with_potential=True),
+            functools.partial(gravity_short.shortrange_gravity_entries_plain,
+                              with_potential=True)),
     }
 
 
@@ -598,7 +645,7 @@ def cases(name: str, recorded: dict) -> list:
     import torch
     args = recorded[name]
     i = FLAGS_ARG.get(name)
-    if name in ENTRIES:
+    if name in ENTRIES + POTENTIAL_ENTRIES:
         ids = args[i]
         if name == "sph_density_entries":
             # F's last call may be a later Newton sweep, which switched off
@@ -684,7 +731,7 @@ def _targets(name: str, args: tuple):
         soa, flags = args[:2]
         k = torch.nonzero(flags > 0).flatten()
         return soa[k], soa[k, 5] > 0, k, None, None
-    if name == "shortrange_gravity_entries":
+    if name in ("shortrange_gravity_entries", "shortrange_potential_entries"):
         cell, tgt = args[1:3]
         e = torch.nonzero(cell >= 0).flatten()
         return tgt[e], tgt[e, 5] > 0, cell[e].long(), None, None
@@ -927,6 +974,54 @@ def check_potential_forces(recorded: dict, where: str) -> None:
                              f"({where})")
 
 
+def record_idle_sinks(device, n_side: int) -> tuple:
+    """The arguments the step gives E's potential mode and kernel H with
+    the in-step potential (sinks on): the lcdm_gas box at ``n_side`` after
+    ``set_ics`` and one sync point, made near-idle (:func:`make_near_idle`),
+    then one sync point through the entries tier and one with the tier
+    forced dense (the step's cached pack and its gated tile flags).
+    Returns (entries recording, dense recording)."""
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg, opts, (pos, vel, mass, ptype, u) = setup(n_side, sinks=True)
+    sim = Simulation(cfg, opts, device)
+    sim.set_ics(pos, vel, mass, ptype, u=u)
+    sim.step()
+    idle = make_near_idle(sim.state, IDLE_FRAC_SMALL, IDLE_SEED)
+    out = []
+    for force, name in ((None, "shortrange_potential_entries"),
+                        (False, "shortrange_potential")):
+        sim.state = copy.deepcopy(idle)
+        with recorded_inputs() as rec, tier(force) as log:
+            sim.step()
+        if log[0][3] != (force is None) or name not in rec:
+            raise AssertionError(f"the near-idle sync point with sinks did "
+                                 f"not call {name}")
+        out.append(dict(rec))
+    return tuple(out)
+
+
+def check_step_potential_forces(recorded: dict, where: str) -> None:
+    """Kernel H's force rows equal kernel A's bit for bit on the arguments
+    a step gave H: with the step's own tile flags, and with every tile
+    on."""
+    import torch
+    pairs = kernel_pairs()
+    h_kern, a_kern = (pairs[n][0] for n in ("shortrange_potential",
+                                            "shortrange_gravity"))
+    step_args = recorded["shortrange_potential"]
+    for label, args in (("the step's tile flags", step_args),
+                        ("all tiles", cases("shortrange_potential",
+                                            recorded)[0][1])):
+        h, a = h_kern(*args)[:, :3], a_kern(*args)
+        same = torch.equal(h, a)
+        say("kernels", f"shortrange_potential rows 0-2 vs shortrange_gravity "
+            f"{where}, {label}: max |H - A| {float((h - a).abs().max()):.3e}"
+            f", bit for bit {'yes' if same else 'NO'}")
+        if not same:
+            raise AssertionError(f"kernel H's forces are not kernel A's bit "
+                                 f"for bit ({where}, {label})")
+
+
 def phase_kernels(results: dict, device="cuda", n_small=N_SIDE_SMALL):
     recorded = record_init(n_small, device)
     check_kernels(recorded, f"n_side={n_small}", results, DENSE + POTENTIAL)
@@ -954,6 +1049,13 @@ def phase_kernels(results: dict, device="cuda", n_small=N_SIDE_SMALL):
         check_kernels(recorded, f"n_side={n_small} periodic" if periodic
                       else "vacuum blob 4^3 cells x 256", results,
                       GRAVITY_CELLS)
+    # E's potential mode and H on a step's own arguments (sinks on)
+    rec_e, rec_h = record_idle_sinks(device, n_small)
+    check_kernels(rec_e, f"n_side={n_small} near-idle, sinks", results,
+                  POTENTIAL_ENTRIES)
+    check_kernels(rec_h, f"n_side={n_small} near-idle step forced dense, "
+                  "sinks", results, POTENTIAL)
+    check_step_potential_forces(rec_h, f"n_side={n_small} step")
 
 
 def report_close(phase: str, what: str, res: dict) -> None:
@@ -972,9 +1074,11 @@ def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
     gives them) on the card against the CPU, and with ``potential`` the
     full potential after 1 of them. Returns the card's state after 1 sync
     point."""
-    from gadget_leicester_tpu_torch.core.state import (assert_states_close,
+    from gadget_leicester_tpu_torch.core.state import (CLOSE_FIELDS,
+                                                       assert_states_close,
                                                        from_numpy, to_numpy)
-    from gadget_leicester_tpu_torch.models.forces import compute_potential
+    from gadget_leicester_tpu_torch.models.forces import (compute_potential,
+                                                          in_step_potential)
     from gadget_leicester_tpu_torch.models.simulation import Simulation
     cfg, opts, ics = setup(n_small, **opt_overrides)
     pos, vel, mass, ptype, u = ics
@@ -988,10 +1092,12 @@ def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
             if dev == device and len(runs[dev]) == 1:
                 after_one = sim.state
             runs[dev].append(to_numpy(sim.state))
+    fields = CLOSE_FIELDS + (("p.pot",) if in_step_potential(opts) else ())
     for i, (g, c) in enumerate(zip(runs[device], runs["cpu"])):
-        report_close("slice", f"sph_backend {opts.sph_backend}, after {i} "
+        report_close("slice", f"sph_backend {opts.sph_backend}"
+                     f"{', sinks' if opts.sinks else ''}, after {i} "
                      f"steps, ti_current {int(g['ti_current'])}",
-                     assert_states_close(g, c))
+                     assert_states_close(g, c, fields=fields))
     if not potential:
         return after_one
     # the full potential (kernel H on the card) of one state on both
@@ -1146,6 +1252,10 @@ PATH_KERNELS = {
 }
 
 
+# per-step seconds of each full-active path that :func:`phase_main` drove
+STEP_SECONDS: dict = {}
+
+
 def phase_main(results: dict, card: str, device="cuda",
                n_side=N_SIDE_MAIN, sph_backend="auto", phase="main"):
     """The full-active main path under ``sph_backend``: ``set_ics`` and
@@ -1188,6 +1298,7 @@ def phase_main(results: dict, card: str, device="cuda",
         f" ({card})")
     say(phase, "per-step seconds " + ", ".join(f"{s:.3f}" for s in step_s)
         + f" ({card})")
+    STEP_SECONDS[phase] = step_s
     say(phase, f"{updates} particle updates in {sum(step_s):.3f} s: "
         f"{updates / sum(step_s):.1f} updates/s ({card})")
     say(phase, f"Newton sweeps per density pass: "
@@ -1223,20 +1334,30 @@ def phase_main(results: dict, card: str, device="cuda",
 @contextlib.contextmanager
 def phase_timer(device="cuda", timed_fns=TIMED):
     """Within the body, each function of ``timed_fns`` runs with a device
-    sync on both sides and adds its seconds and calls to the dict this
-    yields (label -> [seconds, calls]; nested phases add their syncs to
-    their parents')."""
+    sync on both sides and adds its seconds, calls and the caching
+    allocator's ``cudaMalloc`` calls to the dict this yields (label ->
+    [seconds, calls, mallocs]; nested phases add their syncs to their
+    parents')."""
     import importlib
-    totals = {label: [0.0, 0] for _, _, label in timed_fns}
+
+    import torch
+    totals = {label: [0.0, 0, 0] for _, _, label in timed_fns}
+
+    def mallocs():
+        if device != "cuda":
+            return 0
+        return torch.cuda.memory_stats().get("num_device_alloc", 0)
 
     def timed(label, fn):
         def run(*args, **kwargs):
             sync(device)
+            m0 = mallocs()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             sync(device)
             totals[label][0] += time.perf_counter() - t0
             totals[label][1] += 1
+            totals[label][2] += mallocs() - m0
             return out
         return run
 
@@ -1256,10 +1377,10 @@ def say_phases(phase: str, totals: dict, steps: int,
                timed_fns=TIMED) -> None:
     """The phases that ran, in ms per step."""
     for _, _, label in timed_fns:
-        s, n = totals[label]
+        s, n, m = totals[label]
         if n:
             say(phase, f"  {label:<28s} {1e3 * s / steps:9.3f} ms/step "
-                f"({n} calls)")
+                f"({n} calls{f', {m} cudaMalloc' if m else ''})")
 
 
 def phase_profile(sim, card: str, device="cuda",
@@ -2292,6 +2413,512 @@ def phase_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 4: the small Leicester disc of tests/test_torch_disc.py, card
+# against CPU: tests/test_features.py:117-138's settings (disc_ics(n_gas=
+# 400, r_in=0.2), SinkAccretionRadius 0.35, SofteningBndry 0.05,
+# MaxSizeTimestep 0.01) with beta cooling (CoolingBeta 1.0), the star
+# registered as a sink, velocities given a seeded 2% scatter: on exact
+# circular orbits the sign of dv . dx that decides accretion is a rounding
+# residue, and two devices that round apart would accrete different gas
+DISC_SMALL_STEPS = 20
+DISC_SCATTER = 0.02
+DISC_EXACT = ("sinks.slot", "sinks.n_accreted")
+DISC_FIELDS = ("p.mass", "sinks.acc_mass")
+
+
+def disc_small_param_text() -> str:
+    return stock_param_text("gassphere", "x", "y", 3.0, SofteningBndry=0.05,
+                            MaxSizeTimestep=0.01) \
+        + "SinkAccretionRadius 0.35\nCoolingBeta 1.0\n"
+
+
+def disc_small_ics():
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.models.ics import disc_ics
+    pos, vel, mass, ptype, u = disc_ics(n_gas=400, r_in=0.2)
+    rng = np.random.default_rng(11)
+    vel = vel + DISC_SCATTER * rng.standard_normal(vel.shape) \
+        * np.linalg.norm(vel, axis=1, keepdims=True)
+    return pos, vel, mass, ptype, u
+
+
+def phase_disc_small(device="cuda") -> None:
+    """The small disc for DISC_SMALL_STEPS sync points on the card and on
+    the CPU, held to each other after every one; at least one particle
+    accreted."""
+    from gadget_leicester_tpu_torch.core.config import (SimOptions,
+                                                        parse_parameter_text)
+    from gadget_leicester_tpu_torch.core.state import (CLOSE_FIELDS,
+                                                       EXACT_FIELDS,
+                                                       assert_states_close,
+                                                       to_numpy)
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.models.sinks import \
+        register_sinks_from_types
+    cfg = parse_parameter_text(disc_small_param_text())
+    opts = SimOptions(periodic=False, cooling="beta", sinks=True)
+    pos, vel, mass, ptype, u = disc_small_ics()
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = Simulation(cfg, opts, dev)
+        sim.set_ics(pos, vel, mass, ptype, u=u)
+        sim.state = register_sinks_from_types(sim.state)
+        runs[dev] = [to_numpy(sim.state)]
+        for _ in range(DISC_SMALL_STEPS):
+            sim.step()
+            runs[dev].append(to_numpy(sim.state))
+    worst = {}
+    for g, c in zip(runs[device], runs["cpu"]):
+        res = assert_states_close(g, c, fields=CLOSE_FIELDS + DISC_FIELDS,
+                                  exact=EXACT_FIELDS + DISC_EXACT)
+        for k, v in res.items():
+            worst[k] = max(worst.get(k, (0.0, 0)), v)
+    last = runs[device][-1]
+    n_acc = int(last["sinks.n_accreted"].sum())
+    report_close("slice", f"disc of 400 gas, beta cooling and sinks, "
+                 f"{DISC_SMALL_STEPS} sync points, card vs CPU after each "
+                 f"(sink slots and tallies equal; {n_acc} accreted)", worst)
+    if n_acc == 0:
+        raise AssertionError("the small disc accreted nothing")
+
+
+# phase 14: lcdm_gas 2x128^3 with sinks. SinkAccretionRadius is 2.8 times
+# SofteningGas (the force softening h of a gas particle); a sink is type 5,
+# so SofteningBndry takes the gas softening too (a sink is born from a gas
+# particle; 0 would leave its force unsoftened). SinkFormationDensity
+# sits at this percentile of the gas density after set_ics, so that
+# formation is exercised within the run.
+SINK_RADIUS_PER_SOFT = 2.8
+SINK_DENSITY_PERCENTILE = 99.999
+# gates: the in-step potential after set_ics against compute_potential
+# (tests/test_instep_potential.py's bound), alive mass and momentum across
+# the fork's physics (sink formation moves nothing; accretion moves mass
+# and momentum from gas to sink exactly, up to float32 rounding), and the
+# entries tier's potential against the dense tier's on one near-idle sync
+# point (as shares of the largest value)
+SINK_INSTEP_TOL = 2e-4
+SINK_MASS_TOL = 1e-5
+SINK_MOMENTUM_TOL = 1e-5
+SINK_TIER_POT_TOL = 2e-5
+# which kernels the full-active path with the in-step potential launches
+SINK_PATH = ("shortrange_potential", "pm_deposit", "sph_density",
+             "sph_hydro")
+
+
+def sink_param_lines(n_side: int, box: float = 50000.0) -> str:
+    soft = float(f"{box / n_side / 30:.3f}")      # param_text's softening
+    return (f"SofteningBndry {soft}\nSofteningBndryMaxPhys {soft}\n"
+            f"SinkAccretionRadius {SINK_RADIUS_PER_SOFT * soft:.4f}\n")
+
+
+@contextlib.contextmanager
+def fork_bookkeeping():
+    """Within the body, each call of ``models.simulation.fork_physics``
+    (cooling, sink formation, accretion) appends to the list this yields
+    the alive mass and momentum before and after it, as float64 device
+    tensors (read after the body, so no host sync is added)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.models import simulation
+    real = simulation.fork_physics
+    log = []
+
+    def totals(state):
+        p = state.p
+        m = torch.where(p.alive, p.mass, torch.zeros_like(p.mass)).double()
+        return torch.cat([m.sum()[None], (m[:, None] * p.vel.double()).sum(0),
+                          (m[:, None] * p.vel.double()).abs().sum()[None]])
+
+    def spy(state, cfg, opts):
+        before = totals(state)
+        state = real(state, cfg, opts)
+        log.append((before, totals(state)))
+        return state
+
+    simulation.fork_physics = spy
+    try:
+        yield log
+    finally:
+        simulation.fork_physics = real
+
+
+def check_fork_bookkeeping(phase: str, log: list) -> None:
+    """Hold the alive mass and momentum across each fork-physics call to
+    SINK_MASS_TOL (relative) and SINK_MOMENTUM_TOL (of sum |m v|)."""
+    dm = dp = 0.0
+    for before, after in log:
+        b, a = before.cpu().tolist(), after.cpu().tolist()
+        dm = max(dm, abs(a[0] - b[0]) / b[0])
+        dp = max(dp, max(abs(a[k] - b[k]) for k in (1, 2, 3)) / b[4])
+    ok = dm <= SINK_MASS_TOL and dp <= SINK_MOMENTUM_TOL
+    say(phase, f"across {len(log)} calls of cooling and sinks: alive mass "
+        f"changed by at most {dm:.2e} of itself (bound {SINK_MASS_TOL:g}), "
+        f"momentum by {dp:.2e} of sum |m v| (bound {SINK_MOMENTUM_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mass or momentum not conserved across the "
+                             "fork's physics")
+
+
+def check_finite(phase: str, state) -> None:
+    import torch
+    for name, t in (("p.pos", state.p.pos), ("p.vel", state.p.vel),
+                    ("p.acc", state.p.acc), ("p.acc_pm", state.p.acc_pm),
+                    ("p.pot", state.p.pot), ("p.mass", state.p.mass),
+                    ("gas.density", state.gas.density),
+                    ("gas.hsml", state.gas.hsml),
+                    ("gas.entropy", state.gas.entropy),
+                    ("sinks.acc_mass", state.sinks.acc_mass)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{phase}: {name} is not finite")
+    if int(state.overflow_flags) != 0:
+        raise AssertionError(f"{phase}: overflow_flags "
+                             f"{int(state.overflow_flags)}")
+
+
+def check_launches(phase: str, counts: dict, used, what: str) -> None:
+    """The kernels of ``used`` launched, and no other."""
+    for name, n in counts.items():
+        if (n > 0) != (name in used):
+            raise AssertionError(f"{phase}: kernel {name} launched {n} times "
+                                 f"in {what}")
+
+
+def phase_sinks(results: dict, card: str, device="cuda",
+                n_side=N_SIDE_MAIN) -> None:
+    """lcdm_gas 2x128^3 with sinks (phase 14): the in-step potential
+    through kernel H and E's potential mode, sink formation and accretion
+    at full width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.state import (assert_states_close,
+                                                       to_numpy)
+    from gadget_leicester_tpu_torch.models import cooling, sinks
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          compute_potential,
+                                                          softening_table)
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.ops.cells import pack_cells_soa
+    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
+                                                   pm_forces_periodic,
+                                                   pm_potential_periodic)
+    from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
+    from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
+    cfg, opts, (pos, vel, mass, ptype, u) = setup(
+        n_side, param_extra=sink_param_lines(n_side), sinks=True)
+    sim = Simulation(cfg, opts, device)
+    ng = None
+    step_s, formed = [], []
+    with recorded_inputs() as rec, fork_bookkeeping() as book:
+        kernels.reset_launches()
+        t0 = time.time()
+        sim.set_ics(pos, vel, mass, ptype, u=u)
+        sync(device)
+        init_s = time.time() - t0
+        init = sim.state
+        ng = init.n_gas_max
+        gas = init.p.alive[:ng] & (init.p.ptype[:ng] == 0)
+        thr = float(np.percentile(init.gas.density[gas].cpu().numpy(),
+                                  SINK_DENSITY_PERCENTILE))
+        sim.cfg = cfg = cfg.replace(sink_formation_density=thr)
+        for _ in range(MAIN_STEPS):
+            t0 = time.time()
+            sim.step()
+            sync(device)
+            step_s.append(time.time() - t0)
+            formed.append(int((sim.state.sinks.slot >= 0).sum()))
+        counts = dict(kernels.launches)
+    recorded = dict(rec)
+    st = sim.state
+    say("sinks", f"2x{n_side}^3, pmgrid {opts.pmgrid}, block SPH, sinks: "
+        f"SofteningGas {cfg.softening_gas:g}, SofteningBndry "
+        f"{cfg.softening_bndry:g}, SinkAccretionRadius "
+        f"{cfg.sink_accretion_radius:g} kpc/h (2.8 x SofteningGas), "
+        f"SinkFormationDensity {thr:.6g} (the {SINK_DENSITY_PERCENTILE}th "
+        f"percentile of the gas density after set_ics)")
+    say("sinks", f"init {init_s:.3f} s; per-step seconds "
+        + ", ".join(f"{t:.3f}" for t in step_s) + " (without sinks, phase "
+        "5: " + ", ".join(f"{t:.3f}" for t in STEP_SECONDS.get("main", []))
+        + f") ({card})")
+    say("sinks", f"launches {counts}; used sink slots after each sync "
+        f"point {formed}; accreted {int(st.sinks.n_accreted.sum())}, "
+        f"acc_mass {float(st.sinks.acc_mass.sum()):.6g}")
+    check_launches("sinks", counts, SINK_PATH, "the full-active path with "
+                   "sinks (kernel H, not A)")
+    results["shortrange_potential"]["launches"] = counts["shortrange_potential"]
+    check_finite("sinks", st)
+    check_fork_bookkeeping("sinks", book)
+    if formed[-1] < 1:
+        raise AssertionError("no sink formed at 2x128^3")
+    # gate 1: the in-step potential after set_ics is the full potential.
+    # The reference is compute_potential's (with the capacities set_ics
+    # settled on) with its mesh piece taken in float64: the float32 CIC
+    # weights of a 192^3 mesh resolve a position to ~1e-5 of a cell, which
+    # moves the mesh potential by ~0.07 of its ~600 (2x32^3 and 2x64^3 on
+    # the CPU alike), so two float32 mesh pieces from two deposits (kernel
+    # B on the cell-relative pack, the point deposit on absolute
+    # positions) differ by about twice that
+    alive = init.p.alive
+    box = float(cfg.box_size)
+    ref = compute_potential(init, cfg, sim.opts).p.pot
+    pm = [pm_potential_periodic(init.p.pos.to(d), init.p.mass.to(d), alive,
+                                box, opts.pmgrid).double() * cfg.grav_internal
+          for d in (torch.float32, torch.float64)]
+    exact = ref.double() - pm[0] + pm[1]
+    scale = float(exact[alive].abs().max())
+    err = float((init.p.pot - exact)[alive].abs().max()) / scale
+    err_pass = float((ref - exact)[alive].abs().max()) / scale
+    err_f32 = float((init.p.pot - ref)[alive].abs().max()) / scale
+    err_sr = float(((init.p.pot - init.p.pot_pm).double() - ref.double()
+                    + pm[0])[alive].abs().max()) / scale
+    say("sinks", f"after set_ics, in-step p.pot vs the full potential "
+        f"(compute_potential, its mesh piece in float64): largest "
+        f"difference {err:.2e} of max |pot| {scale:.6g} (bound "
+        f"{SINK_INSTEP_TOL:g}) {'ok' if err <= SINK_INSTEP_TOL else 'FAIL'}"
+        f"; compute_potential in float32 {err_pass:.2e} of it; the two "
+        f"float32 potentials {err_f32:.2e}, their short-range and self "
+        f"parts {err_sr:.2e}")
+    if err > SINK_INSTEP_TOL:
+        raise AssertionError("the in-step potential is not the full one")
+    del ref, pm, exact, init
+    # kernel H on the step's arguments, against its plain version, A's
+    # force rows bit for bit, timed beside A (phase 6) and E (phase 8)
+    check_kernels(recorded, f"2x{n_side}^3 step with sinks", results,
+                  POTENTIAL, timed=True)
+    check_step_potential_forces(recorded, f"2x{n_side}^3 step")
+    del recorded
+    kernels.recorded.clear()
+    six = st
+    # the fourth PM component: the PM pass with and without the potential
+    # on the step's own deposit
+    fac = comoving_factors(cfg, six.ti_current)
+    soft = SOFTFAC * softening_table(cfg, fac.atime)[six.p.ptype.long()]
+    cl = six.grids.grav
+    n_cells = cl.n_cells
+    soa = pack_cells_soa(cl, six.p.pos, six.p.mass, soft, six.p.alive)
+    rho = pm_deposit_tiles(soa, n_cells, box, opts.pmgrid)
+    del soa
+    pm_ms = {}
+    for k in (False, True):
+        pm_ms[k], _ = time_ms(lambda: pm_forces_periodic(
+            six.p.pos, six.p.mass, six.p.alive, box, opts.pmgrid,
+            rho_grid=rho, with_potential=k), 3)
+    # why the potential is gathered apart from the force: PyTorch's row
+    # gather (ops/pm.py :: cic_gather_vec) of the mesh stack with K
+    # components, at the step's positions
+    field = pm_forces_periodic(six.p.pos, six.p.mass, six.p.alive, box,
+                               opts.pmgrid, rho_grid=rho,
+                               with_potential=True, return_field=True)
+    posw = torch.remainder(six.p.pos, box)
+    gather_ms = {}
+    for k in (1, 3, 4):
+        part = field[..., 4 - k:].contiguous()
+        gather_ms[k], _ = time_ms(lambda: cic_gather_vec(
+            part, posw, box, opts.pmgrid), 3)
+    del rho, field, part, posw
+    # cooling and sinks on this state, each with a device sync around it
+    costs = {}
+    for mode in ("beta", "stamatellos"):
+        o = dataclasses.replace(opts, cooling=mode)
+        costs[f"apply_cooling {mode}"], _ = time_ms(
+            lambda: cooling.apply_cooling(six, cfg, o), 3)
+    costs["create_sinks"], _ = time_ms(
+        lambda: sinks.create_sinks(six, cfg, opts), 3)
+    costs["accrete_onto_sinks"], _ = time_ms(
+        lambda: sinks.accrete_onto_sinks(six, cfg, opts), 3)
+    say("sinks", f"PM pass on the step's deposit: forces "
+        f"{pm_ms[False]:.3f} ms, with the potential {pm_ms[True]:.3f} ms "
+        f"(the row gather of K = 1, 3, 4 mesh components "
+        + ", ".join(f"{gather_ms[k]:.3f}" for k in (1, 3, 4)) + " ms); "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in costs.items())
+        + f" (at 2x{n_side}^3, {formed[-1]} sink slots used) ({card})")
+    with phase_timer(device) as totals:
+        sim.step(2)
+    say("sinks", f"2 more sync points with sinks, a device sync around each "
+        f"phase ({card}):")
+    say_phases("sinks", totals, 2)
+    # a near-idle sync point through each tier, from the state after 6
+    idle = make_near_idle(six, IDLE_FRAC_MAIN, IDLE_SEED)
+    del six, st
+
+    def run(force):
+        sim.state = copy.deepcopy(idle)
+        with tier(force) as log:
+            kernels.reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            sim.step()
+            sync(device)
+            dt = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+        return sim.state, counts, log, dt
+
+    # each tier's first run pays the allocator for its shapes: a second
+    # run, whose state is dropped, times it warm
+    with recorded_inputs() as rec:
+        st_a, counts_a, log_a, dt_a = run(None)
+    recorded = dict(rec)
+    warm_a = run(None)[3]
+    say_tiers("sinks", log_a)
+    say("sinks", f"near-idle entries tier launches {counts_a}, "
+        f"{1e3 * dt_a:.3f} ms, again {1e3 * warm_a:.3f} ms ({card})")
+    check_launches("sinks", counts_a, POTENTIAL_ENTRIES
+                   + ENTRIES[1:], "an entries-tier sync point with sinks")
+    results.setdefault("shortrange_potential_entries", {})["launches"] = \
+        counts_a["shortrange_potential_entries"]
+    st_b, counts_b, _, dt_b = run(False)
+    warm_b = run(False)[3]
+    say("sinks", f"near-idle dense tier launches {counts_b}, "
+        f"{1e3 * dt_b:.3f} ms, again {1e3 * warm_b:.3f} ms ({card})")
+    check_launches("sinks", counts_b, ("shortrange_potential", "sph_density",
+                                       "sph_hydro"),
+                   "a dense-tier sync point with sinks")
+    report_close("sinks", f"2x{n_side}^3 near-idle sync point with sinks, "
+                 "entries vs dense tier", assert_states_close(
+                     to_numpy(st_a), to_numpy(st_b)))
+    alive = st_b.p.alive
+    scale = float(st_b.p.pot[alive].abs().max())
+    err = float((st_a.p.pot - st_b.p.pot)[alive].abs().max()) / scale
+    say("sinks", f"near-idle p.pot, entries vs dense tier: largest "
+        f"difference {err:.2e} of max |pot| (bound {SINK_TIER_POT_TOL:g}) "
+        f"{'ok' if err <= SINK_TIER_POT_TOL else 'FAIL'}")
+    if err > SINK_TIER_POT_TOL:
+        raise AssertionError("the tiers disagree on the in-step potential")
+    del st_a, st_b, idle
+    check_kernels(recorded, f"2x{n_side}^3 near-idle, sinks", results,
+                  POTENTIAL_ENTRIES, timed=True)
+    say("sinks", f"kernel H on the step {results['shortrange_potential']['ms']:.3f}"
+        f" ms beside A {results['shortrange_gravity']['ms']:.3f} ms; E's "
+        f"potential mode {results['shortrange_potential_entries']['ms']:.3f}"
+        f" ms beside E {results['shortrange_gravity_entries']['ms']:.3f} ms "
+        f"({card})")
+
+
+# phase 15: parameterfiles/disc.param on the 20,000-gas disc that
+# parameterfiles/make_ics.py writes, to DISC_T_END or DISC_MAX_STEPS sync
+# points, whichever comes first; apply_cooling card vs CPU on its last
+# state within COOLING_TOL of the largest |dcool| (tests/test_torch_cooling
+# .py's bound)
+DISC_N_GAS = 20000
+DISC_T_END = 0.5
+DISC_MAX_STEPS = 150
+DISC_MASS_TOL = 1e-5
+COOLING_TOL = 1e-5
+
+
+def phase_disc(card: str, device="cuda") -> None:
+    """The Leicester disc through the Python API (phase 15): ``Simulation``,
+    ``set_ics``, ``register_sinks_from_types``, then ``Simulation.run()``
+    with its overflow recovery. The run's directory is deleted at the
+    end."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.config import (SimOptions,
+                                                        parse_parameter_text)
+    from gadget_leicester_tpu_torch.core.state import from_numpy, to_numpy
+    from gadget_leicester_tpu_torch.models.cooling import apply_cooling
+    from gadget_leicester_tpu_torch.models.grids import (resolve_gravity_mode,
+                                                         sph_cells_geometry)
+    from gadget_leicester_tpu_torch.models.ics import disc_ics
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.models.sinks import \
+        register_sinks_from_types
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "disc_run"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        cfg = parse_parameter_text(stock_param_text(
+            "disc", str(work / "disc_ics.dat"), str(work / "out"),
+            DISC_T_END))
+        opts = SimOptions(periodic=False, cooling="beta", sinks=True,
+                          sph_backend="cells")
+        sim = Simulation(cfg, opts, device)
+        pos, vel, mass, ptype, u = disc_ics(n_gas=DISC_N_GAS)
+        t0 = time.time()
+        sim.set_ics(pos, vel, mass, ptype, u=u)
+        sim.state = register_sinks_from_types(sim.state)
+        sync(device)
+        init_s = time.time() - t0
+        p = sim.state.p
+        m0 = float(p.mass[p.alive].double().sum())
+        n0 = int(p.alive.sum())
+        caps = [sph_cells_geometry(cfg, o, sim.state.n_gas_max)
+                for o in (opts, sim.opts)]
+        kernels.reset_launches()
+        t0 = time.time()
+        sim.run(max_steps=DISC_MAX_STEPS)
+        sync(device)
+        wall = time.time() - t0
+        counts = dict(kernels.launches)
+        st = sim.state
+        p = st.p
+        m1 = float(p.mass[p.alive].double().sum())
+        n1 = int(p.alive.sum())
+        n_acc = int(st.sinks.n_accreted.sum())
+        notes = [line.strip() for line in
+                 (work / "out" / "info.txt").read_text().splitlines()
+                 if "overflow" in line]
+        say("disc", f"disc.param on disc_ics(n_gas={DISC_N_GAS}): gravity "
+            f"{resolve_gravity_mode(opts, st.n_max)}, SPH cells, beta "
+            f"cooling, sinks; init {init_s:.2f} s; {sim.step_count} sync "
+            f"points to t = {sim.time:.4f} in {wall:.2f} s, "
+            f"{1e3 * wall / max(sim.step_count, 1):.2f} ms per sync point "
+            f"with the run loop ({card})")
+        caps.append(sph_cells_geometry(cfg, sim.opts, st.n_gas_max))
+        say("disc", f"launches {counts}; SPH cells x slots: asked "
+            f"{caps[0]}, after set_ics {caps[1]}, after the run {caps[2]}; "
+            f"info.txt overflow notes {notes}")
+        say("disc", f"accreted {n_acc} gas (alive {n0} -> {n1}), star mass "
+            f"{float(p.mass[int(st.sinks.slot[0])]):.6f}, alive mass {m0:.7f}"
+            f" -> {m1:.7f} ({abs(m1 - m0) / m0:.2e}, bound "
+            f"{DISC_MASS_TOL:g})")
+        if not (sim.time >= DISC_T_END * (1 - 1e-6)
+                or sim.step_count >= DISC_MAX_STEPS):
+            raise AssertionError("the disc run stopped early")
+        if counts["sph_cells_density"] == 0 or counts["sph_cells_hydro"] == 0:
+            raise AssertionError("the disc run did not launch kernels I/J "
+                                 "and K")
+        check_finite("disc", st)
+        if abs(m1 - m0) > DISC_MASS_TOL * m0:
+            raise AssertionError("the disc lost or gained mass")
+        if n0 - n1 != n_acc:
+            raise AssertionError(f"{n0 - n1} particles died, the tally says "
+                                 f"{n_acc}")
+        # apply_cooling on the last state, card against CPU (in disc.param's
+        # units of 1 cm, 1 g and 1 cm/s the gas is at the 1 K floor, so the
+        # Stamatellos rate is read toward backgrounds of 10 K and 1e7 K)
+        host = from_numpy(to_numpy(st), "cpu")
+        for mode, tbg in (("beta", None), ("stamatellos", 10.0),
+                          ("stamatellos", 1e7)):
+            o = dataclasses.replace(opts, cooling=mode)
+            c = cfg if tbg is None else cfg.replace(cooling_tbg=tbg)
+            got = (apply_cooling(st, c, o).gas.dt_entropy
+                   - st.gas.dt_entropy).cpu()
+            want = apply_cooling(host, c, o).gas.dt_entropy \
+                - host.gas.dt_entropy
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max()) / (scale or 1.0)
+            ok = scale > 0 and bool(torch.isfinite(got).all()) \
+                and err <= COOLING_TOL
+            say("disc", f"apply_cooling {mode}"
+                f"{'' if tbg is None else f' (CoolingTbg {tbg:g})'} on the "
+                f"last state, card vs CPU: {err:.2e} of the largest |dcool| "
+                f"{scale:.4g} (bound {COOLING_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"apply_cooling {mode}: card and CPU "
+                                     "disagree")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def sync(device) -> None:
     import torch
     if device == "cuda":
@@ -2330,6 +2957,8 @@ def main() -> int:
     grid, cap = SMALL_CELL_GRIDS[0]
     phase_slice(steps=1, potential=False, sph_backend="cells", sph_grid=grid,
                 sph_capacity=cap)
+    phase_slice(potential=False, sinks=True)
+    phase_disc_small()
     sim, recorded, blocks_init, main_counts = phase_main(results, card)
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
@@ -2355,6 +2984,13 @@ def main() -> int:
     phase_cli(card)
     phase_gassphere(card)
     phase_tree(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_sinks(results, card)
+    kernels.recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_disc(card)
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

@@ -7,8 +7,12 @@ starts from a snapshot named by InitCondFile. ``--device`` (``cuda``, the
 default, or ``cpu``) is the one flag the JAX CLI lacks; asked for CUDA
 where there is none, the run stops with a message and a non-zero exit.
 ``--devices`` and ``--makeglass`` are not ported (ROADMAP queue 1 items 14
-and 13) and exit non-zero; ``--cooling``, ``--sinks`` and ``--isothermal``
-reach ``check_supported``, which refuses them.
+and 13) and exit non-zero; ``--isothermal`` reaches ``check_supported``,
+which refuses it. ``--cooling`` and ``--sinks`` run the fork's physics. As
+in the JAX CLI, no sink is registered from the particle types: a run
+through the CLI forms sinks only by ``SinkFormationDensity``, and the star
+of ``parameterfiles/disc.param`` never accretes (the Python API's
+``models.sinks.register_sinks_from_types`` does that; ROADMAP queue 3).
 """
 
 import argparse

@@ -85,8 +85,9 @@ class GasState:
 
 @dataclass
 class SinkState:
-    """Sink bookkeeping (allocated and carried; sinks are not on the
-    slice's path)."""
+    """Sink bookkeeping (``models/sinks.py``): the particle index of each
+    sink slot, the mass each sink accreted and the gas particles it
+    took."""
 
     slot: torch.Tensor        # [S] int32 (-1 = unused)
     acc_mass: torch.Tensor    # [S]

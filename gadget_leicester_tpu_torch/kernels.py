@@ -1,12 +1,13 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
 The kernels, twelve sources (A short-range gravity, B PM deposit, C SPH
-density, D SPH hydro, the active-entry twins E, F, G of A, C, D, H
-short-range gravity with the potential, the coarse-cell SPH density I/J
-and hydro K, L the cell-window PM gather, and M short-range gravity in
-absolute coordinates with the per-pair minimum image) are compiled
-on first use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
-started together, and linked into one shared library with a plain C
+density, D SPH hydro, the active-entry twins E, F, G of A, C, D, with E
+in two modes, the force and the force with the potential, H short-range
+gravity with the potential, the coarse-cell SPH density I/J and hydro K,
+L the cell-window PM gather, and M short-range gravity in absolute
+coordinates with the per-pair minimum image) are compiled on first use
+with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
 flags>/`` at the root of the checkout, and loaded with ``ctypes``. Every C
 entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
@@ -68,6 +69,8 @@ SIGNATURES = {
     "sph_cells_hydro": (_P, _P, _P, _I, _I, _F, _I, _F, _P),
     "pm_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
+    "shortrange_potential_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                     _F, _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

@@ -24,6 +24,14 @@ package leaves them to XLA. The full potential of the diagnostics
 (:func:`compute_potential`, outside the step) runs kernel H on a fresh
 cell list, the direct sum, or the tree.
 
+The in-step potential (:func:`in_step_potential`: sinks or Stamatellos
+cooling under TreePM, which read p.pot inside the step): the dense tier
+runs kernel H on the step's cached pack and tile flags in place of A, the
+entries tier E's potential mode, a PM step gathers the mesh potential too,
+and p.pot becomes the full potential, frozen for inactive particles as
+acc is. Without it p.pot holds the PM piece alone, and A and E run as
+they always did. Direct and tree gravity give the full potential anyway.
+
 Two tiers under TreePM and block SPH, by the JAX package's rule
 (:func:`use_entries`): a sync point at which few particles are active
 compacts them into entries of at most ``ENTRY_LANES`` targets of one cell
@@ -139,10 +147,8 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
     """Refuse every configuration outside the ported slice."""
     if opts.dtype != "f32":
         _refuse("dtype f64", "the kernels are float32")
-    if opts.cooling != "none":
-        _refuse(f"cooling={opts.cooling!r}", "ROADMAP queue 1 item 13")
-    if opts.sinks:
-        _refuse("sinks", "ROADMAP queue 1 item 13")
+    if opts.cooling not in ("none", "beta", "stamatellos"):
+        raise ValueError(f"unknown cooling {opts.cooling!r}")
     if opts.nogravity or opts.adaptive_gravsoft_forgas:
         _refuse("nogravity / adaptive gas softening",
                 "ROADMAP queue 1 item 12")
@@ -171,8 +177,9 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     """One full force computation at the current sync point: p.acc
     (short-range or direct, active particles only), p.acc_pm (TreePM, only
     when ``do_pm``, frozen otherwise; zeros under direct gravity), p.pot
-    (the PM piece under TreePM, the whole potential under direct or tree
-    gravity),
+    (the PM piece under TreePM, or the full potential of the active
+    particles with :func:`in_step_potential`; the whole potential under
+    direct or tree gravity),
     and the SPH fields of active gas. ``stats`` (optional dict) receives
     ``density_iters``."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
@@ -185,13 +192,18 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
 
     mode = resolve_gravity_mode(opts, state.n_max)
     if mode == "treepm":
-        acc, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
+        acc, pot, pot_pm, sr_ovf, acc_pm, state = _treepm_gravity(
             state, cfg, opts, soft, do_pm, active)
         state = dataclasses.replace(
             state,
             overflow_flags=state.overflow_flags | sr_ovf.to(torch.int32))
         pot_pm = pot_pm * cfg.grav_internal
-        pot = pot_pm
+        pot = pot * cfg.grav_internal
+        if in_step_potential(opts):
+            # the short-range row is tile-gated like the force: inactive
+            # particles keep their last full potential [G2: P.Potential is
+            # refreshed when the particle is active]
+            pot = torch.where(active, pot, p.pot)
     else:
         if mode == "tree":
             acc, pot = _tree_gravity(state, cfg, opts, soft)
@@ -223,19 +235,34 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     return state
 
 
+def in_step_potential(opts: SimOptions) -> bool:
+    """Does the TreePM step carry the full potential in p.pot? Only sink
+    formation's potential-minimum check and the Stamatellos column read
+    it [JAX forces.py:244]; otherwise p.pot holds the PM piece and the
+    diagnostics take the full potential from :func:`compute_potential`."""
+    return opts.sinks or opts.cooling == "stamatellos"
+
+
 def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
                     soft, do_pm: bool, active):
     """Short-range gravity through kernel A (kernel E at a near-idle sync
     point) on the cached cell grid and, on PM steps, long-range PM through
-    kernel B, cuFFT and a CIC gather.
-    Returns (acc_sr, pot_pm, overflow, acc_pm scaled by G, state with the
-    updated grid cache)."""
+    kernel B, cuFFT and a CIC gather. With :func:`in_step_potential`, the
+    dense tier runs kernel H (A's ``with_potential`` mode) and the entries
+    tier E's potential mode on the same pack and flags or entries, and the
+    PM pass gathers the mesh potential as a fourth component; the frozen
+    PM piece serves between PM steps, as the frozen PM force does.
+    Returns (acc_sr, pot, pot_pm, overflow, acc_pm scaled by G, state with
+    the updated grid cache); pot and pot_pm without G: pot is pot_pm, or
+    with the in-step potential pot_pm + the short-range potential + the
+    PM self-term m / (sqrt(pi) asmth) [JAX forces.py:358-362]."""
     p = state.p
     box = float(cfg.box_size)
     g = opts.pmgrid
     asmth_len = ASMTH * box / g
     rcut = RCUT * asmth_len
     n_cells, cap, margin = grav_grid_geometry(cfg, opts, p.n_max)
+    with_pot = in_step_potential(opts)
 
     def build():
         return build_cell_list(p.pos, p.alive, 0.0, box, n_cells=n_cells,
@@ -252,31 +279,45 @@ def _treepm_gravity(state: SimState, cfg: SimConfig, opts: SimOptions,
     else:
         cl = build()
 
-    # one pack shared by kernel A or E and the PM deposit (kernel B)
+    # one pack shared by kernel A, E or H and the PM deposit (kernel B)
     soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
     # entry capacity sized for ~1% spread activity, with room for spill
     k_max = max(256, (3 * n_cells ** 3) // 2)
+    n_rows = 4 if with_pot else 3
     if use_entries(active.sum(), lambda: count_active_entries(cl, active),
                    k_max):
         ec, es, _ = build_active_entries(cl, active, ENTRY_LANES, k_max)
-        acc_sr = gravity_entries(cl, soa, ec, es, p.pos, p.mass, soft,
-                                 p.alive, box, asmth_len, rcut)
+        rows = gravity_entries(cl, soa, ec, es, p.pos, p.mass, soft,
+                               p.alive, box, asmth_len, rcut,
+                               with_potential=with_pot)
     else:
         flags = grav_tile_flags(cl, active)
-        out = shortrange_gravity_tiles(soa, flags, n_cells, box, asmth_len,
-                                       rcut)
-        acc_sr = merge_rows(out, cl, 3)
-    acc_sr = torch.where(p.alive[:, None], acc_sr, torch.zeros_like(acc_sr))
+        tiles = shortrange_potential_tiles if with_pot \
+            else shortrange_gravity_tiles
+        rows = merge_rows(tiles(soa, flags, n_cells, box, asmth_len, rcut),
+                          cl, n_rows)
+    rows = torch.where(p.alive[:, None], rows, torch.zeros_like(rows))
+    acc_sr = rows[:, :3]
 
     if do_pm:
         rho_grid = pm_deposit_tiles(soa, n_cells, box, g)
-        acc_pm = pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
-                                    rho_grid=rho_grid) * cfg.grav_internal
-        pot_pm = torch.zeros_like(p.pot)
+        if with_pot:
+            acc_pm, pot_pm = pm_forces_periodic(p.pos, p.mass, p.alive, box,
+                                                g, rho_grid=rho_grid,
+                                                with_potential=True)
+        else:
+            acc_pm = pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
+                                        rho_grid=rho_grid)
+            pot_pm = torch.zeros_like(p.pot)
+        acc_pm = acc_pm * cfg.grav_internal
     else:
         acc_pm = p.acc_pm
         pot_pm = p.pot_pm / max(cfg.grav_internal, 1e-37)
-    return acc_sr, pot_pm, cl.overflow, acc_pm, state
+    pot = pot_pm
+    if with_pot:
+        pot = pot_pm + rows[:, 3] \
+            + p.mass / (math.sqrt(math.pi) * asmth_len)
+    return acc_sr, pot, pot_pm, cl.overflow, acc_pm, state
 
 
 def compute_potential(state: SimState, cfg: SimConfig,

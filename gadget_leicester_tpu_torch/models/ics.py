@@ -1,12 +1,11 @@
-"""Initial conditions of the lcdm_gas, gassphere, galaxy and cluster
-workloads.
+"""Initial conditions of the lcdm_gas, gassphere, galaxy, cluster and
+Leicester disc workloads.
 
-Counterpart of ``gadget_leicester_tpu/models/ics.py:30-170``
+Counterpart of ``gadget_leicester_tpu/models/ics.py:30-211``
 (``gassphere_ics``, ``plummer_ics``, ``galaxy_collision_ics``,
-``lcdm_gas_ics``): the same numpy code, copied so that the port needs no
-JAX package, and so that the same seed gives bit-identical arrays. The
-disc generator of that module belongs to a workload not yet ported
-(ROADMAP queue 1 item 13).
+``lcdm_gas_ics``, ``disc_ics``): the same numpy code, copied so that the
+port needs no JAX package, and so that the same seed gives bit-identical
+arrays.
 """
 
 from __future__ import annotations
@@ -155,3 +154,30 @@ def lcdm_gas_ics(n_side: int = 32, box: float = 50000.0, z_init: float = 10.0,
         return pos, vel, mass, ptype, u
     mass = np.full(n, m_tot / n)
     return pos_dm, vel_dm, mass, np.ones(n, np.int32), None
+
+
+def disc_ics(n_gas: int = 4000, m_star: float = 1.0, m_disc: float = 0.1,
+             r_in: float = 0.25, r_out: float = 2.5, h_over_r: float = 0.05,
+             seed: int = 23, g: float = 1.0):
+    """Self-gravitating protoplanetary disc around a central star: Sigma ~
+    1/r, near-Keplerian rotation, the sound speed from the aspect ratio.
+    The star is type 5 at the origin, last in the arrays (to be
+    registered as a sink); ``u`` holds the gas's only."""
+    rng = np.random.default_rng(seed)
+    # Sigma ~ 1/r => M(<r) ~ r => r = r_in + xi (r_out - r_in)
+    r = r_in + rng.uniform(size=n_gas) * (r_out - r_in)
+    phi = rng.uniform(size=n_gas) * 2 * np.pi
+    z = rng.normal(size=n_gas) * (h_over_r * r)
+    pos_g = np.stack([r * np.cos(phi), r * np.sin(phi), z], -1)
+    vk = np.sqrt(g * m_star / r)
+    vel_g = np.stack([-vk * np.sin(phi), vk * np.cos(phi), np.zeros(n_gas)],
+                     -1)
+    mass_g = np.full(n_gas, m_disc / n_gas)
+    # cs = (h/r) vk -> u = cs^2 / (gamma - 1)
+    cs2 = (h_over_r * vk) ** 2
+    u = cs2 / (2.0 / 3.0)
+    pos = np.concatenate([pos_g, np.zeros((1, 3))])
+    vel = np.concatenate([vel_g, np.zeros((1, 3))])
+    mass = np.concatenate([mass_g, [m_star]])
+    ptype = np.concatenate([np.zeros(n_gas, np.int32), [np.int32(5)]])
+    return pos, vel, mass, ptype, u

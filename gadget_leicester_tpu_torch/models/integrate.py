@@ -110,6 +110,14 @@ def get_timesteps(state: SimState, cfg: SimConfig,
     dt_c_full[:ng] = dt_courant
     dt = torch.where(is_gas, torch.minimum(dt, dt_c_full), dt)
     dt = dt * hubble_a
+    if opts.cooling != "none":
+        # the cooling criterion: |dA| at most 30% of A a step (dt_entropy
+        # holds the radiative term: cooling runs before the kick)
+        dt_cool = 0.3 * gas.entropy.clamp_min(1e-30) \
+            / gas.dt_entropy.abs().clamp_min(1e-30)
+        dt_cool_full = torch.full_like(dt, float("inf"))
+        dt_cool_full[:ng] = dt_cool
+        dt = torch.where(is_gas, torch.minimum(dt, dt_cool_full), dt)
     return dt.clamp(cfg.min_size_timestep, cfg.max_size_timestep)
 
 

@@ -6,7 +6,9 @@ Counterpart of ``gadget_leicester_tpu/models/simulation.py:41-45, 84-116,
 ``init_state``, and ``Simulation`` with ``from_param_file``, ``set_ics``,
 ``canonical_state``, ``step``, ``run_until`` and ``run``). One call of
 :func:`sync_point_step` is one iteration of the reference's main loop:
-find the next sync point, drift, forces, kick and new timesteps, PM step.
+find the next sync point, drift, forces, the fork's cooling and sinks
+(``models/cooling.py``, ``models/sinks.py``), kick and new timesteps, PM
+step.
 ``Simulation.run`` wraps it in the host loop of the reference: the energy
 statistics with the full potential (kernel H) and the Layzer-Irvine
 drift, snapshots, restart dumps, the log files and the overflow bump of
@@ -46,12 +48,15 @@ from gadget_leicester_tpu_torch.io.snapshot import (read_snapshot,
 from gadget_leicester_tpu_torch.io.state_io import (ic_arrays_from_snapshot,
                                                     snapshot_from_state)
 from gadget_leicester_tpu_torch.models import integrate
+from gadget_leicester_tpu_torch.models.cooling import apply_cooling
 from gadget_leicester_tpu_torch.models.forces import (check_supported,
                                                       comoving_factors,
                                                       compute_forces,
                                                       compute_potential)
 from gadget_leicester_tpu_torch.models.grids import (make_grid_cache,
                                                      resolve_sph_backend)
+from gadget_leicester_tpu_torch.models.sinks import (accrete_onto_sinks,
+                                                     create_sinks)
 from gadget_leicester_tpu_torch.utils.diagnostics import (
     LayzerIrvineTracker, energy_statistics)
 from gadget_leicester_tpu_torch.utils.logfiles import RunLogs
@@ -69,23 +74,39 @@ def uses_pm_split(opts: SimOptions) -> bool:
         opts.gravity_mode in ("auto", "treepm")
 
 
+def fork_physics(state: SimState, cfg: SimConfig,
+                 opts: SimOptions) -> SimState:
+    """The Leicester fork's physics between the forces and the kick
+    [JAX simulation.py:105-111]: cooling into dt_entropy, then sink
+    formation and accretion."""
+    if opts.cooling != "none":
+        state = apply_cooling(state, cfg, opts)
+    if opts.sinks:
+        state = create_sinks(state, cfg, opts)
+        state = accrete_onto_sinks(state, cfg, opts)
+    return state
+
+
 def sync_point_step(state: SimState, cfg: SimConfig, opts: SimOptions,
                     stats: dict | None = None) -> SimState:
-    """One sync-point iteration [G2: run.c]. TreePM keeps PM on its own
-    global timestep: the next sync point is the earlier of the particle
-    bins' end and the PM step end; PM forces recompute only at PM steps.
-    A run without a PM mesh (direct gravity) has no PM step: the particle
-    bins alone set the sync points and ``pm_ti_endstep`` stays 0.
-    Overflow bits are sticky."""
+    """One sync-point iteration [G2: run.c]: drift, forces, the fork's
+    cooling and sinks (:func:`fork_physics`), kick and new timesteps.
+    TreePM keeps PM on its own global timestep: the next sync point is the
+    earlier of the particle bins' end and the PM step end; PM forces
+    recompute only at PM steps. A run without a PM mesh (direct or tree
+    gravity) has no PM step: the particle bins alone set the sync points
+    and ``pm_ti_endstep`` stays 0. Overflow bits are sticky."""
     ti_next = timeline.min_active_ti_end(state.p.ti_endstep, state.p.alive)
     if not uses_pm_split(opts):
         state = integrate.drift_all(state, cfg, opts, ti_next)
         state = compute_forces(state, cfg, opts, stats=stats)
+        state = fork_physics(state, cfg, opts)
         return integrate.advance_and_find_timesteps(state, cfg, opts)
     ti_next = torch.minimum(ti_next, state.pm_ti_endstep)
     state = integrate.drift_all(state, cfg, opts, ti_next)
     is_pm_step = bool(state.ti_current == state.pm_ti_endstep)
     state = compute_forces(state, cfg, opts, do_pm=is_pm_step, stats=stats)
+    state = fork_physics(state, cfg, opts)
     state = integrate.advance_and_find_timesteps(state, cfg, opts)
     return integrate.pm_step_update(state, cfg, opts, is_pm_step)
 
@@ -177,6 +198,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# set_ics raises the capacities at most this many times (SPH: 2^8 times
+# the first)
+MAX_INIT_BUMPS = 8
+
+
+def raised_capacities(opts: SimOptions, ovf: int,
+                      n_gas_max: int) -> SimOptions:
+    """The capacities after overflow bits ``ovf``: the SPH one doubled
+    (bit 2; from 32 slots a subcell for the block backend, 128 a cell for
+    the coarse cells), 128 added to the short-range one (bit 1)."""
+    if ovf & 2:
+        backend = resolve_sph_backend(opts, n_gas_max)
+        cur = opts.sph_capacity or (32 if backend == "blocks" else 128)
+        opts = dataclasses.replace(opts, sph_capacity=cur * 2)
+    if ovf & 1:
+        opts = dataclasses.replace(
+            opts, sr_capacity=(opts.sr_capacity or 128) + 128)
+    return opts
+
+
+def _capacity_note(ovf: int, opts: SimOptions) -> str:
+    return (f"overflow {ovf}: capacities -> sph={opts.sph_capacity} "
+            f"sr={opts.sr_capacity} ghost={opts.spmd_ghost_frac}")
+
+
 class Simulation:
     """begrun()/run(): owns config, options, device, state and the host
     loop.
@@ -197,6 +243,7 @@ class Simulation:
         self.li_tracker: Optional[LayzerIrvineTracker] = None
         self.li_drift = 0.0     # latest |dE_LI| / |W|
         self.snapshot_count = 0
+        self.init_notes: list = []   # capacity bumps of set_ics
         self.next_snapshot_time = cfg.time_of_first_snapshot
         self.next_stats_time = cfg.time_begin
         self.last_restart_wall = None
@@ -250,8 +297,25 @@ class Simulation:
         return sim
 
     def set_ics(self, pos, vel, mass, ptype, pid=None, u=None) -> SimState:
-        self.state = init_state(self.cfg, self.opts, pos, vel, mass, ptype,
-                                self.device, pid=pid, u=u, stats=self.stats)
+        """The initial state (:func:`init_state`). A cell that overflows
+        there drops gas whose density stays 0 and whose entropy is taken at
+        a density of 1; a later capacity bump lists such a particle again
+        as a source of density 0, and the hydro sums turn NaN (ROADMAP
+        queue 3: the JAX package's ``set_ics`` keeps it). So while the
+        initialisation overflows, the capacities are raised as the run
+        loop raises them (:func:`raised_capacities`), at most
+        ``MAX_INIT_BUMPS`` times, and it starts over; the notes go to
+        info.txt when :meth:`run` opens it."""
+        for _ in range(MAX_INIT_BUMPS + 1):
+            self.state = init_state(self.cfg, self.opts, pos, vel, mass,
+                                    ptype, self.device, pid=pid, u=u,
+                                    stats=self.stats)
+            ovf = int(self.state.overflow_flags)
+            if not ovf or len(self.init_notes) == MAX_INIT_BUMPS:
+                break
+            self.opts = raised_capacities(self.opts, ovf,
+                                          self.state.n_gas_max)
+            self.init_notes.append(_capacity_note(ovf, self.opts))
         return self.state
 
     def canonical_state(self) -> SimState:
@@ -305,25 +369,12 @@ class Simulation:
 
     def _bump_capacities(self, ovf: int, t_now: float) -> None:
         """The sticky overflow bits say some cell dropped particles since
-        the last reading [G2: gravtree.c realloc on overflow]: double the
-        SPH capacity (bit 2; from 32 slots a subcell for the block
-        backend, 128 a cell for the coarse cells), add 128 to the
-        short-range one (bit 1), clear the bits, rebuild the grid cache
-        and note it in info.txt."""
-        new_opts = self.opts
-        if ovf & 2:
-            backend = resolve_sph_backend(new_opts, self.state.n_gas_max)
-            cur = new_opts.sph_capacity or (32 if backend == "blocks"
-                                            else 128)
-            new_opts = dataclasses.replace(new_opts, sph_capacity=cur * 2)
-        if ovf & 1:
-            new_opts = dataclasses.replace(
-                new_opts, sr_capacity=(new_opts.sr_capacity or 128) + 128)
-        self.logs.log_info(
-            self.step_count, t_now, 0.0,
-            note=f"overflow {ovf}: capacities -> "
-            f"sph={new_opts.sph_capacity} sr={new_opts.sr_capacity} "
-            f"ghost={new_opts.spmd_ghost_frac}")
+        the last reading [G2: gravtree.c realloc on overflow]: raise the
+        capacities (:func:`raised_capacities`), clear the bits, rebuild
+        the grid cache and note it in info.txt."""
+        new_opts = raised_capacities(self.opts, ovf, self.state.n_gas_max)
+        self.logs.log_info(self.step_count, t_now, 0.0,
+                           note=_capacity_note(ovf, new_opts))
         self.opts = new_opts
         self.state = dataclasses.replace(
             self.state, overflow_flags=torch.zeros_like(
@@ -337,6 +388,9 @@ class Simulation:
         cfg = self.cfg
         if self.logs is None:
             self.logs = RunLogs(cfg)
+            for note in self.init_notes:
+                self.logs.log_info(self.step_count, self.time, 0.0,
+                                   note=f"set_ics: {note}")
         # OutputListOn: snapshot times from a file [G2: begrun.c]
         output_times = None
         if cfg.output_list_on and cfg.output_list_filename:

@@ -5,11 +5,13 @@ Counterpart of ``gadget_leicester_tpu/ops/pallas_cells.py``:
 ``pack_cells_soa`` (:38; relative mode here :func:`pack_cells_soa`,
 absolute mode :func:`pack_cells_abs`), ``_cell_centers`` (:92),
 ``cell_activity_flags`` (:423), ``shortrange_gravity_pallas_dma9``
-(:669, here :func:`shortrange_gravity_tiles`), ``grav_tile_flags``
+(:669, here :func:`shortrange_gravity_tiles`; its ``with_potential``
+mode is kernel H, :func:`shortrange_potential_tiles`), ``grav_tile_flags``
 (:741), ``ENTRY_LANES`` (:758), ``count_active_entries`` (:790),
 ``build_active_entries`` (:801), ``shortrange_gravity_pallas_entries``
 (:973, here :func:`gravity_entries` around the kernel wrapper
-:func:`shortrange_gravity_entries`) and ``shortrange_gravity_pallas_dma``
+:func:`shortrange_gravity_entries`, both with its ``with_potential`` mode)
+and ``shortrange_gravity_pallas_dma``
 (:433, with_potential, here :func:`shortrange_potential_tiles`) and the
 kernel call of ``shortrange_gravity_pallas`` (:1581, here
 :func:`shortrange_gravity_cells`; its entry is ``ops/gravity_short.py ::
@@ -19,9 +21,11 @@ Kernel A (``csrc/shortrange_gravity.cu``) takes the ``[C, 8, cap]`` pack
 directly and walks the 27 neighbour cells itself; the TPU kernel's
 z-padded column layout is a DMA device and is not carried over. Kernel E
 (``csrc/shortrange_gravity_entries.cu``) runs A's physics for the few
-active targets of each entry against the same pack. Kernel H
-(``csrc/shortrange_potential.cu``) adds the potential row to A's sums,
-for the full potential of the diagnostics. Kernel M
+active targets of each entry against the same pack; its potential mode
+adds H's potential row. Kernel H (``csrc/shortrange_potential.cu``) adds
+the potential row to A's sums, for the full potential of the diagnostics
+and, on the step's cached pack, for the in-step potential that sinks and
+Stamatellos cooling read: A's own ``with_potential`` mode is H. Kernel M
 (``csrc/shortrange_gravity_cells.cu``) sums the same pair force on the
 absolute pack with a per-pair minimum image, on a periodic or a clamped
 grid. Their plain versions are in ``ops/gravity_short.py``.
@@ -250,11 +254,16 @@ def entry_particles(cl: CellList, entry_cell, entry_slot, mask):
 
 def shortrange_gravity_entries(soa: torch.Tensor, entry_cell: torch.Tensor,
                                tgt: torch.Tensor, n_cells: int, box: float,
-                               asmth: float, rcut: float) -> torch.Tensor:
+                               asmth: float, rcut: float,
+                               with_potential: bool = False) -> torch.Tensor:
     """Kernel E: short-range accelerations [K, 3, ENTRY_LANES] of the
     entries' targets ``tgt`` [K, 8, ENTRY_LANES] (rows as in ``soa``)
-    from the 27 cells around ``entry_cell`` [K] (-1: padding, zeros).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    from the 27 cells around ``entry_cell`` [K] (-1: padding, zeros); with
+    ``with_potential``, E's potential mode (C entry
+    ``glt_shortrange_potential_entries``, counted as
+    ``shortrange_potential_entries``): [K, 4, ENTRY_LANES] with kernel H's
+    potential row as row 3. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     c, rows, cap = soa.shape
     k = entry_cell.shape[0]
     if c != n_cells ** 3 or rows != 8:
@@ -263,29 +272,36 @@ def shortrange_gravity_entries(soa: torch.Tensor, entry_cell: torch.Tensor,
     kernels.check(soa, "soa", torch.float32)
     kernels.check(entry_cell, "entry_cell", torch.int32, (k,), soa.device)
     kernels.check(tgt, "tgt", torch.float32, (k, 8, ENTRY_LANES), soa.device)
-    kernels.note_call("shortrange_gravity_entries",
-                      (soa, entry_cell, tgt, n_cells, box, asmth, rcut))
+    name = ("shortrange_potential_entries" if with_potential
+            else "shortrange_gravity_entries")
+    kernels.note_call(name, (soa, entry_cell, tgt, n_cells, box, asmth, rcut))
     if not kernels.on_cuda(soa, entry_cell, tgt):
         return shortrange_gravity_entries_plain(soa, entry_cell, tgt,
-                                                n_cells, box, asmth, rcut)
-    out = torch.empty(k, 3, ENTRY_LANES, dtype=soa.dtype, device=soa.device)
-    kernels.launch("shortrange_gravity_entries", soa.data_ptr(),
-                   entry_cell.data_ptr(), tgt.data_ptr(), out.data_ptr(),
-                   n_cells, cap, k, box / n_cells, 0.5 / asmth, rcut * rcut)
+                                                n_cells, box, asmth, rcut,
+                                                with_potential)
+    out = torch.empty(k, 4 if with_potential else 3, ENTRY_LANES,
+                      dtype=soa.dtype, device=soa.device)
+    kernels.launch(name, soa.data_ptr(), entry_cell.data_ptr(),
+                   tgt.data_ptr(), out.data_ptr(), n_cells, cap, k,
+                   box / n_cells, 0.5 / asmth, rcut * rcut)
     return out
 
 
 def gravity_entries(cl: CellList, soa, entry_cell, entry_slot, pos, mass,
-                    soft, alive, box: float, asmth: float,
-                    rcut: float) -> torch.Tensor:
+                    soft, alive, box: float, asmth: float, rcut: float,
+                    with_potential: bool = False) -> torch.Tensor:
     """[N, 3] short-range accelerations of the entries' targets through
-    kernel E; rows of particles in no entry are 0 (callers keep their
-    frozen values). Targets are gathered per entry by the pack's own
-    arithmetic, so each equals its slot of ``soa`` bit for bit."""
+    kernel E; with ``with_potential``, [N, 4] with the potential as column
+    3 (E's potential mode). Rows of particles in no entry, and of dead
+    particles, are 0 (callers keep their frozen values), as the
+    reference's merge (``pallas_cells.py:1052-1064``) leaves them. Targets
+    are gathered per entry by the pack's own arithmetic, so each equals
+    its slot of ``soa`` bit for bit and meets itself at r2 == 0 exactly."""
     pidx, valid = entry_particles(cl, entry_cell, entry_slot, alive)
     centers = cell_centers(cl)[entry_cell.clamp_min(0).long()]
     tgt = _tile_rows(cl, pidx, valid, centers, pos, mass, soft)
     out = shortrange_gravity_entries(soa, entry_cell,
                                      tgt.transpose(1, 2).contiguous(),
-                                     cl.n_cells, box, asmth, rcut)
+                                     cl.n_cells, box, asmth, rcut,
+                                     with_potential)
     return scatter_rows(out, pidx, valid, pos.shape[0])

@@ -1,5 +1,5 @@
 """The plain short-range gravity sum over cell tiles: the plain versions
-of kernels A, E, H and M, and kernel M's entry.
+of kernels A, E (with its potential mode), H and M, and kernel M's entry.
 
 Counterpart of ``gadget_leicester_tpu/ops/gravity_short.py ::
 shortrange_gravity_cells`` (:32), the erfc-truncated softened pair sum
@@ -10,8 +10,10 @@ the same ``[C, 8, cap]`` cell-relative pack as kernels A, E and H
 float32 arithmetic of the TPU kernels (``ops/pallas_cells.py ::
 _make_kernel_dma9``, ``_make_kernel_entries`` in relative mode, and
 ``_make_kernel_dma`` with ``with_potential``, whose absolute coordinates
-and per-tile wrap shift H replaces by the relative pack). It is the CPU
-path of those kernels and the reference the card is checked against, not
+and per-tile wrap shift H replaces by the relative pack; the
+``with_potential`` mode of ``_make_kernel_dma9`` is H's rows, that of
+``_make_kernel_entries`` E's potential mode). It is the CPU path of those
+kernels and the reference the card is checked against, not
 a separate backend.
 
 :func:`shortrange_gravity_fresh` is the counterpart of ``ops/pallas_cells.py
@@ -122,20 +124,24 @@ def shortrange_potential_tiles_plain(soa, flags, n_cells: int, box: float,
 
 
 def shortrange_gravity_entries_plain(soa, entry_cell, tgt, n_cells: int,
-                                     box: float, asmth: float,
-                                     rcut: float) -> torch.Tensor:
+                                     box: float, asmth: float, rcut: float,
+                                     with_potential: bool = False
+                                     ) -> torch.Tensor:
     """Plain PyTorch version of kernel E: out [K, 3, lanes] (no G) for
     the targets ``tgt`` [K, 8, lanes] of the entries ``entry_cell`` [K];
-    padded entries (-1) and dead lanes (row 5 = 0) are 0."""
+    with ``with_potential``, [K, 4, lanes] with the erfc-truncated
+    softened potential as row 3 (E's potential mode). Padded entries (-1)
+    and dead lanes (row 5 = 0) are 0."""
     k, _, lanes = tgt.shape
     chunk = _chunk(lanes, soa.shape[2])
-    out = torch.zeros(k, 3, lanes, dtype=soa.dtype, device=soa.device)
+    out = torch.zeros(k, 4 if with_potential else 3, lanes, dtype=soa.dtype,
+                      device=soa.device)
     todo = torch.nonzero(entry_cell >= 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         e = todo[k0:k0 + chunk]
         t = tgt[e]
         acc = _stencil_sums(t, soa, entry_cell[e].long(), n_cells, box,
-                            asmth, rcut)
+                            asmth, rcut, with_potential)
         out[e] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
     return out
 

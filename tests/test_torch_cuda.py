@@ -3,7 +3,9 @@ tensors (marked ``cuda``: they skip where there is no card; on the H100
 run ``python -m pytest --noconftest tests/test_torch_cuda.py``). A-D get
 the arguments the path gives each wrapper while it initialises a 2x12^3
 box, H those of the full potential of the initialised box; E-G those of a
-near-idle sync point of that box (``chip_smoke.make_near_idle``).
+near-idle sync point of that box (``chip_smoke.make_near_idle``); E's
+potential mode and H those of a near-idle sync point of the box with
+sinks, through each tier.
 I/J and K get those of a 2x12^3 box initialised with
 ``sph_backend="cells"`` (periodic) and of a vacuum blob, at capacities
 128 and 256. L gets those of ``pm_gather_tiles`` on the 2x12^3 box's
@@ -89,6 +91,35 @@ def test_potential_kernel_forces_match_kernel_a(recorded):
     """H's rows 0-2 against kernel A on H's arguments, within A's bound
     (chip_smoke.check_potential_forces raises outside it)."""
     chip_smoke.check_potential_forces(recorded, "n_side=12")
+
+
+@pytest.fixture(scope="module")
+def recorded_sinks():
+    """(entries, dense) recordings of a near-idle sync point of the
+    2x12^3 box with sinks: E's potential mode, and H on the step's cached
+    pack and gated flags."""
+    _need_card()
+    return chip_smoke.record_idle_sinks("cuda", 12)
+
+
+@pytest.mark.parametrize("off", [False, True])
+def test_potential_entry_kernel_matches_plain_on_card(recorded_sinks, off):
+    """E's potential mode: all entries, and every other entry off."""
+    _check(recorded_sinks[0], "shortrange_potential_entries", 1 if off else 0)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_potential_kernel_on_step_arguments_matches_plain_on_card(
+        recorded_sinks, gated):
+    _check(recorded_sinks[1], "shortrange_potential", -1 if gated else 0)
+
+
+def test_potential_kernel_forces_equal_kernel_a_on_step_arguments(
+        recorded_sinks):
+    """H's rows 0-2 equal kernel A's bit for bit on the step's arguments
+    (chip_smoke.check_step_potential_forces raises otherwise)."""
+    chip_smoke.check_step_potential_forces(recorded_sinks[1],
+                                           "n_side=12 step")
 
 
 CELL_CASES = [("periodic", 4, 128), ("periodic", 3, 256),

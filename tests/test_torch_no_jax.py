@@ -2,9 +2,11 @@
 card has none): with jax made unimportable, every module of the port
 (the run loop's I/O, diagnostics and CLI modules among them) and
 chip_smoke.py import, and on the CPU one sync point of a 2x10^3 box runs
-under the block and the coarse-cell SPH backend, two of a small Evrard
-sphere under direct gravity and all-pairs SPH, and one of a Plummer sphere
-under the tree, with a periodic tree force through the Ewald table."""
+under the block and the coarse-cell SPH backend (the latter with sinks
+and Stamatellos cooling), two of a small Evrard sphere under direct
+gravity and all-pairs SPH, three of a small Leicester disc with beta
+cooling and sinks, and one of a Plummer sphere under the tree, with a
+periodic tree force through the Ewald table."""
 
 import os
 import pathlib
@@ -26,7 +28,8 @@ for name in names:
     importlib.import_module(name)
 new = {"__main__", "io.restart", "io.snapshot", "io.state_io",
        "utils.diagnostics", "utils.logfiles", "ops.sph_cells",
-       "ops.gravity_direct", "ops.sph_dense", "ops.tree", "ops.ewald"}
+       "ops.gravity_direct", "ops.sph_dense", "ops.tree", "ops.ewald",
+       "models.cooling", "models.sinks"}
 assert {pkg.__name__ + "." + m for m in new} <= set(names), names
 import chip_smoke
 from gadget_leicester_tpu_torch.core.config import SimOptions, parse_parameter_text
@@ -44,13 +47,27 @@ sim.step()
 import torch
 assert torch.isfinite(sim.state.p.pos).all()
 assert int(sim.state.overflow_flags) == 0
-# the coarse-cell backend, and the vacuum gas path (direct gravity,
-# all-pairs SPH)
-sim = Simulation(cfg, opts.replace(sph_backend="cells"), "cpu")
+# the coarse-cell backend with the in-step potential (sinks, Stamatellos
+# cooling), and the vacuum gas path (direct gravity, all-pairs SPH)
+sim = Simulation(cfg, opts.replace(sph_backend="cells", sinks=True,
+                                   cooling="stamatellos"), "cpu")
 sim.set_ics(pos, vel, mass, ptype, u=u)
 sim.step()
 assert torch.isfinite(sim.state.gas.density).all()
+assert torch.isfinite(sim.state.p.pot).all()
 assert int(sim.state.overflow_flags) == 0
+# the Leicester disc: beta cooling and accretion onto the star
+from gadget_leicester_tpu_torch.models.ics import disc_ics
+from gadget_leicester_tpu_torch.models.sinks import register_sinks_from_types
+dcfg = parse_parameter_text(chip_smoke.gassphere_param_text("x", "y", 0.5)
+                            + "\nSinkAccretionRadius 0.35\nCoolingBeta 1.0\n")
+pos_d, vel_d, mass_d, ptype_d, u_d = disc_ics(n_gas=200, r_in=0.2)
+dsim = Simulation(dcfg, SimOptions(periodic=False, cooling="beta", sinks=True),
+                  "cpu")
+dsim.set_ics(pos_d, vel_d, mass_d, ptype_d, u=u_d)
+dsim.state = register_sinks_from_types(dsim.state)
+dsim.step(3)
+assert torch.isfinite(dsim.state.p.vel).all()
 from gadget_leicester_tpu_torch.models.ics import gassphere_ics
 gcfg = parse_parameter_text(chip_smoke.gassphere_param_text("x", "y", 0.5))
 pos, vel, mass, ptype, u = gassphere_ics(n_gas=200)

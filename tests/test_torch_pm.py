@@ -106,3 +106,20 @@ def test_cic_gather_matches():
                               jnp.asarray(np.mod(pos, BOX)), BOX, N_PM)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+def test_pm_potential_gathered_apart_equals_the_stack_gather():
+    """with_potential gathers the force and the potential apart; each
+    equals its column of the CIC gather of the [n, n, n, 4] mesh stack
+    bit for bit, the force that of the force-only call, and dead
+    particles get 0."""
+    pos, mass, alive = _setup(4, n=1500)
+    t = [torch.from_numpy(a) for a in (pos, mass, alive)]
+    acc, pot = pm.pm_forces_periodic(*t, BOX, N_PM, with_potential=True)
+    stack = pm.pm_forces_periodic(*t, BOX, N_PM, with_potential=True,
+                                  return_field=True)
+    rows = pm.cic_gather_vec(stack, torch.remainder(t[0], BOX), BOX, N_PM)
+    rows = torch.where(t[2][:, None], rows, torch.zeros_like(rows))
+    assert torch.equal(acc, rows[:, :3]) and torch.equal(pot, rows[:, 3])
+    assert torch.equal(acc, pm.pm_forces_periodic(*t, BOX, N_PM))
+    assert not pot[~t[2]].any() and pot[t[2]].abs().min() > 0

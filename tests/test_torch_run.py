@@ -139,3 +139,34 @@ def test_snapshot_readable_by_jax_with_potential(runs):
     np.testing.assert_allclose(got.pot, want.pot, rtol=0,
                                atol=1e-4 * np.abs(want.pot).max())
     assert runs["port"]["sim"].snapshot_count == 1
+
+
+def test_set_ics_raises_capacities_until_nothing_overflows(tmp_path):
+    """Gas that a full cell drops in set_ics would keep density 0 and an
+    entropy taken at density 1, and turn the hydro sums NaN once a later
+    capacity bump lists it again (ROADMAP queue 3): the port's set_ics
+    raises the capacity as the run loop does and starts over. 2x10^3 under
+    block SPH with 8 slots a subcell on 2^3 blocks: raised until nothing
+    overflows, every gas density > 0, the notes in info.txt."""
+    from gadget_leicester_tpu_torch.core.config import parse_parameter_text
+    from gadget_leicester_tpu_torch.models.ics import lcdm_gas_ics
+    cfg = parse_parameter_text(PARAM.replace(
+        "OutputDir  /tmp/grid_cache_test", f"OutputDir  {tmp_path}"))
+    opts = SimOptions(**dict(OPTS, sph_capacity=8, sph_grid=4))
+    pos, vel, mass, ptype, u = lcdm_gas_ics(
+        n_side=10, box=cfg.box_size, omega0=0.3, omega_b=0.04,
+        hubble=cfg.hubble_internal, g=cfg.grav_internal)
+    sim = Simulation(cfg, opts, "cpu")
+    sim.set_ics(pos, vel, mass, ptype, u=u)
+    st = sim.state
+    caps = [int(n.split("sph=")[1].split()[0]) for n in sim.init_notes]
+    assert caps and caps == [8 * 2 ** (k + 1) for k in range(len(caps))]
+    assert int(st.overflow_flags) == 0 and sim.opts.sph_capacity == caps[-1]
+    ng = st.n_gas_max
+    gas = st.p.alive[:ng] & (st.p.ptype[:ng] == 0)
+    assert bool((st.gas.density[gas] > 0).all())
+    sim.run(max_steps=1)
+    sim.logs.close()
+    info = (tmp_path / "info.txt").read_text()
+    assert info.count("set_ics: overflow 2: capacities -> sph=") == len(caps)
+    assert torch.isfinite(sim.state.p.vel).all()
