@@ -9,7 +9,8 @@ imports nothing of JAX. Phases, each printing its own lines:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the twelve kernel sources of
    ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once; E's source holds its two modes);
+   once; E's source holds its two modes, C's, D's, F's and G's their
+   relative and absolute modes);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -22,7 +23,9 @@ imports nothing of JAX. Phases, each printing its own lines:
    mesh stack with 3 and 4 components, at fresh and at drifted positions
    (some beyond the window); kernel M (short-range gravity in absolute
    coordinates) on the small box, periodic with the TreePM truncation, and
-   on a vacuum blob on a clamped grid without it; kernel E's potential
+   on a vacuum blob on a clamped grid without it; kernels C, D, F and G in
+   their absolute mode on the vacuum blob through block SPH on its clamped
+   grid (the entries on a seeded 3% of its gas); kernel E's potential
    mode and kernel H on the arguments a near-idle sync point of the small
    box with sinks gives them (the entries tier, and the tier forced dense:
    the step's cached pack and gated flags), H's force rows also against
@@ -87,6 +90,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    state, ``shortrange_gravity_fresh`` with the TreePM asmth and rcut on
    the potential pass's fresh grid, held to its float64 plain version and
    to kernel H's force rows on the same fresh list, timed beside A and H;
+12b. C, D, F and G in absolute mode at full width
+   (:func:`phase_vacuum_blocks`): the gas of the same state as a vacuum
+   cloud, ``compute_sph`` with ``periodic=False`` on 22^3 blocks, all gas
+   active and a seeded 1% (the entries tier), each kernel replayed and
+   timed beside its relative mode's time, its plain version and its bound;
 13. the tree runs (:func:`phase_tree`): ``parameterfiles/galaxy.param`` and
    ``cluster.param`` on their 20,000-particle ICs through ``python -m
    gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
@@ -105,11 +113,16 @@ imports nothing of JAX. Phases, each printing its own lines:
    against the same with the tier forced dense (H), E's potential mode
    replayed and timed;
 15. the Leicester disc (:func:`phase_disc`): ``parameterfiles/disc.param``
-   on ``disc_ics(n_gas=20000)`` through ``Simulation.run()`` (tree gravity,
-   coarse-cell SPH in vacuum, beta cooling, accretion onto the registered
-   star, the run loop's overflow recovery) to t = 0.5 or 150 sync points;
-   gates: finite, the alive mass kept, the accretion tally equal to the
-   dead; ``apply_cooling`` (beta, Stamatellos) on its last state, card
+   on the 20,000-gas ICs of ``parameterfiles/make_ics.py disc`` through
+   ``python -m gadget_leicester_tpu_torch ... --cooling beta --sinks`` in
+   a child process to t = 0.3 (tree gravity, block SPH on its vacuum grid,
+   which ``auto`` takes above 4,096 gas, beta cooling), its launch counts
+   (C and D in absolute mode, no periodic or coarse-cell SPH kernel), the
+   capacity raises of ``set_ics`` and the mass of its last snapshot; then
+   through ``Simulation.run()`` with the star registered as a sink for 8
+   sync points: gates: finite, the alive mass kept, the accretion tally
+   equal to the dead; on its last state one SPH pass under blocks against
+   one under cells, and ``apply_cooling`` (beta, Stamatellos) card
    against CPU.
 
 Any failure raises, so the exit code is not 0. The line before the last
@@ -168,7 +181,9 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "sph_hydro_entries": 1e-4, "shortrange_potential": 1e-4,
        "sph_cells_density": 1e-4, "sph_cells_hydro": 1e-4,
        "pm_gather": 1e-5, "shortrange_gravity_cells": 1e-4,
-       "shortrange_potential_entries": 1e-4}
+       "shortrange_potential_entries": 1e-4, "sph_density_abs": 1e-4,
+       "sph_hydro_abs": 1e-4, "sph_density_entries_abs": 1e-4,
+       "sph_hydro_entries_abs": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -185,6 +200,11 @@ POTENTIAL_ENTRIES = ("shortrange_potential_entries",)
 CELLS = ("sph_cells_density", "sph_cells_hydro")
 GATHER = ("pm_gather",)
 GRAVITY_CELLS = ("shortrange_gravity_cells",)
+# the absolute-coordinate modes of C, D (dense tier) and F, G (entries
+# tier): block SPH on a clamped (vacuum) grid
+ABS_DENSE = ("sph_density_abs", "sph_hydro_abs")
+ABS_ENTRIES = ("sph_density_entries_abs", "sph_hydro_entries_abs")
+ABS = ABS_DENSE + ABS_ENTRIES
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -224,15 +244,29 @@ KERNELS = {
     "shortrange_potential_entries": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity_entries.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:973"),
+    # C, D, F, G in absolute coordinates (relative=False, periodic=False;
+    # the pair geometry _pair_geom_minimage :200 without a shift)
+    "sph_density_abs": ("gadget_leicester_tpu_torch/csrc/sph_density.cu",
+                        "gadget_leicester_tpu/ops/sph_blocks.py:397"),
+    "sph_hydro_abs": ("gadget_leicester_tpu_torch/csrc/sph_hydro.cu",
+                      "gadget_leicester_tpu/ops/sph_blocks.py:630"),
+    "sph_density_entries_abs": (
+        "gadget_leicester_tpu_torch/csrc/sph_density_entries.cu",
+        "gadget_leicester_tpu/ops/sph_blocks.py:1125"),
+    "sph_hydro_entries_abs": (
+        "gadget_leicester_tpu_torch/csrc/sph_hydro_entries.cu",
+        "gadget_leicester_tpu/ops/sph_blocks.py:1175"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
 FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "shortrange_gravity_entries": 1, "sph_density_entries": 3,
              "sph_hydro_entries": 4, "shortrange_potential": 1,
-             "sph_cells_density": 2, "shortrange_potential_entries": 1}
+             "sph_cells_density": 2, "shortrange_potential_entries": 1,
+             "sph_density_abs": 3, "sph_hydro_abs": 5,
+             "sph_density_entries_abs": 3, "sph_hydro_entries_abs": 4}
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
-PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
+PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6}
 # The bound of each kernel (the least time the card could take): the
 # larger of its float32 operations over PEAK_FLOPS and its bytes (each
 # input tensor read once, the output written once) over PEAK_BYTES; the
@@ -251,7 +285,8 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1}
 # periodic grid, 12 for the per-pair minimum image (per axis a multiply, a
 # round and an FMA) on every live stencil pair; a pair inside the cut pays
 # A's 50 in all plus the 12 and 2 for the exact r < rcut test, less 22
-# where the truncation polynomial is off (asmth = 0).
+# where the truncation polynomial is off (asmth = 0). The absolute modes of
+# C, D, F, G pay 3 operations less on every pair: dx = t - s, no shift.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TEST_OPS = {"shortrange_gravity": 10, "shortrange_gravity_entries": 10,
@@ -266,6 +301,9 @@ OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
                 "sph_density_entries": 73, "sph_hydro": 86,
                 "sph_hydro_entries": 86, "sph_cells_density": 73,
                 "sph_cells_hydro": 86}
+TEST_OPS.update({n: TEST_OPS[n.removesuffix("_abs")] - 3 for n in ABS})
+OPS_PER_PAIR.update({n: OPS_PER_PAIR[n.removesuffix("_abs")] - 3
+                     for n in ABS})
 OPS_PER_DEPOSIT = 44
 MIN_IMAGE_OPS = 12
 TRUNC_OPS = 22
@@ -437,18 +475,12 @@ def record_init(n_side: int, device, **opt_overrides) -> dict:
     return dict(rec)
 
 
-def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
-                       seed: int = 5) -> dict:
-    """The arguments kernels I/J and K get from one SPH pass of the
-    coarse-cell backend in vacuum mode over a seeded blob: ``n`` gas
+def vacuum_blob(device, n: int = 3000, seed: int = 5):
+    """(pos, vel, mass, gas_mask) of a seeded vacuum gas blob: ``n``
     particles uniform in the unit sphere, unequal masses, a radial infall
-    with noise; the grid is the blob's bounding box, as
-    ``models/forces.py`` takes it. Raises if a cell overflowed."""
+    with noise."""
     import numpy as np
     import torch
-
-    from gadget_leicester_tpu_torch.models.forces import gas_bounding_grid
-    from gadget_leicester_tpu_torch.ops import sph_cells as sc
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, 3))
     x *= (rng.uniform(size=n) ** (1 / 3) / np.linalg.norm(x, axis=1))[:, None]
@@ -459,7 +491,20 @@ def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
 
     pos, vel = dev(x), dev(v)
     mass = dev(rng.uniform(0.5, 1.5, size=n) / n)
-    gas_mask = torch.ones(n, dtype=torch.bool, device=pos.device)
+    return pos, vel, mass, torch.ones(n, dtype=torch.bool, device=pos.device)
+
+
+def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
+                       seed: int = 5) -> dict:
+    """The arguments kernels I/J and K get from one SPH pass of the
+    coarse-cell backend in vacuum mode over :func:`vacuum_blob`; the grid
+    is the blob's bounding box, as ``models/forces.py`` takes it. Raises
+    if a cell overflowed."""
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import gas_bounding_grid
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    pos, vel, mass, gas_mask = vacuum_blob(device, n, seed)
     origin, extent = gas_bounding_grid(pos, gas_mask)
     with recorded_inputs() as rec:
         res, cl = sc.density_adaptive_cells(
@@ -475,6 +520,101 @@ def record_vacuum_blob(device, n_cells: int, cap: int, n: int = 3000,
         raise AssertionError(f"the vacuum blob overflowed {n_cells}^3 cells "
                              f"of {cap} slots")
     return dict(rec)
+
+
+# the block grid of the vacuum blob's checks of C, D, F, G in absolute
+# mode: (blocks per axis, slots per subcell), 3,000 gas in the unit sphere
+# overflow no subcell; the seeded active share of its entries pass
+VACUUM_BLOCKS = (3, 64)
+VACUUM_IDLE_FRAC = 0.03
+
+
+def record_vacuum_blocks(device, n_blocks: int, subcap: int, pos, vel, mass,
+                         gas_mask, idle_frac: float, seed: int = IDLE_SEED,
+                         h0=0.2) -> tuple:
+    """The arguments kernels C, D, F and G get in their absolute mode from
+    the vacuum block-SPH path over the gas (``pos``, ...): the even and
+    odd lists of its bounding cube (clamped), a density pass (the Newton
+    loop from h = ``h0``, a float or a tensor, capped 2 kappa below the
+    fine edge) and a hydro
+    pass on every gas particle (C, D), then both again on a seeded
+    ``idle_frac`` of the gas through the active entries (F, G). Returns
+    (recorded arguments, seconds of the two dense passes and of the two
+    entry passes, each between device syncs). Raises if a subcell
+    overflowed or the entries did not fit."""
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import gas_bounding_grid
+    from gadget_leicester_tpu_torch.models.grids import KAPPA_SPH
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
+                                                      build_active_entries)
+    origin, extent = gas_bounding_grid(pos, gas_mask)
+    cls = sb.build_block_lists(pos, gas_mask, origin, extent, n_blocks,
+                               subcap, periodic=False)
+    if bool(cls[0].overflow):
+        raise AssertionError(f"the vacuum cloud overflowed {n_blocks}^3 "
+                             f"blocks of {subcap} slots a subcell")
+    max_hsml = (1.0 - 2.0 * KAPPA_SPH) / cls[0].inv_cell[0]
+    h = torch.clamp(h0 if torch.is_tensor(h0) else torch.full_like(mass, h0),
+                    max=max_hsml)
+    dkw = dict(des_num_ngb=33.0, max_dev=2.0, box=1.0, cls=cls,
+               max_hsml=max_hsml)
+    hkw = dict(visc_const=0.8, box=1.0, hubble_a2_flow=0.0,
+               hubble_a2_norm=1.0, fac_mu=1.0)
+
+    def hydro(fn, res, *extra):
+        return fn(cls, pos, vel, mass, res.hsml, res.rho,
+                  0.05 * res.rho ** (5.0 / 3.0), res.dhsml_factor,
+                  res.div_vel, res.curl_vel, gas_mask, *extra, **hkw)
+
+    gen = torch.Generator().manual_seed(seed)
+    active = (torch.rand(pos.shape[0], generator=gen) < idle_frac).to(
+        pos.device) & gas_mask
+    k_max = 2 * n_blocks ** 3
+    seconds = []
+    with recorded_inputs() as rec:
+        sync(device)
+        t0 = time.perf_counter()
+        res, _ = sb.density_adaptive_blocks(pos, vel, mass, h, gas_mask,
+                                            **dkw)
+        hydro(sb.hydro_force_blocks, res)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+        ec, es, total = build_active_entries(cls[0], active, ENTRY_LANES,
+                                             k_max)
+        if int(total) > k_max:
+            raise AssertionError(f"{int(total)} entries do not fit {k_max}")
+        t0 = time.perf_counter()
+        ires = sb.density_adaptive_blocks_entries(pos, vel, mass, h,
+                                                  gas_mask, ec, es, **dkw)
+        # the active gas takes its fresh solve, the rest keeps the dense
+        # pass's fields, as compute_sph merges them
+        take = active & (ires.rho > 0)
+        ires = res._replace(**{f: torch.where(take, getattr(ires, f),
+                                              getattr(res, f))
+                               for f in ("rho", "hsml", "dhsml_factor",
+                                         "div_vel", "curl_vel")})
+        hydro(sb.hydro_force_blocks_entries, ires, ec, es)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+    return seed_sweep_args(dict(rec), cls[0], res.hsml), seconds
+
+
+def seed_sweep_args(recorded: dict, cl_e, hsml) -> dict:
+    """``recorded`` with C's absolute-mode arguments at every gas slot's
+    h = ``hsml``: C's last call is a late Newton sweep, in which the slots
+    already solved are passed h = 0 and cost nothing, so it is replayed on
+    the pass's own packs with the converged h, as the seed sweep of the
+    next pass gives them."""
+    import torch
+    soa_e, soa_o, _, flags, nb, lf = recorded["sph_density_abs"]
+    cells = cl_e.cells
+    h_slots = torch.where(cells >= 0, hsml[cells.clamp_min(0).long()],
+                          torch.zeros((), device=cells.device))
+    return dict(recorded, sph_density_abs=(soa_e, soa_o,
+                                           h_slots.contiguous(), flags, nb,
+                                           lf))
 
 
 def record_gather_small(device, n_side: int, k: int, drifted: bool,
@@ -627,6 +767,15 @@ def kernel_pairs() -> dict:
         "shortrange_gravity_cells": (
             cells.shortrange_gravity_cells,
             gravity_short.shortrange_gravity_cells_plain),
+        # the absolute modes: the same wrappers and plain versions (lf None)
+        **{f"{name}_abs": pair for name, pair in (
+            ("sph_density", (sb.density_sums_blocks,
+                             sb.density_sums_blocks_plain)),
+            ("sph_hydro", (sb.hydro_sums_blocks, sb.hydro_sums_blocks_plain)),
+            ("sph_density_entries", (sb.density_sums_blocks_entries,
+                                     sb.density_sums_blocks_entries_plain)),
+            ("sph_hydro_entries", (sb.hydro_sums_blocks_entries,
+                                   sb.hydro_sums_blocks_entries_plain)))},
         # E's potential mode: the same wrapper and plain version
         "shortrange_potential_entries": (
             functools.partial(cells.shortrange_gravity_entries,
@@ -645,13 +794,14 @@ def cases(name: str, recorded: dict) -> list:
     import torch
     args = recorded[name]
     i = FLAGS_ARG.get(name)
-    if name in ENTRIES + POTENTIAL_ENTRIES:
+    if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
         ids = args[i]
-        if name == "sph_density_entries":
+        if name.startswith("sph_density_entries"):
             # F's last call may be a later Newton sweep, which switched off
             # the entries whose lanes had converged; one entry list serves
             # density and hydro, so G's is the whole list
-            ids = recorded["sph_hydro_entries"][FLAGS_ARG["sph_hydro_entries"]]
+            hydro = name.replace("density", "hydro")
+            ids = recorded[hydro][FLAGS_ARG[hydro]]
         off = ids.clone()
         off[1::2] = -1
         return [(label, args[:i] + (e,) + args[i + 1:])
@@ -705,11 +855,12 @@ def compare(name: str, got, want, exact):
     return (float((got - want).abs().max()),) + worst
 
 
-def time_ms(fn, reps: int):
-    """(mean ms per call over ``reps`` calls after one warm-up, the last
-    call's output), by CUDA events."""
+def time_ms(fn, reps: int, warmup: bool = True):
+    """(mean ms per call over ``reps`` calls after one warm-up call, none
+    without ``warmup``, the last call's output), by CUDA events."""
     import torch
-    out = fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -727,6 +878,7 @@ def _targets(name: str, args: tuple):
     particle indices [K, L] for hydro or None) of the tiles or entries that
     ``args`` switch on."""
     import torch
+    name = name.removesuffix("_abs")
     if name in ("shortrange_gravity", "shortrange_potential"):
         soa, flags = args[:2]
         k = torch.nonzero(flags > 0).flatten()
@@ -835,6 +987,8 @@ def pair_count(name: str, args: tuple) -> tuple:
     if name == "shortrange_gravity_cells":
         return gravity_cells_pair_count(args)
     t_all, live_all, where_all, h_all, tid_all = _targets(name, args)
+    absolute = name.endswith("_abs")
+    name = name.removesuffix("_abs")
     gravity = name.startswith("shortrange")
     if gravity:
         soa, n = args[0], args[3 if name.endswith("entries") else 2]
@@ -866,16 +1020,22 @@ def pair_count(name: str, args: tuple) -> tuple:
             ok = (d2 < rcut * rcut) & (d2 > 0.0)
             sl = s_live[ids].flatten(1)
         else:
-            ids, units = sb.odd_sources(nb, where)
+            ids, units = sb.odd_sources(nb, where, not absolute)
             rows, shift = sb._gather_sources(src, ids, units, lf, (0, 1, 2, 7))
             _, _, _, r, _ = sb._pair_geometry(t, rows, shift)
             h = h_all[k0:k0 + step][:, :, None]
             if idx_o is None:
                 ok = r < h
+                if absolute:   # the kernel skips targets with h = 0
+                    live = live & (h[:, :, 0] > 0)
             else:
-                sid = idx_o[ids].flatten(1)
-                ok = (r < torch.maximum(h, rows[3][:, None, :])) & \
-                    (tid_all[k0:k0 + step][:, :, None] != sid[:, None, :])
+                ok = r < torch.maximum(h, rows[3][:, None, :])
+                if absolute:
+                    ok = ok & (r > 0.0)
+                else:
+                    sid = idx_o[ids].flatten(1)
+                    ok = ok & (tid_all[k0:k0 + step][:, :, None]
+                               != sid[:, None, :])
             sl = s_live[ids].flatten(1)
         pair = live[:, :, None] & sl[:, None, :]
         stencil += int(pair.sum())
@@ -913,13 +1073,25 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def thinned(name: str, args: tuple, every: int) -> tuple:
+    """``args`` with only every ``every``-th tile or entry left on."""
+    i = FLAGS_ARG[name]
+    x = args[i].clone()
+    keep = x[::every].clone()
+    x.fill_(-1 if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES else 0)
+    x[::every] = keep
+    return args[:i] + (x,) + args[i + 1:]
+
+
 def check_kernels(recorded: dict, where: str, results: dict, names,
-                  timed: bool = False) -> None:
+                  timed: bool = False, every: int = 1) -> None:
     """Each kernel of ``names`` against its plain version on the arguments
     the path gave its wrapper (``recorded``), in every case of
     :func:`cases`, by :func:`compare`; with ``timed``, each one's time
-    beside its plain version's in the first case (all tiles or
-    entries)."""
+    beside its plain version's in the first case (all tiles or entries).
+    With ``every`` > 1 the comparisons switch on only every ``every``-th
+    tile or entry of each case (the timing keeps them all), where the
+    float64 plain version of the whole would take minutes."""
     pairs = kernel_pairs()
     for name in names:
         if name not in recorded:
@@ -930,9 +1102,14 @@ def check_kernels(recorded: dict, where: str, results: dict, names,
         for n, (case, args) in enumerate(cases(name, recorded)):
             if timed and n == 0:
                 r["ms"], got = time_ms(lambda: kern(*args), reps=5)
-                r["plain_ms"], want = time_ms(lambda: plain(*args), reps=1)
+                # a plain version of seconds a call needs no warm-up
+                r["plain_ms"], want = time_ms(lambda: plain(*args), reps=1,
+                                              warmup=every == 1)
                 r.update(kernel_bound(name, args, got))
-            else:
+            if every > 1:
+                case, args = f"{case}, every {every}th", thinned(name, args,
+                                                                  every)
+            if every > 1 or not (timed and n == 0):
                 got, want = kern(*args), plain(*args)
             abs_err, k, p, used = compare(name, got, want,
                                           plain(*as_float64(args)))
@@ -1049,6 +1226,13 @@ def phase_kernels(results: dict, device="cuda", n_small=N_SIDE_SMALL):
         check_kernels(recorded, f"n_side={n_small} periodic" if periodic
                       else "vacuum blob 4^3 cells x 256", results,
                       GRAVITY_CELLS)
+    # C, D, F, G in absolute mode: the vacuum blob through block SPH on
+    # its clamped grid, the entries on a seeded 3% of its gas
+    nb, subcap = VACUUM_BLOCKS
+    recorded, _ = record_vacuum_blocks(device, nb, subcap,
+                                       *vacuum_blob(device), VACUUM_IDLE_FRAC)
+    check_kernels(recorded, f"vacuum blob {nb}^3 blocks x {subcap}", results,
+                  ABS)
     # E's potential mode and H on a step's own arguments (sinks on)
     rec_e, rec_h = record_idle_sinks(device, n_small)
     check_kernels(rec_e, f"n_side={n_small} near-idle, sinks", results,
@@ -2103,6 +2287,102 @@ def phase_gravity_cells(results: dict, state, main_counts: dict, card: str,
 # phase 13: the stock collisionless runs, TimeMax cut to fit; the bounds
 # of tests/test_galaxy_cluster_e2e.py (G = M = 1 units for the galaxy run,
 # as in the test) and of tests/test_tree.py
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+# the block grid of phase 12b: the periodic path's 22 blocks an axis; its
+# kernels are held to their float64 plain versions on every 13th tile or
+# entry (on an H100 the float32 plain versions of the whole take 7.5 and
+# 13.4 s for C and D)
+VACUUM_MAIN_BLOCKS = 22
+VACUUM_MAIN_EVERY = 13
+
+
+# phase 12b: C, D, F, G in absolute mode at the main path's width, on
+# the gas of phase 5's state as a vacuum cloud, at the periodic path's 22^3
+# blocks; its 1% near-idle pass gives F's and G's launch counts (the
+# disc's capacity raises leave it 2^3 blocks, and it takes the entries
+# tier only at the few sync points whose entries fit their 16)
+def phase_vacuum_blocks(results: dict, state, card: str,
+                        device="cuda") -> None:
+    """Kernels C, D, F and G in their absolute mode at full width (phase
+    12b): the gas of ``state`` (2,097,152 particles) as a vacuum cloud,
+    ``compute_sph`` with ``periodic=False`` on fresh lists over its
+    bounding cube (the slots a subcell doubled from 32 until nothing
+    overflows), once with all the gas active and once with a seeded 1%
+    (the entries tier), the launch counts set to 0 before each and read
+    after; each kernel replayed against its plain version and timed
+    beside its relative mode's time on the periodic path (phases 6 and 8)
+    and its bound. A timing of the kernels, not a physics claim."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          compute_sph)
+    from gadget_leicester_tpu_torch.models.grids import make_grid_cache
+    cfg, opts, _ = setup(N_SIDE_MAIN)
+    p = state.p
+    ng = state.n_gas_max
+    gas = p.alive[:ng] & (p.ptype[:ng] == 0)
+    fac = comoving_factors(cfg, state.ti_current)
+
+    def sph_pass(active, subcap):
+        st = dataclasses.replace(
+            state, grids=make_grid_cache(p.pos.device),
+            overflow_flags=torch.zeros_like(state.overflow_flags))
+        o = dataclasses.replace(opts, periodic=False, sph_backend="blocks",
+                                sph_grid=2 * VACUUM_MAIN_BLOCKS,
+                                sph_capacity=subcap)
+        stats: dict = {}
+        with recorded_inputs() as rec:
+            kernels.reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            out = compute_sph(st, cfg, o, fac, active, stats=stats)
+            sync(device)
+            dt = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+        return out, dict(rec), counts, dt, stats["density_iters"]
+
+    subcap = 32
+    while True:
+        dense, rec, counts, dt, sweeps = sph_pass(gas, subcap)
+        if int(dense.overflow_flags) == 0:
+            break
+        subcap *= 2
+    say("vacuum", f"{int(gas.sum())} gas as a vacuum cloud on "
+        f"{VACUUM_MAIN_BLOCKS}^3 blocks x {subcap} slots a subcell (the "
+        f"fewest of 32 x 2^k that overflow no subcell): all active, "
+        f"{dt:.3f} s, Newton sweeps {sweeps}, launches "
+        f"{_nonzero(counts)} ({card})")
+    check_launches("vacuum", counts, ABS_DENSE, "the dense vacuum pass")
+    recorded = seed_sweep_args(rec, dense.grids.sph[0], dense.gas.hsml)
+    gen = torch.Generator().manual_seed(IDLE_SEED)
+    idle = (torch.rand(ng, generator=gen) < IDLE_FRAC_MAIN).to(
+        p.pos.device) & gas
+    _, rec, counts, dt, sweeps = sph_pass(idle, subcap)
+    say("vacuum", f"{int(idle.sum())} active ({IDLE_FRAC_MAIN:.0%}): "
+        f"{dt:.3f} s, Newton sweeps {sweeps}, launches {_nonzero(counts)} "
+        f"({card})")
+    check_launches("vacuum", counts, ABS_ENTRIES, "the near-idle vacuum pass")
+    for name in ABS_ENTRIES:
+        results.setdefault(name, {})["launches"] = counts[name]
+    recorded.update({k: rec[k] for k in ABS_ENTRIES})
+    check_kernels(recorded, f"2x{N_SIDE_MAIN}^3 gas as a vacuum cloud",
+                  results, ABS, timed=True, every=VACUUM_MAIN_EVERY)
+    for name in ABS:
+        rel = name.removesuffix("_abs")
+        a, r = results[name], results[rel]
+        say("vacuum", f"{name} {a['ms']:.3f} ms ({a['pairs']} stencil pairs,"
+            f" bound / time {100 * a['bound_ms'] / a['ms']:.1f}%) against the "
+            f"relative mode's {r['ms']:.3f} ms ({r['pairs']} stencil pairs, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%) on the periodic path: "
+            f"{a['ms'] / r['ms']:.2f}x ({card})")
+
+
 GALAXY_T_END = 1.0
 GALAXY_DRIFT = 0.02          # |E - E(0)| / |E(0)| over energy.txt's rows
 GALAXY_MOMENTUM = 1e-3       # each component, final minus initial
@@ -2281,17 +2561,21 @@ def li_reference() -> list:
     return rows
 
 
-def _cli(root: Path, *args, timeout: int = 600):
+def _cli(root: Path, *args, timeout: int = 600, phase: str = "cli",
+         counts_file: Path | None = None):
     """``python -m gadget_leicester_tpu_torch *args`` from the checkout at
-    ``root``: (completed process, seconds)."""
+    ``root``, or through :data:`CLI_COUNTED` with ``counts_file``:
+    (completed process, seconds)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(root))
+    how = ["-m", "gadget_leicester_tpu_torch"] if counts_file is None \
+        else ["-c", CLI_COUNTED, str(counts_file)]
     t0 = time.time()
     proc = subprocess.run(
-        [sys.executable, "-m", "gadget_leicester_tpu_torch", *map(str, args)],
-        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+        [sys.executable, *how, *map(str, args)], cwd=root, env=env,
+        capture_output=True, text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
-        say("cli", f"  {line}")
+        say(phase, f"  {line}")
     if proc.returncode != 0:
         raise AssertionError(f"the CLI exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
@@ -2800,21 +3084,207 @@ def phase_sinks(results: dict, card: str, device="cuda",
 
 
 # phase 15: parameterfiles/disc.param on the 20,000-gas disc that
-# parameterfiles/make_ics.py writes, to DISC_T_END or DISC_MAX_STEPS sync
-# points, whichever comes first; apply_cooling card vs CPU on its last
-# state within COOLING_TOL of the largest |dcool| (tests/test_torch_cooling
-# .py's bound)
+# parameterfiles/make_ics.py writes, block SPH on its vacuum grid (auto
+# resolves to blocks above 4,096 gas, as on the JAX package's
+# accelerator): (a) through the CLI, ``--cooling beta --sinks``, in a
+# child process, to DISC_T_END or DISC_CLI_STEPS sync points; (b) through
+# the Python API with the star registered as a sink (the CLI never
+# registers it: ROADMAP queue 3, fork fault (a)), to DISC_T_END or
+# DISC_MAX_STEPS, for the accretion gate; one SPH pass of (b)'s last state
+# under blocks against one under cells (CELLS_VS_BLOCKS, on the gas whose
+# h is under both backends' caps); apply_cooling card vs CPU on it within
+# COOLING_TOL of the largest |dcool| (tests/test_torch_cooling.py's bound)
 DISC_N_GAS = 20000
-DISC_T_END = 0.5
-DISC_MAX_STEPS = 150
+DISC_T_END = 0.3
+DISC_CLI_STEPS = 150
+DISC_MAX_STEPS = 8
 DISC_MASS_TOL = 1e-5
 COOLING_TOL = 1e-5
+# the disc's SPH kernels: the absolute modes of the block backend, and
+# none of the periodic modes or of the coarse-cell backend
+DISC_NOT = ("sph_density", "sph_hydro", "sph_density_entries",
+            "sph_hydro_entries", "sph_cells_density", "sph_cells_hydro")
+# runs the CLI's entry point as ``python -m`` does, and writes the
+# kernels' launch counts to the file named by the first argument on exit
+CLI_COUNTED = """
+import json, runpy, sys
+from gadget_leicester_tpu_torch import kernels
+out, sys.argv = sys.argv[1], ["gadget_leicester_tpu_torch"] + sys.argv[2:]
+try:
+    runpy.run_module("gadget_leicester_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(out, "w") as fh:
+        json.dump(kernels.launches, fh)
+"""
 
 
-def phase_disc(card: str, device="cuda") -> None:
-    """The Leicester disc through the Python API (phase 15): ``Simulation``,
-    ``set_ics``, ``register_sinks_from_types``, then ``Simulation.run()``
-    with its overflow recovery. The run's directory is deleted at the
+def write_disc_ics(path: str, n_gas: int = DISC_N_GAS) -> int:
+    """``disc_ics(n_gas)`` as a format-1 GADGET IC file (gas, then the
+    star as type 5), as ``parameterfiles/make_ics.py disc`` writes it;
+    returns the particle count."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.io.snapshot import (Header, SnapshotData,
+                                                        write_snapshot)
+    from gadget_leicester_tpu_torch.models.ics import disc_ics
+    pos, vel, mass, ptype, u = disc_ics(n_gas=n_gas)
+    h = Header()
+    for t in range(6):
+        h.npart[t] = int((ptype == t).sum())
+    h.npart_total = h.npart.copy()
+    write_snapshot(path, SnapshotData(
+        header=h, pos=pos.astype(np.float32), vel=vel.astype(np.float32),
+        ids=np.arange(1, len(pos) + 1, dtype=np.uint32),
+        mass=mass.astype(np.float32), u=u.astype(np.float32)), fmt=1)
+    return len(pos)
+
+
+def check_disc_launches(what: str, counts: dict) -> None:
+    """C and D launched in their absolute mode, no periodic or coarse-cell
+    SPH kernel."""
+    for name in ABS_DENSE:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what} did not launch {name}")
+    for name in DISC_NOT:
+        if counts[name] != 0:
+            raise AssertionError(f"{what} launched {name} {counts[name]} "
+                                 "times")
+
+
+def phase_disc_cli(results: dict, card: str) -> None:
+    """(a) of phase 15: the IC file and ``disc.param`` written under
+    ``build/disc_cli/``, the run through the CLI in a child process, its
+    launch counts (the main path's counts of C, D, F and G in their
+    absolute mode; F and G run only where a sync point's entries fit
+    2 nb^3, 16 at the 2^3 blocks the disc's capacity raises leave), its
+    timings and the capacity raises of ``set_ics`` in info.txt, the
+    snapshot at TimeMax (its first) held to the ICs' mass. The run's
+    directory is deleted at the end."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.io.snapshot import read_snapshot
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "disc_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        out = work / "out"
+        n = write_disc_ics(str(work / "disc_ics.dat"))
+        param = work / "disc.param"
+        param.write_text(stock_param_text(
+            "disc", str(work / "disc_ics.dat"), str(out), DISC_T_END,
+            TimeOfFirstSnapshot=DISC_T_END))
+        proc, wall = _cli(root, param, 0, "--cooling", "beta", "--sinks",
+                          "--max-steps", DISC_CLI_STEPS, timeout=900,
+                          phase="disc", counts_file=work / "launches.json")
+        counts = json.loads((work / "launches.json").read_text())
+        steps = [line.split() for line in
+                 (out / "timings.txt").read_text().splitlines()
+                 if line.startswith("Step=")]
+        step_s = [float(c[3].rstrip("s")) for c in steps]
+        active = [int(c[5]) for c in steps]
+        notes = [line.strip() for line in
+                 (out / "info.txt").read_text().splitlines()
+                 if "overflow" in line]
+        say("disc", f"CLI: disc.param on disc_ics(n_gas={DISC_N_GAS}) "
+            f"({n} particles), --cooling beta --sinks: {len(step_s)} sync "
+            f"points to t = {_done_time(proc):.4f} in {wall:.1f} s with "
+            f"start-up; {1e3 * sum(step_s) / len(step_s):.1f} ms per sync "
+            f"point (median {1e3 * float(np.median(step_s)):.1f} ms, "
+            f"{sum(a < DISC_N_GAS // 10 for a in active)} sync points with "
+            f"under 10% of the gas active) ({card})")
+        say("disc", f"CLI: set_ics capacity raises {notes}")
+        say("disc", "CLI: launches " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if v or k in ABS))
+        check_disc_launches("the disc through the CLI", counts)
+        for name in ABS_DENSE:
+            results.setdefault(name, {})["launches"] = counts[name]
+        if _done_time(proc) < DISC_T_END * (1 - 1e-6):
+            raise AssertionError("the disc through the CLI stopped early")
+        snap = read_snapshot(str(out / "snapshot_000"))
+        m0 = float(np.float64(
+            read_snapshot(str(work / "disc_ics.dat")).mass).sum())
+        m1 = float(snap.mass.astype(np.float64).sum())
+        say("disc", f"CLI: snapshot_000 at t = {snap.header.time:.4f}: "
+            f"{int(snap.header.npart.sum())} particles, mass {m0:.7f} -> "
+            f"{m1:.7f} ({abs(m1 - m0) / m0:.2e}, bound {DISC_MASS_TOL:g})")
+        if not (np.isfinite(snap.pos).all() and np.isfinite(snap.vel).all()
+                and snap.hsml is not None and np.isfinite(snap.hsml).all()):
+            raise AssertionError("the CLI's snapshot is not finite")
+        if abs(m1 - m0) > DISC_MASS_TOL * m0:
+            raise AssertionError("the disc through the CLI lost or gained "
+                                 "mass")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def disc_blocks_vs_cells(state, cfg, opts) -> None:
+    """One SPH pass of the disc's ``state`` under blocks against one under
+    cells (phase 15): blocks from the state's h, then both from the h it
+    converged to (both solves then stop at the seed sweep unless they
+    disagree), on fresh lists; the cells' capacity doubled until nothing
+    overflows. Held to each other by CELLS_VS_BLOCKS on the gas whose h is
+    under both backends' caps."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          compute_sph,
+                                                          gas_bounding_grid)
+    from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
+                                                         make_grid_cache,
+                                                         sph_cells_geometry)
+    ng = state.n_gas_max
+    p = state.p
+    gas = p.alive[:ng] & (p.ptype[:ng] == 0)
+    fac = comoving_factors(cfg, state.ti_current)
+
+    def fresh(st, **opt):
+        st = dataclasses.replace(
+            st, grids=make_grid_cache(p.pos.device),
+            overflow_flags=torch.zeros_like(st.overflow_flags))
+        kernels.reset_launches()
+        out = compute_sph(st, cfg, dataclasses.replace(opts, **opt), fac,
+                          gas)
+        return out, {k: v for k, v in kernels.launches.items() if v}
+
+    blocks, _ = fresh(state, sph_backend="blocks")
+    start = dataclasses.replace(state, gas=dataclasses.replace(
+        state.gas, hsml=blocks.gas.hsml))
+    again, counts_b = fresh(start, sph_backend="blocks")
+    cap_b = (1.0 - 2.0 * KAPPA_SPH) / float(again.grids.sph[0].inv_cell[0])
+    n_cells, cap = sph_cells_geometry(cfg, opts.replace(sph_capacity=0), ng)
+    while True:
+        cells, counts_c = fresh(start, sph_backend="cells", sph_capacity=cap)
+        if int(cells.overflow_flags) == 0:
+            break
+        cap *= 2
+    cap_c = float(gas_bounding_grid(p.pos[:ng], gas)[1]) / n_cells
+    h_b, h_c = again.gas.hsml, cells.gas.hsml
+    under_b = h_b < cap_b * (1 - 1e-6)
+    keep = gas & under_b & (h_c < cap_c * (1 - 1e-6))
+    say("disc", f"blocks vs cells on the last state: blocks launches "
+        f"{counts_b}, h cap {cap_b:.4f}, {int((gas & ~under_b).sum())} gas "
+        f"at it; cells {n_cells}^3 x {cap} slots, launches {counts_c}, "
+        f"h cap {cap_c:.4f}; {int(keep.sum())} of {int(gas.sum())} gas "
+        f"under both caps")
+    if int(again.overflow_flags) != 0:
+        raise AssertionError("the blocks pass overflowed")
+    compare_sph_fields("disc", "blocks vs cells",
+                       {f: getattr(again.gas, f) for f in SPH_FIELDS},
+                       {f: getattr(cells.gas, f) for f in SPH_FIELDS}, keep,
+                       CELLS_VS_BLOCKS, CELLS_VS_BLOCKS_OUT)
+
+
+def phase_disc(results: dict, card: str, device="cuda") -> None:
+    """The Leicester disc (phase 15): (a) :func:`phase_disc_cli`; (b) the
+    Python API: ``Simulation``, ``set_ics``, ``register_sinks_from_types``,
+    then ``Simulation.run()`` with its overflow recovery, the accretion
+    and mass gates; :func:`disc_blocks_vs_cells` and ``apply_cooling``
+    card vs CPU on its last state. The run's directory is deleted at the
     end."""
     import dataclasses
 
@@ -2825,12 +3295,15 @@ def phase_disc(card: str, device="cuda") -> None:
                                                         parse_parameter_text)
     from gadget_leicester_tpu_torch.core.state import from_numpy, to_numpy
     from gadget_leicester_tpu_torch.models.cooling import apply_cooling
-    from gadget_leicester_tpu_torch.models.grids import (resolve_gravity_mode,
-                                                         sph_cells_geometry)
+    from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
+                                                         resolve_gravity_mode,
+                                                         resolve_sph_backend,
+                                                         sph_blocks_geometry)
     from gadget_leicester_tpu_torch.models.ics import disc_ics
     from gadget_leicester_tpu_torch.models.simulation import Simulation
     from gadget_leicester_tpu_torch.models.sinks import \
         register_sinks_from_types
+    phase_disc_cli(results, card)
     root = Path(__file__).resolve().parent
     work = root / "build" / "disc_run"
     shutil.rmtree(work, ignore_errors=True)
@@ -2838,8 +3311,7 @@ def phase_disc(card: str, device="cuda") -> None:
         cfg = parse_parameter_text(stock_param_text(
             "disc", str(work / "disc_ics.dat"), str(work / "out"),
             DISC_T_END))
-        opts = SimOptions(periodic=False, cooling="beta", sinks=True,
-                          sph_backend="cells")
+        opts = SimOptions(periodic=False, cooling="beta", sinks=True)
         sim = Simulation(cfg, opts, device)
         pos, vel, mass, ptype, u = disc_ics(n_gas=DISC_N_GAS)
         t0 = time.time()
@@ -2850,7 +3322,8 @@ def phase_disc(card: str, device="cuda") -> None:
         p = sim.state.p
         m0 = float(p.mass[p.alive].double().sum())
         n0 = int(p.alive.sum())
-        caps = [sph_cells_geometry(cfg, o, sim.state.n_gas_max)
+        backend = resolve_sph_backend(opts, sim.state.n_gas_max)
+        caps = [sph_blocks_geometry(cfg, o, sim.state.n_gas_max)
                 for o in (opts, sim.opts)]
         kernels.reset_launches()
         t0 = time.time()
@@ -2866,32 +3339,40 @@ def phase_disc(card: str, device="cuda") -> None:
         notes = [line.strip() for line in
                  (work / "out" / "info.txt").read_text().splitlines()
                  if "overflow" in line]
-        say("disc", f"disc.param on disc_ics(n_gas={DISC_N_GAS}): gravity "
-            f"{resolve_gravity_mode(opts, st.n_max)}, SPH cells, beta "
-            f"cooling, sinks; init {init_s:.2f} s; {sim.step_count} sync "
-            f"points to t = {sim.time:.4f} in {wall:.2f} s, "
+        ng = st.n_gas_max
+        gas = p.alive[:ng] & (p.ptype[:ng] == 0)
+        h_cap = (1.0 - 2.0 * KAPPA_SPH) / float(st.grids.sph[0].inv_cell[0])
+        at_cap = int((gas & (st.gas.hsml >= h_cap * (1 - 1e-6))).sum())
+        say("disc", f"API: gravity {resolve_gravity_mode(opts, st.n_max)}, "
+            f"SPH {backend}, beta cooling, sinks, the star registered; init "
+            f"{init_s:.2f} s; {sim.step_count} sync points to t = "
+            f"{sim.time:.4f} in {wall:.2f} s, "
             f"{1e3 * wall / max(sim.step_count, 1):.2f} ms per sync point "
             f"with the run loop ({card})")
-        caps.append(sph_cells_geometry(cfg, sim.opts, st.n_gas_max))
-        say("disc", f"launches {counts}; SPH cells x slots: asked "
-            f"{caps[0]}, after set_ics {caps[1]}, after the run {caps[2]}; "
-            f"info.txt overflow notes {notes}")
-        say("disc", f"accreted {n_acc} gas (alive {n0} -> {n1}), star mass "
-            f"{float(p.mass[int(st.sinks.slot[0])]):.6f}, alive mass {m0:.7f}"
-            f" -> {m1:.7f} ({abs(m1 - m0) / m0:.2e}, bound "
+        caps.append(sph_blocks_geometry(cfg, sim.opts, st.n_gas_max))
+        say("disc", "API: launches " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if v)
+            + f"; blocks x slots a subcell: asked {caps[0]}, after set_ics "
+            f"{caps[1]}, after the run {caps[2]}; info.txt overflow notes "
+            f"{notes}; {at_cap} of {int(gas.sum())} gas at the h cap "
+            f"{h_cap:.4f}")
+        say("disc", f"API: accreted {n_acc} gas (alive {n0} -> {n1}), star "
+            f"mass {float(p.mass[int(st.sinks.slot[0])]):.6f}, alive mass "
+            f"{m0:.7f} -> {m1:.7f} ({abs(m1 - m0) / m0:.2e}, bound "
             f"{DISC_MASS_TOL:g})")
+        if backend != "blocks":
+            raise AssertionError(f"auto resolved to {backend}, not blocks")
         if not (sim.time >= DISC_T_END * (1 - 1e-6)
                 or sim.step_count >= DISC_MAX_STEPS):
             raise AssertionError("the disc run stopped early")
-        if counts["sph_cells_density"] == 0 or counts["sph_cells_hydro"] == 0:
-            raise AssertionError("the disc run did not launch kernels I/J "
-                                 "and K")
+        check_disc_launches("the disc through the Python API", counts)
         check_finite("disc", st)
         if abs(m1 - m0) > DISC_MASS_TOL * m0:
             raise AssertionError("the disc lost or gained mass")
         if n0 - n1 != n_acc:
             raise AssertionError(f"{n0 - n1} particles died, the tally says "
                                  f"{n_acc}")
+        disc_blocks_vs_cells(st, cfg, sim.opts)
         # apply_cooling on the last state, card against CPU (in disc.param's
         # units of 1 cm, 1 g and 1 cm/s the gas is at the 1 K floor, so the
         # Stamatellos rate is read toward backgrounds of 10 K and 1e7 K)
@@ -2972,6 +3453,8 @@ def main() -> int:
     kernels.recorded.clear()
     phase_gather(results, main_state, main_counts, card)
     phase_gravity_cells(results, main_state, main_counts, card)
+    kernels.recorded.clear()
+    phase_vacuum_blocks(results, main_state, card)
     del main_state
     kernels.recorded.clear()
     gc.collect()
@@ -2990,7 +3473,7 @@ def main() -> int:
     kernels.recorded.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    phase_disc(card)
+    phase_disc(results, card)
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

@@ -2,7 +2,10 @@
 //
 // Replaces gadget_leicester_tpu/ops/sph_blocks.py ::
 // density_sums_blocks_entries (kernel body _make_sph_entries_kernel,
-// kind "density"). Plain PyTorch twin: ops/sph_blocks.py ::
+// kind "density"), on a periodic grid in block-relative coordinates (C
+// entry glt_sph_density_entries) and on a clamped (vacuum) grid in
+// absolute coordinates (periodic=False there; C entry
+// glt_sph_density_entries_abs). Plain PyTorch twin: ops/sph_blocks.py ::
 // density_sums_blocks_entries_plain.
 //
 // What it computes. An entry is at most 8 active gas targets of one even
@@ -13,10 +16,12 @@
 // lengths. For each live lane it sums kernel C's pair terms
 // (glt_common.cuh :: density_pair), self-pair included as in C, over the
 // 8 odd source blocks entry_blk[e] + {0,1}^3 of soa_o with the constant
-// shifts (1 - 2g) * Lf. out is [K, 6, 8] = rho, drho/dh, raw div v, raw
-// rot v; padded or switched-off entries (entry_blk = -1: the Newton loop
-// switches off entries whose lanes have all converged) and dead lanes
-// write 0.
+// shifts (1 - 2g) * Lf. In absolute mode tgt and soa_o hold absolute
+// x, y, z, soa_o has (nb+1)^3 blocks, and dx = t - s with no wrap and no
+// shift (the JAX kernel's own geometry with periodic=False). out is
+// [K, 6, 8] = rho, drho/dh, raw div v, raw rot v; padded or switched-off
+// entries (entry_blk = -1: the Newton loop switches off entries whose
+// lanes have all converged) and dead lanes write 0.
 //
 // What bounds it on the card. 8 * 256 = 2048 source slots per entry at
 // the 2x128^3 configuration, about 57 KB of source rows, against ~1.6
@@ -38,6 +43,7 @@ namespace {
 using glt::kEntryLanes;
 using glt::kEntryWarps;
 
+template <bool kAbs>
 __global__ void sph_density_entries_kernel(
     const float* __restrict__ soa_o, const float* __restrict__ tgt,
     const float* __restrict__ h, const int* __restrict__ entry_blk,
@@ -72,15 +78,17 @@ __global__ void sph_density_entries_kernel(
     for (int r = 0; r < 6; ++r) acc[l][r] = 0.f;
 
   const int bx = b / (nb * nb), by = (b / nb) % nb, bz = b % nb;
+  const int nbo = kAbs ? nb + 1 : nb;
   for (int g = 0; g < 8; ++g) {
     const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-    const int src = (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) *
-                        nb +
-                    glt::wrap(bz + gz, nb);
+    const int src =
+        kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
+             : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+                   glt::wrap(bz + gz, nb);
     const float* s = soa_o + static_cast<size_t>(src) * 8 * lanes;
-    const float shx = static_cast<float>(1 - 2 * gx) * lf;
-    const float shy = static_cast<float>(1 - 2 * gy) * lf;
-    const float shz = static_cast<float>(1 - 2 * gz) * lf;
+    const float shx = kAbs ? 0.f : static_cast<float>(1 - 2 * gx) * lf;
+    const float shy = kAbs ? 0.f : static_cast<float>(1 - 2 * gy) * lf;
+    const float shz = kAbs ? 0.f : static_cast<float>(1 - 2 * gz) * lf;
     for (int k = lane; k < lanes; k += 32) {
       const float m = s[3 * lanes + k];
       if (m == 0.f) continue;  // parked slot
@@ -90,10 +98,12 @@ __global__ void sph_density_entries_kernel(
 #pragma unroll
       for (int l = 0; l < kEntryLanes; ++l) {
         if (!((live >> l) & 1u)) continue;  // uniform across the warp
-        glt::density_pair((t[l] - sx) + shx,
-                          (t[kEntryLanes + l] - sy) + shy,
-                          (t[2 * kEntryLanes + l] - sz) + shz,
-                          t[4 * kEntryLanes + l] - svx,
+        const float dx = kAbs ? t[l] - sx : (t[l] - sx) + shx;
+        const float dy = kAbs ? t[kEntryLanes + l] - sy
+                              : (t[kEntryLanes + l] - sy) + shy;
+        const float dz = kAbs ? t[2 * kEntryLanes + l] - sz
+                              : (t[2 * kEntryLanes + l] - sz) + shz;
+        glt::density_pair(dx, dy, dz, t[4 * kEntryLanes + l] - svx,
                           t[5 * kEntryLanes + l] - svy,
                           t[6 * kEntryLanes + l] - svz, m, hinv[l], acc[l]);
       }
@@ -110,6 +120,10 @@ __global__ void sph_density_entries_kernel(
   }
 }
 
+int blocks_for(int k_entries) {
+  return (k_entries + kEntryWarps - 1) / kEntryWarps;
+}
+
 }  // namespace
 
 extern "C" int glt_sph_density_entries(const float* soa_o, const float* tgt,
@@ -117,9 +131,21 @@ extern "C" int glt_sph_density_entries(const float* soa_o, const float* tgt,
                                        float* out, int nb, int lanes,
                                        int k_entries, float lf,
                                        void* stream) {
-  const int blocks = (k_entries + kEntryWarps - 1) / kEntryWarps;
-  sph_density_entries_kernel<<<blocks, 32 * kEntryWarps, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  sph_density_entries_kernel<false><<<blocks_for(k_entries),
+                                      32 * kEntryWarps, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       soa_o, tgt, h, entry_blk, out, nb, lanes, k_entries, lf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int glt_sph_density_entries_abs(const float* soa_o,
+                                           const float* tgt, const float* h,
+                                           const int* entry_blk, float* out,
+                                           int nb, int lanes, int k_entries,
+                                           void* stream) {
+  sph_density_entries_kernel<true><<<blocks_for(k_entries),
+                                     32 * kEntryWarps, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      soa_o, tgt, h, entry_blk, out, nb, lanes, k_entries, 0.f);
   return static_cast<int>(cudaGetLastError());
 }

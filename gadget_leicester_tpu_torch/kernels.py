@@ -2,7 +2,9 @@
 
 The kernels, twelve sources (A short-range gravity, B PM deposit, C SPH
 density, D SPH hydro, the active-entry twins E, F, G of A, C, D, with E
-in two modes, the force and the force with the potential, H short-range
+in two modes, the force and the force with the potential, and C, D, F, G
+each in two, block-relative on a periodic grid and absolute on a clamped
+one (the ``_abs`` entries), H short-range
 gravity with the potential, the coarse-cell SPH density I/J and hydro K,
 L the cell-window PM gather, and M short-range gravity in absolute
 coordinates with the per-pair minimum image) are compiled on first use
@@ -71,6 +73,11 @@ SIGNATURES = {
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
     "shortrange_potential_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
                                      _F, _P),
+    # the absolute-coordinate modes of C, D, F, G (clamped vacuum grids)
+    "sph_density_abs": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "sph_density_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

@@ -16,8 +16,9 @@ hydro.
 
 Kernels on these paths: A (short-range gravity, ``ops/cells.py``), B (PM
 deposit, ``ops/pm_tiles.py``), C and D (block SPH density and hydro,
-``ops/sph_blocks.py``) and at near-idle sync points their active-entry
-twins E, F and G; I/J and K (coarse-cell SPH density and hydro,
+``ops/sph_blocks.py``; block-relative on a periodic box, absolute on the
+clamped grid of a vacuum run) and at near-idle sync points their
+active-entry twins E, F and G; I/J and K (coarse-cell SPH density and hydro,
 ``ops/sph_cells.py``). The FFTs, the CIC gather, direct gravity, the
 tree and the all-pairs SPH sums are PyTorch's own operators, as the JAX
 package leaves them to XLA. The full potential of the diagnostics
@@ -156,6 +157,9 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
         _refuse("isotherm_eqs", "ROADMAP queue 1 item 12")
     if opts.forcetest > 0:
         _refuse("forcetest", "ROADMAP queue 1 item 11")
+    if not isinstance(opts.periodic, bool):
+        _refuse(f"per-axis periodic {opts.periodic!r} (the slab's grids)",
+                "ROADMAP queue 2 item 3")
     mode = resolve_gravity_mode(opts, n_max)
     if mode not in ("treepm", "direct", "tree") or \
             (mode == "treepm" and not opts.periodic):
@@ -165,10 +169,6 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
         backend = resolve_sph_backend(opts, n_gas_max)
         if backend not in ("blocks", "cells", "dense"):
             raise ValueError(f"unknown sph_backend {backend!r}")
-        if backend == "blocks" and not opts.periodic:
-            _refuse("sph_backend 'blocks' on a vacuum grid",
-                    "ROADMAP queue 1 item 12: the non-relative block "
-                    "kernels")
 
 
 def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
@@ -402,29 +402,39 @@ def _sph_blocks(state, cfg, opts, fields, active, active_g, dkw, hkw):
     F and G over the active entries at a near-idle sync point. Returns
     (DensityResult, hydro(fields), overflow, state with the updated
     cache); h is capped 2 kappa below the fine-cell edge, the correctness
-    contract of the 8-block stencil under staleness."""
+    contract of the 8-block stencil under staleness. Periodic: the box,
+    relative coordinates. Vacuum: the gas bounding cube, re-fitted at
+    every rebuild, absolute coordinates (unit ``box``), the fine edge and
+    the refresh margin read from the cached lists."""
     pos_g, vel_g, mass_g, hsml0, gas_mask = fields
     ng = pos_g.shape[0]
-    box = float(cfg.box_size)
+    periodic = opts.periodic
+    box = float(cfg.box_size) if periodic else 1.0
     n_blocks, subcap = sph_blocks_geometry(cfg, opts, ng)
 
     def build_blocks():
-        return build_block_lists(pos_g, gas_mask, 0.0, box,
-                                 n_blocks=n_blocks, subcap=subcap)
+        origin, extent = (0.0, box) if periodic else \
+            gas_bounding_grid(pos_g, gas_mask)
+        return build_block_lists(pos_g, gas_mask, origin, extent,
+                                 n_blocks=n_blocks, subcap=subcap,
+                                 periodic=periodic)
 
-    subcell = box / (2 * n_blocks)
+    def fine_edge(cls):
+        return box / (2 * n_blocks) if periodic else 1.0 / cls[0].inv_cell[0]
+
     grids = state.grids
     if grids is not None:
         count_now = gas_mask.sum().to(torch.int32)
+        margin = 0.0 if grids.sph is None else \
+            2.0 * KAPPA_SPH * fine_edge(grids.sph)
         cls, disp, count, _ = refresh(grids.sph, grids.sph_disp,
-                                      grids.sph_count,
-                                      2.0 * KAPPA_SPH * subcell,
-                                      count_now, build_blocks)
+                                      grids.sph_count, margin, count_now,
+                                      build_blocks)
         state = dataclasses.replace(state, grids=dataclasses.replace(
             grids, sph=cls, sph_disp=disp, sph_count=count))
     else:
         cls = build_blocks()
-    max_hsml = (1.0 - 2.0 * KAPPA_SPH) * subcell
+    max_hsml = (1.0 - 2.0 * KAPPA_SPH) * fine_edge(cls)
     hsml_in = torch.clamp(hsml0, max=max_hsml)
     k_max = 2 * n_blocks ** 3
     entries = None

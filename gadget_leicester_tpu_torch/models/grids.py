@@ -9,7 +9,10 @@ found while r + 2 * (displacement since the build) <= cell edge, so each
 grid carries a margin and a running displacement, and is rebuilt when
 2 * disp > margin or the alive count changed. Where the JAX package
 traces that decision with ``lax.cond``, :func:`refresh` reads one host
-boolean.
+boolean. The SPH block lists of a vacuum grid are re-fitted to the gas
+bounding cube at each rebuild, and their margin is 2 kappa times the
+cached lists' fine edge (``models/forces.py::_sph_blocks``); accretion
+changes the gas count and so rebuilds them.
 
 Geometry: the short-range and coarse-cell SPH capacities are rounded up
 to 128 on every device, as the JAX package's Pallas path does; its CPU

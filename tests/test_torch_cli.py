@@ -34,7 +34,7 @@ CpuTimeBetRestartFile 0.0
 
 
 def cli(*args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, "-c", CODE, *map(str, args)],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=timeout)

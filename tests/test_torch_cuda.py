@@ -11,8 +11,9 @@ I/J and K get those of a 2x12^3 box initialised with
 128 and 256. L gets those of ``pm_gather_tiles`` on the 2x12^3 box's
 mesh stack (3 and 4 components, fresh and drifted positions), M those of
 ``shortrange_gravity_fresh`` on that box (periodic, truncated) and on a
-vacuum blob. chip_smoke.py runs the same comparisons and the main path;
-these keep them in the test suite."""
+vacuum blob. C, D, F and G in their absolute mode get those of the vacuum
+blob through block SPH on its clamped grid. chip_smoke.py runs the same
+comparisons and the main path; these keep them in the test suite."""
 
 import pytest
 import torch
@@ -210,3 +211,24 @@ def test_gravity_cells_keeps_the_particle_on_the_box_edge_on_card():
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
     assert float(got[:3].abs().amax(-1).min()) > 1e-3 * scale
+
+
+@pytest.fixture(scope="module")
+def recorded_vacuum_blocks():
+    """The wrappers' arguments of C, D, F and G in their absolute mode:
+    the vacuum blob through block SPH on its clamped grid, the entries on
+    a seeded 3% of its gas (chip_smoke.record_vacuum_blocks)."""
+    _need_card()
+    nb, subcap = chip_smoke.VACUUM_BLOCKS
+    return chip_smoke.record_vacuum_blocks(
+        "cuda", nb, subcap, *chip_smoke.vacuum_blob("cuda"),
+        chip_smoke.VACUUM_IDLE_FRAC)[0]
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("name", sorted(chip_smoke.ABS))
+def test_absolute_kernel_matches_plain_on_card(recorded_vacuum_blocks, name,
+                                               case):
+    """C and D: all tiles, and every other tile gated off; F and G: all
+    entries, and every other entry switched off."""
+    _check(recorded_vacuum_blocks, name, case)

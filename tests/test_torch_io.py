@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from gadget_leicester_tpu.io import snapshot as jsnap
 from gadget_leicester_tpu.io.state_io import \
@@ -30,6 +31,14 @@ from tests.test_torch_diagnostics import _filled_state
 from tests.test_torch_slice import OPTS, PARAM
 
 FIELDS = ("pos", "vel", "ids", "mass", "u", "rho", "hsml", "pot")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _data(mod, seed, n_gas=40, n_dm=60, gas=True, pot=True):

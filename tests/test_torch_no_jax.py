@@ -5,8 +5,9 @@ chip_smoke.py import, and on the CPU one sync point of a 2x10^3 box runs
 under the block and the coarse-cell SPH backend (the latter with sinks
 and Stamatellos cooling), two of a small Evrard sphere under direct
 gravity and all-pairs SPH, three of a small Leicester disc with beta
-cooling and sinks, and one of a Plummer sphere under the tree, with a
-periodic tree force through the Ewald table."""
+cooling and sinks and two of it under block SPH on its vacuum grid, and
+one of a Plummer sphere under the tree, with a periodic tree force
+through the Ewald table."""
 
 import os
 import pathlib
@@ -68,6 +69,13 @@ dsim.set_ics(pos_d, vel_d, mass_d, ptype_d, u=u_d)
 dsim.state = register_sinks_from_types(dsim.state)
 dsim.step(3)
 assert torch.isfinite(dsim.state.p.vel).all()
+# the same disc under block SPH on its vacuum grid (the absolute mode)
+bsim = Simulation(dcfg, SimOptions(periodic=False, cooling="beta", sinks=True,
+                                   sph_backend="blocks"), "cpu")
+bsim.set_ics(pos_d, vel_d, mass_d, ptype_d, u=u_d)
+bsim.step(2)
+assert torch.isfinite(bsim.state.gas.density).all()
+assert bsim.state.grids.sph[1].periodic is False
 from gadget_leicester_tpu_torch.models.ics import gassphere_ics
 gcfg = parse_parameter_text(chip_smoke.gassphere_param_text("x", "y", 0.5))
 pos, vel, mass, ptype, u = gassphere_ics(n_gas=200)
@@ -96,7 +104,7 @@ print("modules", len(names), "ti", int(sim.state.ti_current))
 
 
 def test_port_imports_and_steps_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", CODE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -29,6 +29,14 @@ CpuTimeBetRestartFile 1e9
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def param_file(tmp_path, name, ics, extra=RUN):
     out = tmp_path / name
     text = PARAM.replace("InitCondFile x", f"InitCondFile {ics}").replace(

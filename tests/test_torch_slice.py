@@ -73,6 +73,14 @@ N_STEPS = 3
 # CPU by the same bounds.
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_dict(st):
     out = {}
     for g in ("p", "gas", "sinks"):
