@@ -46,7 +46,9 @@ imports nothing of JAX. Phases, each printing its own lines:
    kernels' launch counts of that run;
 6. kernels at the main path's shapes: the arguments each wrapper got last
    in phase 5, replayed as in phase 3, and each kernel's time beside its
-   plain version's and its bound; then the full potential of phase 5's
+   plain version's and its bound (for A and D also the pairs they
+   evaluate, :func:`gravity_walk`, :func:`hydro_walk`); then the full
+   potential of phase 5's
    state (kernel H on a fresh cell list), its parts timed, and H replayed
    and timed the same way;
 7. profile: the phases of 4 more sync points, each timed with a device
@@ -1043,6 +1045,158 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
+# Kernels A and D walk fewer pairs than their stencil holds, in the same
+# order of sums (csrc/shortrange_gravity.cu, csrc/sph_hydro.cu). The bound
+# above counts the stencil, so that shares compare across designs; these
+# mirror each design's walk in float32 and count the pairs it evaluates.
+# A: live targets ranked per pass of A_THREADS slots by the Morton key of
+# their position on an A_KEY_CELLS^3 grid over their cell, in warps of 32,
+# each warp walking the live sources within rcut^2 CULL_MARGIN2 of its
+# targets' bounding box. D: warps of 32 target lanes, each lane walking
+# the source subcells next to its fine cell (a parked target with h >= 8
+# Lf in relative mode, all 64), each warp the valid sources whose distance
+# from its live targets' box is below max(h_max, h_j) squared times
+# CULL_MARGIN2.
+A_THREADS = 128
+A_KEY_CELLS = 8
+CULL_MARGIN2 = 1.00002
+
+
+def gravity_walk(args: tuple, cells):
+    """Kernel A's walk over the target cells ``cells`` [K] of ``args``:
+    (target coordinates [K, 3, W, 32] in the kernel's lane order, their
+    live mask [K, W, 32], the shifted source coordinates [K, 3, 27 cap],
+    the sources each warp walks [K, W, 27 cap]) for cap <= A_THREADS (one
+    pass, as on the main path)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    soa, _, n, box, _, rcut = args
+    dev, f32 = soa.device, torch.float32
+    cap = soa.shape[2]
+    if cap > A_THREADS:
+        raise ValueError("gravity_walk mirrors one pass of A_THREADS slots")
+    nt = -(-cap // 32) * 32
+    edge = torch.tensor(box / n, dtype=f32)   # the wrapper's c_float
+    scale = (torch.tensor(float(A_KEY_CELLS), dtype=f32) / edge).to(dev)
+    cull2 = float(torch.tensor(rcut * rcut, dtype=f32)
+                  * torch.tensor(CULL_MARGIN2, dtype=f32))
+    slot = torch.arange(cap, device=dev)
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    t = soa[cells]
+    live = t[:, 5] > 0
+    q = torch.floor(t[:, :3] * scale + float(A_KEY_CELLS // 2))
+    q = q.clamp(0, A_KEY_CELLS - 1).long()
+    key = torch.zeros_like(q[:, 0])
+    for bit in range(A_KEY_CELLS.bit_length() - 1):
+        for a in range(3):
+            key |= ((q[:, a] >> bit) & 1) << (3 * bit + 2 - a)
+    key = torch.where(live, key, torch.full_like(key, 1 << 9))
+    order = torch.argsort(key * cap + slot, dim=1)
+    pad = nt - cap
+    xyz = torch.nn.functional.pad(t[:, :3].gather(
+        2, order[:, None].expand(-1, 3, -1)), (0, pad))
+    lv = torch.nn.functional.pad(live.gather(1, order), (0, pad))
+    xyz, lv = xyz.view(-1, 3, nt // 32, 32), lv.view(-1, nt // 32, 32)
+    lo = torch.where(lv[:, None], xyz, inf).amin(-1)          # [K, 3, W]
+    hi = torch.where(lv[:, None], xyz, -inf).amax(-1)
+    ids, offs = gs.stencil_sources(n, cells)
+    s = soa[ids]                                              # [K, 27, 8, cap]
+    sxyz = torch.stack([(s[:, :, a] + offs[None, :, a, None].to(f32)
+                         * edge.item()).flatten(1) for a in range(3)], 1)
+    d2 = 0.0
+    for a in range(3):
+        e = torch.clamp(torch.maximum(lo[:, a, :, None] - sxyz[:, None, a],
+                                      sxyz[:, None, a] - hi[:, a, :, None]),
+                        min=0.0)
+        d2 = d2 + e * e
+    near = (d2 < cull2) & (s[:, :, 3] != 0).flatten(1)[:, None, :]
+    return xyz, lv, sxyz, near
+
+
+def gravity_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live target and a source that kernel A evaluates on
+    ``args``."""
+    import torch
+    cells = torch.nonzero(args[1] > 0).flatten()
+    total = 0
+    for k0 in range(0, cells.numel(), 256):
+        _, lv, _, near = gravity_walk(args, cells[k0:k0 + 256])
+        total += int((near.sum(-1) * lv.sum(-1)).sum())
+    return total
+
+
+def _reach_table():
+    """[8 target subcells, 8 odd blocks g, 8 source subcells] bool: the
+    source subcells next to a target's fine cell (kernel D's skip)."""
+    return [[[all(abs(((st >> a) & 1) - ((sk >> a) & 1) + 1
+                      - 2 * ((g >> (2 - a)) & 1)) <= 1 for a in range(3))
+              for sk in range(8)] for g in range(8)] for st in range(8)]
+
+
+def hydro_walk(args: tuple, blocks):
+    """Kernel D's walk (either mode) over the even blocks ``blocks`` [K]
+    of ``args``: (the target rows [K, 8, L], the source rows x, y, z, h
+    [K, 8 L] of the 8 odd blocks and their shifts (None in absolute
+    mode), and the pairs each lane walks [K, L, 8 L])."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    soa_a, soa_b, src16, _, _, _, _, nb, lf, _ = args
+    dev, f32 = soa_a.device, torch.float32
+    lanes = soa_a.shape[2]
+    sub = lanes // 8
+    wl = -(-lanes // 32) * 32
+    reach = torch.tensor(_reach_table(), device=dev)
+    t = soa_a[blocks]
+    valid = soa_b[blocks, 4] > 0
+    big = (~valid) & (t[:, 7] >= 8.0 * lf) if lf is not None else \
+        torch.zeros_like(valid)
+    walks = valid | big
+    ids, units = sb.odd_sources(nb, blocks, lf is not None)
+    rows, shift = sb._gather_sources(src16, ids, units, lf, (0, 1, 2, 7))
+    sv = (src16[ids][:, :, 12] > 0).flatten(1)
+    st = torch.arange(lanes, device=dev) // sub
+    j = torch.arange(8 * lanes, device=dev)
+    mine = reach[st][:, j // lanes, j % lanes // sub][None] | big[..., None]
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    pad = (0, wl - lanes)
+    xyz = torch.nn.functional.pad(t[:, :3], pad).view(-1, 3, wl // 32, 32)
+    lw = torch.nn.functional.pad(walks, pad).view(-1, wl // 32, 32)
+    lo = torch.where(lw[:, None], xyz, inf).amin(-1)          # [K, 3, W]
+    hi = torch.where(lw[:, None], xyz, -inf).amax(-1)
+    hmax = torch.where(lw, torch.nn.functional.pad(t[:, 7], pad).view(
+        -1, wl // 32, 32), torch.zeros((), dtype=f32, device=dev)).amax(-1)
+    d2 = 0.0
+    for a in range(3):
+        s = rows[a][:, None, :]
+        e0, e1 = lo[:, a, :, None] - s, hi[:, a, :, None] - s
+        if shift is not None:
+            e0, e1 = e0 + shift[a][None, None, :], e1 + shift[a][None, None, :]
+        e = torch.clamp(torch.maximum(e0, -e1), min=0.0)
+        d2 = d2 + e * e
+    hh = torch.maximum(hmax[..., None], rows[3][:, None, :])
+    near = (d2 < hh * hh * CULL_MARGIN2) & sv[:, None, :]     # [K, W, 8 L]
+    near = near.repeat_interleave(32, dim=1)[:, :lanes]
+    return t, rows, shift, walks[..., None] & mine & near
+
+
+def hydro_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a target lane and a valid source that kernel D (either
+    mode) evaluates on ``args``."""
+    import torch
+    blocks = torch.nonzero(args[5] > 0).flatten()
+    total = 0
+    for k0 in range(0, blocks.numel(), 32):
+        total += int(hydro_walk(args, blocks[k0:k0 + 32])[-1].sum())
+    return total
+
+
+EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
+             "sph_hydro": hydro_evaluated_pairs,
+             "sph_hydro_abs": hydro_evaluated_pairs}
+
+
 def kernel_bound(name: str, args: tuple, out) -> dict:
     """The least time the card could take for what a kernel computes on
     ``args`` (into ``out``), by the rule at PEAK_FLOPS."""
@@ -1106,6 +1260,8 @@ def check_kernels(recorded: dict, where: str, results: dict, names,
                 r["plain_ms"], want = time_ms(lambda: plain(*args), reps=1,
                                               warmup=every == 1)
                 r.update(kernel_bound(name, args, got))
+                if name in EVALUATED:
+                    r["evaluated"] = EVALUATED[name](args)
             if every > 1:
                 case, args = f"{case}, every {every}th", thinned(name, args,
                                                                   every)
@@ -1129,6 +1285,11 @@ def check_kernels(recorded: dict, where: str, results: dict, names,
                 f"{r['in_cut']} inside the cut, {r['ops']:.4g} operations, "
                 f"{r['bytes']} bytes): bound / kernel time "
                 f"{100 * r['bound_ms'] / r['ms']:.1f}%")
+            if "evaluated" in r:
+                share = 100 * r["evaluated"] / max(r["pairs"], 1)
+                say("kernels", f"{name} {where}: the kernel evaluates "
+                    f"{r['evaluated']} pairs, {share:.1f}% of the stencil "
+                    "pairs")
 
 
 def check_potential_forces(recorded: dict, where: str) -> None:
@@ -2304,17 +2465,13 @@ VACUUM_MAIN_EVERY = 13
 # blocks; its 1% near-idle pass gives F's and G's launch counts (the
 # disc's capacity raises leave it 2^3 blocks, and it takes the entries
 # tier only at the few sync points whose entries fit their 16)
-def phase_vacuum_blocks(results: dict, state, card: str,
-                        device="cuda") -> None:
-    """Kernels C, D, F and G in their absolute mode at full width (phase
-    12b): the gas of ``state`` (2,097,152 particles) as a vacuum cloud,
-    ``compute_sph`` with ``periodic=False`` on fresh lists over its
-    bounding cube (the slots a subcell doubled from 32 until nothing
-    overflows), once with all the gas active and once with a seeded 1%
-    (the entries tier), the launch counts set to 0 before each and read
-    after; each kernel replayed against its plain version and timed
-    beside its relative mode's time on the periodic path (phases 6 and 8)
-    and its bound. A timing of the kernels, not a physics claim."""
+def vacuum_cloud_pass(state, active, subcap: int, device="cuda"):
+    """One ``compute_sph`` pass over the gas of the 2x128^3 ``state`` as a
+    vacuum cloud (``periodic=False``, fresh lists over its bounding cube,
+    ``VACUUM_MAIN_BLOCKS``^3 blocks of ``subcap`` slots a subcell), the
+    launch counts set to 0 before and read after. Returns (its output
+    state, the wrappers' arguments, the launch counts, its seconds, its
+    Newton sweeps)."""
     import dataclasses
 
     import torch
@@ -2324,32 +2481,48 @@ def phase_vacuum_blocks(results: dict, state, card: str,
                                                           compute_sph)
     from gadget_leicester_tpu_torch.models.grids import make_grid_cache
     cfg, opts, _ = setup(N_SIDE_MAIN)
-    p = state.p
-    ng = state.n_gas_max
-    gas = p.alive[:ng] & (p.ptype[:ng] == 0)
     fac = comoving_factors(cfg, state.ti_current)
+    st = dataclasses.replace(
+        state, grids=make_grid_cache(state.p.pos.device),
+        overflow_flags=torch.zeros_like(state.overflow_flags))
+    o = dataclasses.replace(opts, periodic=False, sph_backend="blocks",
+                            sph_grid=2 * VACUUM_MAIN_BLOCKS,
+                            sph_capacity=subcap)
+    stats: dict = {}
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        out = compute_sph(st, cfg, o, fac, active, stats=stats)
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+    return out, dict(rec), counts, dt, stats["density_iters"]
 
-    def sph_pass(active, subcap):
-        st = dataclasses.replace(
-            state, grids=make_grid_cache(p.pos.device),
-            overflow_flags=torch.zeros_like(state.overflow_flags))
-        o = dataclasses.replace(opts, periodic=False, sph_backend="blocks",
-                                sph_grid=2 * VACUUM_MAIN_BLOCKS,
-                                sph_capacity=subcap)
-        stats: dict = {}
-        with recorded_inputs() as rec:
-            kernels.reset_launches()
-            sync(device)
-            t0 = time.perf_counter()
-            out = compute_sph(st, cfg, o, fac, active, stats=stats)
-            sync(device)
-            dt = time.perf_counter() - t0
-            counts = dict(kernels.launches)
-        return out, dict(rec), counts, dt, stats["density_iters"]
 
+def vacuum_cloud_gas(state):
+    """The alive gas mask [n_gas_max] of ``state``."""
+    p, ng = state.p, state.n_gas_max
+    return p.alive[:ng] & (p.ptype[:ng] == 0)
+
+
+def phase_vacuum_blocks(results: dict, state, card: str,
+                        device="cuda") -> None:
+    """Kernels C, D, F and G in their absolute mode at full width (phase
+    12b): the gas of ``state`` (2,097,152 particles) as a vacuum cloud
+    (:func:`vacuum_cloud_pass`; the slots a subcell doubled from 32 until
+    nothing overflows), once with all the gas active and once with a
+    seeded 1% (the entries tier); each kernel replayed against its plain
+    version and timed beside its relative mode's time on the periodic path
+    (phases 6 and 8) and its bound. A timing of the kernels, not a physics
+    claim."""
+    import torch
+
+    gas = vacuum_cloud_gas(state)
     subcap = 32
     while True:
-        dense, rec, counts, dt, sweeps = sph_pass(gas, subcap)
+        dense, rec, counts, dt, sweeps = vacuum_cloud_pass(state, gas,
+                                                           subcap, device)
         if int(dense.overflow_flags) == 0:
             break
         subcap *= 2
@@ -2361,9 +2534,10 @@ def phase_vacuum_blocks(results: dict, state, card: str,
     check_launches("vacuum", counts, ABS_DENSE, "the dense vacuum pass")
     recorded = seed_sweep_args(rec, dense.grids.sph[0], dense.gas.hsml)
     gen = torch.Generator().manual_seed(IDLE_SEED)
-    idle = (torch.rand(ng, generator=gen) < IDLE_FRAC_MAIN).to(
-        p.pos.device) & gas
-    _, rec, counts, dt, sweeps = sph_pass(idle, subcap)
+    idle = (torch.rand(gas.shape[0], generator=gen) < IDLE_FRAC_MAIN).to(
+        gas.device) & gas
+    _, rec, counts, dt, sweeps = vacuum_cloud_pass(state, idle, subcap,
+                                                   device)
     say("vacuum", f"{int(idle.sum())} active ({IDLE_FRAC_MAIN:.0%}): "
         f"{dt:.3f} s, Newton sweeps {sweeps}, launches {_nonzero(counts)} "
         f"({card})")

@@ -30,190 +30,327 @@
 // zeros; a parked source (which may lie inside the cloud) is skipped by
 // its valid row.
 //
-// What bounds it on the card. Pairs, as kernel C (5.6e9 per sweep at
-// 2x128^3), with about 80 float32 operations and one division per pair
-// inside the support; bound by the FP32 pipes and by divergence at the
-// support edge.
+// What bounds it on the card. Pairs: each target's 8 odd source blocks
+// are the 4^3 window of 64 fine cells around its 2^3 even block, 3.3e9
+// pairs at 2x128^3, 1.9% of them inside the support, and a pair inside
+// costs about 86 float32 operations and one division. Every pair walked
+// costs the distance test, and a warp pays the body whenever one of its
+// lanes has a pair inside, so the kernel is bound by instruction issue
+// and by divergence at the support edge, not by bytes.
 //
-// What the design does about it. One thread per target lane, each
-// 13-row source tile (plus indices in relative mode, 14 KB at 256 lanes)
-// staged in shared memory. Invalid sources are skipped with a branch
-// uniform across the block. hubble_a2_flow and fac_mu are read from
-// device memory, so the launch needs no host sync. Relative mode: one
-// thread block per even block. Absolute mode: one per blockDim-wide slice
-// of its lanes, leaving at once when no target of the slice is valid and
-// skipping a staged chunk of invalid sources whole (kernel C's design).
+// What the design does about it.
+// - The fine-cell skip. Target lane t lies in subcell st = t / subcap of
+//   even block b (bit 0, 1, 2 of st: sx, sy, sz), at fine coordinate
+//   2 b + s per axis; source lane k of odd block b + g lies in subcell sk,
+//   at fine coordinate 2 (b + g) - 1 + s_k. A source subcell whose fine
+//   cell is more than 1 away from the target's on some axis holds no pair
+//   inside the support, and is skipped; 37 of the 64 are. The test is
+//   integer and exact, and it rests on three invariants: the caller caps
+//   h at (1 - 2 kappa) Lf (models/forces.py, compute_sph); the lists are
+//   rebuilt before 2 disp > 2 kappa Lf, disp being the largest drift of a
+//   particle per axis since the build (models/grids.py, refresh), so two
+//   particles whose fine cells lie two apart on an axis are at least
+//   (1 - 2 kappa) Lf >= max(h_i, h_j) apart, which the earlier design
+//   left with `continue`; and in absolute mode a particle clamped into an
+//   edge cell only lies farther out. A parked target (valid row 0) writes
+//   zeros in absolute mode, as before; in relative mode it sits -7 fine
+//   cells from its block centre with h = 1 (ops/sph_blocks.py,
+//   _hydro_rows), at least 8.5 Lf from every valid source, so it reaches
+//   none while h < 8 Lf and writes zeros as before; otherwise it walks the
+//   whole window as before.
+// - Warps stand alone. Lanes are subcell * subcap + rank, so with subcap a
+//   multiple of 32 (32 at 2x128^3, 64 and 4,096 on vacuum grids) a warp
+//   is one target subcell and the skip is uniform across it; otherwise a
+//   warp walks the union of its lanes' subcells and each lane skips what
+//   it does not need. The work of a subcell varies 8:1 from one odd block
+//   to the next, so a barrier per block would idle most warps: each warp
+//   stages its own chunks of 32 source lanes (13 rows and the index),
+//   double-buffered with cp.async, only the chunks it needs. A needed odd
+//   subcell is staged once by each warp that needs it (3.4 times on
+//   average), from L2.
+// - Warp-uniform culling within the walked subcells, as kernel A's: each
+//   lane tests its chunk's source against the box of the warp's live
+//   targets, and a ballot keeps the valid sources whose box distance is
+//   below max(h_max, h_j) (1 + 1e-5), h_max the warp's largest target h.
+//   The box distance per axis is taken as dx is, (lo - s) + shift and
+//   (hi - s) + shift, which is monotone in the target coordinate, so in
+//   float32 it is never above |dx|; the margin covers the rounding of r.
+//   A culled source has r >= max(h_i, h_j) for every lane, which the
+//   earlier design left with `continue`.
+// - The order of sums is kept: each target adds its pairs g = 0..7, then
+//   lane k ascending, skipping only pairs the earlier design skipped; the
+//   pair arithmetic is the earlier design's, line for line, and the warp
+//   walks the kept sources two at a time where there are two, so that the
+//   two pairs' arithmetic can overlap. So D equals its earlier design bit
+//   for bit. No compaction of inside pairs (PERF.md section 6 gives the
+//   share of walked iterations that run the pair body).
+// - hubble_a2_flow and fac_mu are read from device memory, so the launch
+//   needs no host sync.
+// nvcc 12.8 -Xptxas=-v for sm_90a: 64 registers in either mode, 28,672
+// bytes of shared memory a block of 256 threads.
 
 #include "glt_common.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 14;   // src16 rows 0-12 and, in relative mode, idx_o
+constexpr unsigned kFull = 0xffffffffu;
+// a source is culled only beyond max(h_max, h_j) (1 + 1e-5) of the box
+constexpr float kCullMargin2 = 1.00002f;
+
+// Whether a target in subcell st can reach source subcell sk of odd block
+// b + g: per axis the fine coordinates differ by s_t - s_k + 1 - 2 g_a
+__host__ __device__ constexpr bool adjacent(int st, int sk, int g) {
+  for (int a = 0; a < 3; ++a) {
+    const int d =
+        ((st >> a) & 1) - ((sk >> a) & 1) + 1 - 2 * ((g >> (2 - a)) & 1);
+    if (d > 1 || d < -1) return false;
+  }
+  return true;
+}
+
+// bit g * 8 + sk: the source subcells a target in subcell st can reach
+__host__ __device__ constexpr unsigned long long reach(int st) {
+  unsigned long long m = 0;
+  for (int bit = 0; bit < 64; ++bit)
+    if (adjacent(st, bit & 7, bit >> 3)) m |= 1ull << bit;
+  return m;
+}
+
+__constant__ unsigned long long kReach[8] = {reach(0), reach(1), reach(2),
+                                             reach(3), reach(4), reach(5),
+                                             reach(6), reach(7)};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 template <bool kAbs>
-__global__ void sph_hydro_kernel(const float* __restrict__ soa_a,
-                                 const float* __restrict__ soa_b,
-                                 const float* __restrict__ src16,
-                                 const int* __restrict__ idx_e,
-                                 const int* __restrict__ idx_o,
-                                 const int* __restrict__ flags,
-                                 const float* __restrict__ params,
-                                 float* __restrict__ out, int nb, int lanes,
-                                 float lf, float half_visc) {
+__global__ void __launch_bounds__(kThreads)
+    sph_hydro_kernel(const float* __restrict__ soa_a,
+                     const float* __restrict__ soa_b,
+                     const float* __restrict__ src16,
+                     const int* __restrict__ idx_e,
+                     const int* __restrict__ idx_o,
+                     const int* __restrict__ flags,
+                     const float* __restrict__ params,
+                     float* __restrict__ out, int nb, int lanes, float lf,
+                     float half_visc) {
   const int b = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(b) * 5 * lanes;
   if (flags[b] == 0) {
-    if constexpr (kAbs) {
-      const int t = blockIdx.y * blockDim.x + threadIdx.x;
-      if (t < lanes)
-        for (int r = 0; r < 5; ++r) o[r * lanes + t] = 0.f;
-    } else {
-      for (int t = threadIdx.x; t < 5 * lanes; t += blockDim.x) o[t] = 0.f;
-    }
+    if (t < lanes)
+      for (int r = 0; r < 5; ++r) o[r * lanes + t] = 0.f;
     return;
   }
-  __shared__ float s_x[glt::kTile], s_y[glt::kTile], s_z[glt::kTile];
-  __shared__ float s_m[glt::kTile], s_h[glt::kTile];
-  __shared__ float s_vx[glt::kTile], s_vy[glt::kTile], s_vz[glt::kTile];
-  __shared__ float s_rho[glt::kTile], s_por[glt::kTile], s_c[glt::kTile];
-  __shared__ float s_bal[glt::kTile], s_valid[glt::kTile];
-  __shared__ int s_id[kAbs ? 1 : glt::kTile];
+  __shared__ float s_ring[kWarps][2][kRows][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float(*ring)[kRows][32] = s_ring[warp];
 
-  const float hubble_a2_flow = params[0];
-  const float fac_mu = params[1];
+  const int subcap = lanes >> 3;
+  const int chunks = (subcap + 31) >> 5;   // chunks of 32 lanes a subcell
   const int bx = b / (nb * nb), by = (b / nb) % nb, bz = b % nb;
   const int nbo = kAbs ? nb + 1 : nb;
   const float* ta = soa_a + static_cast<size_t>(b) * 8 * lanes;
   const float* tb = soa_b + static_cast<size_t>(b) * 8 * lanes;
 
-  // relative: this block loops over all lanes; absolute: its own slice
-  // (computed here, not held across the branch above, as in kernel C)
-  for (int t0 = kAbs ? blockIdx.y * blockDim.x : 0; t0 < lanes;
-       t0 += kAbs ? gridDim.y * blockDim.x : blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    bool live = t < lanes;
-    float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
-    float ht = 0.f, trho = 0.f, tpor = 0.f, tc = 0.f, tbal = 0.f;
-    int tid = -1;
-    if (live) {
-      tx = ta[t];
-      ty = ta[lanes + t];
-      tz = ta[2 * lanes + t];
-      tvx = ta[4 * lanes + t];
-      tvy = ta[5 * lanes + t];
-      tvz = ta[6 * lanes + t];
-      ht = ta[7 * lanes + t];
-      trho = tb[t];
-      tpor = tb[lanes + t];
-      tc = tb[2 * lanes + t];
-      tbal = tb[3 * lanes + t];
-      if constexpr (kAbs)
-        live = tb[4 * lanes + t] > 0.f;
-      else
-        tid = idx_e[static_cast<size_t>(b) * lanes + t];
+  bool live = t < lanes;
+  float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
+  float ht = 0.f, trho = 0.f, tpor = 0.f, tc = 0.f, tbal = 0.f;
+  int tid = -1;
+  unsigned long long need = 0;
+  if (live) {
+    tx = ta[t];
+    ty = ta[lanes + t];
+    tz = ta[2 * lanes + t];
+    tvx = ta[4 * lanes + t];
+    tvy = ta[5 * lanes + t];
+    tvz = ta[6 * lanes + t];
+    ht = ta[7 * lanes + t];
+    trho = tb[t];
+    tpor = tb[lanes + t];
+    tc = tb[2 * lanes + t];
+    tbal = tb[3 * lanes + t];
+    if constexpr (!kAbs) tid = idx_e[static_cast<size_t>(b) * lanes + t];
+    if (tb[4 * lanes + t] > 0.f)
+      need = kReach[t / subcap];
+    else if (kAbs || ht < 8.f * lf)
+      live = false;   // invalid, or parked and reaching nothing: zeros
+    else
+      need = ~0ull;   // parked with h >= 8 Lf: the whole window
+  }
+  const float hinv_t = glt::inv_or_zero(ht);
+  const unsigned long long warp_need =
+      (static_cast<unsigned long long>(
+           __reduce_or_sync(kFull, static_cast<unsigned>(need >> 32)))
+       << 32) |
+      __reduce_or_sync(kFull, static_cast<unsigned>(need));
+
+  // the warp's box of live targets and their largest h
+  const float inf = __int_as_float(0x7f800000);
+  float lox = live ? tx : inf, hix = live ? tx : -inf;
+  float loy = live ? ty : inf, hiy = live ? ty : -inf;
+  float loz = live ? tz : inf, hiz = live ? tz : -inf;
+  float hmax = live ? ht : 0.f;
+  for (int off = 16; off > 0; off >>= 1) {
+    lox = fminf(lox, __shfl_xor_sync(kFull, lox, off));
+    loy = fminf(loy, __shfl_xor_sync(kFull, loy, off));
+    loz = fminf(loz, __shfl_xor_sync(kFull, loz, off));
+    hix = fmaxf(hix, __shfl_xor_sync(kFull, hix, off));
+    hiy = fmaxf(hiy, __shfl_xor_sync(kFull, hiy, off));
+    hiz = fmaxf(hiz, __shfl_xor_sync(kFull, hiz, off));
+    hmax = fmaxf(hmax, __shfl_xor_sync(kFull, hmax, off));
+  }
+
+  const float hubble_a2_flow = params[0];
+  const float fac_mu = params[1];
+  float ax = 0.f, ay = 0.f, az = 0.f, dte = 0.f, msv = 0.f;
+
+  // the chunks this warp walks, in order: (bit = g * 8 + sk, chunk c)
+  auto next_bit = [&](int bit) {
+    const unsigned long long rest =
+        bit >= 63 ? 0ull : warp_need & (~0ull << (bit + 1));
+    return rest ? __ffsll(static_cast<long long>(rest)) - 1 : -1;
+  };
+  auto src_block = [&](int g) {
+    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
+    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
+                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+                      glt::wrap(bz + gz, nb);
+  };
+  auto stage = [&](int bit, int c, int buf) {
+    const int q0 = (bit & 7) * subcap + 32 * c;
+    if (lane >= min(32, subcap - 32 * c)) return;
+    const int src = src_block(bit >> 3);
+    const float* s = src16 + static_cast<size_t>(src) * 16 * lanes + q0 + lane;
+    for (int r = 0; r < 13; ++r) cp_async4(&ring[buf][r][lane], s + r * lanes);
+    if constexpr (!kAbs)
+      cp_async4(&ring[buf][13][lane],
+                idx_o + static_cast<size_t>(src) * lanes + q0 + lane);
+  };
+
+  int bit = warp_need ? __ffsll(static_cast<long long>(warp_need)) - 1 : -1;
+  int c = 0, buf = 0;
+  if (bit >= 0) stage(bit, 0, 0);
+  cp_async_commit();
+  while (bit >= 0) {
+    int nbit = bit, nc = c + 1;
+    if (nc == chunks) {
+      nbit = next_bit(bit);
+      nc = 0;
     }
-    const float hinv_t = glt::inv_or_zero(ht);
-    float ax = 0.f, ay = 0.f, az = 0.f, dte = 0.f, msv = 0.f;
-    if (!kAbs || __syncthreads_or(live)) {
-      for (int g = 0; g < 8; ++g) {
-        const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-        const int src =
-            kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
-                 : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) *
-                           nb +
-                       glt::wrap(bz + gz, nb);
-        const float* s = src16 + static_cast<size_t>(src) * 16 * lanes;
-        const int* sid =
-            kAbs ? nullptr : idx_o + static_cast<size_t>(src) * lanes;
-        const float shx = kAbs ? 0.f : static_cast<float>(1 - 2 * gx) * lf;
-        const float shy = kAbs ? 0.f : static_cast<float>(1 - 2 * gy) * lf;
-        const float shz = kAbs ? 0.f : static_cast<float>(1 - 2 * gz) * lf;
-        for (int s0 = 0; s0 < lanes; s0 += glt::kTile) {
-          const int len = min(glt::kTile, lanes - s0);
-          bool any = false;
-          __syncthreads();
-          for (int k = threadIdx.x; k < len; k += blockDim.x) {
-            const int q = s0 + k;
-            s_x[k] = s[q];
-            s_y[k] = s[lanes + q];
-            s_z[k] = s[2 * lanes + q];
-            s_m[k] = s[3 * lanes + q];
-            s_vx[k] = s[4 * lanes + q];
-            s_vy[k] = s[5 * lanes + q];
-            s_vz[k] = s[6 * lanes + q];
-            s_h[k] = s[7 * lanes + q];
-            s_rho[k] = s[8 * lanes + q];
-            s_por[k] = s[9 * lanes + q];
-            s_c[k] = s[10 * lanes + q];
-            s_bal[k] = s[11 * lanes + q];
-            s_valid[k] = s[12 * lanes + q];
-            if constexpr (kAbs)
-              any = any || s_valid[k] > 0.f;
-            else
-              s_id[k] = sid[q];
-          }
-          if constexpr (kAbs) {
-            if (!__syncthreads_or(any)) continue;  // every source invalid
-          } else {
-            __syncthreads();
-          }
-          if (!live) continue;
-          for (int k = 0; k < len; ++k) {
-            if (!(s_valid[k] > 0.f)) continue;  // uniform across the block
-            const float dx = kAbs ? tx - s_x[k] : (tx - s_x[k]) + shx;
-            const float dy = kAbs ? ty - s_y[k] : (ty - s_y[k]) + shy;
-            const float dz = kAbs ? tz - s_z[k] : (tz - s_z[k]) + shz;
-            const float r2 = dx * dx + dy * dy + dz * dz;
-            const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
-            const float r = r2 * rinv;
-            const float hs = s_h[k];
-            if (!(r < fmaxf(ht, hs))) continue;
-            if constexpr (kAbs) {
-              if (!(r > 0.f)) continue;  // the self-pair
-            } else {
-              if (tid == s_id[k]) continue;  // the self-pair
-            }
-            const float dwk_i = glt::w4_dw_dr(r, hinv_t);
-            const float dwk_j = glt::w4_dw_dr(r, glt::inv_or_zero(hs));
-            const float dvx = tvx - s_vx[k];
-            const float dvy = tvy - s_vy[k];
-            const float dvz = tvz - s_vz[k];
-            const float rr = r * r;
-            const float vdotr2 =
-                dvx * dx + dvy * dy + dvz * dz + hubble_a2_flow * rr;
-            const bool approaching = vdotr2 < 0.f;
-            const float mu = fac_mu * vdotr2 * rinv;
-            const float vsig = tc + s_c[k] - 3.0f * (approaching ? mu : 0.f);
-            const float rho_ij = 0.5f * (trho + s_rho[k]);
-            const float rs = rsqrtf(fmaxf(rho_ij, 1e-37f));
-            const float rho_ij_inv = rs * rs;
-            const float f_ij = 0.5f * (tbal + s_bal[k]);
-            const float visc =
-                approaching ? half_visc * vsig * (-mu) * rho_ij_inv * f_ij
-                            : 0.f;
-            const float m = s_m[k];
-            const float hfc_visc = 0.5f * m * visc * (dwk_i + dwk_j) * rinv;
-            const float hfc =
-                hfc_visc + m * (tpor * dwk_i + s_por[k] * dwk_j) * rinv;
-            ax -= hfc * dx;
-            ay -= hfc * dy;
-            az -= hfc * dz;
-            dte += 0.5f * (hfc_visc * vdotr2);
-            msv = fmaxf(msv, vsig);
-          }
-        }
+    if (nbit >= 0) stage(nbit, nc, buf ^ 1);   // in flight while this sums
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncwarp();
+
+    const int g = bit >> 3;
+    const float shx = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
+    const float shy =
+        kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
+    const float shz = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
+    const float(*sr)[32] = ring[buf];
+    const bool mine = live && ((need >> bit) & 1ull);
+    bool near = false;
+    if (lane < min(32, subcap - 32 * c) && sr[12][lane] > 0.f) {
+      // the distance of this lane's source from the box, per axis as dx
+      // is computed (monotone in the target coordinate)
+      const float sx = sr[0][lane], sy = sr[1][lane], sz = sr[2][lane];
+      const float lx = kAbs ? lox - sx : (lox - sx) + shx;
+      const float ux = kAbs ? hix - sx : (hix - sx) + shx;
+      const float ly = kAbs ? loy - sy : (loy - sy) + shy;
+      const float uy = kAbs ? hiy - sy : (hiy - sy) + shy;
+      const float lz = kAbs ? loz - sz : (loz - sz) + shz;
+      const float uz = kAbs ? hiz - sz : (hiz - sz) + shz;
+      const float ex = fmaxf(fmaxf(lx, -ux), 0.f);
+      const float ey = fmaxf(fmaxf(ly, -uy), 0.f);
+      const float ez = fmaxf(fmaxf(lz, -uz), 0.f);
+      const float hh = fmaxf(hmax, sr[7][lane]);
+      near = ex * ex + ey * ey + ez * ez < hh * hh * kCullMargin2;
+    }
+    unsigned todo = __ballot_sync(kFull, near);
+    if (!mine) todo = 0;
+    auto pair = [&](int k) {
+      const float dx = kAbs ? tx - sr[0][k] : (tx - sr[0][k]) + shx;
+      const float dy = kAbs ? ty - sr[1][k] : (ty - sr[1][k]) + shy;
+      const float dz = kAbs ? tz - sr[2][k] : (tz - sr[2][k]) + shz;
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
+      const float r = r2 * rinv;
+      const float hs = sr[7][k];
+      if (!(r < fmaxf(ht, hs))) return;
+      if constexpr (kAbs) {
+        if (!(r > 0.f)) return;  // the self-pair
+      } else {
+        if (tid == __float_as_int(sr[13][k])) return;  // the self-pair
+      }
+      const float dwk_i = glt::w4_dw_dr(r, hinv_t);
+      const float dwk_j = glt::w4_dw_dr(r, glt::inv_or_zero(hs));
+      const float dvx = tvx - sr[4][k];
+      const float dvy = tvy - sr[5][k];
+      const float dvz = tvz - sr[6][k];
+      const float rr = r * r;
+      const float vdotr2 = dvx * dx + dvy * dy + dvz * dz + hubble_a2_flow * rr;
+      const bool approaching = vdotr2 < 0.f;
+      const float mu = fac_mu * vdotr2 * rinv;
+      const float vsig = tc + sr[10][k] - 3.0f * (approaching ? mu : 0.f);
+      const float rho_ij = 0.5f * (trho + sr[8][k]);
+      const float rs = rsqrtf(fmaxf(rho_ij, 1e-37f));
+      const float rho_ij_inv = rs * rs;
+      const float f_ij = 0.5f * (tbal + sr[11][k]);
+      const float visc =
+          approaching ? half_visc * vsig * (-mu) * rho_ij_inv * f_ij : 0.f;
+      const float m = sr[3][k];
+      const float hfc_visc = 0.5f * m * visc * (dwk_i + dwk_j) * rinv;
+      const float hfc = hfc_visc + m * (tpor * dwk_i + sr[9][k] * dwk_j) * rinv;
+      ax -= hfc * dx;
+      ay -= hfc * dy;
+      az -= hfc * dz;
+      dte += 0.5f * (hfc_visc * vdotr2);
+      msv = fmaxf(msv, vsig);
+    };
+    while (todo) {
+      const int k1 = __ffs(todo) - 1;
+      todo &= todo - 1;
+      if (todo) {
+        const int k2 = __ffs(todo) - 1;
+        todo &= todo - 1;
+        pair(k1);
+        pair(k2);
+      } else {
+        pair(k1);
       }
     }
-    if (t < lanes) {
-      o[t] = ax;
-      o[lanes + t] = ay;
-      o[2 * lanes + t] = az;
-      o[3 * lanes + t] = dte;
-      o[4 * lanes + t] = msv;
-    }
+    __syncwarp();   // every lane is done with this buffer before its refill
+    bit = nbit;
+    c = nc;
+    buf ^= 1;
+  }
+  if (t < lanes) {
+    o[t] = ax;
+    o[lanes + t] = ay;
+    o[2 * lanes + t] = az;
+    o[3 * lanes + t] = dte;
+    o[4 * lanes + t] = msv;
   }
 }
 
 int threads_for(int lanes) {
-  return lanes < 256 ? ((lanes + 31) / 32) * 32 : 256;
+  return lanes < kThreads ? ((lanes + 31) / 32) * 32 : kThreads;
 }
 
 }  // namespace
@@ -224,8 +361,9 @@ extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
                              const float* params, float* out, int nb,
                              int lanes, float lf, float half_visc,
                              void* stream) {
-  const int blocks = nb * nb * nb;
-  sph_hydro_kernel<false><<<blocks, threads_for(lanes), 0,
+  const int threads = threads_for(lanes);
+  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
+  sph_hydro_kernel<false><<<grid, threads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       soa_a, soa_b, src16, idx_e, idx_o, flags, params, out, nb, lanes, lf,
       half_visc);

@@ -117,8 +117,10 @@ def build() -> Path:
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libglt_kernels.so"
+    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
-        build_info.update(seconds=0.0, path=str(lib_path), log="(cached)")
+        log = log_path.read_text() if log_path.exists() else "(cached)"
+        build_info.update(seconds=0.0, path=str(lib_path), log=log)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -144,6 +146,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}\n"
                                f"{proc.stderr}")
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
     finally:
         for obj in objs:

@@ -13,7 +13,10 @@ mesh stack (3 and 4 components, fresh and drifted positions), M those of
 ``shortrange_gravity_fresh`` on that box (periodic, truncated) and on a
 vacuum blob. C, D, F and G in their absolute mode get those of the vacuum
 blob through block SPH on its clamped grid. chip_smoke.py runs the same
-comparisons and the main path; these keep them in the test suite."""
+comparisons and the main path; these keep them in the test suite. The
+last tests build inputs by hand at the edges of the rules by which A
+culls sources (a warp's box) and D skips source subcells (the fine-cell
+stencil), in both of D's modes."""
 
 import pytest
 import torch
@@ -232,3 +235,212 @@ def test_absolute_kernel_matches_plain_on_card(recorded_vacuum_blocks, name,
     """C and D: all tiles, and every other tile gated off; F and G: all
     entries, and every other entry switched off."""
     _check(recorded_vacuum_blocks, name, case)
+
+
+# The culling edges of kernels A and D (csrc/shortrange_gravity.cu,
+# csrc/sph_hydro.cu): inputs built by hand where a skipped pair, or a kept
+# one, sits at the edge of the rule that skips it. Each case holds the
+# kernel to its float64 plain version (chip_smoke.compare); A's rows also
+# to kernel H's bit for bit.
+A_EDGE, A_N = 10.0, 3            # cell edge and cells per axis
+A_RCUT = 0.95 * A_EDGE
+A_ASMTH = A_RCUT / 4.5
+
+
+def _gravity_soa(kind: str, sign: int = 0):
+    """A [27, 8, 128] cell-relative pack (rows x, y, z, m, soft, 1,
+    1/soft, 0; parked slots at -7 cells, m = 0) of random cells around a
+    centre cell 13 built for ``kind``: "corner", 32 live targets (one
+    warp) in a small box whose corner target has a heavy source beyond
+    the box corner at rcut (1 + sign 1e-6) in the cell (+1, +1, +1);
+    "octant", 128 live targets in one octant; "single", one live slot."""
+    import numpy as np
+    rng = np.random.default_rng({"corner": 11, "octant": 12,
+                                 "single": 13}[kind] + sign)
+    cap = 128
+    soa = np.zeros((A_N ** 3, 8, cap), np.float64)
+    soa[:, :3] = -7.0 * A_EDGE
+
+    def fill(c, xyz, m=None):
+        k = xyz.shape[0]
+        soa[c, :3, :k] = xyz.T
+        soa[c, 3, :k] = rng.uniform(0.5, 1.5, k) if m is None else m
+        soa[c, 4, :k] = rng.uniform(0.05, 0.3, k)
+        soa[c, 5, :k] = 1.0
+        soa[c, 6, :k] = 1.0 / soa[c, 4, :k]
+
+    half = A_EDGE / 2
+    for c in range(A_N ** 3):
+        fill(c, rng.uniform(-half, half, (rng.integers(60, 110), 3)))
+    if kind == "corner":
+        a = 0.3 * half
+        box = rng.uniform(a - 1.5, a, (32, 3))
+        box[0] = a                                    # the box's corner
+        soa[13] = 0.0
+        soa[13, :3] = -7.0 * A_EDGE
+        fill(13, box)
+        d = A_RCUT * (1.0 + sign * 1e-6) / np.sqrt(3.0)
+        src = a + d - A_EDGE                          # in cell (+1, +1, +1)
+        c = A_N ** 3 - 1
+        k = int((soa[c, 5] > 0).sum())
+        soa[c, :3, k] = src
+        soa[c, 3, k] = 1e6
+        soa[c, 4, k], soa[c, 5, k], soa[c, 6, k] = 0.1, 1.0, 10.0
+        f32 = np.float32
+        r2 = sum((f32(a) - (f32(src) + f32(A_EDGE))) ** 2 for _ in range(3))
+        assert (r2 < f32(A_RCUT) ** 2) == (sign < 0)
+    elif kind == "octant":
+        fill(13, rng.uniform(0.0, half, (cap, 3)))
+    else:
+        soa[13] = 0.0
+        soa[13, :3] = -7.0 * A_EDGE
+        fill(13, rng.uniform(-half, half, (1, 3)))
+    return torch.tensor(soa, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("kind,sign", [("corner", -1), ("corner", 1),
+                                       ("octant", 0), ("single", 0)])
+def test_gravity_kernel_culling_edges_on_card(kind, sign):
+    """Kernel A where its warp-box culling is tight: a source at rcut (1 -
+    1e-6) of a warp's corner target must be kept, one at rcut (1 + 1e-6)
+    adds nothing; a cell full in one octant; a cell of one live slot."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    soa = _gravity_soa(kind, sign)
+    flags = torch.ones(A_N ** 3, dtype=torch.int32, device="cuda")
+    args = (soa, flags, A_N, A_N * A_EDGE, A_ASMTH, A_RCUT)
+    got = cells.shortrange_gravity_tiles(*args)
+    want = gravity_short.shortrange_gravity_tiles_plain(*args)
+    exact = gravity_short.shortrange_gravity_tiles_plain(
+        *chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("shortrange_gravity", got, want, exact)
+    assert used <= 1.0
+    assert torch.equal(cells.shortrange_potential_tiles(*args)[:, :3], got)
+    if kind == "corner":
+        # the heavy source dominates the corner target's pull (about 100),
+        # or adds nothing
+        ax = float(exact[13, 0, 0])
+        assert (ax > 20.0) == (sign < 0)
+
+
+D_NB, D_LF = 3, 1.0              # blocks per axis, fine-cell edge
+
+
+def _hydro_args(periodic: bool, subcap: int):
+    """Kernel D's arguments (either mode) for gas binned at x0 and packed
+    at x = x0 + d, |d|_inf <= kappa Lf, h up to (1 - 2 kappa) Lf: a
+    random background, and pairs at h = (1 - 2 kappa) Lf displaced by
+    kappa Lf towards each other across one fine-cell boundary ("kept",
+    on a periodic grid also across the seam) or across the fine cell
+    between theirs ("zero": r = h + 2^-18 Lf), each pair at least 1.2 Lf
+    from other gas; and isolated pairs at h (1 -+ 1e-6) across the corner
+    of two diagonal fine cells ("edge_in", "edge_out"). On a clamped grid
+    some background gas is binned beyond its edge. Returns (arguments,
+    gslot, {label: particle indices})."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.models.grids import KAPPA_SPH
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    rng = np.random.default_rng(subcap + (0 if periodic else 1))
+    box = 2 * D_NB * D_LF
+    kap, hcap = KAPPA_SPH * D_LF, (1.0 - 2.0 * KAPPA_SPH) * D_LF
+    eps = 2.0 ** -18
+    x0, x, h = [], [], []
+    pairs = {"kept": [], "zero": [], "edge_in": [], "edge_out": []}
+
+    def add(label, p0, p):
+        pairs[label].append(len(x0))
+        x0.append(tuple(p0))
+        x.append(tuple(p))
+        h.append(hcap)
+
+    def pair(label, a0, b0, y, z):
+        for p0, d in ((a0, kap), (b0, -kap)):
+            add(label, (p0, y, z), (p0 + d, y, z))
+
+    def diagonal(label, corner, sign):
+        # across the corner of two diagonal fine cells, r = h (1 + sign
+        # 1e-6): the edge of the warps' box test
+        a = np.asarray(corner) - 0.2
+        b = a + hcap * (1.0 + sign * 1e-6) / np.sqrt(3.0)
+        add(label, a, a)
+        add(label, b, b)
+
+    pair("kept", 3.0 - 0.02, 3.0 + 0.02, 1.5, 1.5)
+    pair("zero", 2.0 - eps, 3.0, 4.5, 4.5)
+    pair("zero", 4.0 - eps, 5.0, 1.5, 4.5)
+    if periodic:
+        pair("kept", box - 0.02, 0.02, 4.5, 1.5)
+    else:
+        pair("kept", 1.0 - 0.02, 1.0 + 0.02, 4.5, 1.5)
+    diagonal("edge_in", (4.0, 3.0, 3.0), -1)
+    diagonal("edge_out", (2.0, 3.0, 5.0), 1)
+    keep_out = np.array(x)
+    bg = rng.uniform(0.0, box, (216 * 14, 3))
+    if not periodic:
+        bg[:40, 0] = rng.uniform(-0.4, 0.0, 40)    # clamped into cell 0
+    d = bg[:, None] - keep_out[None]
+    if periodic:
+        d -= box * np.round(d / box)
+    far = np.sqrt((d ** 2).sum(-1)).min(1)
+    bg = bg[far > 1.2 + kap * np.sqrt(3.0)]
+    for p0 in bg:
+        x0.append(tuple(p0))
+        x.append(tuple(p0 + rng.uniform(-kap, kap, 3)))
+        h.append(hcap if rng.uniform() < 0.1 else rng.uniform(0.5, 1.0) * hcap)
+    x0, x = np.array(x0), np.array(x)
+    if periodic:
+        x = np.mod(x, box)
+    n = len(x0)
+    dev = "cuda"
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    cls = sb.build_block_lists(t(x0), mask, 0.0, box, D_NB, subcap,
+                               periodic=periodic)
+    assert not bool(cls[0].overflow)
+    rho = t(rng.uniform(0.5, 2.0, n))
+    packs = sb.pack_hydro_blocks(
+        cls, t(x), t(rng.normal(0.0, 1.0, (n, 3))), t(rng.uniform(
+            0.5, 1.5, n)), t(h), rho, 0.05 * rho ** (5.0 / 3.0),
+        t(rng.uniform(0.8, 1.2, n)), t(rng.normal(0.0, 1.0, n)),
+        t(rng.uniform(0.0, 1.0, n)), mask, box, 0.1, 1.0)
+    args = packs + (D_NB, D_LF if periodic else None, 0.8)
+    return args, cls[0].gslot, pairs
+
+
+@pytest.mark.parametrize("subcap", [32, 64, 40])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_hydro_kernel_skip_edges_on_card(periodic, subcap):
+    """Kernel D's fine-cell skip at the edge of its invariant and its
+    warps' box test at r = h (1 -+ 1e-6), in both modes, with a warp one
+    subcell (32), half a subcell (64) and across two (40): the kept pairs
+    pull, the pairs one fine cell apart give exactly zero, the pair just
+    inside h has its signal velocity, the pair just outside nothing, and
+    every row agrees with the float64 plain version."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    args, gslot, pairs = _hydro_args(periodic, subcap)
+    name = "sph_hydro" if periodic else "sph_hydro_abs"
+    before = kernels.launches[name]
+    got = sb.hydro_sums_blocks(*args)
+    assert kernels.launches[name] == before + 1
+    want = sb.hydro_sums_blocks_plain(*args)
+    exact = sb.hydro_sums_blocks_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare(name, got, want, exact)
+    assert used <= 1.0
+    rows = got.transpose(1, 2).reshape(-1, 5)
+    idx = torch.tensor(pairs["kept"], device="cuda").long()
+    assert bool((rows[gslot[idx].long(), 0].abs() > 0).all())
+    idx = torch.tensor(pairs["zero"], device="cuda").long()
+    assert bool((rows[gslot[idx].long()] == 0).all())
+    # r = h (1 - 1e-6): inside, so it sets the signal velocity; r = h (1 +
+    # 1e-6): nothing
+    idx = torch.tensor(pairs["edge_in"], device="cuda").long()
+    assert bool((rows[gslot[idx].long(), 4] > 0).all())
+    idx = torch.tensor(pairs["edge_out"], device="cuda").long()
+    assert bool((rows[gslot[idx].long()] == 0).all())
