@@ -47,7 +47,8 @@ imports nothing of JAX. Phases, each printing its own lines:
 6. kernels at the main path's shapes: the arguments each wrapper got last
    in phase 5, replayed as in phase 3, and each kernel's time beside its
    plain version's and its bound (for A and D also the pairs they
-   evaluate, :func:`gravity_walk`, :func:`hydro_walk`); then the full
+   evaluate by the models of their culling rules, :func:`gravity_walk`,
+   :func:`hydro_walk`); then the full
    potential of phase 5's
    state (kernel H on a fresh cell list), its parts timed, and H replayed
    and timed the same way;
@@ -1048,15 +1049,17 @@ def pair_count(name: str, args: tuple) -> tuple:
 # Kernels A and D walk fewer pairs than their stencil holds, in the same
 # order of sums (csrc/shortrange_gravity.cu, csrc/sph_hydro.cu). The bound
 # above counts the stencil, so that shares compare across designs; these
-# mirror each design's walk in float32 and count the pairs it evaluates.
+# mirror each design's culling rules in float32 and count the pairs they
+# leave to evaluate. They are models of the kernels' walks, not counts
+# taken in the kernels.
 # A: live targets ranked per pass of A_THREADS slots by the Morton key of
 # their position on an A_KEY_CELLS^3 grid over their cell, in warps of 32,
 # each warp walking the live sources within rcut^2 CULL_MARGIN2 of its
-# targets' bounding box. D: warps of 32 target lanes, each lane walking
-# the source subcells next to its fine cell (a parked target with h >= 8
-# Lf in relative mode, all 64), each warp the valid sources whose distance
-# from its live targets' box is below max(h_max, h_j) squared times
-# CULL_MARGIN2.
+# targets' bounding box. D: warps of 32 target lanes with a box of their
+# valid targets and one of their parked targets (relative mode), each box
+# walking the source subcells whose box of valid sources lies within
+# max(h_max, h_s) of it and, in those, the valid sources within max(h_max,
+# h_j) (squares times CULL_MARGIN2).
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1126,12 +1129,37 @@ def gravity_evaluated_pairs(args: tuple) -> int:
     return total
 
 
-def _reach_table():
-    """[8 target subcells, 8 odd blocks g, 8 source subcells] bool: the
-    source subcells next to a target's fine cell (kernel D's skip)."""
-    return [[[all(abs(((st >> a) & 1) - ((sk >> a) & 1) + 1
-                      - 2 * ((g >> (2 - a)) & 1)) <= 1 for a in range(3))
-              for sk in range(8)] for g in range(8)] for st in range(8)]
+def _box(xyz, h, keep, width: int):
+    """(lo, hi [K, 3, W], largest h [K, W]) of the lanes ``keep`` [K, L]
+    of ``xyz`` [K, 3, L] and ``h`` [K, L] in groups of ``width``."""
+    import torch
+    inf = torch.tensor(float("inf"), dtype=xyz.dtype, device=xyz.device)
+    pad = (0, -xyz.shape[-1] % width)
+    x = torch.nn.functional.pad(xyz, pad).unflatten(-1, (-1, width))
+    k = torch.nn.functional.pad(keep, pad).unflatten(-1, (-1, width))
+    hh = torch.nn.functional.pad(h, pad).unflatten(-1, (-1, width))
+    return (torch.where(k[:, None], x, inf).amin(-1),
+            torch.where(k[:, None], x, -inf).amax(-1),
+            torch.where(k, hh, torch.zeros_like(hh)).amax(-1))
+
+
+def _near(tbox, sbox, shift):
+    """[K, W, S]: kernel D's test of target boxes ``tbox`` (lo, hi [K, 3,
+    W], h [K, W]) against source boxes ``sbox`` (lo, hi [K, 3, S], h [K,
+    S]), per axis dx = (t - s) + ``shift`` [3][S] (None in absolute
+    mode)."""
+    import torch
+    (lo, hi, ht), (slo, shi, hs) = tbox, sbox
+    d2 = 0.0
+    for a in range(3):
+        e0 = lo[:, a, :, None] - shi[:, a, None, :]
+        e1 = hi[:, a, :, None] - slo[:, a, None, :]
+        if shift is not None:
+            e0, e1 = e0 + shift[a], e1 + shift[a]
+        e = torch.clamp(torch.maximum(e0, -e1), min=0.0)
+        d2 = d2 + e * e
+    hh = torch.maximum(ht[..., None], hs[:, None, :])
+    return d2 < hh * hh * CULL_MARGIN2
 
 
 def hydro_walk(args: tuple, blocks):
@@ -1143,52 +1171,37 @@ def hydro_walk(args: tuple, blocks):
 
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
     soa_a, soa_b, src16, _, _, _, _, nb, lf, _ = args
-    dev, f32 = soa_a.device, torch.float32
     lanes = soa_a.shape[2]
     sub = lanes // 8
-    wl = -(-lanes // 32) * 32
-    reach = torch.tensor(_reach_table(), device=dev)
     t = soa_a[blocks]
     valid = soa_b[blocks, 4] > 0
-    big = (~valid) & (t[:, 7] >= 8.0 * lf) if lf is not None else \
-        torch.zeros_like(valid)
-    walks = valid | big
+    parked = ~valid if lf is not None else torch.zeros_like(valid)
     ids, units = sb.odd_sources(nb, blocks, lf is not None)
     rows, shift = sb._gather_sources(src16, ids, units, lf, (0, 1, 2, 7))
     sv = (src16[ids][:, :, 12] > 0).flatten(1)
-    st = torch.arange(lanes, device=dev) // sub
-    j = torch.arange(8 * lanes, device=dev)
-    mine = reach[st][:, j // lanes, j % lanes // sub][None] | big[..., None]
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
-    pad = (0, wl - lanes)
-    xyz = torch.nn.functional.pad(t[:, :3], pad).view(-1, 3, wl // 32, 32)
-    lw = torch.nn.functional.pad(walks, pad).view(-1, wl // 32, 32)
-    lo = torch.where(lw[:, None], xyz, inf).amin(-1)          # [K, 3, W]
-    hi = torch.where(lw[:, None], xyz, -inf).amax(-1)
-    hmax = torch.where(lw, torch.nn.functional.pad(t[:, 7], pad).view(
-        -1, wl // 32, 32), torch.zeros((), dtype=f32, device=dev)).amax(-1)
-    d2 = 0.0
-    for a in range(3):
-        s = rows[a][:, None, :]
-        e0, e1 = lo[:, a, :, None] - s, hi[:, a, :, None] - s
-        if shift is not None:
-            e0, e1 = e0 + shift[a][None, None, :], e1 + shift[a][None, None, :]
-        e = torch.clamp(torch.maximum(e0, -e1), min=0.0)
-        d2 = d2 + e * e
-    hh = torch.maximum(hmax[..., None], rows[3][:, None, :])
-    near = (d2 < hh * hh * CULL_MARGIN2) & sv[:, None, :]     # [K, W, 8 L]
-    near = near.repeat_interleave(32, dim=1)[:, :lanes]
-    return t, rows, shift, walks[..., None] & mine & near
+    sxyz = torch.stack(rows[:3], 1)                           # [K, 3, 8 L]
+    cells = _box(sxyz, rows[3], sv, sub)                      # [K, ., 64]
+    cell_shift = None if shift is None else [x[::sub] for x in shift]
+    pairs = None
+    for kind in (valid, parked):
+        box = _box(t[:, :3], t[:, 7], kind, 32)
+        need = _near(box, cells, cell_shift).repeat_interleave(sub, -1)
+        near = _near(box, (sxyz, sxyz, rows[3]), shift) & need & sv[:, None]
+        pairs = near if pairs is None else pairs | near      # [K, W, 8 L]
+    pairs = pairs.repeat_interleave(32, dim=1)[:, :lanes]
+    return t, rows, shift, (valid | parked)[..., None] & pairs
 
 
 def hydro_evaluated_pairs(args: tuple) -> int:
-    """The pairs of a target lane and a valid source that kernel D (either
-    mode) evaluates on ``args``."""
+    """The pairs of a valid target and a valid source that kernel D
+    (either mode) evaluates on ``args``."""
     import torch
     blocks = torch.nonzero(args[5] > 0).flatten()
     total = 0
     for k0 in range(0, blocks.numel(), 32):
-        total += int(hydro_walk(args, blocks[k0:k0 + 32])[-1].sum())
+        bk = blocks[k0:k0 + 32]
+        walk = hydro_walk(args, bk)[-1]
+        total += int((walk & (args[1][bk, 4] > 0)[..., None]).sum())
     return total
 
 
@@ -1287,9 +1300,9 @@ def check_kernels(recorded: dict, where: str, results: dict, names,
                 f"{100 * r['bound_ms'] / r['ms']:.1f}%")
             if "evaluated" in r:
                 share = 100 * r["evaluated"] / max(r["pairs"], 1)
-                say("kernels", f"{name} {where}: the kernel evaluates "
-                    f"{r['evaluated']} pairs, {share:.1f}% of the stencil "
-                    "pairs")
+                say("kernels", f"{name} {where}: the mirror of its walk "
+                    f"evaluates {r['evaluated']} pairs, {share:.1f}% of the "
+                    "stencil pairs")
 
 
 def check_potential_forces(recorded: dict, where: str) -> None:

@@ -39,55 +39,64 @@
 // and by divergence at the support edge, not by bytes.
 //
 // What the design does about it.
-// - The fine-cell skip. Target lane t lies in subcell st = t / subcap of
-//   even block b (bit 0, 1, 2 of st: sx, sy, sz), at fine coordinate
-//   2 b + s per axis; source lane k of odd block b + g lies in subcell sk,
-//   at fine coordinate 2 (b + g) - 1 + s_k. A source subcell whose fine
-//   cell is more than 1 away from the target's on some axis holds no pair
-//   inside the support, and is skipped; 37 of the 64 are. The test is
-//   integer and exact, and it rests on three invariants: the caller caps
-//   h at (1 - 2 kappa) Lf (models/forces.py, compute_sph); the lists are
-//   rebuilt before 2 disp > 2 kappa Lf, disp being the largest drift of a
-//   particle per axis since the build (models/grids.py, refresh), so two
-//   particles whose fine cells lie two apart on an axis are at least
-//   (1 - 2 kappa) Lf >= max(h_i, h_j) apart, which the earlier design
-//   left with `continue`; and in absolute mode a particle clamped into an
-//   edge cell only lies farther out. A parked target (valid row 0) writes
-//   zeros in absolute mode, as before; in relative mode it sits -7 fine
-//   cells from its block centre with h = 1 (ops/sph_blocks.py,
-//   _hydro_rows), at least 8.5 Lf from every valid source, so it reaches
-//   none while h < 8 Lf and writes zeros as before; otherwise it walks the
-//   whole window as before.
+// - The subcell skip. A first kernel (subcell_boxes) writes, for each of
+//   the Bo x 8 source subcells, the bounding box of its valid sources and
+//   their largest h. A warp skips source subcell (g, sk) when the distance
+//   from its targets' box to that box is at least max(h_max, h_s)
+//   (1 + 1e-5), h_max the warp's largest target h and h_s the subcell's:
+//   the test of a pair on boxes that contain both ends. It needs no
+//   invariant of the caller, so it stays exact for any input: h above the
+//   cap, a list gone stale, a particle clamped into an edge cell. That is
+//   needed because the hydro pass takes the stored h of inactive gas, which
+//   a vacuum grid re-fitted since their last density pass may leave above
+//   the new cap (models/forces.py, compute_sph). Where the caller's
+//   invariants hold, it skips at least the 37 of 64 source subcells whose
+//   fine cell is more than 1 away from the warp's on some axis (the target
+//   of lane t at fine coordinate 2 b + s per axis, s the bits of t /
+//   subcap; a source of odd block b + g at 2 (b + g) - 1 + s_k): h is
+//   capped at (1 - 2 kappa) Lf (compute_sph), and the lists are rebuilt
+//   before 2 disp > 2 kappa Lf, disp the largest drift of a particle per
+//   axis since the build (models/grids.py, refresh), so two particles whose
+//   fine cells lie two apart on an axis are at least (1 - 2 kappa) Lf >=
+//   max(h_i, h_j) apart, less the drift they have not used. Invalid
+//   targets write zeros in absolute mode, as the plain version does. In
+//   relative mode the plain version also sums the parked targets (-7 fine
+//   cells from their block centre, h = 1; ops/sph_blocks.py, _hydro_rows):
+//   a warp keeps a second box for its parked targets, and walks what lies
+//   within reach of either box, so even their rows stay the plain's.
 // - Warps stand alone. Lanes are subcell * subcap + rank, so with subcap a
 //   multiple of 32 (32 at 2x128^3, 64 and 4,096 on vacuum grids) a warp
-//   is one target subcell and the skip is uniform across it; otherwise a
-//   warp walks the union of its lanes' subcells and each lane skips what
-//   it does not need. The work of a subcell varies 8:1 from one odd block
-//   to the next, so a barrier per block would idle most warps: each warp
-//   stages its own chunks of 32 source lanes (13 rows and the index),
+//   is one target fine cell; otherwise its box spans the fine cells of its
+//   lanes. The work of a subcell varies 8:1 from one odd block to the
+//   next, so a barrier per block would idle most warps: each warp stages
+//   its own chunks of 32 source lanes (13 rows and the index),
 //   double-buffered with cp.async, only the chunks it needs. A needed odd
 //   subcell is staged once by each warp that needs it (3.4 times on
-//   average), from L2.
+//   average at 2x128^3), from L2.
 // - Warp-uniform culling within the walked subcells, as kernel A's: each
-//   lane tests its chunk's source against the box of the warp's live
-//   targets, and a ballot keeps the valid sources whose box distance is
-//   below max(h_max, h_j) (1 + 1e-5), h_max the warp's largest target h.
-//   The box distance per axis is taken as dx is, (lo - s) + shift and
-//   (hi - s) + shift, which is monotone in the target coordinate, so in
-//   float32 it is never above |dx|; the margin covers the rounding of r.
-//   A culled source has r >= max(h_i, h_j) for every lane, which the
-//   earlier design left with `continue`.
+//   lane tests its chunk's source against the warp's boxes, and a ballot
+//   keeps the valid sources whose box distance is below max(h_max, h_j)
+//   (1 + 1e-5). The box distance per axis is taken as dx is, (lo - s) +
+//   shift and (hi - s) + shift (and the same on a subcell's box), which is
+//   monotone in both coordinates, so in float32 it is never above |dx|;
+//   the 1e-5 covers the rounding of r = r2 rsqrt(r2) and of the squares. A
+//   skipped or culled source has r >= max(h_i, h_j) for every lane, which
+//   the earlier design left with `continue`.
 // - The order of sums is kept: each target adds its pairs g = 0..7, then
 //   lane k ascending, skipping only pairs the earlier design skipped; the
 //   pair arithmetic is the earlier design's, line for line, and the warp
 //   walks the kept sources two at a time where there are two, so that the
-//   two pairs' arithmetic can overlap. So D equals its earlier design bit
-//   for bit. No compaction of inside pairs (PERF.md section 6 gives the
-//   share of walked iterations that run the pair body).
+//   two pairs' arithmetic can overlap. Built with -fmad=false, D equals its
+//   earlier design bit for bit in both modes; with nvcc's default
+//   contraction into FMAs, the relative mode's acceleration rows differ in
+//   their last bits (the compiler fuses the rebuilt kernel's products
+//   differently). No compaction of inside pairs.
 // - hubble_a2_flow and fac_mu are read from device memory, so the launch
-//   needs no host sync.
-// nvcc 12.8 -Xptxas=-v for sm_90a: 64 registers in either mode, 28,672
-// bytes of shared memory a block of 256 threads.
+//   needs no host sync; the boxes go to a workspace of Bo x 64 floats that
+//   the caller allocates.
+// nvcc 12.8 -Xptxas=-v for sm_90a: 64 registers in either mode, 28,896
+// bytes of shared memory a block of 256 threads; subcell_boxes 32
+// registers.
 
 #include "glt_common.cuh"
 
@@ -97,31 +106,85 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 14;   // src16 rows 0-12 and, in relative mode, idx_o
 constexpr unsigned kFull = 0xffffffffu;
-// a source is culled only beyond max(h_max, h_j) (1 + 1e-5) of the box
+// a source is culled only beyond max(h_max, h_j) (1 + 1e-5) of a box
 constexpr float kCullMargin2 = 1.00002f;
 
-// Whether a target in subcell st can reach source subcell sk of odd block
-// b + g: per axis the fine coordinates differ by s_t - s_k + 1 - 2 g_a
-__host__ __device__ constexpr bool adjacent(int st, int sk, int g) {
+// A bounding box and the largest h of the particles in it
+struct Box {
+  float lo[3], hi[3], h;
+};
+
+// Whether a pair with its target in box t and its source in box s (per
+// axis dx = (t - s) + sh[a]) may have r < max(h_i, h_j): the box distance
+// per axis is taken as dx is, monotone in both ends, so it is never above
+// the |dx| of a pair inside the boxes.
+template <bool kAbs>
+__device__ __forceinline__ bool near_boxes(const Box& t, const float (&slo)[3],
+                                           const float (&shi)[3], float hs,
+                                           const float (&sh)[3]) {
+  float e2 = 0.f;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const int d =
-        ((st >> a) & 1) - ((sk >> a) & 1) + 1 - 2 * ((g >> (2 - a)) & 1);
-    if (d > 1 || d < -1) return false;
+    const float l = kAbs ? t.lo[a] - shi[a] : (t.lo[a] - shi[a]) + sh[a];
+    const float u = kAbs ? t.hi[a] - slo[a] : (t.hi[a] - slo[a]) + sh[a];
+    const float e = fmaxf(fmaxf(l, -u), 0.f);
+    e2 += e * e;
   }
-  return true;
+  const float hh = fmaxf(t.h, hs);
+  return e2 < hh * hh * kCullMargin2;
 }
 
-// bit g * 8 + sk: the source subcells a target in subcell st can reach
-__host__ __device__ constexpr unsigned long long reach(int st) {
-  unsigned long long m = 0;
-  for (int bit = 0; bit < 64; ++bit)
-    if (adjacent(st, bit & 7, bit >> 3)) m |= 1ull << bit;
-  return m;
+// The box of the warp's lanes with `in` set (all lanes call it)
+__device__ __forceinline__ Box warp_box(bool in, float x, float y, float z,
+                                        float h) {
+  const float inf = __int_as_float(0x7f800000);
+  Box b{{in ? x : inf, in ? y : inf, in ? z : inf},
+        {in ? x : -inf, in ? y : -inf, in ? z : -inf},
+        in ? h : 0.f};
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      b.lo[a] = fminf(b.lo[a], __shfl_xor_sync(kFull, b.lo[a], off));
+      b.hi[a] = fmaxf(b.hi[a], __shfl_xor_sync(kFull, b.hi[a], off));
+    }
+    b.h = fmaxf(b.h, __shfl_xor_sync(kFull, b.h, off));
+  }
+  return b;
 }
 
-__constant__ unsigned long long kReach[8] = {reach(0), reach(1), reach(2),
-                                             reach(3), reach(4), reach(5),
-                                             reach(6), reach(7)};
+// boxes[(o * 8 + sk) * 8 + 0..6] = lo x, y, z, hi x, y, z and the largest
+// h of the valid sources of subcell sk of odd block o (lo = +inf, hi =
+// -inf, h = 0 where it has none): one warp a subcell
+__global__ void __launch_bounds__(kThreads)
+    subcell_boxes_kernel(const float* __restrict__ src16,
+                         float* __restrict__ boxes, int lanes) {
+  const int o = blockIdx.x, sk = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int subcap = lanes >> 3;
+  const float* s = src16 + static_cast<size_t>(o) * 16 * lanes + sk * subcap;
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf}, h = 0.f;
+  for (int i = lane; i < subcap; i += 32) {
+    if (!(s[12 * lanes + i] > 0.f)) continue;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], s[a * lanes + i]);
+      hi[a] = fmaxf(hi[a], s[a * lanes + i]);
+    }
+    h = fmaxf(h, s[7 * lanes + i]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(kFull, lo[a], off));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFull, hi[a], off));
+    }
+    h = fmaxf(h, __shfl_xor_sync(kFull, h, off));
+  }
+  if (lane < 8) {
+    const float v[8] = {lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], h, 0.f};
+    boxes[(static_cast<size_t>(o) * 8 + sk) * 8 + lane] = v[lane];
+  }
+}
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -147,6 +210,7 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ idx_o,
                      const int* __restrict__ flags,
                      const float* __restrict__ params,
+                     const float* __restrict__ boxes,
                      float* __restrict__ out, int nb, int lanes, float lf,
                      float half_visc) {
   const int b = blockIdx.x;
@@ -158,6 +222,7 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   __shared__ float s_ring[kWarps][2][kRows][32];
+  __shared__ Box s_park[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float(*ring)[kRows][32] = s_ring[warp];
 
@@ -168,12 +233,11 @@ __global__ void __launch_bounds__(kThreads)
   const float* ta = soa_a + static_cast<size_t>(b) * 8 * lanes;
   const float* tb = soa_b + static_cast<size_t>(b) * 8 * lanes;
 
-  bool live = t < lanes;
   float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
   float ht = 0.f, trho = 0.f, tpor = 0.f, tc = 0.f, tbal = 0.f;
   int tid = -1;
-  unsigned long long need = 0;
-  if (live) {
+  bool valid = false, parked = false;   // the two kinds of live target
+  if (t < lanes) {
     tx = ta[t];
     ty = ta[lanes + t];
     tz = ta[2 * lanes + t];
@@ -186,35 +250,54 @@ __global__ void __launch_bounds__(kThreads)
     tc = tb[2 * lanes + t];
     tbal = tb[3 * lanes + t];
     if constexpr (!kAbs) tid = idx_e[static_cast<size_t>(b) * lanes + t];
-    if (tb[4 * lanes + t] > 0.f)
-      need = kReach[t / subcap];
-    else if (kAbs || ht < 8.f * lf)
-      live = false;   // invalid, or parked and reaching nothing: zeros
-    else
-      need = ~0ull;   // parked with h >= 8 Lf: the whole window
+    valid = tb[4 * lanes + t] > 0.f;
+    parked = !kAbs && !valid;   // absolute mode: invalid targets get zeros
   }
+  const bool live = valid || parked;
   const float hinv_t = glt::inv_or_zero(ht);
-  const unsigned long long warp_need =
-      (static_cast<unsigned long long>(
-           __reduce_or_sync(kFull, static_cast<unsigned>(need >> 32)))
-       << 32) |
-      __reduce_or_sync(kFull, static_cast<unsigned>(need));
 
-  // the warp's box of live targets and their largest h
-  const float inf = __int_as_float(0x7f800000);
-  float lox = live ? tx : inf, hix = live ? tx : -inf;
-  float loy = live ? ty : inf, hiy = live ? ty : -inf;
-  float loz = live ? tz : inf, hiz = live ? tz : -inf;
-  float hmax = live ? ht : 0.f;
-  for (int off = 16; off > 0; off >>= 1) {
-    lox = fminf(lox, __shfl_xor_sync(kFull, lox, off));
-    loy = fminf(loy, __shfl_xor_sync(kFull, loy, off));
-    loz = fminf(loz, __shfl_xor_sync(kFull, loz, off));
-    hix = fmaxf(hix, __shfl_xor_sync(kFull, hix, off));
-    hiy = fmaxf(hiy, __shfl_xor_sync(kFull, hiy, off));
-    hiz = fmaxf(hiz, __shfl_xor_sync(kFull, hiz, off));
-    hmax = fmaxf(hmax, __shfl_xor_sync(kFull, hmax, off));
+  // the boxes of the warp's valid targets (registers) and of its parked
+  // targets (shared memory; relative mode only)
+  const Box tbox = warp_box(valid, tx, ty, tz, ht);
+  const bool any_valid = __any_sync(kFull, valid);
+  const bool any_parked = __any_sync(kFull, parked);
+  if (any_parked) {
+    const Box pbox = warp_box(parked, tx, ty, tz, ht);
+    if (lane == 0) s_park[warp] = pbox;
   }
+  __syncwarp();
+
+  auto src_block = [&](int g) {
+    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
+    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
+                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+                      glt::wrap(bz + gz, nb);
+  };
+  auto shifts = [&](int g, float (&sh)[3]) {
+    sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
+    sh[1] = kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
+    sh[2] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
+  };
+
+  // the source subcells (bit g * 8 + sk) within reach of each box
+  unsigned long long need_valid = 0, need_parked = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int bit = lane + 32 * half;
+    const float* q =
+        boxes + (static_cast<size_t>(src_block(bit >> 3)) * 8 + (bit & 7)) * 8;
+    const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
+    float sh[3];
+    shifts(bit >> 3, sh);
+    const bool nv = any_valid && near_boxes<kAbs>(tbox, slo, shi, q[6], sh);
+    const bool np =
+        any_parked && near_boxes<kAbs>(s_park[warp], slo, shi, q[6], sh);
+    need_valid |= static_cast<unsigned long long>(__ballot_sync(kFull, nv))
+                  << (32 * half);
+    need_parked |= static_cast<unsigned long long>(__ballot_sync(kFull, np))
+                   << (32 * half);
+  }
+  const unsigned long long warp_need = need_valid | need_parked;
 
   const float hubble_a2_flow = params[0];
   const float fac_mu = params[1];
@@ -225,12 +308,6 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned long long rest =
         bit >= 63 ? 0ull : warp_need & (~0ull << (bit + 1));
     return rest ? __ffsll(static_cast<long long>(rest)) - 1 : -1;
-  };
-  auto src_block = [&](int g) {
-    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
-                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
-                      glt::wrap(bz + gz, nb);
   };
   auto stage = [&](int bit, int c, int buf) {
     const int q0 = (bit & 7) * subcap + 32 * c;
@@ -259,31 +336,21 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
 
     const int g = bit >> 3;
-    const float shx = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
-    const float shy =
-        kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
-    const float shz = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
+    float sh[3];
+    shifts(g, sh);
+    const float shx = sh[0], shy = sh[1], shz = sh[2];
     const float(*sr)[32] = ring[buf];
-    const bool mine = live && ((need >> bit) & 1ull);
+    const bool test_valid = (need_valid >> bit) & 1ull;     // warp-uniform
+    const bool test_parked = (need_parked >> bit) & 1ull;
     bool near = false;
     if (lane < min(32, subcap - 32 * c) && sr[12][lane] > 0.f) {
-      // the distance of this lane's source from the box, per axis as dx
-      // is computed (monotone in the target coordinate)
-      const float sx = sr[0][lane], sy = sr[1][lane], sz = sr[2][lane];
-      const float lx = kAbs ? lox - sx : (lox - sx) + shx;
-      const float ux = kAbs ? hix - sx : (hix - sx) + shx;
-      const float ly = kAbs ? loy - sy : (loy - sy) + shy;
-      const float uy = kAbs ? hiy - sy : (hiy - sy) + shy;
-      const float lz = kAbs ? loz - sz : (loz - sz) + shz;
-      const float uz = kAbs ? hiz - sz : (hiz - sz) + shz;
-      const float ex = fmaxf(fmaxf(lx, -ux), 0.f);
-      const float ey = fmaxf(fmaxf(ly, -uy), 0.f);
-      const float ez = fmaxf(fmaxf(lz, -uz), 0.f);
-      const float hh = fmaxf(hmax, sr[7][lane]);
-      near = ex * ex + ey * ey + ez * ez < hh * hh * kCullMargin2;
+      const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
+      const float hs = sr[7][lane];
+      near = (test_valid && near_boxes<kAbs>(tbox, s3, s3, hs, sh)) ||
+             (test_parked && near_boxes<kAbs>(s_park[warp], s3, s3, hs, sh));
     }
     unsigned todo = __ballot_sync(kFull, near);
-    if (!mine) todo = 0;
+    if (!live) todo = 0;
     auto pair = [&](int k) {
       const float dx = kAbs ? tx - sr[0][k] : (tx - sr[0][k]) + shx;
       const float dy = kAbs ? ty - sr[1][k] : (ty - sr[1][k]) + shy;
@@ -358,27 +425,32 @@ int threads_for(int lanes) {
 extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
                              const float* src16, const int* idx_e,
                              const int* idx_o, const int* flags,
-                             const float* params, float* out, int nb,
-                             int lanes, float lf, float half_visc,
+                             const float* params, float* boxes, float* out,
+                             int nb, int lanes, float lf, float half_visc,
                              void* stream) {
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  sph_hydro_kernel<false><<<grid, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      soa_a, soa_b, src16, idx_e, idx_o, flags, params, out, nb, lanes, lf,
-      half_visc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  subcell_boxes_kernel<<<nb * nb * nb, kThreads, 0, st>>>(src16, boxes,
+                                                           lanes);
+  sph_hydro_kernel<false><<<grid, threads, 0, st>>>(
+      soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, nb, lanes,
+      lf, half_visc);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int glt_sph_hydro_abs(const float* soa_a, const float* soa_b,
                                  const float* src16, const int* flags,
-                                 const float* params, float* out, int nb,
-                                 int lanes, float half_visc, void* stream) {
+                                 const float* params, float* boxes,
+                                 float* out, int nb, int lanes,
+                                 float half_visc, void* stream) {
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  sph_hydro_kernel<true><<<grid, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      soa_a, soa_b, src16, nullptr, nullptr, flags, params, out, nb, lanes,
-      0.f, half_visc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  subcell_boxes_kernel<<<(nb + 1) * (nb + 1) * (nb + 1), kThreads, 0, st>>>(
+      src16, boxes, lanes);
+  sph_hydro_kernel<true><<<grid, threads, 0, st>>>(
+      soa_a, soa_b, src16, nullptr, nullptr, flags, params, boxes, out, nb,
+      lanes, 0.f, half_visc);
   return static_cast<int>(cudaGetLastError());
 }

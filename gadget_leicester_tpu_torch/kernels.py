@@ -60,7 +60,7 @@ SIGNATURES = {
     "shortrange_gravity": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "pm_deposit": (_P, _P, _I, _I, _I, _F, _F, _P),
     "sph_density": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
-    "sph_hydro": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "sph_hydro": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "shortrange_gravity_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                    _P),
     "sph_density_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -75,7 +75,7 @@ SIGNATURES = {
                                      _F, _P),
     # the absolute-coordinate modes of C, D, F, G (clamped vacuum grids)
     "sph_density_abs": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_density_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
@@ -117,10 +117,8 @@ def build() -> Path:
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libglt_kernels.so"
-    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else "(cached)"
-        build_info.update(seconds=0.0, path=str(lib_path), log=log)
+        build_info.update(seconds=0.0, path=str(lib_path), log="(cached)")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -146,7 +144,6 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}\n"
                                f"{proc.stderr}")
-        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
     finally:
         for obj in objs:

@@ -486,15 +486,18 @@ def hydro_sums_blocks(soa_a: torch.Tensor, soa_b: torch.Tensor,
         return hydro_sums_blocks_plain(soa_a, soa_b, src16, idx_e, idx_o,
                                        flags, params, nb, lf, visc_const)
     out = torch.empty(b, 5, lanes, dtype=soa_a.dtype, device=dev)
+    # the kernel's workspace: a box and the largest h of each source subcell
+    boxes = torch.empty(bo * 64, dtype=torch.float32, device=dev)
     if lf is None:
         kernels.launch(name, soa_a.data_ptr(), soa_b.data_ptr(),
                        src16.data_ptr(), flags.data_ptr(), params.data_ptr(),
-                       out.data_ptr(), nb, lanes, 0.5 * visc_const)
+                       boxes.data_ptr(), out.data_ptr(), nb, lanes,
+                       0.5 * visc_const)
     else:
         kernels.launch(name, soa_a.data_ptr(), soa_b.data_ptr(),
                        src16.data_ptr(), idx_e.data_ptr(), idx_o.data_ptr(),
-                       flags.data_ptr(), params.data_ptr(), out.data_ptr(),
-                       nb, lanes, lf, 0.5 * visc_const)
+                       flags.data_ptr(), params.data_ptr(), boxes.data_ptr(),
+                       out.data_ptr(), nb, lanes, lf, 0.5 * visc_const)
     return out
 
 

@@ -15,8 +15,8 @@ vacuum blob. C, D, F and G in their absolute mode get those of the vacuum
 blob through block SPH on its clamped grid. chip_smoke.py runs the same
 comparisons and the main path; these keep them in the test suite. The
 last tests build inputs by hand at the edges of the rules by which A
-culls sources (a warp's box) and D skips source subcells (the fine-cell
-stencil), in both of D's modes."""
+culls sources (a warp's box) and D skips source subcells (the boxes of
+the subcells), in both of D's modes."""
 
 import pytest
 import torch
@@ -415,8 +415,8 @@ def _hydro_args(periodic: bool, subcap: int):
 @pytest.mark.parametrize("subcap", [32, 64, 40])
 @pytest.mark.parametrize("periodic", [True, False])
 def test_hydro_kernel_skip_edges_on_card(periodic, subcap):
-    """Kernel D's fine-cell skip at the edge of its invariant and its
-    warps' box test at r = h (1 -+ 1e-6), in both modes, with a warp one
+    """Kernel D's subcell skip where the caller's invariants put a pair
+    at its edge, and its warps' box test at r = h (1 -+ 1e-6), in both modes, with a warp one
     subcell (32), half a subcell (64) and across two (40): the kept pairs
     pull, the pairs one fine cell apart give exactly zero, the pair just
     inside h has its signal velocity, the pair just outside nothing, and
@@ -444,3 +444,75 @@ def test_hydro_kernel_skip_edges_on_card(periodic, subcap):
     assert bool((rows[gslot[idx].long(), 4] > 0).all())
     idx = torch.tensor(pairs["edge_out"], device="cuda").long()
     assert bool((rows[gslot[idx].long()] == 0).all())
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_hydro_kernel_keeps_a_source_with_h_above_the_cap_on_card(periodic):
+    """A partly active pass in which an inactive source keeps an h above
+    (1 - 2 kappa) Lf, as the stored h of inactive gas may on a vacuum grid
+    re-fitted since their last density pass: the only neighbour of an
+    active target is that source, two fine cells away (within the 4^3
+    window of the target's block) inside its h. Kernel
+    D must add the pair, agree with its float64 plain version, and agree
+    with kernel G (the entries twin) on the active gas."""
+    _need_card()
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.models.grids import KAPPA_SPH
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
+                                                      build_active_entries)
+    rng = np.random.default_rng(11 if periodic else 12)
+    box = 2 * D_NB * D_LF
+    hcap = (1.0 - 2.0 * KAPPA_SPH) * D_LF
+    # fine cells 0 and 2 on x: both in the target's 4^3 window
+    target, source = np.array([0.5, 1.5, 1.5]), np.array([2.5, 1.5, 1.5])
+    bg = rng.uniform(0.0, box, (216 * 12, 3))
+    bg = bg[np.sqrt(((bg - target) ** 2).sum(-1)) > 1.05 * hcap]
+    x = np.concatenate([target[None], source[None], bg])
+    h = np.concatenate([[0.5 * hcap, 2.5 * D_LF],
+                        rng.uniform(0.5, 1.0, len(bg)) * hcap])
+    n = len(x)
+    active_np = rng.uniform(size=n) < 0.1
+    active_np[:2] = (True, False)
+    dev = "cuda"
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    active = torch.tensor(active_np, device=dev)
+    cls = sb.build_block_lists(t(x), mask, 0.0, box, D_NB, 32,
+                               periodic=periodic)
+    assert not bool(cls[0].overflow)
+    rho = t(rng.uniform(0.5, 2.0, n))
+    fields = (t(x), t(rng.normal(0.0, 1.0, (n, 3))),
+              t(rng.uniform(0.5, 1.5, n)), t(h), rho,
+              0.05 * rho ** (5.0 / 3.0), t(rng.uniform(0.8, 1.2, n)),
+              t(rng.normal(0.0, 1.0, n)), t(rng.uniform(0.0, 1.0, n)), mask)
+    packs = sb.pack_hydro_blocks(cls, *fields, box, 0.1, 1.0, active=active)
+    args = packs + (D_NB, D_LF if periodic else None, 0.8)
+    name = "sph_hydro" if periodic else "sph_hydro_abs"
+    before = kernels.launches[name]
+    got = sb.hydro_sums_blocks(*args)
+    assert kernels.launches[name] == before + 1
+    want = sb.hydro_sums_blocks_plain(*args)
+    exact = sb.hydro_sums_blocks_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare(name, got, want, exact)
+    assert used <= 1.0
+    rows = got.transpose(1, 2).reshape(-1, 5)
+    slot = cls[0].gslot[0].long()
+    assert float(rows[slot, 0]) != 0.0 and float(rows[slot, 4]) > 0.0
+    # kernel G on the active entries
+    kw = dict(visc_const=0.8, box=box, hubble_a2_flow=0.1,
+              hubble_a2_norm=1.0, fac_mu=1.0)
+    dense = sb.hydro_force_blocks(cls, *fields, active=active, **kw)
+    entry_blk, entry_slot = build_active_entries(cls[0], active, ENTRY_LANES,
+                                                 2 * D_NB ** 3)[:2]
+    entries = sb.hydro_force_blocks_entries(cls, *fields, entry_blk,
+                                            entry_slot, **kw)
+    a_d, a_g = dense.acc[active], entries.acc[active]
+    scale = float(a_d.abs().max())
+    assert float((a_d - a_g).abs().max()) <= 1e-5 * scale
+    assert float(dense.max_signal_vel[0]) == float(entries.max_signal_vel[0])
