@@ -19,9 +19,10 @@ imports nothing of JAX. Phases, each printing its own lines:
    also against kernel A on the same arguments; the coarse-cell SPH
    kernels I/J and K the same way, on the small box with
    ``sph_backend="cells"`` (periodic) and on a vacuum blob, at capacities
-   128 and 256; kernel L (the cell-window PM gather) on the small box's
-   mesh stack with 3 and 4 components, at fresh and at drifted positions
-   (some beyond the window); kernel M (short-range gravity in absolute
+   128 and 256; kernel L (the CIC gather of the PM mesh) through
+   ``pm_gather_tiles`` on the small box's mesh stack with 3 and 4
+   components, at fresh and at drifted positions, equal to its plain
+   version bit for bit; kernel M (short-range gravity in absolute
    coordinates) on the small box, periodic with the TreePM truncation, and
    on a vacuum blob on a clamped grid without it; kernels C, D, F and G in
    their absolute mode on the vacuum blob through block SPH on its clamped
@@ -43,27 +44,31 @@ imports nothing of JAX. Phases, each printing its own lines:
    accretion onto the star) for 20 sync points, card against CPU;
 5. main path: lcdm_gas 2x128^3 with pmgrid = auto_pmgrid(2 * 128^3),
    ``Simulation(..., device="cuda")``, ``set_ics`` and 6 steps, with the
-   kernels' launch counts of that run;
+   kernels' launch counts of that run: kernel L once per PM force pass
+   (:func:`pm_passes`);
 6. kernels at the main path's shapes: the arguments each wrapper got last
    in phase 5, replayed as in phase 3, and each kernel's time beside its
-   plain version's and its bound (for A and D also the pairs they
+   plain version's and its bound (for A, C and D also the pairs they
    evaluate by the models of their culling rules, :func:`gravity_walk`,
-   :func:`hydro_walk`); then the full
-   potential of phase 5's
-   state (kernel H on a fresh cell list), its parts timed, and H replayed
-   and timed the same way;
+   :func:`hydro_walk`, :func:`density_walk`; C's time beside its earlier
+   design's, :data:`EARLIER_MS`, and its registers); then the full
+   potential of phase 5's state (kernel H on a fresh cell list, L on the
+   mesh potential), its parts timed, and H replayed and timed the same
+   way;
 7. profile: the phases of 4 more sync points, each timed with a device
    sync around it, then the device's busy and idle time over 2 more from
    ``torch.profiler``;
 8. near-idle at full width: from the state phase 5 left, a sync point at
    which 1% of the particles are active, once through the entries tier
    (E, F, G and not A, C, D) and once with the tier forced dense (A, C, D
-   and not E, F, G), the two held to each other; each timed 3 times and
+   and not E, F, G), the two held to each other, neither with a PM step
+   (no L); each timed 3 times and
    once by phases; E, F and G replayed on the arguments of the entries
    run, with their times beside their plain versions';
 8b. the coarse-cell SPH backend at full width (:func:`phase_cells`):
    lcdm_gas 2x128^3 with ``sph_backend="cells"``, ``set_ics`` and 6 sync
-   points through kernels I/J and K (C and D not launched); its SPH
+   points through kernels I/J and K (C and D not launched; A, B and L
+   as on the block path); its SPH
    fields after ``set_ics`` held against the block backend's on the same
    ICs; I and K replayed and timed on its arguments; the synced phases of
    its SPH pass; a near-idle sync point, which this backend sweeps whole;
@@ -74,7 +79,10 @@ imports nothing of JAX. Phases, each printing its own lines:
    ``TimeBetStatistics``, a snapshot and restart dumps; its energy.txt held
    to the Layzer-Irvine gate (|dE_LI|/|W| < 1e-3 on every row, up to a row
    at a >= 0.25) and printed beside ``docs/li_gate_128.md``; then restart
-   flag 1 for 2 more sync points;
+   flag 1 for 2 more sync points; kernel L, its plain version and
+   ``grid_sample`` timed on the mesh stack of the run's snapshot at a =
+   0.2 (:func:`gather_timings`), the particles in the order the run
+   keeps;
 10. the vacuum gas run (:func:`phase_gassphere`): an Evrard-sphere IC file
    and ``parameterfiles/gassphere.param`` with its paths and TimeMax set,
    ``python -m gadget_leicester_tpu_torch param 0`` in a child process to
@@ -82,13 +90,15 @@ imports nothing of JAX. Phases, each printing its own lines:
    momentum held to the bounds of ``tests/test_gassphere_e2e.py``; then,
    on that run's last state, one SPH pass through the coarse-cell backend
    in vacuum mode held against the all-pairs pass;
-11. kernel L at full width (:func:`phase_gather`): from the 2x128^3 state
-   phase 5 left, one PM step's mesh stack (kernel B's deposit,
-   ``pm_forces_periodic(..., return_field=True)``), then
-   ``pm_gather_tiles`` over the cached gravity cell list, with its real
-   staleness, for 3 and 4 components, held to the row gather on the same
-   mesh; L timed alone and with its pack and merge, beside the row gather
-   and ``torch.nn.functional.grid_sample``;
+11. kernel L at full width (:func:`phase_gather`): the main path's
+   launches of L beside its PM force passes; from the 2x128^3 state phase
+   5 left, one PM step's mesh stack (kernel B's deposit,
+   ``pm_forces_periodic(..., return_field=True)``) with 3 and 4
+   components, gathered by L and by its plain version (the row gather),
+   equal bit for bit, and through ``pm_gather_tiles`` over the cached
+   gravity cell list; L replayed against its float64 plain version and
+   timed beside the plain version, its bound and
+   ``torch.nn.functional.grid_sample`` (:func:`gather_timings`);
 12. kernel M at full width (:func:`phase_gravity_cells`): on the same
    state, ``shortrange_gravity_fresh`` with the TreePM asmth and rcut on
    the potential pass's fresh grid, held to its float64 plain version and
@@ -97,7 +107,8 @@ imports nothing of JAX. Phases, each printing its own lines:
    (:func:`phase_vacuum_blocks`): the gas of the same state as a vacuum
    cloud, ``compute_sph`` with ``periodic=False`` on 22^3 blocks, all gas
    active and a seeded 1% (the entries tier), each kernel replayed and
-   timed beside its relative mode's time, its plain version and its bound;
+   timed beside its relative mode's time, its plain version and its bound,
+   C's beside its earlier design's (:data:`EARLIER_MS`);
 13. the tree runs (:func:`phase_tree`): ``parameterfiles/galaxy.param`` and
    ``cluster.param`` on their 20,000-particle ICs through ``python -m
    gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
@@ -105,14 +116,16 @@ imports nothing of JAX. Phases, each printing its own lines:
    computation of the galaxy ICs against the direct sum; a small periodic
    box through the Ewald tree against the exact periodic sum;
 14. lcdm_gas 2x128^3 with sinks (:func:`phase_sinks`): ``set_ics`` and 6
-   sync points through kernel H on the step's pack (not A), with sink
+   sync points through kernel H on the step's pack (not A) and L's K = 4
+   gather (force and mesh potential) once per PM force pass, with sink
    formation above the 99.999th percentile of the initial gas density and
    accretion within 2.8 gas softenings; gates: the in-step potential after
    ``set_ics`` against ``compute_potential``, at least one sink, mass and
    momentum across cooling and sinks, a finite state without overflow;
    H replayed and timed on the step's arguments, and against A bit for
-   bit; the PM pass with and without the potential, cooling and the sink
-   functions timed; a near-idle sync point through E's potential mode
+   bit; the PM pass with and without the potential, L's gather of 1, 3
+   and 4 components, cooling and the sink functions timed; a near-idle
+   sync point through E's potential mode
    against the same with the tier forced dense (H), E's potential mode
    replayed and timed;
 15. the Leicester disc (:func:`phase_disc`): ``parameterfiles/disc.param``
@@ -160,7 +173,10 @@ IDLE_SEED = 7
 IDLE_REPS = 3
 # phase 9: the CLI run, to a >= LI_A_END within CLI_STEPS sync points (the
 # JAX package reached a = 0.2535 in 120 on the same integer timeline), held
-# to BASELINE.json's Layzer-Irvine gate
+# to BASELINE.json's Layzer-Irvine gate. Restart dumps are written every
+# CpuTimeBetRestartFile seconds of the run's wall clock: the interval is
+# short enough that the run, some 8 s on an H100, writes at least one for
+# the resume to start from.
 CLI_STEPS = 128
 LI_A_END = 0.25
 LI_GATE = 1e-3
@@ -168,7 +184,7 @@ CLI_CADENCE = """
 TimeBetStatistics 0.005
 TimeOfFirstSnapshot 0.2
 TimeBetSnapshot 2.0
-CpuTimeBetRestartFile 8.0
+CpuTimeBetRestartFile 3.0
 """
 # kernel vs plain version on the same inputs, per output row: the kernel's
 # distance from the plain version evaluated in float64 is at most TOL of
@@ -281,10 +297,11 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6}
 # rcut for gravity, r < h or max(h_i, h_j) for SPH, counted on the
 # recorded arguments) pay OPS_PER_PAIR in all, for the branch beyond the
 # softening. Kernel B: its live slots times OPS_PER_DEPOSIT. Kernel L: its
-# live slots times 15 (the mesh coordinate, floor and the six weights)
-# plus, for each of 8 corners, 2 for its weight and an FMA per component;
-# its bytes are the four pack rows it reads (x, y, z and the valid row),
-# the mesh and the output. Kernel M: A's 10-operation test and, on a
+# particles times 15 (the mesh coordinate, floor and the six weights)
+# plus, for each of 8 corners, 2 for its weight and a multiply and an add
+# per component; its bytes are the positions, the mesh and the output
+# (torch.nn.functional.grid_sample computes the same function and
+# moves the same bytes). Kernel M: A's 10-operation test and, on a
 # periodic grid, 12 for the per-pair minimum image (per axis a multiply, a
 # round and an FMA) on every live stencil pair; a pair inside the cut pays
 # A's 50 in all plus the 12 and 2 for the exact r < rcut test, less 22
@@ -627,14 +644,15 @@ def record_gather_small(device, n_side: int, k: int, drifted: bool,
     ``k`` components (3 forces, or 4 with the potential), the gravity cell
     list built at the ICs, and the positions read either there or, with
     ``drifted``, after a seeded drift of up to half the list's margin with
-    1% of the particles moved by up to two cells, beyond any window. The
-    gathered values are held to the row gather on the same mesh."""
+    1% of the particles moved by up to two cells, across the periodic
+    seam too. The gathered values are held to the plain version's (the
+    row gather) on the same mesh, bit for bit."""
     import numpy as np
     import torch
 
     from gadget_leicester_tpu_torch.models.grids import grav_grid_geometry
     from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
-    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
+    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec_plain,
                                                    pm_forces_periodic)
     from gadget_leicester_tpu_torch.ops.pm_tiles import pm_gather_tiles
     cfg, opts, (pos, _, mass, _, _) = setup(n_side)
@@ -660,38 +678,27 @@ def record_gather_small(device, n_side: int, k: int, drifted: bool,
     with recorded_inputs() as rec:
         got = pm_gather_tiles(field, cl, pos_t, alive, box, g, n_cells,
                               margin * g / box)
-    want = cic_gather_vec(field, torch.remainder(pos_t, box), box, g)
+    want = cic_gather_vec_plain(field, torch.remainder(pos_t, box), box, g)
     want = torch.where(alive[:, None], want, torch.zeros_like(want))
-    check_gather_values("kernels", f"n_side={n_side} K={k} "
-                        f"{'drifted' if drifted else 'fresh'}", got, want)
+    check_gather_equal("kernels", f"pm_gather_tiles n_side={n_side} K={k} "
+                       f"{'drifted' if drifted else 'fresh'}", got, want)
     return dict(rec)
 
 
-# the cell-window gather against the row gather on the same mesh, per
-# component as a share of its largest value: the two take the mesh
-# coordinate from a cell-relative and from an absolute float32 position,
-# which differ by up to 2e-5 mesh cells at 192 cells a box, times the
-# field's change across a mesh cell (a fraction of its largest value)
-GATHER_VS_ROWS = 1e-4
-
-
-def check_gather_values(phase: str, what: str, got, want) -> float:
-    """Hold ``pm_gather_tiles``' values to the row gather's
-    (:data:`GATHER_VS_ROWS`); returns the largest share."""
+def check_gather_equal(phase: str, what: str, got, want) -> None:
+    """Kernel L's values ``got`` equal its plain version's ``want`` (the
+    row gather) bit for bit: the kernel repeats its float32 arithmetic
+    operation for operation, each product and sum rounded on its own."""
     import torch
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: wrong shape or not finite")
-    worst = max(float((got[:, k] - want[:, k]).abs().max())
-                / (float(want[:, k].abs().max()) or 1.0)
-                for k in range(got.shape[1]))
-    ok = worst <= GATHER_VS_ROWS
-    say(phase, f"pm_gather_tiles vs row gather, {what}: largest difference "
-        f"{worst:.2e} of a component's largest value (bound "
-        f"{GATHER_VS_ROWS:g}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{what}: the cell-window gather disagrees "
-                             "with the row gather")
-    return worst
+    same = torch.equal(got, want)
+    say(phase, f"{what}: kernel L vs its plain version (the row gather), "
+        f"max |difference| {float((got - want).abs().max()):.3e}, bit for "
+        f"bit {'yes' if same else 'NO'}")
+    if not same:
+        raise AssertionError(f"{what}: kernel L is not its plain version "
+                             "bit for bit")
 
 
 def record_gravity_cells_small(device, n_side: int, periodic: bool,
@@ -742,7 +749,8 @@ def record_gravity_cells_small(device, n_side: int, periodic: bool,
 def kernel_pairs() -> dict:
     """{kernel: (wrapper, plain version)}; both take the wrapper's
     arguments."""
-    from gadget_leicester_tpu_torch.ops import cells, gravity_short, pm_tiles
+    from gadget_leicester_tpu_torch.ops import (cells, gravity_short, pm,
+                                                pm_tiles)
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
     from gadget_leicester_tpu_torch.ops import sph_cells as sc
     return {
@@ -765,8 +773,7 @@ def kernel_pairs() -> dict:
         "shortrange_potential": (
             cells.shortrange_potential_tiles,
             gravity_short.shortrange_potential_tiles_plain),
-        "pm_gather": (pm_tiles.pm_gather_windows,
-                      pm_tiles.pm_gather_windows_plain),
+        "pm_gather": (pm.cic_gather_vec, pm.cic_gather_vec_plain),
         "shortrange_gravity_cells": (
             cells.shortrange_gravity_cells,
             gravity_short.shortrange_gravity_cells_plain),
@@ -810,7 +817,7 @@ def cases(name: str, recorded: dict) -> list:
         return [(label, args[:i] + (e,) + args[i + 1:])
                 for label, e in (("all entries", ids),
                                  ("every other entry off", off))]
-    out = [("all tiles", args)]
+    out = [("all particles" if name in GATHER else "all tiles", args)]
     if i is not None:
         out = []
         for label in ("all tiles", "gated"):
@@ -985,7 +992,7 @@ def pair_count(name: str, args: tuple) -> tuple:
     if name in CELLS:
         return cells_pair_count(name, args)
     if name == "pm_gather":
-        n = int((args[0][:, 5] > 0).sum())
+        n = args[1].shape[0]
         return n, n
     if name == "shortrange_gravity_cells":
         return gravity_cells_pair_count(args)
@@ -1046,12 +1053,12 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-# Kernels A and D walk fewer pairs than their stencil holds, in the same
-# order of sums (csrc/shortrange_gravity.cu, csrc/sph_hydro.cu). The bound
-# above counts the stencil, so that shares compare across designs; these
-# mirror each design's culling rules in float32 and count the pairs they
-# leave to evaluate. They are models of the kernels' walks, not counts
-# taken in the kernels.
+# Kernels A, C and D walk fewer pairs than their stencil holds, in the
+# same order of sums (csrc/shortrange_gravity.cu, csrc/sph_density.cu,
+# csrc/sph_hydro.cu). The bound above counts the stencil, so that shares
+# compare across designs; these mirror each design's culling rules in
+# float32 and count the pairs they leave to evaluate. They are models of
+# the kernels' walks, not counts taken in the kernels.
 # A: live targets ranked per pass of A_THREADS slots by the Morton key of
 # their position on an A_KEY_CELLS^3 grid over their cell, in warps of 32,
 # each warp walking the live sources within rcut^2 CULL_MARGIN2 of its
@@ -1059,7 +1066,10 @@ def pair_count(name: str, args: tuple) -> tuple:
 # valid targets and one of their parked targets (relative mode), each box
 # walking the source subcells whose box of valid sources lies within
 # max(h_max, h_s) of it and, in those, the valid sources within max(h_max,
-# h_j) (squares times CULL_MARGIN2).
+# h_j) (squares times CULL_MARGIN2). C: D's walk with the reach of a
+# target's h alone (source subcells' boxes of their sources with m > 0,
+# whose h counts as 0), its valid targets those with m > 0 (and, in
+# absolute mode, 0 < h < inf), its parked ones (relative mode) the rest.
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1205,9 +1215,94 @@ def hydro_evaluated_pairs(args: tuple) -> int:
     return total
 
 
+def density_walk(args: tuple, blocks):
+    """Kernel C's walk (either mode) over the even blocks ``blocks`` [K]
+    of ``args``: (its valid targets [K, L], the pairs each lane walks [K,
+    L, 8 L])."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    soa_e, soa_o, h, _, nb, lf = args
+    lanes = soa_e.shape[2]
+    sub = lanes // 8
+    t, ht = soa_e[blocks], h[blocks]
+    massive = t[:, 3] > 0
+    if lf is None:
+        valid = massive & (ht > 0) & torch.isfinite(ht)
+        parked = torch.zeros_like(valid)
+    else:
+        valid, parked = massive, ~massive
+    reach = torch.where(ht < 0, torch.full_like(ht, float("inf")), ht)
+    ids, units = sb.odd_sources(nb, blocks, lf is not None)
+    rows, shift = sb._gather_sources(soa_o, ids, units, lf, (0, 1, 2, 3))
+    sv = rows[3] > 0
+    zero = torch.zeros_like(rows[3])
+    sxyz = torch.stack(rows[:3], 1)                           # [K, 3, 8 L]
+    cells = _box(sxyz, zero, sv, sub)                         # [K, ., 64]
+    cell_shift = None if shift is None else [x[::sub] for x in shift]
+    pairs = None
+    for kind in (valid, parked):
+        box = _box(t[:, :3], reach, kind, 32)
+        need = _near(box, cells, cell_shift).repeat_interleave(sub, -1)
+        near = _near(box, (sxyz, sxyz, zero), shift) & need & sv[:, None]
+        pairs = near if pairs is None else pairs | near      # [K, W, 8 L]
+    pairs = pairs.repeat_interleave(32, dim=1)[:, :lanes]
+    return valid, (valid | parked)[..., None] & pairs
+
+
+def density_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a valid target and a source with m > 0 that kernel C
+    (either mode) evaluates on ``args``."""
+    import torch
+    blocks = torch.nonzero(args[3] > 0).flatten()
+    total = 0
+    for k0 in range(0, blocks.numel(), 32):
+        valid, walk = density_walk(args, blocks[k0:k0 + 32])
+        total += int((walk & valid[..., None]).sum())
+    return total
+
+
 EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
+             "sph_density": density_evaluated_pairs,
+             "sph_density_abs": density_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
              "sph_hydro_abs": hydro_evaluated_pairs}
+
+# kernel C's time in its earlier design (one thread a target walking every
+# staged source of its 8 odd blocks), on the same paths' arguments, on an
+# NVIDIA H100 80GB HBM3 at 700 W as PERF.md records it: the relative mode
+# on the main path's last full-active sync point (phase 6), the absolute
+# mode on the vacuum cloud at 64 slots a subcell (phase 12b)
+EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776}
+
+
+def ptxas_registers(fragment: str) -> list:
+    """[(entry function, registers)] of the kernels whose mangled name
+    holds ``fragment``, from nvcc's ``-Xptxas=-v`` output of this run's
+    build."""
+    from gadget_leicester_tpu_torch import kernels
+    out, name = [], None
+    for line in kernels.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line and "Used" in line and name is not None:
+            if fragment in name:
+                out.append((name, int(line.split("Used")[1].split()[0])))
+            name = None
+    return out
+
+
+def say_against_earlier(phase: str, results: dict, name: str,
+                        card: str) -> None:
+    """Kernel C's time in ``results`` beside :data:`EARLIER_MS`, and its
+    registers."""
+    r = results[name]
+    regs = [n for _, n in ptxas_registers(
+        f"sph_density_kernelILb{int(name.endswith('_abs'))}E")]
+    say(phase, f"{name} {r['ms']:.3f} ms against the earlier design's "
+        f"{EARLIER_MS[name]:.3f} ms (NVIDIA H100 80GB HBM3, 700 W, as "
+        f"PERF.md records it): {r['ms'] / EARLIER_MS[name]:.2f}x; "
+        f"registers {regs} ({card})")
 
 
 def kernel_bound(name: str, args: tuple, out) -> dict:
@@ -1220,9 +1315,7 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
     if name == "pm_deposit":
         ops = stencil * OPS_PER_DEPOSIT
     elif name == "pm_gather":
-        soa, field = args[:2]
-        ops = stencil * (15 + 8 * (2 + 2 * field.shape[-1]))
-        nbytes -= soa.numel() * soa.element_size() // 2   # 4 of 8 rows read
+        ops = stencil * (15 + 8 * (2 + 2 * args[0].shape[-1]))
     elif name == "shortrange_gravity_cells":
         periodic, asmth = args[3], args[4]
         test = TEST_OPS["shortrange_gravity"] \
@@ -1605,9 +1698,48 @@ def phase_idle_small(results: dict, after_one, device="cuda",
 SPH_FIELDS = ("density", "hsml", "hydro_acc", "dt_entropy")
 # which kernels a full-active main path launches, by SPH backend
 PATH_KERNELS = {
-    "auto": DENSE,
-    "cells": ("shortrange_gravity", "pm_deposit") + CELLS,
+    "auto": DENSE + GATHER,
+    "cells": ("shortrange_gravity", "pm_deposit") + GATHER + CELLS,
 }
+
+
+@contextlib.contextmanager
+def pm_passes():
+    """Within the body, the step's PM force passes
+    (``models/forces.py``'s calls of ``pm_forces_periodic``) and the full
+    potential's mesh potentials (its calls of ``pm_potential_periodic``)
+    are counted in the dict this yields, by name; each gathers once
+    through kernel L."""
+    from gadget_leicester_tpu_torch.models import forces
+    calls = {"pm_forces_periodic": 0, "pm_potential_periodic": 0}
+    real = {name: getattr(forces, name) for name in calls}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for name in calls:
+        setattr(forces, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(forces, name, fn)
+
+
+def check_gather_launches(phase: str, counts: dict, passes: dict) -> None:
+    """Kernel L launched once per PM force pass and mesh potential of
+    ``passes`` (:func:`pm_passes`), and no more."""
+    want = sum(passes.values())
+    say(phase, f"kernel L: {counts['pm_gather']} launches over "
+        f"{passes['pm_forces_periodic']} PM force passes and "
+        f"{passes['pm_potential_periodic']} mesh potentials")
+    if counts["pm_gather"] != want:
+        raise AssertionError(f"{phase}: kernel L launched "
+                             f"{counts['pm_gather']} times for {want} PM "
+                             "gathers")
 
 
 # per-step seconds of each full-active path that :func:`phase_main` drove
@@ -1631,7 +1763,7 @@ def phase_main(results: dict, card: str, device="cuda",
     pos, vel, mass, ptype, u = ics
     sim = Simulation(cfg, opts, device)
     step_s, updates = [], 0
-    with recorded_inputs() as rec:
+    with recorded_inputs() as rec, pm_passes() as passes:
         kernels.reset_launches()
         t0 = time.time()
         sim.set_ics(pos, vel, mass, ptype, u=u)
@@ -1663,6 +1795,7 @@ def phase_main(results: dict, card: str, device="cuda",
         f"{sim.stats.get('density_iters')}")
     say(phase, f"launches {counts}; ti_current {int(st.ti_current)}, "
         f"overflow_flags {int(st.overflow_flags)}")
+    check_gather_launches(phase, counts, passes)
     for name, t in (("p.pos", st.p.pos), ("p.vel", st.p.vel),
                     ("p.acc", st.p.acc), ("p.acc_pm", st.p.acc_pm),
                     ("gas.density", st.gas.density),
@@ -1811,9 +1944,9 @@ def phase_idle_main(results: dict, state, card: str, device="cuda",
 
     def run(force):
         """One sync point from a clone of ``idle``: (state, launches,
-        tier log, seconds)."""
+        tier log, seconds, PM passes)."""
         sim.state = copy.deepcopy(idle)
-        with tier(force) as log:
+        with tier(force) as log, pm_passes() as passes:
             kernels.reset_launches()
             sync(device)
             t0 = time.perf_counter()
@@ -1821,19 +1954,21 @@ def phase_idle_main(results: dict, state, card: str, device="cuda",
             sync(device)
             dt = time.perf_counter() - t0
             counts = dict(kernels.launches)
-        return sim.state, counts, log, dt
+        return sim.state, counts, log, dt, passes
 
     with recorded_inputs() as rec:
-        st_a, counts_a, log_a, _ = run(None)
+        st_a, counts_a, log_a, _, passes_a = run(None)
     recorded = dict(rec)
     say_tiers("idle", log_a)
     say("idle", f"2x{n_side}^3 entries tier launches {counts_a}")
     check_tier_launches(counts_a, entries=True)
+    check_gather_launches("idle", counts_a, passes_a)
     for name in ENTRIES:
         results.setdefault(name, {})["launches"] = counts_a[name]
-    st_b, counts_b, log_b, _ = run(False)
+    st_b, counts_b, log_b, _, passes_b = run(False)
     say("idle", f"2x{n_side}^3 dense tier launches {counts_b}")
     check_tier_launches(counts_b, entries=False)
+    check_gather_launches("idle", counts_b, passes_b)
     report_close("idle", f"2x{n_side}^3 near-idle sync point, entries vs "
                  "dense tier", assert_states_close(to_numpy(st_a),
                                                    to_numpy(st_b)))
@@ -1888,9 +2023,10 @@ def phase_potential(results: dict, state, card: str, device="cuda",
         counts = dict(kernels.launches)
     recorded = dict(rec)
     say("potential", f"launches {counts}")
-    if counts["shortrange_potential"] != 1 or sum(counts.values()) != 1:
-        raise AssertionError("the potential pass did not launch kernel H "
-                             "once and nothing else")
+    if counts["shortrange_potential"] != 1 or counts["pm_gather"] != 1 or \
+            sum(counts.values()) != 2:
+        raise AssertionError("the potential pass did not launch kernels H "
+                             "and L once each and nothing else")
     results.setdefault("shortrange_potential", {})["launches"] = 1
     pot = st.p.pot[st.p.alive]
     if not bool(torch.isfinite(pot).all()):
@@ -2261,103 +2397,29 @@ def _main_gravity_inputs(state, n_side: int):
     return cfg, opts, float(cfg.box_size), soft
 
 
-def phase_gather(results: dict, state, main_counts: dict, card: str,
-                 device="cuda", n_side=N_SIDE_MAIN) -> None:
-    """Kernel L at full width (phase 11): the mesh stack of one PM step of
-    ``state`` and the cell-window gather over the cached gravity cell
-    list, against the row gather. The launch counts are set to 0 just
-    before the two gathers (3 and 4 components) and read just after."""
+def gather_timings(phase: str, field, posw, alive, box: float, g: int,
+                   card: str, reps: int = 5) -> dict:
+    """Kernel L (``cic_gather_vec``), its plain version (the row gather)
+    and ``torch.nn.functional.grid_sample`` on one mesh stack ``field``
+    at the wrapped positions ``posw``, each timed (ms by CUDA events) and
+    its alive rows held to the plain version's: L bit for bit (raises
+    otherwise), grid_sample as a share of the largest value. Returns the
+    times by name."""
     import torch
     import torch.nn.functional as F
 
-    from gadget_leicester_tpu_torch import kernels
-    from gadget_leicester_tpu_torch.models.grids import grav_grid_geometry
-    from gadget_leicester_tpu_torch.ops.cells import pack_cells_soa
-    from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
     from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
-                                                   pm_forces_periodic)
-    from gadget_leicester_tpu_torch.ops.pm_tiles import (pm_deposit_tiles,
-                                                         pm_gather_tiles,
-                                                         pm_gather_windows,
-                                                         window_geometry)
-    cfg, opts, box, soft = _main_gravity_inputs(state, n_side)
-    p = state.p
-    g = opts.pmgrid
-    n_cells, cap, margin = grav_grid_geometry(cfg, opts, p.n_max)
-    cl = state.grids.grav
-    if cl is None or cl.n_cells != n_cells:
-        raise AssertionError("the state carries no cached gravity cell list")
-    margin_pm = margin * g / box
-    w, _ = window_geometry(g, n_cells, margin_pm)
-    say("gather", f"the main path's own launches of pm_gather: "
-        f"{main_counts['pm_gather']} (its step keeps the row gather, as the "
-        "reference's does)")
-    if main_counts["pm_gather"] != 0:
-        raise AssertionError("the main path launched kernel L")
-    say("gather", f"cached gravity cell list {n_cells}^3 cells x "
-        f"{cl.cells.shape[1]} slots, displacement since its build "
-        f"{float(state.grids.grav_disp):.2f} of margin {margin:.2f} kpc/h; "
-        f"pmgrid {g}, window {w}^3 mesh cells ({w ** 3 * 16} bytes at K = 4)")
-    # one PM step's mesh, as the step makes it: kernel B's deposit of the
-    # step's pack, the FFTs, and the stack instead of the row gather
-    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
-    rho = pm_deposit_tiles(soa, n_cells, box, g)
-    fields = {k: pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
-                                    rho_grid=rho, return_field=True,
-                                    with_potential=k == 4) for k in (3, 4)}
-    del soa, rho
-    posw = torch.remainder(p.pos, box)
-    recs = {}
-    kernels.reset_launches()
-    for k, field in fields.items():
-        with recorded_inputs() as rec:
-            got = pm_gather_tiles(field, cl, p.pos, p.alive, box, g, n_cells,
-                                  margin_pm)
-        recs[k] = dict(rec)
-        sync(device)
-        want = cic_gather_vec(field, posw, box, g)
-        want = torch.where(p.alive[:, None], want, torch.zeros_like(want))
-        check_gather_values("gather", f"2x{n_side}^3 K={k}, cached list",
-                            got, want)
-        del got, want
-    counts = dict(kernels.launches)
-    say("gather", f"launches {counts}")
-    if counts["pm_gather"] != 2 or sum(counts.values()) != 2:
-        raise AssertionError("the two gathers did not launch kernel L twice "
-                             "and nothing else")
-    results.setdefault("pm_gather", {})["launches"] = counts["pm_gather"]
-    check_kernels(recs[4], f"2x{n_side}^3 K=4", results, GATHER, timed=True)
-    ms4 = results["pm_gather"]["ms"]
-    check_kernels(recs[3], f"2x{n_side}^3 K=3", results, GATHER, timed=True)
-    del recs
-    kernels.recorded.clear()
-    # the whole gathers beside each other, on the K = 3 stack the step uses
-    field = fields[3]
-    whole, _ = time_ms(lambda: pm_gather_tiles(field, cl, p.pos, p.alive, box,
-                                               g, n_cells, margin_pm), 5)
-    # what a PM step would add, where the gravity pack exists already
-    # (rows 0-2 and 5 are all L reads of it): the kernel and the merge
-    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
-
-    def in_step():
-        out = merge_rows(pm_gather_windows(soa, field, n_cells, box, g,
-                                           margin_pm), cl, 3)
-        return torch.where(p.alive[:, None], out, torch.zeros_like(out))
-
-    step_ms, got = time_ms(in_step, 5)
-    del soa
-
-    def rows():
-        out = cic_gather_vec(field, posw, box, g)
-        return torch.where(p.alive[:, None], out, torch.zeros_like(out))
-
-    rows_ms, want = time_ms(rows, 5)
-    check_gather_values("gather", f"2x{n_side}^3 K=3, on the step's pack",
-                        got, want)
-    del got
+                                                   cic_gather_vec_plain)
+    k = field.shape[-1]
+    kern_ms, got = time_ms(lambda: cic_gather_vec(field, posw, box, g), reps)
+    plain_ms, want = time_ms(lambda: cic_gather_vec_plain(field, posw, box,
+                                                          g), reps)
+    check_gather_equal(phase, f"K={k}, {posw.shape[0]} particles, pmgrid "
+                       f"{g}", got, want)
     # one PyTorch call for the same function: trilinear grid_sample on the
     # mesh padded by one periodic plane a side (index = u + 1; the grid's
-    # x is the mesh's last axis)
+    # x is the mesh's last axis); the padded mesh and the grid are made
+    # outside the timing
     pad = field.permute(3, 0, 1, 2)
     for dim in (1, 2, 3):
         pad = torch.cat([pad.narrow(dim, g - 1, 1), pad,
@@ -2365,20 +2427,82 @@ def phase_gather(results: dict, state, main_counts: dict, card: str,
     pad = pad[None].contiguous()
     u = posw * (g / box)
     grid = (2.0 * (u + 1.0) / (g + 1) - 1.0).flip(-1)[None, :, None, None, :]
+    grid = grid.contiguous()
     lib_ms, lib = time_ms(lambda: F.grid_sample(
-        pad, grid.contiguous(), mode="bilinear", padding_mode="border",
-        align_corners=True), 5)
+        pad, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), reps)
     lib = lib[0, :, :, 0, 0].t()
-    lib = torch.where(p.alive[:, None], lib, torch.zeros_like(lib))
-    lib_err = float((lib - want).abs().max()) / float(want.abs().max())
-    results["pm_gather"]["library_ms"] = lib_ms
-    say("gather", f"K=3 at 2x{n_side}^3, pmgrid {g}: kernel L alone "
-        f"{results['pm_gather']['ms']:.3f} ms (K=4 {ms4:.3f}); with the "
-        f"merge, on the step's pack, {step_ms:.3f} ms; with a pack of its "
-        f"own and the merge {whole:.3f} ms; row gather {rows_ms:.3f} ms; "
-        f"grid_sample "
-        f"{lib_ms:.3f} ms (within {lib_err:.1e} of the row gather; its "
-        f"padded mesh and grid made outside the timing) ({card})")
+    keep = alive[:, None]
+    zero = torch.zeros_like(want)
+    lib_err = float((torch.where(keep, lib, zero)
+                     - torch.where(keep, want, zero)).abs().max()) \
+        / float(torch.where(keep, want, zero).abs().max())
+    say(phase, f"K={k}, {posw.shape[0]} particles, pmgrid {g}: kernel L "
+        f"{kern_ms:.3f} ms, plain version (row gather) {plain_ms:.3f} ms, "
+        f"grid_sample {lib_ms:.3f} ms (within {lib_err:.1e} of the row "
+        f"gather): L / grid_sample {kern_ms / lib_ms:.2f} ({card})")
+    return {"ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms}
+
+
+def phase_gather(results: dict, state, main_counts: dict, card: str,
+                 device="cuda", n_side=N_SIDE_MAIN) -> None:
+    """Kernel L at full width (phase 11): the main path's launches of L;
+    the mesh stack of one PM step of ``state`` with 3 and 4 components,
+    gathered by L and by its plain version, equal bit for bit, and through
+    ``pm_gather_tiles`` over the cached gravity cell list; L replayed
+    against its float64 plain version and timed beside the plain version,
+    its bound and ``grid_sample``."""
+    import torch
+
+    from gadget_leicester_tpu_torch.models.grids import grav_grid_geometry
+    from gadget_leicester_tpu_torch.ops.cells import pack_cells_soa
+    from gadget_leicester_tpu_torch.ops.pm import (cic_gather_vec,
+                                                   cic_gather_vec_plain,
+                                                   pm_forces_periodic)
+    from gadget_leicester_tpu_torch.ops.pm_tiles import (pm_deposit_tiles,
+                                                         pm_gather_tiles)
+    cfg, opts, box, soft = _main_gravity_inputs(state, n_side)
+    p = state.p
+    g = opts.pmgrid
+    n_cells, _, margin = grav_grid_geometry(cfg, opts, p.n_max)
+    cl = state.grids.grav
+    if cl is None or cl.n_cells != n_cells:
+        raise AssertionError("the state carries no cached gravity cell list")
+    say("gather", f"the main path's launches of kernel L: "
+        f"{main_counts['pm_gather']}, one per PM force pass (phase main)")
+    # one PM step's mesh, as the step makes it: kernel B's deposit of the
+    # step's pack and the FFTs, the stack returned before its gather
+    soa = pack_cells_soa(cl, p.pos, p.mass, soft, p.alive)
+    rho = pm_deposit_tiles(soa, n_cells, box, g)
+    fields = {k: pm_forces_periodic(p.pos, p.mass, p.alive, box, g,
+                                    rho_grid=rho, return_field=True,
+                                    with_potential=k == 4) for k in (3, 4)}
+    del soa, rho
+    posw = torch.remainder(p.pos, box)
+    times = {}
+    for k in (4, 3):
+        field = fields[k]
+        # the cell-list entry: L, then the mask of the dead and cell-less
+        got = pm_gather_tiles(field, cl, p.pos, p.alive, box, g, n_cells,
+                              margin * g / box)
+        want = cic_gather_vec_plain(field, posw, box, g)
+        keep = (p.alive & (cl.gslot >= 0))[:, None]
+        check_gather_equal("gather", f"pm_gather_tiles 2x{n_side}^3 K={k}, "
+                           "cached list", got, torch.where(
+                               keep, want, torch.zeros_like(want)))
+        del got, want
+        with recorded_inputs() as rec:
+            cic_gather_vec(field, posw, box, g)
+        check_kernels(dict(rec), f"2x{n_side}^3 K={k}", results, GATHER,
+                      timed=True)
+        times[k] = gather_timings("gather", field, posw, p.alive, box, g,
+                                  card)
+    # the kernels line keeps the step's gather: K = 3, the plain version
+    # and grid_sample timed beside L in gather_timings
+    results["pm_gather"].update(times[3])
+    say("gather", f"kernel L at 2x{n_side}^3, pmgrid {g}: K=3 "
+        f"{times[3]['ms']:.3f} ms, K=4 {times[4]['ms']:.3f} ms; bound "
+        f"{results['pm_gather']['bound_ms']:.3f} ms ({card})")
 
 
 # kernel M against kernel H's force rows on one fresh cell list: the same
@@ -2560,6 +2684,7 @@ def phase_vacuum_blocks(results: dict, state, card: str,
     recorded.update({k: rec[k] for k in ABS_ENTRIES})
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3 gas as a vacuum cloud",
                   results, ABS, timed=True, every=VACUUM_MAIN_EVERY)
+    say_against_earlier("vacuum", results, "sph_density_abs", card)
     for name in ABS:
         rel = name.removesuffix("_abs")
         a, r = results[name], results[rel]
@@ -2789,7 +2914,8 @@ def phase_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
 
     from gadget_leicester_tpu_torch.core.config import auto_pmgrid
     from gadget_leicester_tpu_torch.io.snapshot import read_snapshot
-    from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
+    from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
+                                                   pm_forces_periodic)
     from gadget_leicester_tpu_torch.utils.diagnostics import \
         LayzerIrvineTracker
     root = Path(__file__).resolve().parent
@@ -2828,7 +2954,15 @@ def phase_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
             max(3, int(box / rcut)))
         say("cli", f"snapshot_000 at a = {snap.header.time:.4f}: the fresh "
             f"cell list's fullest cell {most} (mean {mean:.1f}; 128 slots)")
-        del pos
+        # kernel L on the run's late state: the mesh stack of the
+        # snapshot's positions, the particles in the order the run keeps
+        g = auto_pmgrid(n)
+        every = torch.ones(n, dtype=torch.bool, device=pos.device)
+        field = pm_forces_periodic(pos, torch.from_numpy(snap.mass).to(
+            device), every, box, g, return_field=True)
+        gather_timings("cli", field, torch.remainder(pos, box), every, box,
+                       g, card)
+        del pos, field, every
         for line in (out / "info.txt").read_text().splitlines():
             if "overflow" in line:
                 say("cli", f"overflow bump: {line.strip()}")
@@ -2872,6 +3006,9 @@ def phase_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
         if worst >= LI_GATE:
             raise AssertionError(f"Layzer-Irvine drift {worst:.3e} >= "
                                  f"{LI_GATE}")
+        if not dump_s:
+            raise AssertionError("the run wrote no restart dump to resume "
+                                 "from")
         resumed, wall = _cli(root, param, 1, "--max-steps", 2)
         more = np.loadtxt(out / "energy.txt", ndmin=2)
         if _done_time(resumed) <= _done_time(first) and \
@@ -2974,7 +3111,7 @@ SINK_MOMENTUM_TOL = 1e-5
 SINK_TIER_POT_TOL = 2e-5
 # which kernels the full-active path with the in-step potential launches
 SINK_PATH = ("shortrange_potential", "pm_deposit", "sph_density",
-             "sph_hydro")
+             "sph_hydro", "pm_gather")
 
 
 def sink_param_lines(n_side: int, box: float = 50000.0) -> str:
@@ -3085,7 +3222,8 @@ def phase_sinks(results: dict, card: str, device="cuda",
     sim = Simulation(cfg, opts, device)
     ng = None
     step_s, formed = [], []
-    with recorded_inputs() as rec, fork_bookkeeping() as book:
+    with recorded_inputs() as rec, fork_bookkeeping() as book, \
+            pm_passes() as passes:
         kernels.reset_launches()
         t0 = time.time()
         sim.set_ics(pos, vel, mass, ptype, u=u)
@@ -3121,6 +3259,13 @@ def phase_sinks(results: dict, card: str, device="cuda",
         f"acc_mass {float(st.sinks.acc_mass.sum()):.6g}")
     check_launches("sinks", counts, SINK_PATH, "the full-active path with "
                    "sinks (kernel H, not A)")
+    check_gather_launches("sinks", counts, passes)
+    k_last = recorded["pm_gather"][0].shape[-1]
+    say("sinks", f"kernel L's last gather on the step: K = {k_last} (the "
+        "force and the mesh potential)")
+    if k_last != 4:
+        raise AssertionError("the PM step with the in-step potential did "
+                             "not gather 4 components at once")
     results["shortrange_potential"]["launches"] = counts["shortrange_potential"]
     check_finite("sinks", st)
     check_fork_bookkeeping("sinks", book)
@@ -3179,9 +3324,9 @@ def phase_sinks(results: dict, card: str, device="cuda",
         pm_ms[k], _ = time_ms(lambda: pm_forces_periodic(
             six.p.pos, six.p.mass, six.p.alive, box, opts.pmgrid,
             rho_grid=rho, with_potential=k), 3)
-    # why the potential is gathered apart from the force: PyTorch's row
-    # gather (ops/pm.py :: cic_gather_vec) of the mesh stack with K
-    # components, at the step's positions
+    # kernel L's gather (ops/pm.py :: cic_gather_vec) of the mesh stack
+    # with K components, at the step's positions: the mesh potential
+    # alone (the full potential's), the force, both (this path's step)
     field = pm_forces_periodic(six.p.pos, six.p.mass, six.p.alive, box,
                                opts.pmgrid, rho_grid=rho,
                                with_potential=True, return_field=True)
@@ -3204,7 +3349,7 @@ def phase_sinks(results: dict, card: str, device="cuda",
         lambda: sinks.accrete_onto_sinks(six, cfg, opts), 3)
     say("sinks", f"PM pass on the step's deposit: forces "
         f"{pm_ms[False]:.3f} ms, with the potential {pm_ms[True]:.3f} ms "
-        f"(the row gather of K = 1, 3, 4 mesh components "
+        f"(kernel L's gather of K = 1, 3, 4 mesh components "
         + ", ".join(f"{gather_ms[k]:.3f}" for k in (1, 3, 4)) + " ms); "
         + "; ".join(f"{k} {v:.3f} ms" for k, v in costs.items())
         + f" (at 2x{n_side}^3, {formed[-1]} sink slots used) ({card})")
@@ -3630,6 +3775,9 @@ def main() -> int:
     sim, recorded, blocks_init, main_counts = phase_main(results, card)
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
+    say_against_earlier("kernels", results, "sph_density", card)
+    say("kernels", "registers of kernel D (relative, absolute mode): "
+        f"{[n for _, n in ptxas_registers('sph_hydro_kernel')]}")
     del recorded
     kernels.recorded.clear()
     phase_potential(results, main_state, card)

@@ -3,7 +3,8 @@
 // function spells out, in the same operation order, the float32 arithmetic
 // of its plain PyTorch twin (ops/sph_kernels.py, ops/softening.py,
 // ops/cells.py), so a kernel and its plain version differ only in the
-// order of the sums.
+// order of the sums. Also the box culling and the cp.async staging that
+// the block SPH kernels C and D share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -274,5 +275,119 @@ __device__ __forceinline__ float warp_max(float v) {
 // many entries per thread block.
 constexpr int kEntryLanes = 8;   // ENTRY_LANES of ops/cells.py
 constexpr int kEntryWarps = 4;
+
+// The culling of the block SPH kernels C and D (csrc/sph_density.cu,
+// csrc/sph_hydro.cu, whose headers set out the rule): boxes of a warp's
+// targets and of each source subcell, and the test of a pair on boxes
+// that contain both its ends.
+
+constexpr unsigned kFull = 0xffffffffu;
+// a source is culled only beyond its reach (1 + 1e-5) of a box
+constexpr float kCullMargin2 = 1.00002f;
+
+// A bounding box and the largest h (the reach) of the particles in it
+struct Box {
+  float lo[3], hi[3], h;
+};
+
+// Whether a pair with its target in box t and its source in box s (per
+// axis dx = (t - s) + sh[a]) may have r < max(t.h, hs): the box distance
+// per axis is taken as dx is, monotone in both ends, so it is never above
+// the |dx| of a pair inside the boxes.
+template <bool kAbs>
+__device__ __forceinline__ bool near_boxes(const Box& t, const float (&slo)[3],
+                                           const float (&shi)[3], float hs,
+                                           const float (&sh)[3]) {
+  float e2 = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float l = kAbs ? t.lo[a] - shi[a] : (t.lo[a] - shi[a]) + sh[a];
+    const float u = kAbs ? t.hi[a] - slo[a] : (t.hi[a] - slo[a]) + sh[a];
+    const float e = fmaxf(fmaxf(l, -u), 0.f);
+    e2 += e * e;
+  }
+  const float hh = fmaxf(t.h, hs);
+  return e2 < hh * hh * kCullMargin2;
+}
+
+// The box of the warp's lanes with `in` set (all lanes call it)
+__device__ __forceinline__ Box warp_box(bool in, float x, float y, float z,
+                                        float h) {
+  const float inf = __int_as_float(0x7f800000);
+  Box b{{in ? x : inf, in ? y : inf, in ? z : inf},
+        {in ? x : -inf, in ? y : -inf, in ? z : -inf},
+        in ? h : 0.f};
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      b.lo[a] = fminf(b.lo[a], __shfl_xor_sync(kFull, b.lo[a], off));
+      b.hi[a] = fmaxf(b.hi[a], __shfl_xor_sync(kFull, b.hi[a], off));
+    }
+    b.h = fmaxf(b.h, __shfl_xor_sync(kFull, b.h, off));
+  }
+  return b;
+}
+
+// Threads of subcell_boxes_kernel: one warp a subcell of an 8-subcell block
+constexpr int kBoxThreads = 256;
+
+namespace {
+
+// boxes[(o * 8 + sk) * 8 + 0..6] = lo x, y, z, hi x, y, z and the largest
+// h of the valid sources of subcell sk of odd block o (lo = +inf, hi =
+// -inf, h = 0 where it has none) in a pack of kStride rows a block: a
+// source is valid where row kValidRow is > 0, and its h is row kHRow (or
+// 0 for every source where kHRow < 0: the density kernel, whose support
+// is the target's h alone). One warp a subcell.
+template <int kStride, int kValidRow, int kHRow>
+__global__ void __launch_bounds__(kBoxThreads)
+    subcell_boxes_kernel(const float* __restrict__ src,
+                         float* __restrict__ boxes, int lanes) {
+  const int o = blockIdx.x, sk = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int subcap = lanes >> 3;
+  const float* s = src + static_cast<size_t>(o) * kStride * lanes + sk * subcap;
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf}, h = 0.f;
+  for (int i = lane; i < subcap; i += 32) {
+    if (!(s[kValidRow * lanes + i] > 0.f)) continue;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], s[a * lanes + i]);
+      hi[a] = fmaxf(hi[a], s[a * lanes + i]);
+    }
+    if constexpr (kHRow >= 0) h = fmaxf(h, s[kHRow * lanes + i]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(kFull, lo[a], off));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFull, hi[a], off));
+    }
+    h = fmaxf(h, __shfl_xor_sync(kFull, h, off));
+  }
+  if (lane < 8) {
+    const float v[8] = {lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], h, 0.f};
+    boxes[(static_cast<size_t>(o) * 8 + sk) * 8 + lane] = v[lane];
+  }
+}
+
+}  // namespace
+
+// A warp's own double-buffered staging: 4-byte cp.async copies, committed
+// per chunk, waiting for all but the newest group.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 }  // namespace glt

@@ -1,177 +1,161 @@
-// Kernel L: cloud-in-cell interpolation of a K-component PM mesh field to
-// the particles of each short-range cell, through one mesh window per cell.
+// Kernel L: cloud-in-cell interpolation of a K-component periodic PM mesh
+// field to particle positions.
 //
 // Replaces gadget_leicester_tpu/ops/pm_tiles.py :: pm_gather_tiles (kernel
-// body _make_gather_col_kernel). Plain PyTorch twin: ops/pm_tiles.py ::
-// pm_gather_windows_plain.
+// body _make_gather_col_kernel) and serves the PM step's gather, which the
+// JAX package keeps as a row gather (ops/pm.py :: cic_gather_vec). Plain
+// PyTorch twin: ops/pm.py :: cic_gather_vec_plain.
 //
-// What it computes. soa is the [C, 8, cap] pack of ops/cells.py ::
-// pack_cells_soa (cell-relative coordinates in rows 0-2, 1 in row 5 for
-// packed slots, parked slots with row 5 = 0), field the periodic mesh
-// [n_pm, n_pm, n_pm, K] (K = 3 force components, or 4 with the potential
-// last). For each packed slot, with u = rel * n_pm / box + cell centre in
-// mesh units (kernel B's coordinate), i = floor(u), f = u - i:
-//   out[c, k, slot] = sum over the 8 corners (a, b, d) of
-//                     wx_a wy_b wz_d field[i + (a, b, d) mod n_pm, k].
-// Parked slots write 0 and read nothing. out is [C, K, cap].
+// What it computes. pos is [N, 3], wrapped into [0, box] by the caller
+// (torch.remainder), field the periodic mesh [n, n, n, K] (K = 1 to 4: the
+// potential, the three force components, or the four together). For each
+// particle, with u = pos * scale (scale = n / box rounded to the working
+// type), i0 = floor(u) as an integer, its remainder mod n, and frac = u -
+// floor(u):
+//   out[i, k] = sum over dx, dy, dz in {0, 1}, in that order, of
+//               field[(i0 + (dx, dy, dz)) mod n, k] * ((wx wy) wz),
+// w = 1 - frac or frac per axis, added to 0 one corner at a time. That is
+// ops/pm.py's row gather operation for operation, each product and sum
+// rounded on its own (__fmul_rn, __fadd_rn: nvcc contracts nothing into an
+// FMA), so the kernel equals cic_gather_vec_plain bit for bit. u == n maps
+// to index 0 with frac 0. A position that is not finite, or whose floor
+// does not fit an int64, takes index 0 (the plain version's is undefined):
+// whatever it is given, the kernel reads only inside the mesh. Rows of
+// dead particles are the callers' to mask. float32 and float64.
 //
-// What bounds it on the card. Bytes: the pack's four rows, the mesh and the
-// output once each, about 225 MB at 2x128^3 (34^3 cells of 128 slots, a
-// 192^3 x 3 mesh); the 8 K-vector reads per particle are what a row gather
-// pays at random in device memory or L2.
+// What bounds it on the card. Bytes: the positions and the output once,
+// the mesh once, about 185 MB at 2x128^3 with pmgrid 192 and K = 3 (the
+// mesh 85 MB of it); 8 corners of K values per particle are read at
+// random, from L2 where the particles' order follows space.
 //
-// What the design does about it. One thread block per cell. The block
-// stages the cell's window of the mesh, w^3 x K floats from base
-// floor(c * edge - margin) on each axis, into shared memory, with the
-// periodic wrap applied to the mesh index while staging; consecutive
-// threads copy consecutive floats of a z-run of w K values. One thread per
-// slot then reads its 8 corners from shared memory. A slot whose corners
-// leave the window (a particle that drifted beyond the margin) reads the
-// mesh in device memory instead, so the result is exact for any position.
-// The TPU kernel's one-hot contractions, wrap-padded and lane-aligned mesh
-// copy, aligned-down window bases and column walk served a machine that
-// cannot address at random; none is carried over. Plain loads only: no TMA
-// or cp.async for the window yet.
+// What the design does about it. One thread per particle, in particle
+// order, reading its 8 corners straight from the mesh through L1 and L2:
+// no staging and no pack. Particle order on the main path is the ICs'
+// lattice order, which the particles keep as they move, so a warp's
+// corners fall on a few mesh lines. The earlier design staged a window of
+// the mesh per short-range cell in shared memory, about 470 MB of staged
+// reads for the 85 MB mesh; the TPU kernel's one-hot contractions,
+// wrap-padded mesh and column walk served a machine that cannot address at
+// random, and none is carried over.
 
 #include "glt_common.cuh"
 
 namespace {
 
-constexpr int kMaxComp = 4;
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float floor_t(float a) { return floorf(a); }
+__device__ __forceinline__ double floor_t(double a) { return ::floor(a); }
 
-__global__ void pm_gather_kernel(const float* __restrict__ soa,
-                                 const float* __restrict__ field,
-                                 float* __restrict__ out, int n_cells, int cap,
-                                 int n_pm, int k_comp, int w, float scale,
-                                 float edge_pm, float margin_pm) {
-  extern __shared__ float s_win[];  // [w, w, w, K]; unused when w == 0
-  const int c = blockIdx.x;
-  const int cx = c / (n_cells * n_cells);
-  const int cy = (c / n_cells) % n_cells;
-  const int cz = c % n_cells;
-  const float* tile = soa + static_cast<size_t>(c) * 8 * cap;
-  float* o = out + static_cast<size_t>(c) * k_comp * cap;
+// floor(u) (already integral) as an int64, then its remainder mod n in [0,
+// n); 0 where it is not finite or beyond the int64 range
+template <typename T>
+__device__ __forceinline__ int wrap_floor(T f, int n) {
+  if (!(f >= T(-9.2e18) && f <= T(9.2e18))) return 0;
+  const int r = static_cast<int>(static_cast<long long>(f) % n);
+  return r < 0 ? r + n : r;
+}
 
-  bool mine = false;
-  for (int t = threadIdx.x; t < cap; t += blockDim.x)
-    mine = mine || tile[5 * cap + t] > 0.f;
-  const bool any_live = __syncthreads_or(mine) != 0;
-  if (!any_live) {
-    for (int t = threadIdx.x; t < k_comp * cap; t += blockDim.x) o[t] = 0.f;
-    return;
+template <typename T, int K>
+__global__ void pm_gather_kernel(const T* __restrict__ pos,
+                                 const T* __restrict__ field,
+                                 T* __restrict__ out, int n_part, int n,
+                                 T scale) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_part) return;
+  int i0[3];
+  T w[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T u = mul_rn(pos[static_cast<size_t>(i) * 3 + a], scale);
+    const T f = floor_t(u);
+    const T frac = sub_rn(u, f);
+    i0[a] = wrap_floor(f, n);
+    w[a][0] = sub_rn(T(1), frac);
+    w[a][1] = frac;
   }
-
-  const int bx = static_cast<int>(floorf(static_cast<float>(cx) * edge_pm - margin_pm));
-  const int by = static_cast<int>(floorf(static_cast<float>(cy) * edge_pm - margin_pm));
-  const int bz = static_cast<int>(floorf(static_cast<float>(cz) * edge_pm - margin_pm));
-  const int run = w * k_comp;           // floats of one z-run of the window
-  const int total = w * w * run;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int lxy = e / run;
-    const int rem = e - lxy * run;      // lz * K + k
-    const int lz = rem / k_comp;
-    const int k = rem - lz * k_comp;
-    const int gx = glt::wrap(bx + lxy / w, n_pm);
-    const int gy = glt::wrap(by + lxy % w, n_pm);
-    const int gz = glt::wrap(bz + lz, n_pm);
-    s_win[e] = field[((static_cast<size_t>(gx) * n_pm + gy) * n_pm + gz) *
-                         k_comp + k];
-  }
-  __syncthreads();
-
-  const float offx = (static_cast<float>(cx) + 0.5f) * edge_pm;
-  const float offy = (static_cast<float>(cy) + 0.5f) * edge_pm;
-  const float offz = (static_cast<float>(cz) + 0.5f) * edge_pm;
-  for (int t = threadIdx.x; t < cap; t += blockDim.x) {
-    float acc[kMaxComp] = {0.f, 0.f, 0.f, 0.f};
-    if (tile[5 * cap + t] > 0.f) {
-      const float ux = tile[t] * scale + offx;
-      const float uy = tile[cap + t] * scale + offy;
-      const float uz = tile[2 * cap + t] * scale + offz;
-      const float fx0 = floorf(ux), fy0 = floorf(uy), fz0 = floorf(uz);
-      const float fx = ux - fx0, fy = uy - fy0, fz = uz - fz0;
-      const int ix = static_cast<int>(fx0);
-      const int iy = static_cast<int>(fy0);
-      const int iz = static_cast<int>(fz0);
-      const float wx[2] = {1.0f - fx, fx};
-      const float wy[2] = {1.0f - fy, fy};
-      const float wz[2] = {1.0f - fz, fz};
-      const int lx = glt::wrap(ix - bx, n_pm);
-      const int ly = glt::wrap(iy - by, n_pm);
-      const int lz = glt::wrap(iz - bz, n_pm);
-      if (lx < w - 1 && ly < w - 1 && lz < w - 1) {
+  T acc[K];
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
+  for (int k = 0; k < K; ++k) acc[k] = T(0);
 #pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const float wxy = wx[a] * wy[b];
-            const float* row = s_win + ((lx + a) * w + (ly + b)) * run;
+  for (int dx = 0; dx < 2; ++dx) {
+    const int ix = dx && i0[0] + 1 == n ? 0 : i0[0] + dx;
 #pragma unroll
-            for (int d = 0; d < 2; ++d) {
-              const float wgt = wxy * wz[d];
-              const float* v = row + (lz + d) * k_comp;
+    for (int dy = 0; dy < 2; ++dy) {
+      const int iy = dy && i0[1] + 1 == n ? 0 : i0[1] + dy;
+      const T wxy = mul_rn(w[0][dx], w[1][dy]);
 #pragma unroll
-              for (int k = 0; k < kMaxComp; ++k)
-                if (k < k_comp) acc[k] += v[k] * wgt;
-            }
-          }
-        }
-      } else {
-        // beyond the staged window: the mesh itself, wrapped
-        const int gx0 = glt::wrap(ix, n_pm), gy0 = glt::wrap(iy, n_pm);
-        const int gz0 = glt::wrap(iz, n_pm);
-        const int jx[2] = {gx0, gx0 + 1 == n_pm ? 0 : gx0 + 1};
-        const int jy[2] = {gy0, gy0 + 1 == n_pm ? 0 : gy0 + 1};
-        const int jz[2] = {gz0, gz0 + 1 == n_pm ? 0 : gz0 + 1};
+      for (int dz = 0; dz < 2; ++dz) {
+        const int iz = dz && i0[2] + 1 == n ? 0 : i0[2] + dz;
+        const T wgt = mul_rn(wxy, w[2][dz]);
+        // n <= 1290 (the wrapper's limit): the cell index fits an int
+        const T* v = field + static_cast<size_t>((ix * n + iy) * n + iz) * K;
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const float wxy = wx[a] * wy[b];
-            const size_t row = (static_cast<size_t>(jx[a]) * n_pm + jy[b]) * n_pm;
-#pragma unroll
-            for (int d = 0; d < 2; ++d) {
-              const float wgt = wxy * wz[d];
-              const float* v = field + (row + jz[d]) * k_comp;
-#pragma unroll
-              for (int k = 0; k < kMaxComp; ++k)
-                if (k < k_comp) acc[k] += v[k] * wgt;
-            }
-          }
-        }
+        for (int k = 0; k < K; ++k)
+          acc[k] = add_rn(acc[k], mul_rn(__ldg(v + k), wgt));
       }
     }
-#pragma unroll
-    for (int k = 0; k < kMaxComp; ++k)
-      if (k < k_comp) o[k * cap + t] = acc[k];
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[static_cast<size_t>(i) * K + k] = acc[k];
+}
+
+template <typename T>
+cudaError_t launch(const void* pos, const void* field, void* out, int n_part,
+                   int n, int k_comp, double scale, cudaStream_t st) {
+  constexpr int kThreads = 256;
+  const int blocks = (n_part + kThreads - 1) / kThreads;
+  const T* p = static_cast<const T*>(pos);
+  const T* f = static_cast<const T*>(field);
+  T* o = static_cast<T*>(out);
+  // the scale rounded to the working type, as PyTorch rounds a Python
+  // float multiplying a tensor
+  const T s = static_cast<T>(scale);
+  switch (k_comp) {
+    case 1:
+      pm_gather_kernel<T, 1><<<blocks, kThreads, 0, st>>>(p, f, o, n_part, n, s);
+      break;
+    case 2:
+      pm_gather_kernel<T, 2><<<blocks, kThreads, 0, st>>>(p, f, o, n_part, n, s);
+      break;
+    case 3:
+      pm_gather_kernel<T, 3><<<blocks, kThreads, 0, st>>>(p, f, o, n_part, n, s);
+      break;
+    case 4:
+      pm_gather_kernel<T, 4><<<blocks, kThreads, 0, st>>>(p, f, o, n_part, n, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// w: the window's side in mesh cells. A window that does not fit a block's
-// shared memory is not staged (w = 0 in the kernel): every slot then reads
-// the mesh in device memory.
-extern "C" int glt_pm_gather(const float* soa, const float* field, float* out,
-                             int n_cells, int cap, int n_pm, int k_comp, int w,
-                             float scale, float edge_pm, float margin_pm,
-                             void* stream) {
-  if (k_comp < 1 || k_comp > kMaxComp) return static_cast<int>(cudaErrorInvalidValue);
-  const int c = n_cells * n_cells * n_cells;
-  const int threads = cap < 128 ? ((cap + 31) / 32) * 32 : 128;
-  size_t smem = static_cast<size_t>(w) * w * w * k_comp * sizeof(float);
-  if (smem > 227 * 1024) {
-    w = 0;
-    smem = 0;
-  }
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        pm_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  pm_gather_kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      soa, field, out, n_cells, cap, n_pm, k_comp, w, scale, edge_pm,
-      margin_pm);
-  return static_cast<int>(cudaGetLastError());
+// scale: n / box as a double (rounded to float32 for f64 = 0); f64: the
+// tensors are float64
+extern "C" int glt_pm_gather(const void* pos, const void* field, void* out,
+                             int n_part, int n, int k_comp, double scale,
+                             int f64, void* stream) {
+  if (n_part <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      f64 ? launch<double>(pos, field, out, n_part, n, k_comp, scale, st)
+          : launch<float>(pos, field, out, n_part, n, k_comp, scale, st));
 }

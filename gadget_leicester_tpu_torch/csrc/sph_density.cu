@@ -13,165 +13,286 @@
 // an even block b whose flag is set, over the 8 odd source blocks
 // b + {0,1}^3:
 //   rho = sum m W(r, h_i),  drho/dh = sum m dW/dh,
-//   div = -sum m dW/dr / r (dv . dx),  rot = sum m dW/dr / r (dv x dx).
+//   div = -sum m dW/dr / r (dv . dx),  rot = sum m dW/dr / r (dv x dx),
+// over the sources with m > 0 and u = r / h_i < 1 (glt::density_pair).
 // Relative mode: x, y, z relative to the block centre, Bo = B = nb^3, the
-// source blocks wrap mod nb and dx = (t - s) + (1 - 2g) * Lf per axis.
-// Absolute mode: absolute x, y, z, Bo = (nb+1)^3 with no wrap, dx = t - s;
-// a parked slot's position (-7 fine cells) may lie inside the cloud, so a
-// source is skipped by its mass, never by its distance, and a target that
-// is parked or has h = 0 (the Newton loop passes 0 for slots it does not
-// solve) writes zeros. The 8-block stencil is complete because the caller
-// caps h at (1 - 2 kappa) times the fine-cell edge. A block whose flag is
-// 0 writes zeros. out is [B, 6, lanes].
+// source blocks wrap mod nb and dx = (t - s) + (1 - 2g) * Lf per axis;
+// every target lane is summed, the parked ones too (-7 fine cells from
+// their block centre, with whatever h the caller passes them). Absolute
+// mode: absolute x, y, z, Bo = (nb+1)^3 with no wrap, dx = t - s; a parked
+// slot's position (-7 fine cells) may lie inside the cloud, so a source is
+// skipped by its mass, never by its distance, and a target that is parked
+// or has h = 0 (the Newton loop passes 0 for slots it does not solve)
+// writes zeros. The 8-block stencil is complete because the caller caps h
+// at (1 - 2 kappa) times the fine-cell edge. A block whose flag is 0
+// writes zeros. out is [B, 6, lanes].
 //
 // What bounds it on the card. Pairs: at 2x128^3, B = 22^3 and lanes = 256,
-// 8 * 256 * 256 pairs per block, 5.6e9 per sweep at about 50 float32
-// operations each, and the Newton loop runs up to 40 sweeps (later sweeps
-// only on blocks with unconverged targets). Bound by the FP32 pipes. A
-// vacuum disc fills few blocks, each with a few dense subcells: subcap
+// 8 * 256 * 256 pairs per block, 3.3e9 live pairs per sweep, 1.9% of them
+// inside h_i; a pair inside costs about 73 float32 operations, every pair
+// walked the distance test; the Newton loop runs 2-3 sweeps per sync point
+// (later sweeps only on blocks with unconverged targets). Bound by
+// instruction issue and by divergence at the support edge, not by bytes.
+// A vacuum disc fills few blocks, each with a few dense subcells: subcap
 // grows to hundreds of slots, most of them parked.
 //
-// What the design does about it. One thread per target lane; each odd
-// source tile is staged in shared memory in chunks of kTile slots (7 rows)
-// and read by every thread. Parked sources are skipped with a branch
-// uniform across the block. Relative mode: one thread block per even
-// block, looping over its lanes. Absolute mode: a thread block per
-// blockDim-wide slice of an even block's lanes (a second grid dimension),
-// which leaves at once when no target of its slice is live, and a staged
-// chunk whose sources are all parked is skipped whole. The TPU kernel's
-// z-split and z-padded source layout are not carried over.
+// What the design does about it: kernel D's (csrc/sph_hydro.cu), with the
+// density's support, the target's h alone.
+// - The subcell skip. A first kernel (glt::subcell_boxes_kernel, shared
+//   with D) writes, for each of the Bo x 8 source subcells, the bounding
+//   box of its sources with m > 0. A warp skips source subcell (g, sk)
+//   when the distance from its targets' box to that box is at least its
+//   reach (1 + 1e-5), the reach being the warp's largest target h: the
+//   test of a pair on boxes that contain both ends, exact for any input.
+//   A target with 1/h = 0 (h = 0, infinite or NaN) adds only zeros, so it
+//   reaches nothing; one with h < 0 would add every pair, so it reaches
+//   everything. Invalid targets write zeros in absolute mode. In relative
+//   mode a warp keeps a second box for its parked targets (m = 0), and
+//   walks what lies within reach of either box, so even their rows stay
+//   the plain's.
+// - Warps stand alone. Lanes are subcell * subcap + rank, so with subcap a
+//   multiple of 32 (32 at 2x128^3, 64 and 512 on vacuum grids) a warp is
+//   one target fine cell (or part of one); otherwise its box spans the
+//   fine cells of its lanes. Each warp stages its own chunks of 32 source
+//   lanes (7 rows: x, y, z, m, vx, vy, vz), double-buffered with cp.async,
+//   only for the subcells it needs, from L2.
+// - Warp-uniform culling within the walked subcells: each lane tests its
+//   chunk's source against the warp's boxes, and a ballot keeps the
+//   sources with m > 0 whose box distance is below the reach (1 + 1e-5).
+//   The box distance per axis is taken as dx is, (lo - s) + shift and (hi
+//   - s) + shift, monotone in both coordinates, so in float32 it is never
+//   above |dx|; the 1e-5 covers the rounding of r = r2 rsqrt(r2), of the
+//   squares and of u = r (1/h). A culled source has u >= 1 for every lane
+//   of the warp, which the earlier design's density_pair left without
+//   adding.
+// - The order of sums is kept: each target adds its pairs g = 0..7, then
+//   source lane ascending, skipping only pairs the earlier design skipped
+//   (m = 0 or u >= 1), with the earlier design's pair arithmetic
+//   (glt::density_pair on the same expressions); the warp walks the kept
+//   sources two at a time where there are two, so that the two pairs'
+//   arithmetic can overlap. Built with -fmad=false, C equals its earlier
+//   design (one thread per target walking every staged source) bit for
+//   bit in both modes; with nvcc's default contraction into FMAs its rows
+//   may differ in their last bits. No compaction of inside pairs.
+// - The boxes go to a workspace of Bo x 64 floats that the caller
+//   allocates.
 
 #include "glt_common.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 7;   // soa_o rows x, y, z, m, vx, vy, vz
+
 template <bool kAbs>
-__global__ void sph_density_kernel(const float* __restrict__ soa_e,
-                                   const float* __restrict__ soa_o,
-                                   const float* __restrict__ h,
-                                   const int* __restrict__ flags,
-                                   float* __restrict__ out, int nb,
-                                   int lanes, float lf) {
+__global__ void __launch_bounds__(kThreads)
+    sph_density_kernel(const float* __restrict__ soa_e,
+                       const float* __restrict__ soa_o,
+                       const float* __restrict__ h,
+                       const int* __restrict__ flags,
+                       const float* __restrict__ boxes,
+                       float* __restrict__ out, int nb, int lanes, float lf) {
   const int b = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(b) * 6 * lanes;
   if (flags[b] == 0) {
-    if constexpr (kAbs) {
-      const int t = blockIdx.y * blockDim.x + threadIdx.x;
-      if (t < lanes)
-        for (int r = 0; r < 6; ++r) o[r * lanes + t] = 0.f;
-    } else {
-      for (int t = threadIdx.x; t < 6 * lanes; t += blockDim.x) o[t] = 0.f;
-    }
+    if (t < lanes)
+      for (int r = 0; r < 6; ++r) o[r * lanes + t] = 0.f;
     return;
   }
-  __shared__ float s_x[glt::kTile], s_y[glt::kTile], s_z[glt::kTile];
-  __shared__ float s_m[glt::kTile];
-  __shared__ float s_vx[glt::kTile], s_vy[glt::kTile], s_vz[glt::kTile];
+  __shared__ float s_ring[kWarps][2][kRows][32];
+  __shared__ glt::Box s_park[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float(*ring)[kRows][32] = s_ring[warp];
 
+  const int subcap = lanes >> 3;
+  const int chunks = (subcap + 31) >> 5;   // chunks of 32 lanes a subcell
   const int bx = b / (nb * nb), by = (b / nb) % nb, bz = b % nb;
   const int nbo = kAbs ? nb + 1 : nb;
   const float* tile = soa_e + static_cast<size_t>(b) * 8 * lanes;
 
-  // relative: this block loops over all lanes; absolute: its own slice
-  // (computed here, not held across the branch above: 8 registers more)
-  for (int t0 = kAbs ? blockIdx.y * blockDim.x : 0; t0 < lanes;
-       t0 += kAbs ? gridDim.y * blockDim.x : blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    bool live = t < lanes;
-    float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
-    float hinv = 0.f;
-    if (live) {
-      tx = tile[t];
-      ty = tile[lanes + t];
-      tz = tile[2 * lanes + t];
-      tvx = tile[4 * lanes + t];
-      tvy = tile[5 * lanes + t];
-      tvz = tile[6 * lanes + t];
-      hinv = glt::inv_or_zero(h[static_cast<size_t>(b) * lanes + t]);
-      if constexpr (kAbs) live = tile[3 * lanes + t] > 0.f && hinv > 0.f;
+  float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
+  float hinv = 0.f, reach = 0.f;
+  bool valid = false, parked = false;   // the two kinds of live target
+  if (t < lanes) {
+    tx = tile[t];
+    ty = tile[lanes + t];
+    tz = tile[2 * lanes + t];
+    tvx = tile[4 * lanes + t];
+    tvy = tile[5 * lanes + t];
+    tvz = tile[6 * lanes + t];
+    const float ht = h[static_cast<size_t>(b) * lanes + t];
+    hinv = glt::inv_or_zero(ht);
+    reach = hinv < 0.f ? __int_as_float(0x7f800000) : ht;
+    const bool massive = tile[3 * lanes + t] > 0.f;
+    if constexpr (kAbs) {
+      valid = massive && hinv > 0.f;   // others write zeros
+    } else {
+      valid = massive;
+      parked = !massive;
     }
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    // absolute mode: a slice with no live target writes its zeros and
-    // stages nothing (the test is uniform across the block)
-    if (!kAbs || __syncthreads_or(live)) {
-      for (int g = 0; g < 8; ++g) {
-        const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-        const int src =
-            kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
-                 : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) *
-                           nb +
-                       glt::wrap(bz + gz, nb);
-        const float* s = soa_o + static_cast<size_t>(src) * 8 * lanes;
-        const float shx = kAbs ? 0.f : static_cast<float>(1 - 2 * gx) * lf;
-        const float shy = kAbs ? 0.f : static_cast<float>(1 - 2 * gy) * lf;
-        const float shz = kAbs ? 0.f : static_cast<float>(1 - 2 * gz) * lf;
-        for (int s0 = 0; s0 < lanes; s0 += glt::kTile) {
-          const int len = min(glt::kTile, lanes - s0);
-          bool any = false;
-          __syncthreads();
-          for (int k = threadIdx.x; k < len; k += blockDim.x) {
-            s_x[k] = s[s0 + k];
-            s_y[k] = s[lanes + s0 + k];
-            s_z[k] = s[2 * lanes + s0 + k];
-            s_m[k] = s[3 * lanes + s0 + k];
-            s_vx[k] = s[4 * lanes + s0 + k];
-            s_vy[k] = s[5 * lanes + s0 + k];
-            s_vz[k] = s[6 * lanes + s0 + k];
-            if constexpr (kAbs) any = any || s_m[k] != 0.f;
-          }
-          if constexpr (kAbs) {
-            if (!__syncthreads_or(any)) continue;  // every source parked
-          } else {
-            __syncthreads();
-          }
-          if (!live) continue;
-          for (int k = 0; k < len; ++k) {
-            const float m = s_m[k];
-            if (m == 0.f) continue;  // parked slot: uniform across the block
-            // absolute mode: dx = t - s, with no shift
-            if constexpr (kAbs)
-              glt::density_pair(tx - s_x[k], ty - s_y[k], tz - s_z[k],
-                                tvx - s_vx[k], tvy - s_vy[k], tvz - s_vz[k],
-                                m, hinv, acc);
-            else
-              glt::density_pair((tx - s_x[k]) + shx, (ty - s_y[k]) + shy,
-                                (tz - s_z[k]) + shz, tvx - s_vx[k],
-                                tvy - s_vy[k], tvz - s_vz[k], m, hinv, acc);
-          }
-        }
+  }
+  const bool live = valid || parked;
+
+  // the boxes of the warp's valid targets (registers) and of its parked
+  // targets (shared memory; relative mode only)
+  const glt::Box tbox = glt::warp_box(valid, tx, ty, tz, reach);
+  const bool any_valid = __any_sync(glt::kFull, valid);
+  const bool any_parked = __any_sync(glt::kFull, parked);
+  if (any_parked) {
+    const glt::Box pbox = glt::warp_box(parked, tx, ty, tz, reach);
+    if (lane == 0) s_park[warp] = pbox;
+  }
+  __syncwarp();
+
+  auto src_block = [&](int g) {
+    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
+    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
+                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+                      glt::wrap(bz + gz, nb);
+  };
+  auto shifts = [&](int g, float (&sh)[3]) {
+    sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
+    sh[1] = kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
+    sh[2] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
+  };
+
+  // the source subcells (bit g * 8 + sk) within reach of each box
+  unsigned long long need_valid = 0, need_parked = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int bit = lane + 32 * half;
+    const float* q =
+        boxes + (static_cast<size_t>(src_block(bit >> 3)) * 8 + (bit & 7)) * 8;
+    const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
+    float sh[3];
+    shifts(bit >> 3, sh);
+    const bool nv =
+        any_valid && glt::near_boxes<kAbs>(tbox, slo, shi, 0.f, sh);
+    const bool np =
+        any_parked && glt::near_boxes<kAbs>(s_park[warp], slo, shi, 0.f, sh);
+    need_valid |= static_cast<unsigned long long>(__ballot_sync(glt::kFull, nv))
+                  << (32 * half);
+    need_parked |=
+        static_cast<unsigned long long>(__ballot_sync(glt::kFull, np))
+        << (32 * half);
+  }
+  const unsigned long long warp_need = need_valid | need_parked;
+
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  // the chunks this warp walks, in order: (bit = g * 8 + sk, chunk c)
+  auto next_bit = [&](int bit) {
+    const unsigned long long rest =
+        bit >= 63 ? 0ull : warp_need & (~0ull << (bit + 1));
+    return rest ? __ffsll(static_cast<long long>(rest)) - 1 : -1;
+  };
+  auto stage = [&](int bit, int c, int buf) {
+    const int q0 = (bit & 7) * subcap + 32 * c;
+    if (lane >= min(32, subcap - 32 * c)) return;
+    const float* s = soa_o + static_cast<size_t>(src_block(bit >> 3)) * 8 *
+                                 lanes + q0 + lane;
+    for (int r = 0; r < kRows; ++r)
+      glt::cp_async4(&ring[buf][r][lane], s + r * lanes);
+  };
+
+  int bit = warp_need ? __ffsll(static_cast<long long>(warp_need)) - 1 : -1;
+  int c = 0, buf = 0;
+  if (bit >= 0) stage(bit, 0, 0);
+  glt::cp_async_commit();
+  while (bit >= 0) {
+    int nbit = bit, nc = c + 1;
+    if (nc == chunks) {
+      nbit = next_bit(bit);
+      nc = 0;
+    }
+    if (nbit >= 0) stage(nbit, nc, buf ^ 1);   // in flight while this sums
+    glt::cp_async_commit();
+    glt::cp_async_wait_prior();
+    __syncwarp();
+
+    float sh[3];
+    shifts(bit >> 3, sh);
+    const float shx = sh[0], shy = sh[1], shz = sh[2];
+    const float(*sr)[32] = ring[buf];
+    const bool test_valid = (need_valid >> bit) & 1ull;     // warp-uniform
+    const bool test_parked = (need_parked >> bit) & 1ull;
+    bool near = false;
+    if (lane < min(32, subcap - 32 * c) && sr[3][lane] > 0.f) {
+      const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
+      near = (test_valid && glt::near_boxes<kAbs>(tbox, s3, s3, 0.f, sh)) ||
+             (test_parked &&
+              glt::near_boxes<kAbs>(s_park[warp], s3, s3, 0.f, sh));
+    }
+    unsigned todo = __ballot_sync(glt::kFull, near);
+    if (!live) todo = 0;
+    // the earlier design's call, on the same expressions
+    auto pair = [&](int k) {
+      if constexpr (kAbs)
+        glt::density_pair(tx - sr[0][k], ty - sr[1][k], tz - sr[2][k],
+                          tvx - sr[4][k], tvy - sr[5][k], tvz - sr[6][k],
+                          sr[3][k], hinv, acc);
+      else
+        glt::density_pair((tx - sr[0][k]) + shx, (ty - sr[1][k]) + shy,
+                          (tz - sr[2][k]) + shz, tvx - sr[4][k],
+                          tvy - sr[5][k], tvz - sr[6][k], sr[3][k], hinv,
+                          acc);
+    };
+    while (todo) {
+      const int k1 = __ffs(todo) - 1;
+      todo &= todo - 1;
+      if (todo) {
+        const int k2 = __ffs(todo) - 1;
+        todo &= todo - 1;
+        pair(k1);
+        pair(k2);
+      } else {
+        pair(k1);
       }
     }
-    if (t < lanes) {
+    __syncwarp();   // every lane is done with this buffer before its refill
+    bit = nbit;
+    c = nc;
+    buf ^= 1;
+  }
+  if (t < lanes) {
 #pragma unroll
-      for (int r = 0; r < 6; ++r) o[r * lanes + t] = acc[r];
-    }
+    for (int r = 0; r < 6; ++r) o[r * lanes + t] = acc[r];
   }
 }
 
 int threads_for(int lanes) {
-  return lanes < 256 ? ((lanes + 31) / 32) * 32 : 256;
+  return lanes < kThreads ? ((lanes + 31) / 32) * 32 : kThreads;
 }
 
 }  // namespace
 
 extern "C" int glt_sph_density(const float* soa_e, const float* soa_o,
-                               const float* h, const int* flags, float* out,
-                               int nb, int lanes, float lf, void* stream) {
-  const int blocks = nb * nb * nb;
-  sph_density_kernel<false><<<blocks, threads_for(lanes), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      soa_e, soa_o, h, flags, out, nb, lanes, lf);
+                               const float* h, const int* flags, float* boxes,
+                               float* out, int nb, int lanes, float lf,
+                               void* stream) {
+  const int threads = threads_for(lanes);
+  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  glt::subcell_boxes_kernel<8, 3, -1>
+      <<<nb * nb * nb, glt::kBoxThreads, 0, st>>>(soa_o, boxes, lanes);
+  sph_density_kernel<false><<<grid, threads, 0, st>>>(
+      soa_e, soa_o, h, flags, boxes, out, nb, lanes, lf);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int glt_sph_density_abs(const float* soa_e, const float* soa_o,
                                    const float* h, const int* flags,
-                                   float* out, int nb, int lanes,
-                                   void* stream) {
+                                   float* boxes, float* out, int nb,
+                                   int lanes, void* stream) {
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  sph_density_kernel<true><<<grid, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      soa_e, soa_o, h, flags, out, nb, lanes, 0.f);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  glt::subcell_boxes_kernel<8, 3, -1>
+      <<<(nb + 1) * (nb + 1) * (nb + 1), glt::kBoxThreads, 0, st>>>(
+          soa_o, boxes, lanes);
+  sph_density_kernel<true><<<grid, threads, 0, st>>>(
+      soa_e, soa_o, h, flags, boxes, out, nb, lanes, 0.f);
   return static_cast<int>(cudaGetLastError());
 }

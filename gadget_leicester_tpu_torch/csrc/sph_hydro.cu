@@ -39,7 +39,8 @@
 // and by divergence at the support edge, not by bytes.
 //
 // What the design does about it.
-// - The subcell skip. A first kernel (subcell_boxes) writes, for each of
+// - The subcell skip. A first kernel (glt::subcell_boxes_kernel in
+//   glt_common.cuh, shared with kernel C) writes, for each of
 //   the Bo x 8 source subcells, the bounding box of its valid sources and
 //   their largest h. A warp skips source subcell (g, sk) when the distance
 //   from its targets' box to that box is at least max(h_max, h_s)
@@ -105,101 +106,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 14;   // src16 rows 0-12 and, in relative mode, idx_o
-constexpr unsigned kFull = 0xffffffffu;
-// a source is culled only beyond max(h_max, h_j) (1 + 1e-5) of a box
-constexpr float kCullMargin2 = 1.00002f;
 
-// A bounding box and the largest h of the particles in it
-struct Box {
-  float lo[3], hi[3], h;
-};
-
-// Whether a pair with its target in box t and its source in box s (per
-// axis dx = (t - s) + sh[a]) may have r < max(h_i, h_j): the box distance
-// per axis is taken as dx is, monotone in both ends, so it is never above
-// the |dx| of a pair inside the boxes.
-template <bool kAbs>
-__device__ __forceinline__ bool near_boxes(const Box& t, const float (&slo)[3],
-                                           const float (&shi)[3], float hs,
-                                           const float (&sh)[3]) {
-  float e2 = 0.f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float l = kAbs ? t.lo[a] - shi[a] : (t.lo[a] - shi[a]) + sh[a];
-    const float u = kAbs ? t.hi[a] - slo[a] : (t.hi[a] - slo[a]) + sh[a];
-    const float e = fmaxf(fmaxf(l, -u), 0.f);
-    e2 += e * e;
-  }
-  const float hh = fmaxf(t.h, hs);
-  return e2 < hh * hh * kCullMargin2;
-}
-
-// The box of the warp's lanes with `in` set (all lanes call it)
-__device__ __forceinline__ Box warp_box(bool in, float x, float y, float z,
-                                        float h) {
-  const float inf = __int_as_float(0x7f800000);
-  Box b{{in ? x : inf, in ? y : inf, in ? z : inf},
-        {in ? x : -inf, in ? y : -inf, in ? z : -inf},
-        in ? h : 0.f};
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      b.lo[a] = fminf(b.lo[a], __shfl_xor_sync(kFull, b.lo[a], off));
-      b.hi[a] = fmaxf(b.hi[a], __shfl_xor_sync(kFull, b.hi[a], off));
-    }
-    b.h = fmaxf(b.h, __shfl_xor_sync(kFull, b.h, off));
-  }
-  return b;
-}
-
-// boxes[(o * 8 + sk) * 8 + 0..6] = lo x, y, z, hi x, y, z and the largest
-// h of the valid sources of subcell sk of odd block o (lo = +inf, hi =
-// -inf, h = 0 where it has none): one warp a subcell
-__global__ void __launch_bounds__(kThreads)
-    subcell_boxes_kernel(const float* __restrict__ src16,
-                         float* __restrict__ boxes, int lanes) {
-  const int o = blockIdx.x, sk = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int subcap = lanes >> 3;
-  const float* s = src16 + static_cast<size_t>(o) * 16 * lanes + sk * subcap;
-  const float inf = __int_as_float(0x7f800000);
-  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf}, h = 0.f;
-  for (int i = lane; i < subcap; i += 32) {
-    if (!(s[12 * lanes + i] > 0.f)) continue;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      lo[a] = fminf(lo[a], s[a * lanes + i]);
-      hi[a] = fmaxf(hi[a], s[a * lanes + i]);
-    }
-    h = fmaxf(h, s[7 * lanes + i]);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      lo[a] = fminf(lo[a], __shfl_xor_sync(kFull, lo[a], off));
-      hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFull, hi[a], off));
-    }
-    h = fmaxf(h, __shfl_xor_sync(kFull, h, off));
-  }
-  if (lane < 8) {
-    const float v[8] = {lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], h, 0.f};
-    boxes[(static_cast<size_t>(o) * 8 + sk) * 8 + lane] = v[lane];
-  }
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+using glt::Box;
+using glt::cp_async4;
+using glt::cp_async_commit;
+using glt::cp_async_wait_prior;
+using glt::kFull;
+using glt::near_boxes;
+using glt::warp_box;
 
 template <bool kAbs>
 __global__ void __launch_bounds__(kThreads)
@@ -431,8 +345,8 @@ extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  subcell_boxes_kernel<<<nb * nb * nb, kThreads, 0, st>>>(src16, boxes,
-                                                           lanes);
+  glt::subcell_boxes_kernel<16, 12, 7>
+      <<<nb * nb * nb, glt::kBoxThreads, 0, st>>>(src16, boxes, lanes);
   sph_hydro_kernel<false><<<grid, threads, 0, st>>>(
       soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, nb, lanes,
       lf, half_visc);
@@ -447,8 +361,9 @@ extern "C" int glt_sph_hydro_abs(const float* soa_a, const float* soa_b,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  subcell_boxes_kernel<<<(nb + 1) * (nb + 1) * (nb + 1), kThreads, 0, st>>>(
-      src16, boxes, lanes);
+  glt::subcell_boxes_kernel<16, 12, 7>
+      <<<(nb + 1) * (nb + 1) * (nb + 1), glt::kBoxThreads, 0, st>>>(
+          src16, boxes, lanes);
   sph_hydro_kernel<true><<<grid, threads, 0, st>>>(
       soa_a, soa_b, src16, nullptr, nullptr, flags, params, boxes, out, nb,
       lanes, 0.f, half_visc);

@@ -6,7 +6,7 @@ in two modes, the force and the force with the potential, and C, D, F, G
 each in two, block-relative on a periodic grid and absolute on a clamped
 one (the ``_abs`` entries), H short-range
 gravity with the potential, the coarse-cell SPH density I/J and hydro K,
-L the cell-window PM gather, and M short-range gravity in absolute
+L the CIC gather of the PM mesh, and M short-range gravity in absolute
 coordinates with the per-pair minimum image) are compiled on first use
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C
@@ -55,11 +55,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry -> argument types (every entry ends with the stream)
 SIGNATURES = {
     "shortrange_gravity": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "pm_deposit": (_P, _P, _I, _I, _I, _F, _F, _P),
-    "sph_density": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "sph_density": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_hydro": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     "shortrange_gravity_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                    _P),
@@ -69,12 +70,12 @@ SIGNATURES = {
     "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "sph_cells_density": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "sph_cells_hydro": (_P, _P, _P, _I, _I, _F, _I, _F, _P),
-    "pm_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "pm_gather": (_P, _P, _P, _I, _I, _I, _D, _I, _P),
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
     "shortrange_potential_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
                                      _F, _P),
     # the absolute-coordinate modes of C, D, F, G (clamped vacuum grids)
-    "sph_density_abs": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "sph_density_abs": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_density_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -15,15 +15,16 @@ slots and blocks above). Order, as in the reference: short-range gravity
 hydro.
 
 Kernels on these paths: A (short-range gravity, ``ops/cells.py``), B (PM
-deposit, ``ops/pm_tiles.py``), C and D (block SPH density and hydro,
-``ops/sph_blocks.py``; block-relative on a periodic box, absolute on the
-clamped grid of a vacuum run) and at near-idle sync points their
-active-entry twins E, F and G; I/J and K (coarse-cell SPH density and hydro,
-``ops/sph_cells.py``). The FFTs, the CIC gather, direct gravity, the
+deposit, ``ops/pm_tiles.py``), L (the PM step's CIC gather, ``ops/pm.py``;
+the JAX package's step keeps a row gather there), C and D (block SPH
+density and hydro, ``ops/sph_blocks.py``; block-relative on a periodic
+box, absolute on the clamped grid of a vacuum run) and at near-idle sync
+points their active-entry twins E, F and G; I/J and K (coarse-cell SPH
+density and hydro, ``ops/sph_cells.py``). The FFTs, direct gravity, the
 tree and the all-pairs SPH sums are PyTorch's own operators, as the JAX
 package leaves them to XLA. The full potential of the diagnostics
 (:func:`compute_potential`, outside the step) runs kernel H on a fresh
-cell list, the direct sum, or the tree.
+cell list and L on the mesh potential, the direct sum, or the tree.
 
 The in-step potential (:func:`in_step_potential`: sinks or Stamatellos
 cooling under TreePM, which read p.pot inside the step): the dense tier

@@ -10,12 +10,15 @@ Counterpart of ``gadget_leicester_tpu/ops/pm.py:31-197, 301-312``
   its k-space multiplier -> irfftn -> CIC gather.
 
 The FFTs are ``torch.fft`` (cuFFT on the card), as the JAX package leaves
-them to ``jnp.fft``; the gather of the main path is a plain row gather, as
-the reference's step keeps it (the cell-window gather, kernel L, takes
-the mesh stack of ``return_field``). The deposit on the main path is
-kernel B (``ops/pm_tiles.py``); :func:`cic_deposit` is the
-point-scatter form, kept as an independent check of it, and the deposit
-of :func:`pm_potential_periodic`, as in the JAX package.
+them to ``jnp.fft``. Every CIC gather goes through kernel L
+(``csrc/pm_gather.cu``, :func:`cic_gather_vec`): one thread a particle
+reading its 8 corners from the mesh, operation for operation the row
+gather :func:`cic_gather_vec_plain`, which CPU tensors take; the JAX
+package's step keeps the row gather, because on the TPU its tile gather
+lost. The deposit on the main path is kernel B (``ops/pm_tiles.py``);
+:func:`cic_deposit` is the point-scatter form, kept as an independent
+check of it, and the deposit of :func:`pm_potential_periodic`, as in the
+JAX package.
 
 Asmth/Rcut convention [G2: allvars.h ASMTH=1.25, RCUT=4.5]: the long/short
 split scale is asmth = 1.25 mesh cells; the short-range force is cut at
@@ -27,6 +30,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from gadget_leicester_tpu_torch import kernels
 
 ASMTH = 1.25  # in units of mesh cells [G2: allvars.h]
 RCUT = 4.5    # in units of asmth
@@ -64,8 +69,44 @@ def cic_gather(field, pos, box: float, n: int) -> torch.Tensor:
     return cic_gather_vec(field[..., None], pos, box, n)[:, 0]
 
 
+# the largest mesh side whose cell index (ix n + iy) n + iz fits kernel
+# L's int32
+MAX_GATHER_MESH = 1290
+
+
 def cic_gather_vec(field, pos, box: float, n: int) -> torch.Tensor:
-    """CIC interpolation of a vector mesh field [n, n, n, K] to [N, K]."""
+    """Kernel L: CIC interpolation of a vector mesh field [n, n, n, K] (K
+    = 1 to 4) to the positions ``pos`` [N, 3], wrapped into [0, box]
+    (``torch.remainder``): [N, K], float32 or float64. CPU tensors take
+    the plain version; CUDA tensors launch the kernel, which equals it
+    bit for bit."""
+    if field.dim() != 4 or tuple(field.shape[:3]) != (n, n, n) \
+            or not 1 <= field.shape[-1] <= 4:
+        raise ValueError(f"field shape {tuple(field.shape)} is not "
+                         f"[{n}, {n}, {n}, K] with K of 1 to 4")
+    if n > MAX_GATHER_MESH:
+        raise ValueError(f"a mesh of {n} cells a side is beyond kernel L's "
+                         f"int32 cell index (at most {MAX_GATHER_MESH})")
+    if field.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"field: expected float32 or float64, got "
+                        f"{field.dtype}")
+    k = field.shape[-1]
+    kernels.check(field, "field", field.dtype)
+    kernels.check(pos, "pos", field.dtype, (pos.shape[0], 3), field.device)
+    kernels.note_call("pm_gather", (field, pos, box, n))
+    if not kernels.on_cuda(field, pos):
+        return cic_gather_vec_plain(field, pos, box, n)
+    out = torch.empty(pos.shape[0], k, dtype=field.dtype,
+                      device=field.device)
+    kernels.launch("pm_gather", pos.data_ptr(), field.data_ptr(),
+                   out.data_ptr(), pos.shape[0], n, k, n / box,
+                   int(field.dtype == torch.float64))
+    return out
+
+
+def cic_gather_vec_plain(field, pos, box: float, n: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel L: the row gather, 8 indexed reads
+    of the mesh, [N, K]."""
     k = field.shape[-1]
     i0, frac = _cic_base(pos, box, n)
     flat = field.reshape(-1, k)
@@ -125,8 +166,7 @@ def pm_forces_periodic(pos, mass, alive, box: float, n: int,
     ``with_potential``: the mesh potential rides as a fourth component of
     the stack, and (acc, pot [N]) comes back. ``return_field``: no
     per-particle gather; the mesh force stack [n, n, n, 3 (+1)] comes back
-    for the cell-window gather (kernel L, ``ops/pm_tiles.py ::
-    pm_gather_tiles``)."""
+    for ``ops/pm_tiles.py :: pm_gather_tiles``."""
     posw = torch.remainder(pos, box)
     if rho_grid is None:
         m = torch.where(alive, mass, torch.zeros_like(mass))
@@ -143,18 +183,15 @@ def pm_forces_periodic(pos, mass, alive, box: float, n: int,
         comp.append(torch.fft.irfftn(-1j * d4 * phi_k, s=(n, n, n)))
     if with_potential:
         comp.append(torch.fft.irfftn(phi_k, s=(n, n, n)))
+    stack = torch.stack(comp, dim=-1)
     if return_field:
-        return torch.stack(comp, dim=-1)
-    # the potential is gathered on its own: on the card PyTorch's row
-    # gather of a [n^3, 4] mesh is many times slower than that of a
-    # [n^3, 3] one and a [n^3] one together (chip_smoke phase 14), and
-    # the components do not mix, so the values are the same
-    acc = cic_gather_vec(torch.stack(comp[:3], dim=-1), posw, box, n)
-    acc = torch.where(alive[:, None], acc, torch.zeros_like(acc))
+        return stack
+    # one gather of the force, or of the force and the potential together
+    rows = cic_gather_vec(stack, posw, box, n)
+    rows = torch.where(alive[:, None], rows, torch.zeros_like(rows))
     if not with_potential:
-        return acc
-    pot = cic_gather(comp[3], posw, box, n)
-    return acc, torch.where(alive, pot, torch.zeros_like(pot))
+        return rows
+    return rows[:, :3], rows[:, 3]
 
 
 def pm_potential_periodic(pos, mass, alive, box: float,
@@ -162,7 +199,8 @@ def pm_potential_periodic(pos, mass, alive, box: float,
     """Long-range potential [N] at the particle positions (no G), for the
     energy diagnostics and the TreePM potential: the point deposit
     (:func:`cic_deposit`, not kernel B, as in the JAX package), the
-    Green's function and a CIC gather of the mesh potential."""
+    Green's function and a CIC gather of the mesh potential (kernel L,
+    K = 1)."""
     m = torch.where(alive, mass, torch.zeros_like(mass))
     posw = torch.remainder(pos, box)
     rho = cic_deposit(posw, m, box, n)

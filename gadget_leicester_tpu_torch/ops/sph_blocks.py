@@ -329,8 +329,10 @@ def density_sums_blocks(soa_e: torch.Tensor, soa_o: torch.Tensor,
     if not kernels.on_cuda(soa_e, soa_o, h_slots, flags):
         return density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb, lf)
     out = torch.empty(b, 6, lanes, dtype=soa_e.dtype, device=dev)
+    # the kernel's workspace: the box of each source subcell's sources
+    boxes = torch.empty(soa_o.shape[0] * 64, dtype=torch.float32, device=dev)
     ptrs = (soa_e.data_ptr(), soa_o.data_ptr(), h_slots.data_ptr(),
-            flags.data_ptr(), out.data_ptr(), nb, lanes)
+            flags.data_ptr(), boxes.data_ptr(), out.data_ptr(), nb, lanes)
     if lf is not None:
         ptrs += (lf,)
     kernels.launch(name, *ptrs)

@@ -14,9 +14,12 @@ mesh stack (3 and 4 components, fresh and drifted positions), M those of
 vacuum blob. C, D, F and G in their absolute mode get those of the vacuum
 blob through block SPH on its clamped grid. chip_smoke.py runs the same
 comparisons and the main path; these keep them in the test suite. The
-last tests build inputs by hand at the edges of the rules by which A
-culls sources (a warp's box) and D skips source subcells (the boxes of
-the subcells), in both of D's modes."""
+last tests build inputs by hand: L at the edges of its positions (mesh
+planes, u == n, a coordinate equal to the box, positions far outside the
+box or not finite), held to its plain version bit for bit; and at the
+edges of the rules by which A culls sources (a warp's box), and C and D
+skip source subcells (the boxes of the subcells), in both of C's and D's
+modes."""
 
 import pytest
 import torch
@@ -175,8 +178,95 @@ def test_gather_kernel_matches_plain_on_card(k, drifted):
     before = kernels.launches["pm_gather"]
     rec = chip_smoke.record_gather_small("cuda", 12, k, drifted)
     assert kernels.launches["pm_gather"] == before + 1
-    assert rec["pm_gather"][1].shape[-1] == k
+    assert rec["pm_gather"][0].shape[-1] == k
     _check(rec, "pm_gather", 0)
+
+
+G_N, G_BOX = 24, 60.0           # kernel L's edge cases: mesh side, box
+
+
+def _gather_positions(dtype):
+    """[N, 3] wrapped positions for kernel L: random, on exact mesh
+    planes, on the last plane, at u == n (a coordinate whose product with
+    the scale rounds to n) and at a coordinate equal to the box."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    cell = G_BOX / G_N
+    pos = rng.uniform(0, G_BOX, (3000, 3))
+    pos[:200] = rng.integers(0, G_N, (200, 3)) * cell
+    pos[200:300, 0] = (G_N - 1) * cell
+    pos[300:400] = G_BOX
+    pos[400:500, 2] = G_BOX
+    pos = torch.tensor(pos, dtype=dtype, device="cuda")
+    scale = torch.tensor(G_N / G_BOX, dtype=dtype)
+    assert bool((pos[300:400].cpu() * scale == G_N).all())
+    return pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_gather_kernel_equals_plain_on_card(k, dtype):
+    """Kernel L equals its plain version (the row gather) bit for bit for
+    K = 1 to 4, at mesh planes, at u == n and at a coordinate equal to the
+    box (both read index 0 with frac 0)."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import pm
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    field = torch.randn(G_N, G_N, G_N, k, generator=gen, device="cuda",
+                        dtype=dtype)
+    pos = _gather_positions(dtype)
+    before = kernels.launches["pm_gather"]
+    got = pm.cic_gather_vec(field, pos, G_BOX, G_N)
+    assert kernels.launches["pm_gather"] == before + 1
+    want = pm.cic_gather_vec_plain(field, pos, G_BOX, G_N)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[300:400], field[0, 0, 0].expand(100, k))
+
+
+def test_gather_kernel_reads_nothing_out_of_range_on_card():
+    """The mesh sits inside a buffer whose cells on either side hold NaN:
+    positions far outside the box (a caller that did not wrap them) read
+    in range and equal the plain version; positions that are not finite
+    fault nothing and touch no other row; through ``pm_gather_tiles`` a
+    dead particle with a non-finite position gets 0."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import pm, pm_tiles
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    k, cells = 3, G_N ** 3
+    buf = torch.full((cells * k * 3,), float("nan"), device="cuda")
+    field = buf[cells * k:2 * cells * k].view(G_N, G_N, G_N, k)
+    field.copy_(torch.randn(G_N, G_N, G_N, k, device="cuda"))
+    pos = _gather_positions(torch.float32)
+    far = pos[500:700]
+    far[:100] -= 1e3 * G_BOX
+    far[100:] += 3.5 * G_BOX
+    bad = pos[700:706]
+    bad.copy_(torch.tensor([[float("nan"), 1.0, 1.0],
+                            [float("inf"), 1.0, 1.0],
+                            [1.0, float("-inf"), 1.0],
+                            [1.0, 1.0, 1e30], [-1e30, 1.0, 1.0],
+                            [float("nan")] * 3], device="cuda"))
+    got = pm.cic_gather_vec(field, pos, G_BOX, G_N)
+    want = pm.cic_gather_vec_plain(field, pos, G_BOX, G_N)
+    torch.cuda.synchronize()
+    ok = torch.ones(len(pos), dtype=torch.bool, device="cuda")
+    ok[700:706] = False
+    assert torch.equal(got[ok], want[ok])
+    assert bool(torch.isfinite(got[ok]).all())
+    # 1e30 and -1e30 lie beyond int64: index 0, frac 0, a value of the mesh
+    assert bool(torch.isfinite(got[703:705]).all())
+    alive = ok.clone()
+    wrapped = torch.remainder(pos, G_BOX)
+    wrapped[700:706] = bad
+    cl = build_cell_list(torch.where(ok[:, None], wrapped, 0.0), alive,
+                         0.0, G_BOX, n_cells=3, capacity=512)
+    rows = pm_tiles.pm_gather_tiles(field, cl, wrapped, alive, G_BOX, G_N, 3,
+                                    1.0)
+    torch.cuda.synchronize()
+    assert bool((rows[700:706] == 0).all())
+    assert torch.equal(rows[ok], pm.cic_gather_vec_plain(
+        field, torch.remainder(wrapped, G_BOX), G_BOX, G_N)[ok])
 
 
 @pytest.mark.parametrize("periodic", [True, False])
@@ -327,21 +417,20 @@ def test_gravity_kernel_culling_edges_on_card(kind, sign):
 D_NB, D_LF = 3, 1.0              # blocks per axis, fine-cell edge
 
 
-def _hydro_args(periodic: bool, subcap: int):
-    """Kernel D's arguments (either mode) for gas binned at x0 and packed
-    at x = x0 + d, |d|_inf <= kappa Lf, h up to (1 - 2 kappa) Lf: a
-    random background, and pairs at h = (1 - 2 kappa) Lf displaced by
-    kappa Lf towards each other across one fine-cell boundary ("kept",
-    on a periodic grid also across the seam) or across the fine cell
-    between theirs ("zero": r = h + 2^-18 Lf), each pair at least 1.2 Lf
-    from other gas; and isolated pairs at h (1 -+ 1e-6) across the corner
-    of two diagonal fine cells ("edge_in", "edge_out"). On a clamped grid
-    some background gas is binned beyond its edge. Returns (arguments,
-    gslot, {label: particle indices})."""
+def _gas_layout(periodic: bool, subcap: int):
+    """Gas binned at x0 and packed at x = x0 + d, |d|_inf <= kappa Lf, h
+    up to (1 - 2 kappa) Lf: a random background, and pairs at h = (1 - 2
+    kappa) Lf displaced by kappa Lf towards each other across one
+    fine-cell boundary ("kept", on a periodic grid also across the seam)
+    or across the fine cell between theirs ("zero": r = h + 2^-18 Lf),
+    each pair at least 1.2 Lf from other gas; and isolated pairs at h (1
+    -+ 1e-6) across the corner of two diagonal fine cells ("edge_in",
+    "edge_out"). On a clamped grid some background gas is binned beyond
+    its edge. Returns (x0, x, h, {label: particle indices}, the generator
+    that made them)."""
     import numpy as np
 
     from gadget_leicester_tpu_torch.models.grids import KAPPA_SPH
-    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
     rng = np.random.default_rng(subcap + (0 if periodic else 1))
     box = 2 * D_NB * D_LF
     kap, hcap = KAPPA_SPH * D_LF, (1.0 - 2.0 * KAPPA_SPH) * D_LF
@@ -392,6 +481,18 @@ def _hydro_args(periodic: bool, subcap: int):
     x0, x = np.array(x0), np.array(x)
     if periodic:
         x = np.mod(x, box)
+    return x0, x, np.array(h), pairs, rng
+
+
+def _hydro_args(periodic: bool, subcap: int):
+    """Kernel D's arguments (either mode) for the gas of
+    :func:`_gas_layout`. Returns (arguments, gslot, {label: particle
+    indices})."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    x0, x, h, pairs, rng = _gas_layout(periodic, subcap)
+    box = 2 * D_NB * D_LF
     n = len(x0)
     dev = "cuda"
 
@@ -516,3 +617,132 @@ def test_hydro_kernel_keeps_a_source_with_h_above_the_cap_on_card(periodic):
     scale = float(a_d.abs().max())
     assert float((a_d - a_g).abs().max()) <= 1e-5 * scale
     assert float(dense.max_signal_vel[0]) == float(entries.max_signal_vel[0])
+
+
+# Kernel C (csrc/sph_density.cu) at the edges of its subcell skip and warp
+# box, whose reach is the target's h alone; in relative mode the parked
+# lanes (m = 0) are summed too, with the h the caller gives them
+C_PARKED_H = 9.5 * D_LF   # reaches real gas from -7 fine cells
+
+
+def _density_args(x0, x, h, periodic: bool, subcap: int, rng):
+    """Kernel C's arguments (either mode) for gas binned at ``x0`` and
+    packed at ``x`` with smoothing lengths ``h``, as the Newton loop's
+    first sweep passes them: valid slots their h, invalid ones
+    ``C_PARKED_H`` in relative mode and 0 in absolute mode. Returns
+    (arguments, gslot)."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    box = 2 * D_NB * D_LF
+    n = len(x0)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device="cuda")
+
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    cls = sb.build_block_lists(t(x0), mask, 0.0, box, D_NB, subcap,
+                               periodic=periodic)
+    assert not bool(cls[0].overflow)
+    lf = D_LF if periodic else None
+    vel, mass = t(rng.normal(0.0, 1.0, (n, 3))), t(rng.uniform(0.5, 1.5, n))
+    ones = torch.ones(n, device="cuda")
+    soa_e, soa_o = (sb.pack_sph_soa(cl, t(x), vel, mass, ones, mask,
+                                    sb._centers(cl, parity, lf), box)
+                    for cl, parity in zip(cls, ("even", "odd")))
+    cells = cls[0].cells
+    h_slots = torch.where(cells >= 0, t(h)[cells.clamp_min(0).long()],
+                          torch.tensor(C_PARKED_H if periodic else 0.0,
+                                       device="cuda"))
+    flags = torch.ones(D_NB ** 3, dtype=torch.int32, device="cuda")
+    return (soa_e, soa_o, h_slots.contiguous(), flags, D_NB, lf), \
+        cls[0].gslot
+
+
+def _density_check(args):
+    """Kernel C on ``args`` against its float64 plain version; returns
+    its output [B, 6, lanes]."""
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    name = "sph_density" if args[-1] is not None else "sph_density_abs"
+    before = kernels.launches[name]
+    got = sb.density_sums_blocks(*args)
+    assert kernels.launches[name] == before + 1
+    want = sb.density_sums_blocks_plain(*args)
+    exact = sb.density_sums_blocks_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare(name, got, want, exact)
+    assert used <= 1.0
+    return got, want, exact
+
+
+@pytest.mark.parametrize("subcap", [32, 64, 40])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_density_kernel_culling_edges_on_card(periodic, subcap):
+    """Kernel C on the gas of D's skip-edge test, in both modes, with a
+    warp one subcell (32), half a subcell (64) and across two (40): every
+    row agrees with the float64 plain version; the kept pairs add to each
+    other's div v, the pairs across the fine cell between them (r = h +
+    2^-18 Lf) and at r = h (1 + 1e-6) across a diagonal corner add
+    nothing (div v and rot v exactly 0: the self-pair adds none), the
+    pair at r = h (1 - 1e-6) adds; relative mode: the parked lanes, given
+    an h that reaches the gas, sum as the plain version does; absolute
+    mode: they and the lanes with h = 0 write zeros."""
+    _need_card()
+    x0, x, h, pairs, rng = _gas_layout(periodic, subcap)
+    args, gslot = _density_args(x0, x, h, periodic, subcap, rng)
+    got, want, exact = _density_check(args)
+    rows = got.transpose(1, 2).reshape(-1, 6)
+
+    def sel(label):
+        return gslot[torch.tensor(pairs[label], device="cuda").long()].long()
+
+    assert bool((rows[sel("kept"), 2] != 0).all())
+    for label in ("zero", "edge_out"):
+        assert bool((rows[sel(label), 2:] == 0).all())
+    assert bool((rows[sel("edge_in"), 2] != 0).all())
+    soa_e, h_slots = args[0], args[2]
+    parked = (soa_e[:, 3] == 0)[:, None, :].expand_as(got)
+    if periodic:
+        # the parked rows against the float64 plain version, and some of
+        # them reach gas
+        p_got, p_want, p_exact = (o.transpose(1, 2)[parked.transpose(1, 2)]
+                                  .view(-1, 6) for o in (got, want, exact))
+        *_, used = chip_smoke.compare("sph_density", p_got, p_want, p_exact)
+        assert used <= 1.0 and bool((p_got[:, 0] > 0).any())
+    else:
+        assert bool((got[parked] == 0).all())
+        # the Newton loop's later sweeps pass h = 0 for solved slots
+        h0 = h_slots.clone()
+        h0[:, 1::2] = 0.0
+        again = _density_check(args[:2] + (h0,) + args[3:])[0]
+        assert bool((again.transpose(1, 2)[h0 == 0] == 0).all())
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_density_kernel_reaches_two_fine_cells_above_the_cap_on_card(
+        periodic):
+    """A target with h = 2.5 Lf, above the (1 - 2 kappa) Lf cap, whose
+    only neighbour is a source two fine cells away (within the 4^3 window
+    of its block) inside its h: kernel C adds the pair (div v not 0) and
+    agrees with its float64 plain version, in both modes."""
+    _need_card()
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.models.grids import KAPPA_SPH
+    rng = np.random.default_rng(21 if periodic else 22)
+    box = 2 * D_NB * D_LF
+    hcap = (1.0 - 2.0 * KAPPA_SPH) * D_LF
+    target, source = np.array([0.5, 1.5, 1.5]), np.array([2.5, 1.5, 1.5])
+    bg = rng.uniform(0.0, box, (216 * 12, 3))
+    d = bg - target
+    if periodic:
+        d -= box * np.round(d / box)
+    bg = bg[np.sqrt((d ** 2).sum(-1)) > 2.6 * D_LF]
+    x = np.concatenate([target[None], source[None], bg])
+    h = np.concatenate([[2.5 * D_LF, 0.5 * hcap],
+                        rng.uniform(0.5, 1.0, len(bg)) * hcap])
+    args, gslot = _density_args(x, x, h, periodic, 32, rng)
+    got = _density_check(args)[0]
+    rows = got.transpose(1, 2).reshape(-1, 6)
+    assert float(rows[gslot[0].long(), 2]) != 0.0

@@ -109,10 +109,10 @@ def test_cic_gather_matches():
 
 
 def test_pm_potential_gathered_apart_equals_the_stack_gather():
-    """with_potential gathers the force and the potential apart; each
-    equals its column of the CIC gather of the [n, n, n, 4] mesh stack
-    bit for bit, the force that of the force-only call, and dead
-    particles get 0."""
+    """with_potential gathers the force and the potential in one K = 4
+    gather of the [n, n, n, 4] mesh stack; each equals its column of the
+    CIC gather of that stack bit for bit, the force that of the
+    force-only call (K = 3), and dead particles get 0."""
     pos, mass, alive = _setup(4, n=1500)
     t = [torch.from_numpy(a) for a in (pos, mass, alive)]
     acc, pot = pm.pm_forces_periodic(*t, BOX, N_PM, with_potential=True)
