@@ -1232,7 +1232,6 @@ def density_walk(args: tuple, blocks):
         parked = torch.zeros_like(valid)
     else:
         valid, parked = massive, ~massive
-    reach = torch.where(ht < 0, torch.full_like(ht, float("inf")), ht)
     ids, units = sb.odd_sources(nb, blocks, lf is not None)
     rows, shift = sb._gather_sources(soa_o, ids, units, lf, (0, 1, 2, 3))
     sv = rows[3] > 0
@@ -1242,7 +1241,7 @@ def density_walk(args: tuple, blocks):
     cell_shift = None if shift is None else [x[::sub] for x in shift]
     pairs = None
     for kind in (valid, parked):
-        box = _box(t[:, :3], reach, kind, 32)
+        box = _box(t[:, :3], ht, kind, 32)
         need = _near(box, cells, cell_shift).repeat_interleave(sub, -1)
         near = _near(box, (sxyz, sxyz, zero), shift) & need & sv[:, None]
         pairs = near if pairs is None else pairs | near      # [K, W, 8 L]

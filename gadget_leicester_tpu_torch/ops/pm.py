@@ -77,9 +77,10 @@ MAX_GATHER_MESH = 1290
 def cic_gather_vec(field, pos, box: float, n: int) -> torch.Tensor:
     """Kernel L: CIC interpolation of a vector mesh field [n, n, n, K] (K
     = 1 to 4) to the positions ``pos`` [N, 3], wrapped into [0, box]
-    (``torch.remainder``): [N, K], float32 or float64. CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which equals it
-    bit for bit."""
+    (``torch.remainder``): [N, K], float32, or float64 where a check
+    takes the mesh potential in float64 on the card. CPU tensors take the
+    plain version; CUDA tensors launch the kernel, which equals it bit
+    for bit."""
     if field.dim() != 4 or tuple(field.shape[:3]) != (n, n, n) \
             or not 1 <= field.shape[-1] <= 4:
         raise ValueError(f"field shape {tuple(field.shape)} is not "
