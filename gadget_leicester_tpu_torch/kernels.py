@@ -86,7 +86,7 @@ recording = False
 recorded: dict = {}   # kernel -> argument tuple of its wrapper's last call
 
 _lib = None
-build_info = {}   # seconds, library path and nvcc's output of the last build
+build_info = {}   # seconds, library path and nvcc's output of the library
 
 
 def reset_launches() -> None:
@@ -118,8 +118,12 @@ def build() -> Path:
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libglt_kernels.so"
+    # nvcc's output (-Xptxas=-v: registers, shared memory, spills) is kept
+    # beside the library, so a cached build still reports it
+    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
-        build_info.update(seconds=0.0, path=str(lib_path), log="(cached)")
+        log = log_path.read_text() if log_path.exists() else "(cached)"
+        build_info.update(seconds=0.0, path=str(lib_path), log=log)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -145,6 +149,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}\n"
                                f"{proc.stderr}")
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
     finally:
         for obj in objs:
