@@ -7,10 +7,10 @@ Needs one CUDA device, the CUDA toolkit (``nvcc``) and this checkout; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the twelve kernel sources of
+2. build: compile the eleven kernel sources of
    ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once; E's source holds its two modes, C's, D's, F's and G's their
-   relative and absolute modes);
+   once; A's source holds A and H, E's its two modes, C's, D's, F's and
+   G's their relative and absolute modes);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -51,10 +51,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    plain version's and its bound (for A, C and D also the pairs they
    evaluate by the models of their culling rules, :func:`gravity_walk`,
    :func:`hydro_walk`, :func:`density_walk`; C's time beside its earlier
-   design's, :data:`EARLIER_MS`, and its registers); then the full
-   potential of phase 5's state (kernel H on a fresh cell list, L on the
-   mesh potential), its parts timed, and H replayed and timed the same
-   way;
+   design's, :data:`EARLIER_MS`, and its registers, and those of A, H
+   and I/J); then the full potential of phase 5's state (kernel H on a
+   fresh cell list, L on the mesh potential), its parts timed, and H
+   replayed and timed the same way, beside its earlier design's time and
+   the pairs the model of its walk evaluates (:func:`gravity_walk`);
 7. profile: the phases of 4 more sync points, each timed with a device
    sync around it, then the device's busy and idle time over 2 more from
    ``torch.profiler``;
@@ -70,7 +71,9 @@ imports nothing of JAX. Phases, each printing its own lines:
    points through kernels I/J and K (C and D not launched; A, B and L
    as on the block path); its SPH
    fields after ``set_ics`` held against the block backend's on the same
-   ICs; I and K replayed and timed on its arguments; the synced phases of
+   ICs; I and K replayed and timed on its arguments (I/J beside its
+   earlier design's time and the pairs the model of its walk evaluates,
+   :func:`cells_density_walk`); the synced phases of
    its SPH pass; a near-idle sync point, which this backend sweeps whole;
 9. the command line at full width: a 2x128^3 IC file and parameter file
    (with an ``.opts`` sidecar asking for OUTPUTPOTENTIAL), ``python -m
@@ -122,10 +125,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    accretion within 2.8 gas softenings; gates: the in-step potential after
    ``set_ics`` against ``compute_potential``, at least one sink, mass and
    momentum across cooling and sinks, a finite state without overflow;
-   H replayed and timed on the step's arguments, and against A bit for
-   bit; the PM pass with and without the potential, L's gather of 1, 3
-   and 4 components, cooling and the sink functions timed; a near-idle
-   sync point through E's potential mode
+   H replayed and timed on the step's arguments (beside its earlier
+   design's time), and against A bit for bit; the PM pass with and
+   without the potential, L's gather of 1, 3 and 4 components, cooling
+   and the sink functions timed; a near-idle sync point through E's
+   potential mode
    against the same with the tier forced dense (H), E's potential mode
    replayed and timed;
 15. the Leicester disc (:func:`phase_disc`): ``parameterfiles/disc.param``
@@ -243,8 +247,9 @@ KERNELS = {
     "sph_hydro_entries": (
         "gadget_leicester_tpu_torch/csrc/sph_hydro_entries.cu",
         "gadget_leicester_tpu/ops/sph_blocks.py:1175"),
+    # A's kernel with the potential row (kPot)
     "shortrange_potential": (
-        "gadget_leicester_tpu_torch/csrc/shortrange_potential.cu",
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:433"),
     # I and its grid twin J (pallas_cells.py:1276) are two TPU schedules of
     # one function: one kernel
@@ -1053,64 +1058,80 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-# Kernels A, C and D walk fewer pairs than their stencil holds, in the
-# same order of sums (csrc/shortrange_gravity.cu, csrc/sph_density.cu,
-# csrc/sph_hydro.cu). The bound above counts the stencil, so that shares
-# compare across designs; these mirror each design's culling rules in
-# float32 and count the pairs they leave to evaluate. They are models of
-# the kernels' walks, not counts taken in the kernels.
-# A: live targets ranked per pass of A_THREADS slots by the Morton key of
-# their position on an A_KEY_CELLS^3 grid over their cell, in warps of 32,
-# each warp walking the live sources within rcut^2 CULL_MARGIN2 of its
-# targets' bounding box. D: warps of 32 target lanes with a box of their
-# valid targets and one of their parked targets (relative mode), each box
-# walking the source subcells whose box of valid sources lies within
-# max(h_max, h_s) of it and, in those, the valid sources within max(h_max,
-# h_j) (squares times CULL_MARGIN2). C: D's walk with the reach of a
-# target's h alone (source subcells' boxes of their sources with m > 0,
-# whose h counts as 0), its valid targets those with m > 0 (and, in
+# Kernels A, H, C, D and I/J walk fewer pairs than their stencil holds, in
+# the same order of sums (csrc/shortrange_gravity.cu, csrc/sph_density.cu,
+# csrc/sph_hydro.cu, csrc/sph_cells_density.cu). The bound above counts the
+# stencil, so that shares compare across designs; these mirror each
+# design's culling rules in float32 and count the pairs they leave to
+# evaluate. They are models of the kernels' walks, not counts taken in the
+# kernels.
+# A and H: live targets ranked per pass of A_THREADS slots by the Morton
+# key of their position on an A_KEY_CELLS^3 grid over their cell, in warps
+# of 32, each warp walking the live sources within rcut^2 CULL_MARGIN2 of
+# its targets' bounding box. D: warps of 32 target lanes with a box of
+# their valid targets and one of their parked targets (relative mode),
+# each box walking the source subcells whose box of valid sources lies
+# within max(h_max, h_s) of it and, in those, the valid sources within
+# max(h_max, h_j) (squares times CULL_MARGIN2). C: D's walk with the reach
+# of a target's h alone (source subcells' boxes of their sources with m >
+# 0, whose h counts as 0), its valid targets those with m > 0 (and, in
 # absolute mode, 0 < h < inf), its parked ones (relative mode) the rest.
+# I/J: live targets (m > 0) ranked per pass of A_THREADS slots by the
+# Morton key of their position on an A_KEY_CELLS^3 grid over the box of
+# the pass's live targets, in warps of 32, each warp with the reach of its
+# largest target h walking the chunks of 32 slots of its 27 stencil cells
+# whose box of sources with m > 0, shifted, lies within reach and, in
+# those, the sources with m > 0 within reach (squares times CULL_MARGIN2).
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
 
 
+def _morton_order(f, live, nt: int):
+    """[K, P nt]: the slots of each pass of ``nt`` (the slots [K, P nt]
+    padded to whole passes) in rank order: ``live`` ones by the Morton key
+    of their cells ``floor(f)`` [K, 3, P nt] on an A_KEY_CELLS^3 grid, ties
+    by slot, the others last."""
+    import torch
+    k, _, width = f.shape
+    q = f.floor().clamp(0, A_KEY_CELLS - 1).long().view(k, 3, -1, nt)
+    key = torch.zeros_like(q[:, 0])
+    for bit in range(A_KEY_CELLS.bit_length() - 1):
+        for a in range(3):
+            key |= ((q[:, a] >> bit) & 1) << (3 * bit + 2 - a)
+    key = torch.where(live.view(k, -1, nt), key, torch.full_like(key, 1 << 9))
+    slot = torch.arange(nt, device=f.device)
+    order = torch.argsort(key * nt + slot, dim=-1)
+    base = torch.arange(0, width, nt, device=f.device)[:, None]
+    return (order + base).view(k, width)
+
+
 def gravity_walk(args: tuple, cells):
-    """Kernel A's walk over the target cells ``cells`` [K] of ``args``:
-    (target coordinates [K, 3, W, 32] in the kernel's lane order, their
-    live mask [K, W, 32], the shifted source coordinates [K, 3, 27 cap],
-    the sources each warp walks [K, W, 27 cap]) for cap <= A_THREADS (one
-    pass, as on the main path)."""
+    """Kernel A's (and H's) walk over the target cells ``cells`` [K] of
+    ``args``: (target coordinates [K, 3, W, 32] in the kernel's lane
+    order, passes of A_THREADS slots one after another, their live mask
+    [K, W, 32], the shifted source coordinates [K, 3, 27 cap], the sources
+    each warp walks [K, W, 27 cap])."""
     import torch
 
     from gadget_leicester_tpu_torch.ops import gravity_short as gs
     soa, _, n, box, _, rcut = args
     dev, f32 = soa.device, torch.float32
     cap = soa.shape[2]
-    if cap > A_THREADS:
-        raise ValueError("gravity_walk mirrors one pass of A_THREADS slots")
-    nt = -(-cap // 32) * 32
+    nt = min(-(-cap // 32) * 32, A_THREADS)
+    width = -(-cap // nt) * nt
     edge = torch.tensor(box / n, dtype=f32)   # the wrapper's c_float
     scale = (torch.tensor(float(A_KEY_CELLS), dtype=f32) / edge).to(dev)
     cull2 = float(torch.tensor(rcut * rcut, dtype=f32)
                   * torch.tensor(CULL_MARGIN2, dtype=f32))
-    slot = torch.arange(cap, device=dev)
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
-    t = soa[cells]
+    t = torch.nn.functional.pad(soa[cells], (0, width - cap))
     live = t[:, 5] > 0
-    q = torch.floor(t[:, :3] * scale + float(A_KEY_CELLS // 2))
-    q = q.clamp(0, A_KEY_CELLS - 1).long()
-    key = torch.zeros_like(q[:, 0])
-    for bit in range(A_KEY_CELLS.bit_length() - 1):
-        for a in range(3):
-            key |= ((q[:, a] >> bit) & 1) << (3 * bit + 2 - a)
-    key = torch.where(live, key, torch.full_like(key, 1 << 9))
-    order = torch.argsort(key * cap + slot, dim=1)
-    pad = nt - cap
-    xyz = torch.nn.functional.pad(t[:, :3].gather(
-        2, order[:, None].expand(-1, 3, -1)), (0, pad))
-    lv = torch.nn.functional.pad(live.gather(1, order), (0, pad))
-    xyz, lv = xyz.view(-1, 3, nt // 32, 32), lv.view(-1, nt // 32, 32)
+    order = _morton_order(t[:, :3] * scale + float(A_KEY_CELLS // 2), live,
+                          nt)
+    xyz = t[:, :3].gather(2, order[:, None].expand(-1, 3, -1))
+    lv = live.gather(1, order)
+    xyz, lv = xyz.view(-1, 3, width // 32, 32), lv.view(-1, width // 32, 32)
     lo = torch.where(lv[:, None], xyz, inf).amin(-1)          # [K, 3, W]
     hi = torch.where(lv[:, None], xyz, -inf).amax(-1)
     ids, offs = gs.stencil_sources(n, cells)
@@ -1261,18 +1282,122 @@ def density_evaluated_pairs(args: tuple) -> int:
     return total
 
 
+def cells_density_walk(args: tuple, cells):
+    """Kernel I/J's walk (either grid) over the target cells ``cells``
+    [K] of ``args``: (its live targets [K, cap], the pairs each target
+    slot walks [K, cap, 27 cap], both in slot order)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    soa, h_slots, _, n, box, periodic = args
+    dev, f32 = soa.device, torch.float32
+    k, cap = len(cells), soa.shape[2]
+    nt = min(-(-cap // 32) * 32, A_THREADS)
+    width = -(-cap // nt) * nt
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    margin = torch.tensor(CULL_MARGIN2, dtype=f32)
+    pad = (0, width - cap)
+    t = torch.nn.functional.pad(soa[cells], pad)
+    ht = torch.nn.functional.pad(h_slots[cells], pad)
+    live = t[:, 3] > 0
+    # the key: on A_KEY_CELLS^3 over the box of each pass's live targets
+    x = t[:, :3].view(k, 3, -1, nt)
+    lv = live.view(k, 1, -1, nt)
+    lo = torch.where(lv, x, inf).amin(-1, keepdim=True)
+    hi = torch.where(lv, x, -inf).amax(-1, keepdim=True)
+    scale = torch.where(hi > lo, torch.tensor(float(A_KEY_CELLS), dtype=f32,
+                                              device=dev) / (hi - lo),
+                        torch.zeros_like(lo))
+    order = _morton_order(((x - lo) * scale).view(k, 3, width), live, nt)
+    xyz = t[:, :3].gather(2, order[:, None].expand(-1, 3, -1))
+    lvr = live.gather(1, order)
+    hr = ht.gather(1, order)
+    w = width // 32
+    xyz, lvr, hr = xyz.view(k, 3, w, 32), lvr.view(k, w, 32), hr.view(k, w,
+                                                                       32)
+    tlo = torch.where(lvr[:, None], xyz, inf).amin(-1)        # [K, 3, W]
+    thi = torch.where(lvr[:, None], xyz, -inf).amax(-1)
+    reach = torch.where(lvr & ~torch.isnan(hr), hr, torch.zeros_like(hr))
+    reach = reach.amax(-1).clamp(min=0.0)
+    reach2 = reach * reach * margin.to(dev)                   # [K, W]
+    # the 27 stencil cells, their shifts and their chunk boxes
+    ids, shift, inside = sc.stencil_cells(n, cells, periodic)
+    sh = shift.to(f32) * torch.tensor(box, dtype=f32)         # [K, 27, 3]
+    s = soa[ids]                                              # [K, 27, 8, cap]
+    chunks = -(-cap // 32)
+    cpad = (0, chunks * 32 - cap)
+    sm = torch.nn.functional.pad(s[:, :, 3], cpad).view(k, 27, chunks, 32)
+
+    def dist2(lo_s, hi_s):
+        """Box distances [K, W, S] from the warps' boxes to the shifted
+        source boxes [K, 3, S]."""
+        d2 = 0.0
+        for a in range(3):
+            e = torch.clamp(torch.maximum(tlo[:, a, :, None] - hi_s[:, None, a],
+                                          lo_s[:, None, a]
+                                          - thi[:, a, :, None]), min=0.0)
+            d2 = d2 + e * e
+        return d2
+
+    sxyz, clo, chi = [], [], []
+    for a in range(3):
+        raw = torch.nn.functional.pad(s[:, :, a], cpad).view(k, 27, chunks,
+                                                             32)
+        on = sm > 0
+        clo.append((torch.where(on, raw, inf).amin(-1)
+                    + sh[:, :, a, None]).flatten(1))
+        chi.append((torch.where(on, raw, -inf).amax(-1)
+                    + sh[:, :, a, None]).flatten(1))
+        sxyz.append((s[:, :, a] + sh[:, :, a, None]).flatten(1))
+    need = (dist2(torch.stack(clo, 1), torch.stack(chi, 1))
+            < reach2[..., None]) \
+        & inside.repeat_interleave(chunks, 1)[:, None, :]     # [K, W, 27 ch]
+    need = need.repeat_interleave(32, -1).view(k, w, 27, chunks * 32)
+    sxyz = torch.stack(sxyz, 1)                               # [K, 3, 27 cap]
+    near = (dist2(sxyz, sxyz) < reach2[..., None]) \
+        & (s[:, :, 3] > 0).flatten(1)[:, None, :] \
+        & need[..., :cap].flatten(2)                          # [K, W, 27 cap]
+    walked = lvr[..., None] & near[:, :, None, :]             # [K, W, 32, .]
+    out = torch.zeros_like(walked.view(k, width, -1))
+    out.scatter_(1, order[..., None].expand_as(out), walked.view(k, width, -1))
+    return live[:, :cap], out[:, :cap]
+
+
+def cells_density_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live target and a source with m > 0 that kernel I/J
+    evaluates on ``args``."""
+    import torch
+    cells = torch.nonzero(args[2] > 0).flatten()
+    total = 0
+    for k0 in range(0, cells.numel(), 32):
+        total += int(cells_density_walk(args, cells[k0:k0 + 32])[1].sum())
+    return total
+
+
 EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
+             "shortrange_potential": gravity_evaluated_pairs,
+             "sph_cells_density": cells_density_evaluated_pairs,
              "sph_density": density_evaluated_pairs,
              "sph_density_abs": density_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
              "sph_hydro_abs": hydro_evaluated_pairs}
 
-# kernel C's time in its earlier design (one thread a target walking every
-# staged source of its 8 odd blocks), on the same paths' arguments, on an
-# NVIDIA H100 80GB HBM3 at 700 W as PERF.md records it: the relative mode
-# on the main path's last full-active sync point (phase 6), the absolute
-# mode on the vacuum cloud at 64 slots a subcell (phase 12b)
-EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776}
+# the times of kernels C, H and I/J in their earlier designs (one thread a
+# target walking every staged source of its stencil), on the same paths'
+# arguments, on an NVIDIA H100 80GB HBM3 at 700 W as PERF.md records them:
+# C's relative mode on the main path's last full-active sync point (phase
+# 6), its absolute mode on the vacuum cloud at 64 slots a subcell (phase
+# 12b), H on the step with sinks (phase 14), I/J on the cells path (phase
+# 8b)
+EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
+              "shortrange_potential": 29.156, "sph_cells_density": 10.689}
+# the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
+# (:func:`ptxas_registers`)
+PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
+              "shortrange_potential": "shortrange_gravity_kernelILb1E",
+              "sph_density": "sph_density_kernelILb0E",
+              "sph_density_abs": "sph_density_kernelILb1E",
+              "sph_cells_density": "sph_cells_density_kernel"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -1293,15 +1418,22 @@ def ptxas_registers(fragment: str) -> list:
 
 def say_against_earlier(phase: str, results: dict, name: str,
                         card: str) -> None:
-    """Kernel C's time in ``results`` beside :data:`EARLIER_MS`, and its
-    registers."""
+    """A kernel's time in ``results`` beside :data:`EARLIER_MS` and its
+    bound, the share of its stencil pairs that the model of its walk
+    evaluates, and its registers."""
     r = results[name]
-    regs = [n for _, n in ptxas_registers(
-        f"sph_density_kernelILb{int(name.endswith('_abs'))}E")]
+    regs = [n for _, n in ptxas_registers(PTXAS_NAME[name])]
+    walk = ""
+    if "evaluated" in r:
+        walk = (f"; the model of its walk evaluates "
+                f"{100 * r['evaluated'] / max(r['pairs'], 1):.1f}% of the "
+                "stencil pairs")
     say(phase, f"{name} {r['ms']:.3f} ms against the earlier design's "
         f"{EARLIER_MS[name]:.3f} ms (NVIDIA H100 80GB HBM3, 700 W, as "
-        f"PERF.md records it): {r['ms'] / EARLIER_MS[name]:.2f}x; "
-        f"registers {regs} ({card})")
+        f"PERF.md records it): {r['ms'] / EARLIER_MS[name]:.2f}x; bound "
+        f"{r['bound_ms']:.3f} ms, {100 * r['bound_ms'] / r['ms']:.1f}% of "
+        f"the time (was {100 * r['bound_ms'] / EARLIER_MS[name]:.1f}%)"
+        f"{walk}; registers {regs} ({card})")
 
 
 def kernel_bound(name: str, args: tuple, out) -> dict:
@@ -2064,6 +2196,7 @@ def phase_potential(results: dict, state, card: str, device="cuda",
     say_phases("potential", totals, 1, POTENTIAL_TIMED)
     check_kernels(recorded, f"2x{n_side}^3 potential", results, POTENTIAL,
                   timed=True)
+    say_against_earlier("potential", results, "shortrange_potential", card)
     check_potential_forces(recorded, f"2x{n_side}^3")
 
 
@@ -2153,6 +2286,7 @@ def phase_cells(results: dict, blocks_init: dict, card: str, device="cuda",
                        keep, CELLS_VS_BLOCKS, CELLS_VS_BLOCKS_OUT)
     del cells_init
     check_kernels(recorded, f"2x{n_side}^3", results, CELLS, timed=True)
+    say_against_earlier("cells", results, "sph_cells_density", card)
     del recorded
     kernels.recorded.clear()
     with phase_timer(device, CELLS_TIMED) as totals:
@@ -3305,6 +3439,7 @@ def phase_sinks(results: dict, card: str, device="cuda",
     # force rows bit for bit, timed beside A (phase 6) and E (phase 8)
     check_kernels(recorded, f"2x{n_side}^3 step with sinks", results,
                   POTENTIAL, timed=True)
+    say_against_earlier("sinks", results, "shortrange_potential", card)
     check_step_potential_forces(recorded, f"2x{n_side}^3 step")
     del recorded
     kernels.recorded.clear()
@@ -3775,8 +3910,14 @@ def main() -> int:
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
     say_against_earlier("kernels", results, "sph_density", card)
-    say("kernels", "registers of kernel D (relative, absolute mode): "
-        f"{[n for _, n in ptxas_registers('sph_hydro_kernel')]}")
+    say("kernels", "registers: " + "; ".join(
+        f"{what} {[n for _, n in ptxas_registers(fragment)]}"
+        for what, fragment in (
+            ("kernel D (relative, absolute mode)", "sph_hydro_kernel"),
+            ("A", PTXAS_NAME["shortrange_gravity"]),
+            ("H", PTXAS_NAME["shortrange_potential"]),
+            ("I/J (vacuum, periodic grid)", PTXAS_NAME["sph_cells_density"]),
+            ("I/J's chunk boxes", "chunk_boxes_kernel"))))
     del recorded
     kernels.recorded.clear()
     phase_potential(results, main_state, card)

@@ -4,7 +4,8 @@
 // of its plain PyTorch twin (ops/sph_kernels.py, ops/softening.py,
 // ops/cells.py), so a kernel and its plain version differ only in the
 // order of the sums. Also the box culling and the cp.async staging that
-// the block SPH kernels C and D share.
+// the block SPH kernels C and D share, and the ranking of targets in space
+// order of A, H and I/J.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -326,6 +327,37 @@ __device__ __forceinline__ Box warp_box(bool in, float x, float y, float z,
     b.h = fmaxf(b.h, __shfl_xor_sync(kFull, b.h, off));
   }
   return b;
+}
+
+// Targets in space order (kernels A, H and I/J): a block ranks its slots
+// by the Morton key of their cells (qx, qy, qz) on a (2^kKeyBits)^3 grid,
+// so that each warp holds 32 close targets.
+constexpr int kKeyBits = 3;
+
+__device__ __forceinline__ unsigned morton_key(unsigned qx, unsigned qy,
+                                               unsigned qz) {
+  unsigned out = 0;
+  for (int b = 0; b < kKeyBits; ++b)
+    out |= ((qx >> b) & 1u) << (3 * b + 2) | ((qy >> b) & 1u) << (3 * b + 1) |
+           ((qz >> b) & 1u) << (3 * b);
+  return out;
+}
+
+// s_slot[r] = the slot t of the thread whose key ranks r-th in the block,
+// ties by thread (a parked slot's key is kFull: parked slots come last);
+// s_key holds blockDim.x keys. All threads call it; it ends with a
+// barrier.
+__device__ __forceinline__ void rank_slots(unsigned key, int t,
+                                           unsigned* s_key, int* s_slot) {
+  s_key[threadIdx.x] = key;
+  __syncthreads();
+  int rank = 0;
+  for (int i = 0; i < static_cast<int>(blockDim.x); ++i) {
+    const unsigned ki = s_key[i];
+    rank += ki < key || (ki == key && i < static_cast<int>(threadIdx.x));
+  }
+  s_slot[rank] = t;
+  __syncthreads();
 }
 
 // Threads of subcell_boxes_kernel: one warp a subcell of an 8-subcell block

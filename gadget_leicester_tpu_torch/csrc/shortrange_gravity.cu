@@ -1,19 +1,32 @@
-// Kernel A: TreePM short-range gravity over cell tiles.
+// Kernels A and H: TreePM short-range gravity over cell tiles, without
+// (A) and with (H) the potential.
 //
 // Replaces gadget_leicester_tpu/ops/pallas_cells.py ::
-// shortrange_gravity_pallas_dma9 (kernel body _make_kernel_dma9), in its
-// cell-relative mode. Plain PyTorch twin: ops/cells.py ::
-// shortrange_gravity_tiles_plain.
+// shortrange_gravity_pallas_dma9 (kernel body _make_kernel_dma9) in its
+// cell-relative mode (A, C entry glt_shortrange_gravity; its
+// with_potential mode on the step is H on the step's pack), and
+// shortrange_gravity_pallas_dma (kernel body _make_kernel_dma, with
+// with_potential; H, C entry glt_shortrange_potential), whose one caller
+// is models/forces.py :: compute_potential. Plain PyTorch twins:
+// ops/gravity_short.py :: shortrange_gravity_tiles_plain and
+// shortrange_potential_tiles_plain.
 //
 // What it computes. soa is the [C, 8, cap] pack of ops/cells.py ::
 // pack_cells_soa (rows x, y, z relative to the cell centre, m, soft, 1,
 // 1/soft, 0; parked slots at -7 cells with m = 0). For every target slot
-// of a cell whose flag is set it sums, over the 27 neighbour cells,
-//   -m_j * g(r) * erfc_trunc(r / (2 asmth)) * dx    for 0 < r < rcut,
+// of a cell whose flag is set it sums, over the 27 neighbour cells and for
+// 0 < r2 < rcut^2,
+//   ax -= m_j g(r) trunc(r / (2 asmth)) dx     (and y, z)
+//   pot += m_j grav_pot(r) erfc(r / (2 asmth))  (H only)
 // with source coordinates shifted by the stencil offset times the cell
 // edge. The shift is exact for stale in-margin assignments because
-// relative coordinates are wrap-invariant. A cell whose flag is 0 writes
-// zeros. out is [C, 3, cap] (ax, ay, az, without the factor G).
+// relative coordinates are wrap-invariant. The TPU kernel of H works in
+// absolute coordinates with a wrap shift per tile; the relative pack
+// computes the same function, and a target meets its own slot at r2 == 0
+// exactly (same pack value, centre shift 0), so the self-pair, whose
+// softened potential -2.8/h would dominate, adds nothing. A cell whose
+// flag is 0 writes zeros. out is [C, 3, cap] (A: ax, ay, az) or [C, 4,
+// cap] (H: ax, ay, az, pot), without the factor G.
 //
 // What bounds it on the card. At 2x128^3 (C = 34^3, cap = 128, about 107
 // live slots a cell) the stencil holds 1.2e10 pairs, 15% of them inside
@@ -21,32 +34,39 @@
 // arithmetic for a source whenever one of its 32 targets is inside rcut,
 // so the kernel is bound by instruction issue, divergence and the latency
 // of the pair arithmetic's dependent chain (rsqrt, the degree-10
-// polynomial), not by the FP32 pipes or by bytes (27 source tiles of 3 KB
-// a cell, from L2).
+// polynomials), not by the FP32 pipes or by bytes (27 source tiles of 3 KB
+// a cell, from L2). The potential (H) adds its factor and the erfc
+// polynomial to the same pairs: its support is the force's, 0 < r2 <
+// rcut^2.
 //
 // What the design does about it.
 // - Targets in space order. A thread block is one cell, one thread a
 //   target slot. The block ranks its live slots by a Morton key of their
 //   position on an 8^3 grid over the cell (ties by slot; parked slots
-//   last), so each warp holds 32 close targets, and reduces their
-//   bounding box with shuffles.
+//   last; glt::morton_key, glt::rank_slots), so each warp holds 32 close
+//   targets, and reduces their bounding box with shuffles. A cell of more
+//   than 128 slots (H on a fresh cell list) takes one pass of 128 slots
+//   after another, each ranked on its own.
 // - Warp-uniform culling. For each staged chunk of sources every lane
 //   tests one source against its warp's box, and a ballot gives the
 //   sources within rcut (1 + 1e-5) of the box; the warp then walks only
 //   those, in increasing slot order, each lane adding its own pair
-//   through glt::gravity_pair, two sources at a time where there are two
-//   (the two pairs' arithmetic overlaps; the sums stay in order). The
-//   test is conservative: the box distance per axis, max(lo - s, s - hi,
-//   0), is in float32 never above |t - s| for a target t of the box
-//   (rounding is monotone), and the 1e-5 margin covers the rounding of
-//   the sum of squares, so a dropped source is one that gravity_pair
-//   would have added nothing for (r2 >= rcut2) for every target of the
-//   warp. Parked sources (m = 0) are dropped as before. About half of the
-//   stencil's warp-source iterations are left (PERF.md section 6).
+//   through glt::gravity_pair (A) or glt::gravity_potential_pair (H), two
+//   sources at a time where there are two (the two pairs' arithmetic
+//   overlaps; the sums stay in order). The test is conservative: the box
+//   distance per axis, max(lo - s, s - hi, 0), is in float32 never above
+//   |t - s| for a target t of the box (rounding is monotone), and the
+//   1e-5 margin covers the rounding of the sum of squares, so a dropped
+//   source is one that the pair functions would have added nothing for
+//   (r2 >= rcut2) for every target of the warp, in the force and the
+//   potential alike. Parked sources (m = 0) are dropped as before. About
+//   half of the stencil's warp-source iterations are left (PERF.md
+//   section 6).
 // - The order of sums is kept: each target adds its pairs stencil cell j
-//   = 0..26, then slot k = 0..cap-1, as before, skipping only pairs that
-//   add nothing. So A equals its earlier design, and kernel H's force
-//   rows (shortrange_potential.cu), bit for bit.
+//   = 0..26, then slot k = 0..cap-1, skipping only pairs that add
+//   nothing. So A equals its earlier design bit for bit; H is the same
+//   kernel with the potential row (kPot), and walks the same sources in
+//   the same order, so its force rows equal A's bit for bit.
 // - Staging through registers, double-buffered: the 27 tiles are one
 //   stream of 27 cap sources in chunks of one slot a thread; each thread
 //   loads its slot of the next chunk (shifted x, y, z and m as a float4,
@@ -54,8 +74,8 @@
 //   stores it after, so one barrier a chunk separates the two buffers and
 //   the loads overlap the sums.
 // Not used: compaction of pairs into queues or atomics on the sums, which
-// would change the order of sums. nvcc 12.8 -Xptxas=-v for sm_90a: 56
-// registers, 7,168 bytes of shared memory a block of 128 threads.
+// would change the order of sums. nvcc 12.8 -Xptxas=-v for sm_90a: A 56
+// registers, H 54, 7,168 bytes of shared memory a block of 128 threads.
 
 #include "glt_common.cuh"
 
@@ -63,11 +83,11 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
-// targets are ordered on a (2^kKeyBits)^3 grid over their cell
-constexpr int kKeyBits = 3;
 // a source is culled only beyond rcut (1 + 1e-5) of its warp's box
 constexpr float kCullMargin2 = 1.00002f;
+constexpr int kKeyBits = glt::kKeyBits;
 
+// the cell of x on the key's grid over the target's cell
 __device__ __forceinline__ unsigned key_axis(float x, float scale) {
   // __fmul_rn and __fadd_rn: no contraction, so the host can repeat it
   const float f = floorf(__fadd_rn(__fmul_rn(x, scale),
@@ -76,26 +96,21 @@ __device__ __forceinline__ unsigned key_axis(float x, float scale) {
       min(max(static_cast<int>(f), 0), (1 << kKeyBits) - 1));
 }
 
-// bit b of q goes to bit 3 b + shift of the key
-__device__ __forceinline__ unsigned spread(unsigned q, int shift) {
-  unsigned out = 0;
-  for (int b = 0; b < kKeyBits; ++b) out |= ((q >> b) & 1u) << (3 * b + shift);
-  return out;
-}
-
+// kPot: H, with the potential as a fourth output row
+template <bool kPot>
 __global__ void __launch_bounds__(kThreads)
     shortrange_gravity_kernel(const float* __restrict__ soa,
                               const int* __restrict__ flags,
                               float* __restrict__ out, int n, int cap,
                               float edge, float half_inv_asmth, float rcut2,
                               float cull2, float key_scale) {
+  constexpr int kRowsOut = kPot ? 4 : 3;
   const int c = blockIdx.x;
-  float* o = out + static_cast<size_t>(c) * 3 * cap;
+  float* o = out + static_cast<size_t>(c) * kRowsOut * cap;
   if (flags[c] == 0) {
     for (int t = threadIdx.x; t < cap; t += blockDim.x) {
-      o[t] = 0.f;
-      o[cap + t] = 0.f;
-      o[2 * cap + t] = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRowsOut; ++r) o[r * cap + t] = 0.f;
     }
     return;
   }
@@ -136,18 +151,10 @@ __global__ void __launch_bounds__(kThreads)
       const int t = t0 + threadIdx.x;
       unsigned key = kFull;
       if (t < cap && tile[5 * cap + t] > 0.f)
-        key = spread(key_axis(tile[t], key_scale), 2) |
-              spread(key_axis(tile[cap + t], key_scale), 1) |
-              spread(key_axis(tile[2 * cap + t], key_scale), 0);
-      s_key[threadIdx.x] = key;
-      __syncthreads();
-      int rank = 0;
-      for (int i = 0; i < nt; ++i) {
-        const unsigned ki = s_key[i];
-        rank += ki < key || (ki == key && i < static_cast<int>(threadIdx.x));
-      }
-      s_slot[rank] = t;
-      __syncthreads();
+        key = glt::morton_key(key_axis(tile[t], key_scale),
+                              key_axis(tile[cap + t], key_scale),
+                              key_axis(tile[2 * cap + t], key_scale));
+      glt::rank_slots(key, t, s_key, s_slot);
     }
     const int ts = s_slot[threadIdx.x];   // the slot this thread sums for
     const bool live = ts < cap && tile[5 * cap + ts] > 0.f;
@@ -175,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool warp_live = __any_sync(kFull, live);
 
     // 3. the stream of 27 * cap sources in chunks of nt, double-buffered
-    float ax = 0.f, ay = 0.f, az = 0.f;
+    float ax = 0.f, ay = 0.f, az = 0.f, pot = 0.f;
     float4 p;
     float2 h;
     fetch(threadIdx.x, p, h);
@@ -183,8 +190,13 @@ __global__ void __launch_bounds__(kThreads)
     s_soft[0][threadIdx.x] = h;
     __syncthreads();
     auto pair = [&](const float4& q, const float2& hq) {
-      glt::gravity_pair(tx, ty, tz, th, thinv, q.x, q.y, q.z, q.w, hq.x,
-                        hq.y, half_inv_asmth, rcut2, ax, ay, az);
+      if constexpr (kPot)
+        glt::gravity_potential_pair(tx, ty, tz, th, thinv, q.x, q.y, q.z,
+                                    q.w, hq.x, hq.y, half_inv_asmth, rcut2,
+                                    ax, ay, az, pot);
+      else
+        glt::gravity_pair(tx, ty, tz, th, thinv, q.x, q.y, q.z, q.w, hq.x,
+                          hq.y, half_inv_asmth, rcut2, ax, ay, az);
     };
     for (int step = 0; step < steps; ++step) {
       const int b = step & 1;
@@ -235,8 +247,23 @@ __global__ void __launch_bounds__(kThreads)
       o[ts] = ax;
       o[cap + ts] = ay;
       o[2 * cap + ts] = az;
+      if constexpr (kPot) o[3 * cap + ts] = pot;
     }
   }
+}
+
+template <bool kPot>
+int launch(const float* soa, const int* flags, float* out, int n_cells,
+           int cap, float edge, float half_inv_asmth, float rcut2,
+           void* stream) {
+  const int c = n_cells * n_cells * n_cells;
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
+  const float key_scale = static_cast<float>(1 << kKeyBits) / edge;
+  shortrange_gravity_kernel<kPot><<<c, threads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      soa, flags, out, n_cells, cap, edge, half_inv_asmth, rcut2,
+      rcut2 * kCullMargin2, key_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -245,14 +272,16 @@ extern "C" int glt_shortrange_gravity(const float* soa, const int* flags,
                                       float* out, int n_cells, int cap,
                                       float edge, float half_inv_asmth,
                                       float rcut2, void* stream) {
-  const int c = n_cells * n_cells * n_cells;
-  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
-  const float key_scale = static_cast<float>(1 << kKeyBits) / edge;
-  shortrange_gravity_kernel<<<c, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      soa, flags, out, n_cells, cap, edge, half_inv_asmth, rcut2,
-      rcut2 * kCullMargin2, key_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(soa, flags, out, n_cells, cap, edge, half_inv_asmth,
+                       rcut2, stream);
+}
+
+extern "C" int glt_shortrange_potential(const float* soa, const int* flags,
+                                        float* out, int n_cells, int cap,
+                                        float edge, float half_inv_asmth,
+                                        float rcut2, void* stream) {
+  return launch<true>(soa, flags, out, n_cells, cap, edge, half_inv_asmth,
+                      rcut2, stream);
 }
 
 extern "C" const char* glt_error_string(int code) {

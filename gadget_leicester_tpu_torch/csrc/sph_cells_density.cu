@@ -17,109 +17,301 @@
 //   rho = sum m W(r, h_i),  drho/dh = sum m dW/dh,
 //   div = -sum m dW/dr / r (dv . dx),  rot = sum m dW/dr / r (dv x dx).
 // On a periodic grid a neighbour tile across the wrap is shifted by -+box
-// as a whole (n_cells >= 3, so this equals the per-pair minimum image); on
-// a vacuum grid nothing is shifted and the stencil cells beyond the edge
-// add nothing. The self-pair is included: the target meets its own slot in
-// the centre cell (shift 0) at r = 0 exactly, where it adds m W(0, h) and
-// dW/dr = 0. The stencil is complete because the caller caps h at the cell
-// edge. A cell whose flag is 0 and a parked target write zeros. out is
-// [C, 6, cap].
+// as a whole (n_cells >= 3, so this equals the per-pair minimum image):
+// dx = t - (s + shift); on a vacuum grid nothing is shifted and the
+// stencil cells beyond the edge add nothing. The self-pair is included:
+// the target meets its own slot in the centre cell (shift 0) at r = 0
+// exactly, where it adds m W(0, h) and dW/dr = 0. The stencil is complete
+// because the caller caps h at the cell edge. A cell whose flag is 0 and
+// a parked target write zeros. out is [C, 6, cap].
 //
 // What bounds it on the card. Pairs: at 2x128^3 gas, C = 28^3 cells with
 // ~96 of cap = 128 slots live, 27 * 96 * 96 pairs per cell, 5.4e9 per
-// sweep, of which the few percent inside the support pay the whole pair
-// arithmetic; the Newton loop runs a few sweeps. Bound by the FP32 pipes.
+// sweep, of which 1.15% lie inside the support h_i (h ~ 0.43 cell edges)
+// and pay the whole pair arithmetic; the Newton loop runs a few sweeps.
+// A warp pays a pair's arithmetic whenever one of its lanes is inside, so
+// the kernel is bound by instruction issue and divergence at the edge of
+// the support, not by bytes.
 //
-// What the design does about it. One thread block per cell, one thread per
-// target slot; each neighbour tile is staged once in shared memory (7
-// rows, in chunks of kTile slots so the block's shared memory does not
-// grow with cap) with its shift already added, and read by every thread.
-// Parked sources are skipped with a branch uniform across the block; a
-// warp whose targets are all parked skips the pair loop; a cell with no
-// live target skips its stencil. The TPU kernels' double-buffered DMA of
-// whole tiles, their [cap, cap] pair matrices and the (C, 27) grid are not
-// carried over.
+// What the design does about it: kernel C's (csrc/sph_density.cu) on the
+// 27-cell stencil, with the reach of the target's h alone.
+// - Chunk boxes. A first kernel writes, for each cell and each chunk of
+//   32 slots of it, the bounding box of its sources with m > 0 (an empty
+//   chunk's box is +inf..-inf, beyond any reach), into a workspace of C x
+//   ceil(cap / 32) x 8 floats that the C entry allocates on the stream
+//   (cudaMallocAsync; the wrapper's arguments stay those of the earlier
+//   design).
+// - Targets in space order. A thread block is 128 slots of one cell, one
+//   thread a target slot. The block ranks its live slots (m > 0) by a
+//   Morton key on an 8^3 grid over the bounding box of those slots (the
+//   kernel does not know a vacuum grid's origin), ties by slot, parked
+//   slots last, so each warp holds 32 close targets; the warp reduces
+//   their box and its reach, the largest h of its live targets
+//   (glt::warp_box).
+// - The chunk skip. A warp walks the items (stencil cell j, chunk) in
+//   order and skips those whose shifted box lies at least its reach
+//   (1 + 1e-5) from its targets' box; it stages the others itself (7
+//   rows, x, y, z, m, vx, vy, vz, of 32 slots), double-buffered with
+//   cp.async, from L2.
+// - Warp-uniform culling within a chunk: each lane tests its chunk's
+//   source against the warp's box, and a ballot keeps the sources with m >
+//   0 whose box distance is below the reach (1 + 1e-5). Every box test
+//   takes the shifted source coordinate as dx does, s + shift, so the box
+//   distance per axis, max(lo - (s + shift), (s + shift) - hi, 0), is in
+//   float32 never above |dx| for a target of the box (rounding is
+//   monotone); the 1e-5 covers the rounding of r = r2 rsqrt(r2), of the
+//   squares and of u = r (1/h). A culled source has u >= 1 for every lane
+//   of the warp, which the earlier design's density_pair left without
+//   adding. A target whose 1/h is 0 (glt::inv_or_zero: h not above 0, or
+//   infinite) adds only zeros, so what its h reaches does not change its
+//   sums; a NaN h adds nothing to the reach.
+// - The order of sums is kept: each target adds its pairs stencil cell j
+//   = 0..26, then slot k ascending, skipping only pairs the earlier design
+//   skipped (m = 0 or u >= 1), with the earlier design's pair arithmetic
+//   (glt::density_pair on the same expressions); the warp walks the kept
+//   sources two at a time where there are two, so that the two pairs'
+//   arithmetic can overlap. So I/J equals its earlier design (one thread
+//   per target walking every staged source) bit for bit, built with
+//   -fmad=false on both and, with nvcc 12.8, with its default contraction
+//   into FMAs too (PERF.md section 6). No compaction of the inside pairs.
+// nvcc 12.8 -Xptxas=-v for sm_90a: 56 registers periodic, 54 vacuum, 8,304
+// bytes of shared memory a block of 128 threads; the chunk boxes 20
+// registers.
 
 #include "glt_common.cuh"
 
 namespace {
 
-__global__ void sph_cells_density_kernel(const float* __restrict__ soa,
-                                         const float* __restrict__ h,
-                                         const int* __restrict__ flags,
-                                         float* __restrict__ out, int n,
-                                         int cap, float box, int periodic) {
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 7;   // staged rows x, y, z, m, vx, vy, vz
+constexpr int kKeyBits = glt::kKeyBits;
+// threads of chunk_boxes_kernel: one warp a chunk
+constexpr int kBoxThreads = 256;
+
+// boxes[(c * chunks + k) * 8 + 0..5] = lo x, y, z, hi x, y, z of the
+// sources with m > 0 among slots 32 k .. 32 k + 31 of cell c
+__global__ void __launch_bounds__(kBoxThreads)
+    chunk_boxes_kernel(const float* __restrict__ soa,
+                       float* __restrict__ boxes, int items, int cap,
+                       int chunks) {
+  const int item = blockIdx.x * (kBoxThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (item >= items) return;   // the whole warp
+  const int c = item / chunks, slot = (item - c * chunks) * 32 + lane;
+  const float* s = soa + static_cast<size_t>(c) * 8 * cap;
+  const bool in = slot < cap && s[3 * cap + slot] > 0.f;
+  const glt::Box b = glt::warp_box(in, in ? s[slot] : 0.f,
+                                   in ? s[cap + slot] : 0.f,
+                                   in ? s[2 * cap + slot] : 0.f, 0.f);
+  if (lane < 8) {
+    const float v[8] = {b.lo[0], b.lo[1], b.lo[2], b.hi[0], b.hi[1], b.hi[2],
+                        0.f, 0.f};
+    boxes[static_cast<size_t>(item) * 8 + lane] = v[lane];
+  }
+}
+
+// the cell of x on the key's grid over [lo, lo + (2^kKeyBits) / scale]
+__device__ __forceinline__ unsigned key_axis(float x, float lo, float scale) {
+  // __fsub_rn and __fmul_rn: no contraction, so the host can repeat it
+  const float f = floorf(__fmul_rn(__fsub_rn(x, lo), scale));
+  return static_cast<unsigned>(
+      fminf(fmaxf(f, 0.f), static_cast<float>((1 << kKeyBits) - 1)));
+}
+
+// The box distance squared from targets in [lo, hi] to sources in [slo,
+// shi] shifted by sh, per axis as dx = t - (s + sh) is taken
+__device__ __forceinline__ float box_dist2(const glt::Box& t,
+                                           const float (&slo)[3],
+                                           const float (&shi)[3],
+                                           const float (&sh)[3]) {
+  float e2 = 0.f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float e = fmaxf(fmaxf(t.lo[a] - (shi[a] + sh[a]),
+                                (slo[a] + sh[a]) - t.hi[a]),
+                          0.f);
+    e2 += e * e;
+  }
+  return e2;
+}
+
+template <bool kPeriodic>
+__global__ void __launch_bounds__(kThreads)
+    sph_cells_density_kernel(const float* __restrict__ soa,
+                             const float* __restrict__ h,
+                             const int* __restrict__ flags,
+                             const float* __restrict__ boxes,
+                             float* __restrict__ out, int n, int cap,
+                             int chunks, float box) {
   const int c = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(c) * 6 * cap;
   if (flags[c] == 0) {
-    for (int t = threadIdx.x; t < 6 * cap; t += blockDim.x) o[t] = 0.f;
+    if (t < cap)
+      for (int r = 0; r < 6; ++r) o[r * cap + t] = 0.f;
     return;
   }
-  __shared__ float s_x[glt::kTile], s_y[glt::kTile], s_z[glt::kTile];
-  __shared__ float s_m[glt::kTile];
-  __shared__ float s_vx[glt::kTile], s_vy[glt::kTile], s_vz[glt::kTile];
-
+  __shared__ float s_ring[kWarps][2][kRows][32];
+  __shared__ glt::Box s_tbox[kWarps];
+  __shared__ unsigned s_key[kThreads];
+  __shared__ int s_slot[kThreads];
+  const int nt = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float(*ring)[kRows][32] = s_ring[warp];
   const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
   const float* tile = soa + static_cast<size_t>(c) * 8 * cap;
 
-  for (int t0 = 0; t0 < cap; t0 += blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    const bool slot = t < cap;
-    float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
-    float hinv = 0.f;
-    bool live = false;
-    if (slot) {
-      live = tile[3 * cap + t] > 0.f;
-      tx = tile[t];
-      ty = tile[cap + t];
-      tz = tile[2 * cap + t];
-      tvx = tile[4 * cap + t];
-      tvy = tile[5 * cap + t];
-      tvz = tile[6 * cap + t];
-      hinv = glt::inv_or_zero(h[static_cast<size_t>(c) * cap + t]);
-    }
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    // the barrier also closes the previous chunk's reads of the tiles
-    const bool any_live = __syncthreads_or(live) != 0;
-    for (int j = 0; any_live && j < 27; ++j) {
-      int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
-      float shx = 0.f, shy = 0.f, shz = 0.f;
-      if (periodic) {
-        if (nx < 0) { nx += n; shx = -box; } else if (nx >= n) { nx -= n; shx = box; }
-        if (ny < 0) { ny += n; shy = -box; } else if (ny >= n) { ny -= n; shy = box; }
-        if (nz < 0) { nz += n; shz = -box; } else if (nz >= n) { nz -= n; shz = box; }
-      } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
-                 nz >= n) {
-        continue;  // beyond the edge of a vacuum grid: uniform in the block
-      }
-      const float* s = soa + static_cast<size_t>((nx * n + ny) * n + nz) * 8 * cap;
-      for (int s0 = 0; s0 < cap; s0 += glt::kTile) {
-        const int len = min(glt::kTile, cap - s0);
-        __syncthreads();
-        for (int k = threadIdx.x; k < len; k += blockDim.x) {
-          s_x[k] = s[s0 + k] + shx;
-          s_y[k] = s[cap + s0 + k] + shy;
-          s_z[k] = s[2 * cap + s0 + k] + shz;
-          s_m[k] = s[3 * cap + s0 + k];
-          s_vx[k] = s[4 * cap + s0 + k];
-          s_vy[k] = s[5 * cap + s0 + k];
-          s_vz[k] = s[6 * cap + s0 + k];
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int k = 0; k < len; ++k) {
-          const float m = s_m[k];
-          if (m == 0.f) continue;  // parked slot: uniform across the block
-          glt::density_pair(tx - s_x[k], ty - s_y[k], tz - s_z[k],
-                            tvx - s_vx[k], tvy - s_vy[k], tvz - s_vz[k], m,
-                            hinv, acc);
-        }
-      }
-    }
-    if (slot) {
+  // 1. rank the block's slots: live ones by Morton key over their box,
+  // parked ones last
+  {
+    const bool in = t < cap && tile[3 * cap + t] > 0.f;
+    const float x = in ? tile[t] : 0.f, y = in ? tile[cap + t] : 0.f,
+                z = in ? tile[2 * cap + t] : 0.f;
+    const glt::Box wb = glt::warp_box(in, x, y, z, 0.f);
+    if (lane == 0) s_tbox[warp] = wb;
+    __syncthreads();
+    float lo[3], scale[3];
 #pragma unroll
-      for (int r = 0; r < 6; ++r) o[r * cap + t] = acc[r];
+    for (int a = 0; a < 3; ++a) {
+      float l = s_tbox[0].lo[a], u = s_tbox[0].hi[a];
+      for (int w = 1; w < nt / 32; ++w) {
+        l = fminf(l, s_tbox[w].lo[a]);
+        u = fmaxf(u, s_tbox[w].hi[a]);
+      }
+      lo[a] = l;
+      scale[a] = u > l ? static_cast<float>(1 << kKeyBits) / (u - l) : 0.f;
     }
+    unsigned key = glt::kFull;
+    if (in)
+      key = glt::morton_key(key_axis(x, lo[0], scale[0]),
+                            key_axis(y, lo[1], scale[1]),
+                            key_axis(z, lo[2], scale[2]));
+    glt::rank_slots(key, t, s_key, s_slot);
+  }
+  const int ts = s_slot[threadIdx.x];   // the slot this thread sums for
+  const bool live = ts < cap && tile[3 * cap + ts] > 0.f;
+  float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
+  float ht = 0.f;
+  if (live) {
+    tx = tile[ts];
+    ty = tile[cap + ts];
+    tz = tile[2 * cap + ts];
+    tvx = tile[4 * cap + ts];
+    tvy = tile[5 * cap + ts];
+    tvz = tile[6 * cap + ts];
+    ht = h[static_cast<size_t>(c) * cap + ts];
+  }
+  const float hinv = glt::inv_or_zero(ht);
+  // 2. the warp's box and reach
+  const glt::Box tbox = glt::warp_box(live, tx, ty, tz, ht);
+  const float reach = fmaxf(tbox.h, 0.f);
+  const float reach2 = reach * reach * glt::kCullMargin2;
+
+  // stencil cell j: the flat id of the neighbour and its shift; false
+  // beyond the edge of a vacuum grid
+  auto neighbour = [&](int j, int& src, float (&sh)[3]) {
+    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    sh[0] = sh[1] = sh[2] = 0.f;
+    if constexpr (kPeriodic) {
+      if (nx < 0) { nx += n; sh[0] = -box; } else if (nx >= n) { nx -= n; sh[0] = box; }
+      if (ny < 0) { ny += n; sh[1] = -box; } else if (ny >= n) { ny -= n; sh[1] = box; }
+      if (nz < 0) { nz += n; sh[2] = -box; } else if (nz >= n) { nz -= n; sh[2] = box; }
+    } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
+               nz >= n) {
+      return false;
+    }
+    src = (nx * n + ny) * n + nz;
+    return true;
+  };
+  // the items (j, chunk) u = j * chunks + k of group g that the warp needs
+  const int items = 27 * chunks;
+  const int groups = (items + 31) >> 5;
+  auto need_mask = [&](int g) {
+    const int u = g * 32 + lane;
+    bool need = false;
+    int src;
+    float sh[3];
+    if (u < items && neighbour(u / chunks, src, sh)) {
+      const float* q =
+          boxes + (static_cast<size_t>(src) * chunks + u % chunks) * 8;
+      const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
+      need = box_dist2(tbox, slo, shi, sh) < reach2;
+    }
+    return __ballot_sync(glt::kFull, need);
+  };
+  int g = 0;
+  unsigned pending = 0;
+  // the next needed item after those taken, or -1 (warp-uniform)
+  auto next_item = [&]() {
+    while (pending == 0) {
+      if (g >= groups) return -1;
+      pending = need_mask(g++);
+    }
+    const int u = (g - 1) * 32 + __ffs(pending) - 1;
+    pending &= pending - 1;
+    return u;
+  };
+  auto stage = [&](int u, int buf) {
+    int src;
+    float sh[3];
+    neighbour(u / chunks, src, sh);
+    const int k0 = (u % chunks) * 32;
+    if (lane >= min(32, cap - k0)) return;
+    const float* s = soa + static_cast<size_t>(src) * 8 * cap + k0 + lane;
+    for (int r = 0; r < kRows; ++r)
+      glt::cp_async4(&ring[buf][r][lane], s + r * cap);
+  };
+
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int u = __any_sync(glt::kFull, live) ? next_item() : -1;
+  int buf = 0;
+  if (u >= 0) stage(u, 0);
+  glt::cp_async_commit();
+  while (u >= 0) {
+    const int nu = next_item();
+    if (nu >= 0) stage(nu, buf ^ 1);   // in flight while this one sums
+    glt::cp_async_commit();
+    glt::cp_async_wait_prior();
+    __syncwarp();
+
+    int src;
+    float sh[3];
+    neighbour(u / chunks, src, sh);
+    const float shx = sh[0], shy = sh[1], shz = sh[2];
+    const float(*sr)[32] = ring[buf];
+    bool near = false;
+    if (lane < min(32, cap - (u % chunks) * 32) && sr[3][lane] > 0.f) {
+      const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
+      near = box_dist2(tbox, s3, s3, sh) < reach2;
+    }
+    unsigned todo = __ballot_sync(glt::kFull, near);
+    if (!live) todo = 0;
+    // the earlier design's call, on the same expressions
+    auto pair = [&](int k) {
+      glt::density_pair(tx - (sr[0][k] + shx), ty - (sr[1][k] + shy),
+                        tz - (sr[2][k] + shz), tvx - sr[4][k],
+                        tvy - sr[5][k], tvz - sr[6][k], sr[3][k], hinv, acc);
+    };
+    while (todo) {
+      const int k1 = __ffs(todo) - 1;
+      todo &= todo - 1;
+      if (todo) {
+        const int k2 = __ffs(todo) - 1;
+        todo &= todo - 1;
+        pair(k1);
+        pair(k2);
+      } else {
+        pair(k1);
+      }
+    }
+    __syncwarp();   // every lane is done with this buffer before its refill
+    u = nu;
+    buf ^= 1;
+  }
+  if (ts < cap) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) o[r * cap + ts] = acc[r];
   }
 }
 
@@ -129,10 +321,37 @@ extern "C" int glt_sph_cells_density(const float* soa, const float* h,
                                      const int* flags, float* out, int n,
                                      int cap, float box, int periodic,
                                      void* stream) {
-  const int blocks = n * n * n;
-  const int threads = cap < 256 ? ((cap + 31) / 32) * 32 : 256;
-  sph_cells_density_kernel<<<blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      soa, h, flags, out, n, cap, box, periodic);
-  return static_cast<int>(cudaGetLastError());
+  const int cells = n * n * n;
+  const int chunks = (cap + 31) / 32;
+  const int items = cells * chunks;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the chunk boxes' workspace, stream-ordered; the device's default pool
+  // keeps what it frees for the next call
+  int dev = 0;
+  cudaMemPool_t pool;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetDefaultMemPool(&pool, dev);
+  if (rc == cudaSuccess) {
+    unsigned long long keep = ~0ull;
+    rc = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold,
+                                 &keep);
+  }
+  float* boxes = nullptr;
+  if (rc == cudaSuccess)
+    rc = cudaMallocAsync(reinterpret_cast<void**>(&boxes),
+                         static_cast<size_t>(items) * 8 * sizeof(float), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
+  const dim3 grid(cells, (cap + threads - 1) / threads);
+  chunk_boxes_kernel<<<(items + kBoxThreads / 32 - 1) / (kBoxThreads / 32),
+                       kBoxThreads, 0, st>>>(soa, boxes, items, cap, chunks);
+  if (periodic)
+    sph_cells_density_kernel<true><<<grid, threads, 0, st>>>(
+        soa, h, flags, boxes, out, n, cap, chunks, box);
+  else
+    sph_cells_density_kernel<false><<<grid, threads, 0, st>>>(
+        soa, h, flags, boxes, out, n, cap, chunks, box);
+  rc = cudaGetLastError();
+  const cudaError_t rc_free = cudaFreeAsync(boxes, st);
+  return static_cast<int>(rc != cudaSuccess ? rc : rc_free);
 }

@@ -1,11 +1,11 @@
 """Build, bind and count the hand-written CUDA kernels of ``csrc/``.
 
-The kernels, twelve sources (A short-range gravity, B PM deposit, C SPH
+The kernels, eleven sources (A short-range gravity and, in the same
+source, H short-range gravity with the potential, B PM deposit, C SPH
 density, D SPH hydro, the active-entry twins E, F, G of A, C, D, with E
 in two modes, the force and the force with the potential, and C, D, F, G
 each in two, block-relative on a periodic grid and absolute on a clamped
-one (the ``_abs`` entries), H short-range
-gravity with the potential, the coarse-cell SPH density I/J and hydro K,
+one (the ``_abs`` entries), the coarse-cell SPH density I/J and hydro K,
 L the CIC gather of the PM mesh, and M short-range gravity in absolute
 coordinates with the per-pair minimum image) are compiled on first use
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
@@ -45,8 +45,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = ("shortrange_gravity.cu", "pm_deposit.cu", "sph_density.cu",
            "sph_hydro.cu", "shortrange_gravity_entries.cu",
            "sph_density_entries.cu", "sph_hydro_entries.cu",
-           "shortrange_potential.cu", "sph_cells_density.cu",
-           "sph_cells_hydro.cu", "pm_gather.cu",
+           "sph_cells_density.cu", "sph_cells_hydro.cu", "pm_gather.cu",
            "shortrange_gravity_cells.cu")
 HEADERS = ("glt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

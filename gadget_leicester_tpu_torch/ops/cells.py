@@ -22,10 +22,11 @@ directly and walks the 27 neighbour cells itself; the TPU kernel's
 z-padded column layout is a DMA device and is not carried over. Kernel E
 (``csrc/shortrange_gravity_entries.cu``) runs A's physics for the few
 active targets of each entry against the same pack; its potential mode
-adds H's potential row. Kernel H (``csrc/shortrange_potential.cu``) adds
-the potential row to A's sums, for the full potential of the diagnostics
-and, on the step's cached pack, for the in-step potential that sinks and
-Stamatellos cooling read: A's own ``with_potential`` mode is H. Kernel M
+adds H's potential row. Kernel H (``csrc/shortrange_gravity.cu``, A's
+kernel with the potential, ``kPot``) adds the potential row to A's sums,
+for the full potential of the diagnostics and, on the step's cached
+pack, for the in-step potential that sinks and Stamatellos cooling read:
+A's own ``with_potential`` mode is H. Kernel M
 (``csrc/shortrange_gravity_cells.cu``) sums the same pair force on the
 absolute pack with a per-pair minimum image, on a periodic or a clamped
 grid. Their plain versions are in ``ops/gravity_short.py``.

@@ -746,3 +746,176 @@ def test_density_kernel_reaches_two_fine_cells_above_the_cap_on_card(
     got = _density_check(args)[0]
     rows = got.transpose(1, 2).reshape(-1, 6)
     assert float(rows[gslot[0].long(), 2]) != 0.0
+
+
+# Kernel H (csrc/shortrange_gravity.cu with the potential row, kPot): A's
+# walk on a cell of more than 128 live slots (two passes of 128 targets),
+# a source just inside or outside rcut across the periodic wrap, and an
+# isolated particle. Each case holds H to its float64 plain version and
+# its rows 0-2 to kernel A bit for bit.
+H_BOX, H_N, H_SOFT = 1.0, 5, 0.02    # cell edge 0.2
+H_ASMTH, H_RCUT = 0.04, 0.18
+
+
+def _potential_check(pos, mass, alive, cap):
+    """Kernels H and A on the relative pack of ``pos`` (numpy, float64)
+    over an H_N^3 list of ``cap`` slots: H against its float64 plain
+    version, its rows 0-2 against A bit for bit. Returns (H's rows [N, 4]
+    by particle, the float64 plain version's, the pack)."""
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
+                                                          merge_rows)
+    t = [torch.tensor(a, device="cuda") for a in (
+        pos.astype("float32"), mass.astype("float32"),
+        (0 * mass + H_SOFT).astype("float32"), alive)]
+    cl = build_cell_list(t[0], t[3], 0.0, H_BOX, H_N, cap)
+    assert not bool(cl.overflow)
+    soa = cells.pack_cells_soa(cl, *t)
+    flags = torch.ones(H_N ** 3, dtype=torch.int32, device="cuda")
+    args = (soa, flags, H_N, H_BOX, H_ASMTH, H_RCUT)
+    before = kernels.launches["shortrange_potential"]
+    got = cells.shortrange_potential_tiles(*args)
+    assert kernels.launches["shortrange_potential"] == before + 1
+    want = gravity_short.shortrange_potential_tiles_plain(*args)
+    exact = gravity_short.shortrange_potential_tiles_plain(
+        *chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("shortrange_potential", got, want, exact)
+    assert used <= 1.0
+    assert torch.equal(got[:, :3], cells.shortrange_gravity_tiles(*args))
+    return merge_rows(got, cl, 4), merge_rows(exact, cl, 4), soa
+
+
+def test_potential_kernel_two_passes_of_targets_on_card():
+    """A clump puts more than 128 live slots in one cell of a 256-slot
+    list: H ranks and sums each pass of 128 targets on its own."""
+    _need_card()
+    import numpy as np
+    rng = np.random.default_rng(31)
+    pos = rng.random((1400, 3))
+    pos[:160] = 0.08 + 0.12 * rng.random((160, 3))    # in cell 0
+    pos[-40:, 0] = rng.random(40) * 0.01              # at x = 0
+    alive = np.ones(1400, bool)
+    alive[-7:] = False
+    _, _, soa = _potential_check(pos, rng.random(1400) + 0.5, alive, 256)
+    assert int((soa[:, 5] > 0).sum(1).max()) > 128
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_potential_kernel_source_across_the_wrap_on_card(sign):
+    """A heavy source at rcut (1 + sign 1e-4) from a target, across the
+    periodic wrap in x, the rest of the gas beyond 1.2 rcut of the
+    target: inside, the source's pull and potential make the target's
+    row; outside, the row is 0 bit for bit."""
+    _need_card()
+    import numpy as np
+    rng = np.random.default_rng(32 + sign)
+    target = np.array([0.01, 0.5, 0.5])
+    source = target - [H_RCUT * (1.0 + sign * 1e-4), 0.0, 0.0]
+    source[0] += H_BOX
+    bg = rng.random((600, 3))
+    d = bg - target
+    d -= H_BOX * np.round(d / H_BOX)
+    bg = bg[np.sqrt((d ** 2).sum(1)) > 1.2 * H_RCUT]
+    pos = np.concatenate([target[None], source[None], bg])
+    mass = np.concatenate([[1.0, 1e4], 0.5 + rng.random(len(bg))])
+    rows, exact, _ = _potential_check(pos, mass, np.ones(len(pos), bool), 128)
+    if sign < 0:   # pulled towards -x; erfc(2.25) ~ 1.5e-3 of -m / r
+        assert float(exact[0, 0]) < -1e3 and float(exact[0, 3]) < -10.0
+        assert float(rows[0, 0]) < -1e3 and float(rows[0, 3]) < -10.0
+    else:
+        assert not bool(rows[0].any())
+
+
+@pytest.mark.parametrize("x", [0.5, 0.0, 0.9999])
+def test_potential_kernel_isolated_particle_on_card(x):
+    """The self-pair (grav_pot(0, h) = -2.8/h) adds nothing on the card
+    either: a lone live particle's row is 0 bit for bit, in the cell
+    interior and at either side of the periodic wrap."""
+    _need_card()
+    import numpy as np
+    pos = np.array([[x, 0.31, 0.77], [0.2, 0.7, 0.2]])
+    rows, _, _ = _potential_check(pos, np.array([2.0, 1.0]),
+                                  np.array([True, False]), 8)
+    assert not bool(rows[0].any())
+
+
+# Kernel I/J (csrc/sph_cells_density.cu) at the edges of its chunk skip
+# and warp boxes, in periodic and vacuum modes: coordinates equal to the
+# box in float32, h at the cell edge (the cap), a cell whose live targets
+# all lie in one warp with parked lanes around them, live targets with h
+# = 0. Each case holds the kernel to its float64 plain version.
+IJ_BOX, IJ_N = 3.0, 3                # cell edge 1
+
+
+def _cells_density_args(case: str, periodic: bool):
+    """Kernel I/J's arguments for seeded gas built for ``case``, on an
+    IJ_N^3 list of 128 slots over [0, IJ_BOX)."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    rng = np.random.default_rng(["box_edge", "h_edge", "one_warp",
+                                 "h_zero"].index(case) + 10 * periodic)
+    pos = rng.uniform(0.0, IJ_BOX, (1200, 3))
+    if case == "one_warp":
+        # 20 gas in cell (1, 1, 1), whose other 108 slots stay parked
+        inner = np.all((pos >= 1.0) & (pos < 2.0), axis=1)
+        pos = np.concatenate([pos[~inner], rng.uniform(1.2, 1.8, (20, 3))])
+    if case == "box_edge":
+        pos[:3] = [[IJ_BOX, 1.0, 1.0], [0.0, IJ_BOX, 0.5],
+                   [IJ_BOX, IJ_BOX, IJ_BOX]]
+    n = len(pos)
+    h = rng.uniform(0.3, 0.6, n)
+    if case == "h_edge":
+        h[::2] = IJ_BOX / IJ_N
+    if case == "h_zero":
+        h[::7] = 0.0
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device="cuda")
+
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    cl = build_cell_list(t(pos), mask, 0.0, IJ_BOX, IJ_N, 128, periodic)
+    assert not bool(cl.overflow)
+    soa = sc.pack_sph_soa(cl, t(pos), t(rng.normal(0.0, 1.0, (n, 3))),
+                          t(rng.uniform(0.5, 1.5, n)), t(np.ones(n)), mask,
+                          IJ_BOX)
+    cells = cl.cells
+    h_slots = torch.where(cells >= 0, t(h)[cells.clamp_min(0).long()],
+                          torch.ones((), device="cuda"))
+    flags = torch.ones(IJ_N ** 3, dtype=torch.int32, device="cuda")
+    return (soa, h_slots.contiguous(), flags, IJ_N, IJ_BOX, periodic), cl
+
+
+@pytest.mark.parametrize("case", ["box_edge", "h_edge", "one_warp",
+                                  "h_zero"])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_cells_density_kernel_edges_on_card(periodic, case):
+    """Kernel I/J against its float64 plain version; parked slots and live
+    targets with h = 0 write zeros; the gas at the box edge and in the
+    one-warp cell has its neighbours (div v not 0)."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
+    args, cl = _cells_density_args(case, periodic)
+    before = kernels.launches["sph_cells_density"]
+    got = sc.density_sums_cells(*args)
+    assert kernels.launches["sph_cells_density"] == before + 1
+    want = sc.density_sums_cells_plain(*args)
+    exact = sc.density_sums_cells_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("sph_cells_density", got, want, exact)
+    assert used <= 1.0
+    soa, h_slots = args[0], args[1]
+    assert bool((got.transpose(1, 2)[soa[:, 3] == 0] == 0).all())
+    rows = merge_rows(got, cl, 6)
+    if case == "h_zero":
+        assert bool((got.transpose(1, 2)[h_slots == 0] == 0).all())
+        assert bool((rows[0::7] == 0).all()) and bool((rows[1] != 0).any())
+    elif case == "box_edge":
+        assert bool((rows[:3, 2] != 0).all()) and bool((rows[:3, 0] > 0).all())
+    elif case == "one_warp":
+        assert int((soa[13, 3] > 0).sum()) == 20
+        assert bool((rows[-20:, 2] != 0).all())

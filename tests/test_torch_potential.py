@@ -207,3 +207,40 @@ def test_clump_over_capacity_sets_bit_1():
         st, cfg, dataclasses.replace(opts, sr_capacity=256))
     assert int(bigger.overflow_flags) == 0
 
+
+
+def test_walk_model_of_kernel_h_keeps_every_pair_inside_rcut():
+    """chip_smoke.gravity_walk, the model of the culling of kernels A and
+    H (csrc/shortrange_gravity.cu), on a clump that puts more than 128
+    live slots in one cell of a 256-slot list (two passes of 128 targets,
+    each ranked on its own) and particles at x = 0: every pair of a live
+    target and a source with m > 0 at 0 < r2 < rcut^2 (float32, as the
+    kernels take it) is walked, and the walk leaves out some pairs."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch.ops.gravity_short import stencil_sources
+    pos, mass, soft, alive = _particles(3, n=1400)
+    t = [torch.from_numpy(np.asarray(a)) for a in (pos, mass, soft, alive)]
+    cl = build_cell_list(t[0], t[3], 0.0, BOX, N_CELLS, 256)
+    assert not bool(cl.overflow)
+    soa = pack_cells_soa(cl, *t)
+    assert int((soa[:, 5] > 0).sum(1).max()) > 128
+    flags = torch.ones(N_CELLS ** 3, dtype=torch.int32)
+    args = (soa, flags, N_CELLS, BOX, ASMTH, RCUT)
+    rcut2 = torch.tensor(RCUT * RCUT, dtype=torch.float32)
+    inside = kept = walked = stencil = 0
+    for c0 in range(0, N_CELLS ** 3, 5):
+        cells = torch.arange(c0, c0 + 5)
+        xyz, lv, sxyz, near = chip_smoke.gravity_walk(args, cells)
+        d2 = 0.0
+        for a in range(3):
+            d = xyz[:, a, :, :, None] - sxyz[:, a, None, None, :]
+            d2 = d2 + d * d
+        s_live = (soa[stencil_sources(N_CELLS, cells)[0]][:, :, 3] != 0)
+        pair = lv[..., None] & s_live.flatten(1)[:, None, None, :]
+        in_cut = pair & (d2 > 0) & (d2 < rcut2)
+        inside += int(in_cut.sum())
+        kept += int((in_cut & near[:, :, None, :]).sum())
+        walked += int((pair & near[:, :, None, :]).sum())
+        stencil += int(pair.sum())
+    assert inside > 0 and kept == inside
+    assert walked < stencil

@@ -394,3 +394,54 @@ def test_particle_on_the_box_edge_keeps_its_neighbours():
                                oracle[d["mask"]].numpy(), rtol=0,
                                atol=2e-5 * float(oracle.max()))
     assert float(rho[0]) > 0.5 * float(rho.median())
+
+
+@pytest.mark.parametrize("periodic,cap", [(True, 128), (False, 128),
+                                          (True, 224)])
+def test_walk_model_of_kernel_ij_keeps_every_pair_inside_the_support(
+        periodic, cap):
+    """chip_smoke.cells_density_walk, the model of kernel I/J's culling
+    (csrc/sph_cells_density.cu: chunk boxes, warp boxes with the reach of
+    the largest target h), on seeded gas with coordinates equal to the box
+    (periodic), a fifth of the gas at h equal to the cell edge (the cap)
+    and a target with h = 0; at 224 slots a clump puts more than 128 live
+    slots in one cell (two passes of targets, seven chunks a cell). Every
+    pair of a live target with h > 0 and a source with m > 0 in the grid
+    inside the support (r < h, or r (1/h) < 1 in float32 as the kernel
+    takes u) is walked, and the walk leaves out some pairs."""
+    import chip_smoke
+    d = _setup(40 + cap + periodic, 1400, periodic)
+    n_cells, n = 3, 1400
+    rng = np.random.default_rng(cap)
+    if periodic:
+        d["pos"][:3] = [[BOX, 1.0, 1.0], [0.0, BOX, 0.5], [BOX, BOX, BOX]]
+    if cap > 128:
+        d["pos"][3:153] = rng.uniform(1.1, 1.9, (150, 3))
+    edge = np.float32(d["extent"] / n_cells)
+    d["h"][rng.choice(n, n // 5, replace=False)] = edge
+    d["h"][5] = 0.0
+    t = build_cell_list(*_t(d["pos"], d["mask"]),
+                        torch.as_tensor(d["origin"]),
+                        torch.as_tensor(d["extent"]), n_cells, cap, periodic)
+    assert not bool(t.overflow)
+    tens = _t(*[d[k] for k in ("pos", "vel", "mass", "h", "mask")])
+    soa = sc.pack_sph_soa(t, *tens, d["box"])
+    cells = t.cells.numpy()
+    h_slots = torch.from_numpy(np.where(cells >= 0, d["h"][np.maximum(
+        cells, 0)], 1.0).astype(np.float32))
+    if cap > 128:
+        assert int((soa[:, 3] > 0).sum(1).max()) > 128
+    c = n_cells ** 3
+    args = (soa, h_slots, torch.ones(c, dtype=torch.int32), n_cells,
+            d["box"], periodic)
+    k = torch.arange(c)
+    live, walked = chip_smoke.cells_density_walk(args, k)
+    s, inside = sc._gather_sources(soa, k, n_cells, d["box"], periodic,
+                                   range(4))
+    r = sc._pair_geometry(soa, s)[3]
+    hs = h_slots[:, :, None]
+    support = ((r < hs) | (r * (1.0 / hs) < 1.0)) & (hs > 0)
+    pair = live[..., None] & ((s[3] > 0) & inside)[:, None, :]
+    assert int((pair & support).sum()) > 0
+    assert not bool((pair & support & ~walked).any())
+    assert int((pair & walked).sum()) < int(pair.sum())
