@@ -296,37 +296,30 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6}
 # input tensor read once, the output written once) over PEAK_BYTES; the
 # H100 SXM's published rates at 700 W. Operations are counted on the pair
 # arithmetic of csrc/glt_common.cuh, which is the plain version's (add,
-# multiply, compare, min, max 1 each, FMA 2, rsqrt 1): every pair of a
-# live target and a live source in the target's 27-cell or 8-block stencil
-# pays the test of the cut, TEST_OPS; the pairs inside the cut (0 < r <
-# rcut for gravity, r < h or max(h_i, h_j) for SPH, counted on the
-# recorded arguments) pay OPS_PER_PAIR in all, for the branch beyond the
-# softening. Kernel B: its live slots times OPS_PER_DEPOSIT. Kernel L: its
+# multiply, compare, min, max 1 each, FMA 2, rsqrt 1), and only where the
+# function needs them: the pairs inside the cut (0 < r < rcut for
+# gravity, r < h or max(h_i, h_j) for SPH, counted on the recorded
+# arguments) pay OPS_PER_PAIR each, the test of the cut and the branch
+# beyond the softening included; a pair outside adds nothing to the
+# result, so it costs the bound nothing, however many of them a kernel
+# walks. Kernel B: its live slots times OPS_PER_DEPOSIT. Kernel L: its
 # particles times 15 (the mesh coordinate, floor and the six weights)
 # plus, for each of 8 corners, 2 for its weight and a multiply and an add
 # per component; its bytes are the positions, the mesh and the output
 # (torch.nn.functional.grid_sample computes the same function and
-# moves the same bytes). Kernel M: A's 10-operation test and, on a
-# periodic grid, 12 for the per-pair minimum image (per axis a multiply, a
-# round and an FMA) on every live stencil pair; a pair inside the cut pays
-# A's 50 in all plus the 12 and 2 for the exact r < rcut test, less 22
+# moves the same bytes). Kernel M: a pair inside the cut pays A's 50 plus
+# 12 for the per-pair minimum image on a periodic grid (per axis a
+# multiply, a round and an FMA) and 2 for the exact r < rcut test, less 22
 # where the truncation polynomial is off (asmth = 0). The absolute modes of
 # C, D, F, G pay 3 operations less on every pair: dx = t - s, no shift.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-TEST_OPS = {"shortrange_gravity": 10, "shortrange_gravity_entries": 10,
-            "shortrange_potential": 10, "shortrange_potential_entries": 10,
-            "sph_density": 13,
-            "sph_density_entries": 13, "sph_hydro": 15,
-            "sph_hydro_entries": 15, "sph_cells_density": 13,
-            "sph_cells_hydro": 15}
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
                 "shortrange_potential": 77,
                 "shortrange_potential_entries": 77, "sph_density": 73,
                 "sph_density_entries": 73, "sph_hydro": 86,
                 "sph_hydro_entries": 86, "sph_cells_density": 73,
                 "sph_cells_hydro": 86}
-TEST_OPS.update({n: TEST_OPS[n.removesuffix("_abs")] - 3 for n in ABS})
 OPS_PER_PAIR.update({n: OPS_PER_PAIR[n.removesuffix("_abs")] - 3
                      for n in ABS})
 OPS_PER_DEPOSIT = 44
@@ -1060,10 +1053,10 @@ def pair_count(name: str, args: tuple) -> tuple:
 
 # Kernels A, H, C, D and I/J walk fewer pairs than their stencil holds, in
 # the same order of sums (csrc/shortrange_gravity.cu, csrc/sph_density.cu,
-# csrc/sph_hydro.cu, csrc/sph_cells_density.cu). The bound above counts the
-# stencil, so that shares compare across designs; these mirror each
-# design's culling rules in float32 and count the pairs they leave to
-# evaluate. They are models of the kernels' walks, not counts taken in the
+# csrc/sph_hydro.cu, csrc/sph_cells_density.cu). The bound above counts
+# only the pairs inside the cut; these mirror each design's culling rules
+# in float32 and count the pairs they leave to evaluate, which a share of
+# the stencil pairs compares across designs. They are models of the kernels' walks, not counts taken in the
 # kernels.
 # A and H: live targets ranked per pass of A_THREADS slots by the Morton
 # key of their position on an A_KEY_CELLS^3 grid over their cell, in warps
@@ -1449,15 +1442,11 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
         ops = stencil * (15 + 8 * (2 + 2 * args[0].shape[-1]))
     elif name == "shortrange_gravity_cells":
         periodic, asmth = args[3], args[4]
-        test = TEST_OPS["shortrange_gravity"] \
-            + (MIN_IMAGE_OPS if periodic else 0)
-        inside = OPS_PER_PAIR["shortrange_gravity"] + 2 \
-            + (MIN_IMAGE_OPS if periodic else 0) \
-            - (0 if asmth > 0 else TRUNC_OPS)
-        ops = stencil * test + in_cut * (inside - test)
+        ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2
+                        + (MIN_IMAGE_OPS if periodic else 0)
+                        - (0 if asmth > 0 else TRUNC_OPS))
     else:
-        ops = (stencil * TEST_OPS[name]
-               + in_cut * (OPS_PER_PAIR[name] - TEST_OPS[name]))
+        ops = in_cut * OPS_PER_PAIR[name]
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return {"pairs": stencil, "in_cut": in_cut, "ops": ops, "bytes": nbytes,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -3917,7 +3906,7 @@ def main() -> int:
             ("A", PTXAS_NAME["shortrange_gravity"]),
             ("H", PTXAS_NAME["shortrange_potential"]),
             ("I/J (vacuum, periodic grid)", PTXAS_NAME["sph_cells_density"]),
-            ("I/J's chunk boxes", "chunk_boxes_kernel"))))
+            ("the box kernels of C, D and I/J", "subcell_boxes_kernel"))))
     del recorded
     kernels.recorded.clear()
     phase_potential(results, main_state, card)

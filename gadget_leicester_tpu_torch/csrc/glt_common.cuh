@@ -277,10 +277,10 @@ __device__ __forceinline__ float warp_max(float v) {
 constexpr int kEntryLanes = 8;   // ENTRY_LANES of ops/cells.py
 constexpr int kEntryWarps = 4;
 
-// The culling of the block SPH kernels C and D (csrc/sph_density.cu,
-// csrc/sph_hydro.cu, whose headers set out the rule): boxes of a warp's
-// targets and of each source subcell, and the test of a pair on boxes
-// that contain both its ends.
+// The culling of the SPH kernels C, D and I/J (csrc/sph_density.cu,
+// csrc/sph_hydro.cu, csrc/sph_cells_density.cu, whose headers set out the
+// rule): boxes of a warp's targets and of each source subcell or chunk,
+// and the test of a pair on boxes that contain both its ends.
 
 constexpr unsigned kFull = 0xffffffffu;
 // a source is culled only beyond its reach (1 + 1e-5) of a box
@@ -291,19 +291,36 @@ struct Box {
   float lo[3], hi[3], h;
 };
 
-// Whether a pair with its target in box t and its source in box s (per
-// axis dx = (t - s) + sh[a]) may have r < max(t.h, hs): the box distance
-// per axis is taken as dx is, monotone in both ends, so it is never above
-// the |dx| of a pair inside the boxes.
-template <bool kAbs>
+// How a source's shift sh enters dx on each axis, as each kernel takes
+// dx: kNone, dx = t - s (the absolute packs of C and D); kPair, dx = (t -
+// s) + sh (C and D's block-relative packs); kSource, dx = t - (s + sh)
+// (I/J, whose tiles across the wrap are shifted as a whole). The box test
+// must take dx as its kernel does to stay monotone, so the argument names
+// the caller's form of dx.
+enum class Shift { kNone, kPair, kSource };
+
+// Whether a pair with its target in box t and its source in box s (dx per
+// axis by kShift) may have r < max(t.h, hs): the box distance per axis is
+// taken as dx is, monotone in both ends, so it is never above the |dx| of
+// a pair inside the boxes.
+template <Shift kShift>
 __device__ __forceinline__ bool near_boxes(const Box& t, const float (&slo)[3],
                                            const float (&shi)[3], float hs,
                                            const float (&sh)[3]) {
   float e2 = 0.f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float l = kAbs ? t.lo[a] - shi[a] : (t.lo[a] - shi[a]) + sh[a];
-    const float u = kAbs ? t.hi[a] - slo[a] : (t.hi[a] - slo[a]) + sh[a];
+    float l, u;
+    if constexpr (kShift == Shift::kNone) {
+      l = t.lo[a] - shi[a];
+      u = t.hi[a] - slo[a];
+    } else if constexpr (kShift == Shift::kPair) {
+      l = (t.lo[a] - shi[a]) + sh[a];
+      u = (t.hi[a] - slo[a]) + sh[a];
+    } else {
+      l = t.lo[a] - (shi[a] + sh[a]);
+      u = t.hi[a] - (slo[a] + sh[a]);
+    }
     const float e = fmaxf(fmaxf(l, -u), 0.f);
     e2 += e * e;
   }
@@ -360,27 +377,34 @@ __device__ __forceinline__ void rank_slots(unsigned key, int t,
   __syncthreads();
 }
 
-// Threads of subcell_boxes_kernel: one warp a subcell of an 8-subcell block
+// Threads of subcell_boxes_kernel: one warp a part
 constexpr int kBoxThreads = 256;
 
 namespace {
 
-// boxes[(o * 8 + sk) * 8 + 0..6] = lo x, y, z, hi x, y, z and the largest
-// h of the valid sources of subcell sk of odd block o (lo = +inf, hi =
-// -inf, h = 0 where it has none) in a pack of kStride rows a block: a
-// source is valid where row kValidRow is > 0, and its h is row kHRow (or
-// 0 for every source where kHRow < 0: the density kernel, whose support
-// is the target's h alone). One warp a subcell.
+// boxes[(o * parts + k) * 8 + 0..6] = lo x, y, z, hi x, y, z and the
+// largest h of the valid sources among slots k * part .. (k + 1) * part - 1
+// (those below lanes) of tile o (lo = +inf, hi = -inf, h = 0 where it has
+// none) in a pack of kStride rows of lanes slots a tile, for items = tiles
+// x parts: a source is valid where row kValidRow is > 0, and its h is row
+// kHRow (or 0 for every source where kHRow < 0: the density kernels,
+// whose support is the target's h alone). The parts are the 8 subcells of
+// a block of C and D (part = lanes / 8) or the 32-slot chunks of a cell
+// of I/J (part = 32). One warp a part.
 template <int kStride, int kValidRow, int kHRow>
 __global__ void __launch_bounds__(kBoxThreads)
     subcell_boxes_kernel(const float* __restrict__ src,
-                         float* __restrict__ boxes, int lanes) {
-  const int o = blockIdx.x, sk = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int subcap = lanes >> 3;
-  const float* s = src + static_cast<size_t>(o) * kStride * lanes + sk * subcap;
+                         float* __restrict__ boxes, int lanes, int part,
+                         int parts, int items) {
+  const int item = blockIdx.x * (kBoxThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (item >= items) return;   // the whole warp
+  const int o = item / parts, k = item - o * parts;
+  const int end = min(part, lanes - k * part);
+  const float* s = src + static_cast<size_t>(o) * kStride * lanes + k * part;
   const float inf = __int_as_float(0x7f800000);
   float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf}, h = 0.f;
-  for (int i = lane; i < subcap; i += 32) {
+  for (int i = lane; i < end; i += 32) {
     if (!(s[kValidRow * lanes + i] > 0.f)) continue;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -399,8 +423,20 @@ __global__ void __launch_bounds__(kBoxThreads)
   }
   if (lane < 8) {
     const float v[8] = {lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], h, 0.f};
-    boxes[(static_cast<size_t>(o) * 8 + sk) * 8 + lane] = v[lane];
+    boxes[static_cast<size_t>(item) * 8 + lane] = v[lane];
   }
+}
+
+// subcell_boxes_kernel over tiles x ceil(lanes / part) parts, on st
+template <int kStride, int kValidRow, int kHRow>
+void launch_boxes(const float* src, float* boxes, int tiles, int lanes,
+                  int part, cudaStream_t st) {
+  const int parts = (lanes + part - 1) / part;
+  const int items = tiles * parts;
+  constexpr int per_block = kBoxThreads / 32;
+  subcell_boxes_kernel<kStride, kValidRow, kHRow>
+      <<<(items + per_block - 1) / per_block, kBoxThreads, 0, st>>>(
+          src, boxes, lanes, part, parts, items);
 }
 
 }  // namespace

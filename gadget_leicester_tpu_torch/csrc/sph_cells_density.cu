@@ -35,12 +35,11 @@
 //
 // What the design does about it: kernel C's (csrc/sph_density.cu) on the
 // 27-cell stencil, with the reach of the target's h alone.
-// - Chunk boxes. A first kernel writes, for each cell and each chunk of
+// - Chunk boxes. A first kernel (glt::subcell_boxes_kernel, shared with C
+//   and D, with parts of 32 slots) writes, for each cell and each chunk of
 //   32 slots of it, the bounding box of its sources with m > 0 (an empty
 //   chunk's box is +inf..-inf, beyond any reach), into a workspace of C x
-//   ceil(cap / 32) x 8 floats that the C entry allocates on the stream
-//   (cudaMallocAsync; the wrapper's arguments stay those of the earlier
-//   design).
+//   ceil(cap / 32) x 8 floats that the wrapper allocates.
 // - Targets in space order. A thread block is 128 slots of one cell, one
 //   thread a target slot. The block ranks its live slots (m > 0) by a
 //   Morton key on an 8^3 grid over the bounding box of those slots (the
@@ -56,10 +55,10 @@
 // - Warp-uniform culling within a chunk: each lane tests its chunk's
 //   source against the warp's box, and a ballot keeps the sources with m >
 //   0 whose box distance is below the reach (1 + 1e-5). Every box test
-//   takes the shifted source coordinate as dx does, s + shift, so the box
-//   distance per axis, max(lo - (s + shift), (s + shift) - hi, 0), is in
-//   float32 never above |dx| for a target of the box (rounding is
-//   monotone); the 1e-5 covers the rounding of r = r2 rsqrt(r2), of the
+//   (glt::near_boxes<glt::Shift::kSource>) takes the shifted source
+//   coordinate as dx does, s + shift, so the box distance per axis, max(lo
+//   - (s + shift), (s + shift) - hi, 0), is in float32 never above |dx|
+//   for a target of the box (rounding is monotone); the 1e-5 covers the rounding of r = r2 rsqrt(r2), of the
 //   squares and of u = r (1/h). A culled source has u >= 1 for every lane
 //   of the warp, which the earlier design's density_pair left without
 //   adding. A target whose 1/h is 0 (glt::inv_or_zero: h not above 0, or
@@ -73,10 +72,11 @@
 //   arithmetic can overlap. So I/J equals its earlier design (one thread
 //   per target walking every staged source) bit for bit, built with
 //   -fmad=false on both and, with nvcc 12.8, with its default contraction
-//   into FMAs too (PERF.md section 6). No compaction of the inside pairs.
+//   into FMAs too, periodic and vacuum (PERF.md section 6). No compaction
+//   of the inside pairs.
 // nvcc 12.8 -Xptxas=-v for sm_90a: 56 registers periodic, 54 vacuum, 8,304
-// bytes of shared memory a block of 128 threads; the chunk boxes 20
-// registers.
+// bytes of shared memory a block of 128 threads; the chunk boxes (C's
+// instantiation of glt::subcell_boxes_kernel) 32 registers.
 
 #include "glt_common.cuh"
 
@@ -86,30 +86,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 7;   // staged rows x, y, z, m, vx, vy, vz
 constexpr int kKeyBits = glt::kKeyBits;
-// threads of chunk_boxes_kernel: one warp a chunk
-constexpr int kBoxThreads = 256;
-
-// boxes[(c * chunks + k) * 8 + 0..5] = lo x, y, z, hi x, y, z of the
-// sources with m > 0 among slots 32 k .. 32 k + 31 of cell c
-__global__ void __launch_bounds__(kBoxThreads)
-    chunk_boxes_kernel(const float* __restrict__ soa,
-                       float* __restrict__ boxes, int items, int cap,
-                       int chunks) {
-  const int item = blockIdx.x * (kBoxThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (item >= items) return;   // the whole warp
-  const int c = item / chunks, slot = (item - c * chunks) * 32 + lane;
-  const float* s = soa + static_cast<size_t>(c) * 8 * cap;
-  const bool in = slot < cap && s[3 * cap + slot] > 0.f;
-  const glt::Box b = glt::warp_box(in, in ? s[slot] : 0.f,
-                                   in ? s[cap + slot] : 0.f,
-                                   in ? s[2 * cap + slot] : 0.f, 0.f);
-  if (lane < 8) {
-    const float v[8] = {b.lo[0], b.lo[1], b.lo[2], b.hi[0], b.hi[1], b.hi[2],
-                        0.f, 0.f};
-    boxes[static_cast<size_t>(item) * 8 + lane] = v[lane];
-  }
-}
 
 // the cell of x on the key's grid over [lo, lo + (2^kKeyBits) / scale]
 __device__ __forceinline__ unsigned key_axis(float x, float lo, float scale) {
@@ -117,23 +93,6 @@ __device__ __forceinline__ unsigned key_axis(float x, float lo, float scale) {
   const float f = floorf(__fmul_rn(__fsub_rn(x, lo), scale));
   return static_cast<unsigned>(
       fminf(fmaxf(f, 0.f), static_cast<float>((1 << kKeyBits) - 1)));
-}
-
-// The box distance squared from targets in [lo, hi] to sources in [slo,
-// shi] shifted by sh, per axis as dx = t - (s + sh) is taken
-__device__ __forceinline__ float box_dist2(const glt::Box& t,
-                                           const float (&slo)[3],
-                                           const float (&shi)[3],
-                                           const float (&sh)[3]) {
-  float e2 = 0.f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float e = fmaxf(fmaxf(t.lo[a] - (shi[a] + sh[a]),
-                                (slo[a] + sh[a]) - t.hi[a]),
-                          0.f);
-    e2 += e * e;
-  }
-  return e2;
 }
 
 template <bool kPeriodic>
@@ -205,8 +164,6 @@ __global__ void __launch_bounds__(kThreads)
   const float hinv = glt::inv_or_zero(ht);
   // 2. the warp's box and reach
   const glt::Box tbox = glt::warp_box(live, tx, ty, tz, ht);
-  const float reach = fmaxf(tbox.h, 0.f);
-  const float reach2 = reach * reach * glt::kCullMargin2;
 
   // stencil cell j: the flat id of the neighbour and its shift; false
   // beyond the edge of a vacuum grid
@@ -236,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       const float* q =
           boxes + (static_cast<size_t>(src) * chunks + u % chunks) * 8;
       const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
-      need = box_dist2(tbox, slo, shi, sh) < reach2;
+      need = glt::near_boxes<glt::Shift::kSource>(tbox, slo, shi, 0.f, sh);
     }
     return __ballot_sync(glt::kFull, need);
   };
@@ -283,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
     bool near = false;
     if (lane < min(32, cap - (u % chunks) * 32) && sr[3][lane] > 0.f) {
       const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
-      near = box_dist2(tbox, s3, s3, sh) < reach2;
+      near = glt::near_boxes<glt::Shift::kSource>(tbox, s3, s3, 0.f, sh);
     }
     unsigned todo = __ballot_sync(glt::kFull, near);
     if (!live) todo = 0;
@@ -318,40 +275,20 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int glt_sph_cells_density(const float* soa, const float* h,
-                                     const int* flags, float* out, int n,
-                                     int cap, float box, int periodic,
-                                     void* stream) {
+                                     const int* flags, float* boxes,
+                                     float* out, int n, int cap, float box,
+                                     int periodic, void* stream) {
   const int cells = n * n * n;
   const int chunks = (cap + 31) / 32;
-  const int items = cells * chunks;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the chunk boxes' workspace, stream-ordered; the device's default pool
-  // keeps what it frees for the next call
-  int dev = 0;
-  cudaMemPool_t pool;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) rc = cudaDeviceGetDefaultMemPool(&pool, dev);
-  if (rc == cudaSuccess) {
-    unsigned long long keep = ~0ull;
-    rc = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold,
-                                 &keep);
-  }
-  float* boxes = nullptr;
-  if (rc == cudaSuccess)
-    rc = cudaMallocAsync(reinterpret_cast<void**>(&boxes),
-                         static_cast<size_t>(items) * 8 * sizeof(float), st);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
   const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
   const dim3 grid(cells, (cap + threads - 1) / threads);
-  chunk_boxes_kernel<<<(items + kBoxThreads / 32 - 1) / (kBoxThreads / 32),
-                       kBoxThreads, 0, st>>>(soa, boxes, items, cap, chunks);
+  glt::launch_boxes<8, 3, -1>(soa, boxes, cells, cap, 32, st);
   if (periodic)
     sph_cells_density_kernel<true><<<grid, threads, 0, st>>>(
         soa, h, flags, boxes, out, n, cap, chunks, box);
   else
     sph_cells_density_kernel<false><<<grid, threads, 0, st>>>(
         soa, h, flags, boxes, out, n, cap, chunks, box);
-  rc = cudaGetLastError();
-  const cudaError_t rc_free = cudaFreeAsync(boxes, st);
-  return static_cast<int>(rc != cudaSuccess ? rc : rc_free);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -78,7 +78,7 @@
 //   allocates.
 // nvcc 12.8 -Xptxas=-v for sm_90a: 60 registers relative, 58 absolute,
 // 14,560 bytes of shared memory a block of 256 threads; the subcell boxes
-// 31 registers.
+// 32 registers.
 
 #include "glt_common.cuh"
 
@@ -96,6 +96,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ flags,
                        const float* __restrict__ boxes,
                        float* __restrict__ out, int nb, int lanes, float lf) {
+  constexpr glt::Shift kShift = kAbs ? glt::Shift::kNone : glt::Shift::kPair;
   const int b = blockIdx.x;
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(b) * 6 * lanes;
@@ -171,9 +172,9 @@ __global__ void __launch_bounds__(kThreads)
     float sh[3];
     shifts(bit >> 3, sh);
     const bool nv =
-        any_valid && glt::near_boxes<kAbs>(tbox, slo, shi, 0.f, sh);
+        any_valid && glt::near_boxes<kShift>(tbox, slo, shi, 0.f, sh);
     const bool np =
-        any_parked && glt::near_boxes<kAbs>(s_park[warp], slo, shi, 0.f, sh);
+        any_parked && glt::near_boxes<kShift>(s_park[warp], slo, shi, 0.f, sh);
     need_valid |= static_cast<unsigned long long>(__ballot_sync(glt::kFull, nv))
                   << (32 * half);
     need_parked |=
@@ -223,9 +224,9 @@ __global__ void __launch_bounds__(kThreads)
     bool near = false;
     if (lane < min(32, subcap - 32 * c) && sr[3][lane] > 0.f) {
       const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
-      near = (test_valid && glt::near_boxes<kAbs>(tbox, s3, s3, 0.f, sh)) ||
+      near = (test_valid && glt::near_boxes<kShift>(tbox, s3, s3, 0.f, sh)) ||
              (test_parked &&
-              glt::near_boxes<kAbs>(s_park[warp], s3, s3, 0.f, sh));
+              glt::near_boxes<kShift>(s_park[warp], s3, s3, 0.f, sh));
     }
     unsigned todo = __ballot_sync(glt::kFull, near);
     if (!live) todo = 0;
@@ -277,8 +278,8 @@ extern "C" int glt_sph_density(const float* soa_e, const float* soa_o,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::subcell_boxes_kernel<8, 3, -1>
-      <<<nb * nb * nb, glt::kBoxThreads, 0, st>>>(soa_o, boxes, lanes);
+  glt::launch_boxes<8, 3, -1>(soa_o, boxes, nb * nb * nb, lanes, lanes / 8,
+                              st);
   sph_density_kernel<false><<<grid, threads, 0, st>>>(
       soa_e, soa_o, h, flags, boxes, out, nb, lanes, lf);
   return static_cast<int>(cudaGetLastError());
@@ -291,9 +292,8 @@ extern "C" int glt_sph_density_abs(const float* soa_e, const float* soa_o,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::subcell_boxes_kernel<8, 3, -1>
-      <<<(nb + 1) * (nb + 1) * (nb + 1), glt::kBoxThreads, 0, st>>>(
-          soa_o, boxes, lanes);
+  glt::launch_boxes<8, 3, -1>(soa_o, boxes, (nb + 1) * (nb + 1) * (nb + 1),
+                              lanes, lanes / 8, st);
   sph_density_kernel<true><<<grid, threads, 0, st>>>(
       soa_e, soa_o, h, flags, boxes, out, nb, lanes, 0.f);
   return static_cast<int>(cudaGetLastError());

@@ -96,7 +96,7 @@
 //   needs no host sync; the boxes go to a workspace of Bo x 64 floats that
 //   the caller allocates.
 // nvcc 12.8 -Xptxas=-v for sm_90a: 64 registers in either mode, 28,896
-// bytes of shared memory a block of 256 threads; subcell_boxes 32
+// bytes of shared memory a block of 256 threads; subcell_boxes 40
 // registers.
 
 #include "glt_common.cuh"
@@ -127,6 +127,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ boxes,
                      float* __restrict__ out, int nb, int lanes, float lf,
                      float half_visc) {
+  constexpr glt::Shift kShift = kAbs ? glt::Shift::kNone : glt::Shift::kPair;
   const int b = blockIdx.x;
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(b) * 5 * lanes;
@@ -203,9 +204,9 @@ __global__ void __launch_bounds__(kThreads)
     const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
     float sh[3];
     shifts(bit >> 3, sh);
-    const bool nv = any_valid && near_boxes<kAbs>(tbox, slo, shi, q[6], sh);
+    const bool nv = any_valid && near_boxes<kShift>(tbox, slo, shi, q[6], sh);
     const bool np =
-        any_parked && near_boxes<kAbs>(s_park[warp], slo, shi, q[6], sh);
+        any_parked && near_boxes<kShift>(s_park[warp], slo, shi, q[6], sh);
     need_valid |= static_cast<unsigned long long>(__ballot_sync(kFull, nv))
                   << (32 * half);
     need_parked |= static_cast<unsigned long long>(__ballot_sync(kFull, np))
@@ -260,8 +261,8 @@ __global__ void __launch_bounds__(kThreads)
     if (lane < min(32, subcap - 32 * c) && sr[12][lane] > 0.f) {
       const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
       const float hs = sr[7][lane];
-      near = (test_valid && near_boxes<kAbs>(tbox, s3, s3, hs, sh)) ||
-             (test_parked && near_boxes<kAbs>(s_park[warp], s3, s3, hs, sh));
+      near = (test_valid && near_boxes<kShift>(tbox, s3, s3, hs, sh)) ||
+             (test_parked && near_boxes<kShift>(s_park[warp], s3, s3, hs, sh));
     }
     unsigned todo = __ballot_sync(kFull, near);
     if (!live) todo = 0;
@@ -345,8 +346,8 @@ extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::subcell_boxes_kernel<16, 12, 7>
-      <<<nb * nb * nb, glt::kBoxThreads, 0, st>>>(src16, boxes, lanes);
+  glt::launch_boxes<16, 12, 7>(src16, boxes, nb * nb * nb, lanes, lanes / 8,
+                               st);
   sph_hydro_kernel<false><<<grid, threads, 0, st>>>(
       soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, nb, lanes,
       lf, half_visc);
@@ -361,9 +362,8 @@ extern "C" int glt_sph_hydro_abs(const float* soa_a, const float* soa_b,
   const int threads = threads_for(lanes);
   const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::subcell_boxes_kernel<16, 12, 7>
-      <<<(nb + 1) * (nb + 1) * (nb + 1), glt::kBoxThreads, 0, st>>>(
-          src16, boxes, lanes);
+  glt::launch_boxes<16, 12, 7>(src16, boxes, (nb + 1) * (nb + 1) * (nb + 1),
+                               lanes, lanes / 8, st);
   sph_hydro_kernel<true><<<grid, threads, 0, st>>>(
       soa_a, soa_b, src16, nullptr, nullptr, flags, params, boxes, out, nb,
       lanes, 0.f, half_visc);

@@ -67,7 +67,7 @@ SIGNATURES = {
     "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                           _P),
     "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
-    "sph_cells_density": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "sph_cells_density": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     "sph_cells_hydro": (_P, _P, _P, _I, _I, _F, _I, _F, _P),
     "pm_gather": (_P, _P, _P, _I, _I, _I, _D, _I, _P),
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),

@@ -214,9 +214,12 @@ def density_sums_cells(soa: torch.Tensor, h_slots: torch.Tensor,
         return density_sums_cells_plain(soa, h_slots, flags, n_cells, box,
                                         periodic)
     out = torch.empty(c, 6, cap, dtype=soa.dtype, device=soa.device)
+    # the kernel's workspace: the box of each 32-slot chunk of each cell
+    boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
+                        device=soa.device)
     kernels.launch("sph_cells_density", soa.data_ptr(), h_slots.data_ptr(),
-                   flags.data_ptr(), out.data_ptr(), n_cells, cap, box,
-                   int(periodic))
+                   flags.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+                   n_cells, cap, box, int(periodic))
     return out
 
 

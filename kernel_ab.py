@@ -1,40 +1,28 @@
 #!/usr/bin/env python3
-"""Hold kernels A, H and I/J of this checkout against those of an earlier
-tree, in one process on one NVIDIA card.
+"""Hold kernels A, H, C, D (both modes) and I/J of this checkout against an
+earlier tree's, output for output, in one process on one NVIDIA card.
 
     python3 kernel_ab.py OLD_TREE
 
 OLD_TREE is an unpacked earlier commit of this repository, for example
-``mkdir -p build/old && git archive <commit> | tar -x -C build/old``. The
-C entries of A (``glt_shortrange_gravity``), H (``glt_shortrange_potential``)
-and I/J (``glt_sph_cells_density``) take the same arguments in both trees.
-The script builds both trees' kernel sources twice, with this checkout's
-nvcc flags and with ``-fmad=false`` added (into ``build/kernel_ab/``), then
-
-1. runs the main path of ``chip_smoke.py`` (lcdm_gas 2x128^3: ``set_ics``
-   and its sync points), keeping the arguments kernel A got last; computes
-   the full potential of its last state (kernel H on a fresh cell list);
-   and initialises the same ICs under ``sph_backend="cells"`` (kernel I/J,
-   the arguments of its last Newton sweep);
-2. for A, H and I/J, with every tile on (as chip_smoke times them), runs
-   each tree's kernel on those arguments in turns (old, new, new, old),
-   timing each turn with CUDA events (``chip_smoke.time_ms``), and
-   compares the two outputs: ``torch.equal`` and the largest difference
-   as a share of each output row's largest value, with the default flags
-   and with ``-fmad=false``; this checkout's H rows 0-2 against its A;
-3. times the full potential of the same state and one sync point of the
-   cells run from one saved state with each tree's library, in turns
-   (old, new, new, old), a device sync on both sides.
-
-It prints the card's name and power limit, both builds' ``-Xptxas=-v``
-lines for A, H and I/J, and a JSON line of the results. Exit code 1 when
-A's outputs of the two trees differ with either flags or H's rows 0-2 are
-not A's.
+``mkdir -p build/old && git archive <commit> | tar -x -C build/old``, from
+before I/J's C entry took its chunk boxes' workspace as an argument (a
+shim drops that argument for the old library). The script builds both
+trees' kernels with this checkout's nvcc flags and with ``-fmad=false``
+added (into ``build/kernel_ab/``), records the arguments each wrapper gets
+on a 2x128^3 step and full potential, a 2x128^3 ``set_ics`` under
+``sph_backend="cells"``, the 2x16^3 box under cells and the vacuum blob
+at 4^3 x 128 and 3^3 x 256 slots, and the vacuum blob through block SPH
+(``chip_smoke``'s recorders), then for each kernel and each case of
+``chip_smoke.cases`` runs both libraries: ``torch.equal`` and the largest
+difference relative to each output row's largest value, with either
+flags; on the 2x128^3 sets also each library's time in turns (old, new,
+new, old, old, new; CUDA events, 10 launches a turn). Exit code 1 when an
+output differs with ``-fmad=false``, or A's or H's with either flags.
 """
 
 from __future__ import annotations
 
-import copy
 import ctypes
 import json
 import subprocess
@@ -43,15 +31,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-NAMES = ("shortrange_gravity", "shortrange_potential", "sph_cells_density")
-REPS = 5          # launches per timed turn
-PASS_TURNS = 2    # passes or sync points per turn in step 3
+sys.path.insert(0, str(ROOT))
 
 
 def _build(tree: Path, tag: str, extra=()):
     """``tree``'s kernels built as ``kernels.build`` builds this
     checkout's (with ``extra`` flags), loaded with this checkout's
-    argument types where an entry exists in both."""
+    argument types; the old tree's I/J entry behind a shim."""
     from gadget_leicester_tpu_torch import kernels
     saved = kernels.CSRC, kernels.BUILD_ROOT, kernels.NVCC_FLAGS, \
         kernels.SOURCES
@@ -73,18 +59,16 @@ def _build(tree: Path, tag: str, extra=()):
             fn.restype = ctypes.c_int
     lib.glt_error_string.argtypes = [ctypes.c_int]
     lib.glt_error_string.restype = ctypes.c_char_p
+    if tag.startswith("old"):
+        fn = lib.glt_sph_cells_density
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P, P, P, P, I, I, F, I, P]
+
+        def shim(soa, h, flags, boxes, out, n, cap, box, periodic, stream,
+                 fn=fn):
+            return fn(soa, h, flags, out, n, cap, box, periodic, stream)
+        lib.glt_sph_cells_density = shim
     return lib, log
-
-
-def _ptxas_lines(log: str, kernels_of) -> list:
-    out, keep = [], False
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            keep = any(s in line for s in kernels_of)
-        if keep and ("registers" in line or "spill" in line
-                     or "Compiling" in line):
-            out.append(line.strip())
-    return out
 
 
 def _rel_diff(a, b) -> float:
@@ -97,32 +81,12 @@ def _rel_diff(a, b) -> float:
     return worst
 
 
-def _turns(fn_of, libs) -> tuple:
-    """({old, new: [seconds]}, ...) of ``fn_of()`` run with each library in
-    turns (old, new, new, old), PASS_TURNS times a turn."""
-    import torch
-
-    from gadget_leicester_tpu_torch import kernels
-    times = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
-        kernels._lib = libs[which, "default"]
-        for _ in range(PASS_TURNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn_of()
-            torch.cuda.synchronize()
-            times[which].append(time.perf_counter() - t0)
-    kernels._lib = libs["new", "default"]
-    return times
-
-
 def main() -> int:
     import torch
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device; it runs only on the card")
-    sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from gadget_leicester_tpu_torch import kernels
     from gadget_leicester_tpu_torch.models.forces import compute_potential
@@ -134,90 +98,88 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     old_tree = Path(sys.argv[1]).resolve()
-    libs, logs = {}, {}
+    libs = {}
     for tag, tree in (("new", ROOT), ("old", old_tree)):
         for flags, extra in (("default", ()), ("nofma", ("-fmad=false",))):
-            libs[tag, flags], logs[tag, flags] = _build(
-                tree, f"{tag}_{flags}", extra)
-    for key, log in logs.items():
-        for line in _ptxas_lines(log, ("shortrange_gravity_kernel",
-                                       "shortrange_potential_kernel",
-                                       "sph_cells_density_kernel",
-                                       "chunk_boxes")):
-            print(f"[ptxas {key[0]} {key[1]}] {line}", flush=True)
+            libs[tag, flags], log = _build(tree, f"{tag}_{flags}", extra)
+            for line in log.splitlines():
+                if "registers" in line or "Compiling entry" in line:
+                    print(f"[ptxas {tag} {flags}] {line.strip()}")
     kernels._lib = libs["new", "default"]
+    t0 = time.perf_counter()
 
-    sim, recorded, _, _ = cs.phase_main({}, card)
-    state = sim.state
+    sets = []   # (label, recorded)
+    cfg, opts, ics = cs.setup(cs.N_SIDE_MAIN)
+    sim = Simulation(cfg, opts, "cuda")
+    sim.set_ics(*ics[:4], u=ics[4])
+    with cs.recorded_inputs() as rec:
+        sim.step()
+        compute_potential(sim.state, cfg, opts)
+    sets.append(("2x128^3 step and potential", dict(rec)))
     del sim
-    cfg, opts, _ = cs.setup(cs.N_SIDE_MAIN)
-    with cs.recorded_inputs() as rec:
-        compute_potential(state, cfg, opts)
-    recorded["shortrange_potential"] = rec["shortrange_potential"]
     cfg_c, opts_c, ics = cs.setup(cs.N_SIDE_MAIN, sph_backend="cells")
-    cells = Simulation(cfg_c, opts_c, "cuda")
     with cs.recorded_inputs() as rec:
-        cells.set_ics(*ics[:4], u=ics[4])
-    recorded["sph_cells_density"] = rec["sph_cells_density"]
+        Simulation(cfg_c, opts_c, "cuda").set_ics(*ics[:4], u=ics[4])
+    sets.append(("2x128^3 cells set_ics", dict(rec)))
+    for grid, cap in cs.SMALL_CELL_GRIDS:
+        sets.append((f"n_side=16 periodic {grid}^3 x {cap}",
+                     cs.record_init(cs.N_SIDE_SMALL, "cuda",
+                                    sph_backend="cells", sph_grid=grid,
+                                    sph_capacity=cap)))
+        sets.append((f"vacuum blob {grid}^3 x {cap}",
+                     cs.record_vacuum_blob("cuda", grid, cap)))
+    nb, subcap = cs.VACUUM_BLOCKS
+    rec, _ = cs.record_vacuum_blocks("cuda", nb, subcap,
+                                     *cs.vacuum_blob("cuda"),
+                                     cs.VACUUM_IDLE_FRAC)
+    sets.append((f"vacuum blob {nb}^3 blocks x {subcap}", rec))
+    print(f"recorded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    names = ("shortrange_gravity", "shortrange_potential", "sph_density",
+             "sph_hydro", "sph_density_abs", "sph_hydro_abs",
+             "sph_cells_density")
     pairs = cs.kernel_pairs()
-
-    res, ok = {"card": card}, True
-    for name in NAMES:
-        args = cs.cases(name, recorded)[0][1]
-        kern = pairs[name][0]
-        stencil, in_cut = cs.pair_count(name, args)
-        r = res[name] = {"stencil_pairs": stencil, "in_cut": in_cut,
-                         "evaluated": cs.EVALUATED[name](args),
-                         "cap": int(args[0].shape[2])}
-        for flags in ("default", "nofma"):
-            outs, times = {}, {"old": [], "new": []}
-            for which in ("old", "new", "new", "old"):
-                kernels._lib = libs[which, flags]
-                ms, outs[which] = cs.time_ms(lambda: kern(*args), reps=REPS)
-                times[which].append(ms)
-            kernels._lib = libs["new", "default"]
-            equal = torch.equal(outs["old"], outs["new"])
-            if name == "shortrange_gravity":
-                ok &= equal
-            r[flags] = {"old_ms": times["old"], "new_ms": times["new"],
-                        "equal": equal,
-                        "max_rel_diff": _rel_diff(outs["new"], outs["old"]),
-                        "values_differing": int((outs["new"]
-                                                 != outs["old"]).sum()),
-                        "values": outs["new"].numel()}
-            print(f"{name} {flags} flags: earlier {times['old']} ms, this "
-                  f"checkout {times['new']} ms, torch.equal {equal}, "
-                  f"largest difference {r[flags]['max_rel_diff']:.2e} of a "
-                  f"row's largest value, {r[flags]['values_differing']} of "
-                  f"{r[flags]['values']} values differ ({card})", flush=True)
-        print(f"{name}: cap {r['cap']}, {stencil} stencil pairs, {in_cut} "
-              f"inside, the model of this checkout's walk evaluates "
-              f"{r['evaluated']} ({100 * r['evaluated'] / stencil:.1f}%)",
-              flush=True)
-        if name == "shortrange_potential":
-            h_rows = kern(*args)[:, :3]
-            same = torch.equal(h_rows, pairs["shortrange_gravity"][0](*args))
-            ok &= same
-            r["rows_0_2_equal_a"] = same
-            print(f"H rows 0-2 equal A on H's arguments: {same}", flush=True)
-    del recorded
-
-    res["potential_pass_s"] = _turns(
-        lambda: compute_potential(state, cfg, opts), libs)
-    print(f"full potential: earlier H {res['potential_pass_s']['old']} s, "
-          f"this checkout {res['potential_pass_s']['new']} s ({card})",
-          flush=True)
-    saved = copy.deepcopy(cells.state)
-
-    def cells_step():
-        cells.state = copy.deepcopy(saved)
-        cells.step()
-
-    res["cells_sync_point_s"] = _turns(cells_step, libs)
-    print(f"cells sync point: earlier I/J {res['cells_sync_point_s']['old']} "
-          f"s, this checkout {res['cells_sync_point_s']['new']} s ({card})",
-          flush=True)
-    print(json.dumps(res), flush=True)
+    res, ok = [], True
+    for label, recorded in sets:
+        for name in names:
+            if name not in recorded:
+                continue
+            kern = pairs[name][0]
+            for n_case, (case, args) in enumerate(cs.cases(name, recorded)):
+                if n_case == 0 and label.startswith("2x128"):
+                    times = {"old": [], "new": []}
+                    for which in ("old", "new", "new", "old", "old", "new"):
+                        kernels._lib = libs[which, "default"]
+                        times[which].append(
+                            cs.time_ms(lambda: kern(*args), reps=10)[0])
+                    kernels._lib = libs["new", "default"]
+                    print(f"TIME {label} | {name}: old {times['old']} ms, "
+                          f"new {times['new']} ms ({card})", flush=True)
+                for flags in ("default", "nofma"):
+                    outs = {}
+                    for which in ("old", "new"):
+                        kernels._lib = libs[which, flags]
+                        outs[which] = kern(*args)
+                        torch.cuda.synchronize()
+                    kernels._lib = libs["new", "default"]
+                    equal = torch.equal(outs["old"], outs["new"])
+                    rel = _rel_diff(outs["new"], outs["old"])
+                    ndiff = int((outs["new"] != outs["old"]).sum())
+                    if flags == "nofma" or name in ("shortrange_gravity",
+                                                    "shortrange_potential"):
+                        ok &= equal
+                    res.append({"set": label, "name": name, "case": case,
+                                "flags": flags, "equal": equal,
+                                "max_rel_diff": rel, "differing": ndiff,
+                                "values": outs["new"].numel()})
+                    print(f"{label} | {name} | {case} | {flags}: "
+                          f"torch.equal {equal}, largest difference "
+                          f"{rel:.2e} of a row's largest value, {ndiff} of "
+                          f"{outs['new'].numel()} values differ ({card})",
+                          flush=True)
+    print(f"{sum(r['equal'] for r in res)} of {len(res)} outputs equal "
+          f"({card})", flush=True)
+    print(json.dumps({"card": card, "results": res}), flush=True)
     return 0 if ok else 1
 
 
