@@ -51,8 +51,8 @@ imports nothing of JAX. Phases, each printing its own lines:
    plain version's and its bound (for A, C and D also the pairs they
    evaluate by the models of their culling rules, :func:`gravity_walk`,
    :func:`hydro_walk`, :func:`density_walk`; C's time beside its earlier
-   design's, :data:`EARLIER_MS`, and its registers, and those of A, H
-   and I/J); then the full potential of phase 5's state (kernel H on a
+   design's, :data:`EARLIER_MS`, and its registers, and those of A, H,
+   F, I/J and K); then the full potential of phase 5's state (kernel H on a
    fresh cell list, L on the mesh potential), its parts timed, and H
    replayed and timed the same way, beside its earlier design's time and
    the pairs the model of its walk evaluates (:func:`gravity_walk`);
@@ -65,16 +65,18 @@ imports nothing of JAX. Phases, each printing its own lines:
    and not E, F, G), the two held to each other, neither with a PM step
    (no L); each timed 3 times and
    once by phases; E, F and G replayed on the arguments of the entries
-   run, with their times beside their plain versions';
+   run, with their times beside their plain versions' (F's beside its
+   earlier design's and the pairs the model of its walk evaluates,
+   :func:`entries_density_walk`);
 8b. the coarse-cell SPH backend at full width (:func:`phase_cells`):
    lcdm_gas 2x128^3 with ``sph_backend="cells"``, ``set_ics`` and 6 sync
    points through kernels I/J and K (C and D not launched; A, B and L
    as on the block path); its SPH
    fields after ``set_ics`` held against the block backend's on the same
-   ICs; I and K replayed and timed on its arguments (I/J beside its
+   ICs; I and K replayed and timed on its arguments (each beside its
    earlier design's time and the pairs the model of its walk evaluates,
-   :func:`cells_density_walk`); the synced phases of
-   its SPH pass; a near-idle sync point, which this backend sweeps whole;
+   :func:`cells_density_walk`, :func:`cells_hydro_walk`); the synced
+   phases of its SPH pass; a near-idle sync point, which this backend sweeps whole;
 9. the command line at full width: a 2x128^3 IC file and parameter file
    (with an ``.opts`` sidecar asking for OUTPUTPOTENTIAL), ``python -m
    gadget_leicester_tpu_torch param 0`` in a child process for up to
@@ -111,7 +113,7 @@ imports nothing of JAX. Phases, each printing its own lines:
    cloud, ``compute_sph`` with ``periodic=False`` on 22^3 blocks, all gas
    active and a seeded 1% (the entries tier), each kernel replayed and
    timed beside its relative mode's time, its plain version and its bound,
-   C's beside its earlier design's (:data:`EARLIER_MS`);
+   C's and F's beside their earlier designs' (:data:`EARLIER_MS`);
 13. the tree runs (:func:`phase_tree`): ``parameterfiles/galaxy.param`` and
    ``cluster.param`` on their 20,000-particle ICs through ``python -m
    gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
@@ -141,9 +143,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    capacity raises of ``set_ics`` and the mass of its last snapshot; then
    through ``Simulation.run()`` with the star registered as a sink for 8
    sync points: gates: finite, the alive mass kept, the accretion tally
-   equal to the dead; on its last state one SPH pass under blocks against
-   one under cells, and ``apply_cooling`` (beta, Stamatellos) card
-   against CPU.
+   equal to the dead; kernel F replayed and timed on the disc's own
+   arguments (:func:`disc_entries_args`) beside its earlier design's
+   time, with its launch counts in both runs; on its last state one SPH
+   pass under blocks against one under cells, and ``apply_cooling``
+   (beta, Stamatellos) card against CPU.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -1051,9 +1055,10 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-# Kernels A, H, C, D and I/J walk fewer pairs than their stencil holds, in
-# the same order of sums (csrc/shortrange_gravity.cu, csrc/sph_density.cu,
-# csrc/sph_hydro.cu, csrc/sph_cells_density.cu). The bound above counts
+# Kernels A, H, C, D, F, I/J and K walk fewer pairs than their stencil
+# holds, in the same order of sums (csrc/shortrange_gravity.cu,
+# csrc/sph_density.cu, csrc/sph_hydro.cu, csrc/sph_density_entries.cu,
+# csrc/sph_cells_density.cu, csrc/sph_cells_hydro.cu). The bound above counts
 # only the pairs inside the cut; these mirror each design's culling rules
 # in float32 and count the pairs they leave to evaluate, which a share of
 # the stencil pairs compares across designs. They are models of the kernels' walks, not counts taken in the
@@ -1075,6 +1080,9 @@ def pair_count(name: str, args: tuple) -> tuple:
 # largest target h walking the chunks of 32 slots of its 27 stencil cells
 # whose box of sources with m > 0, shifted, lies within reach and, in
 # those, the sources with m > 0 within reach (squares times CULL_MARGIN2).
+# K: I/J's walk over the valid sources (row 12) with the reach max(h_max,
+# h_chunk) for a chunk (its largest source h) and max(h_max, h_s) for a
+# source. F: :func:`entries_density_walk`.
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1275,24 +1283,27 @@ def density_evaluated_pairs(args: tuple) -> int:
     return total
 
 
-def cells_density_walk(args: tuple, cells):
-    """Kernel I/J's walk (either grid) over the target cells ``cells``
-    [K] of ``args``: (its live targets [K, cap], the pairs each target
-    slot walks [K, cap, 27 cap], both in slot order)."""
+def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
+                periodic: bool, cells):
+    """The walk of kernel I/J (``h_row`` None: the reach of the target's h
+    alone) or K (``h_row`` the sources' h row: the reach max(h_max, h_s))
+    over the target cells ``cells`` [K] of the pack ``soa``: targets with
+    row ``live_row`` > 0 at smoothing lengths ``ht_slots`` [C, cap],
+    sources with it > 0. Returns (the live targets [K, cap], the pairs
+    each target slot walks [K, cap, 27 cap], both in slot order)."""
     import torch
 
     from gadget_leicester_tpu_torch.ops import sph_cells as sc
-    soa, h_slots, _, n, box, periodic = args
     dev, f32 = soa.device, torch.float32
     k, cap = len(cells), soa.shape[2]
     nt = min(-(-cap // 32) * 32, A_THREADS)
     width = -(-cap // nt) * nt
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
-    margin = torch.tensor(CULL_MARGIN2, dtype=f32)
+    margin = torch.tensor(CULL_MARGIN2, dtype=f32, device=dev)
     pad = (0, width - cap)
     t = torch.nn.functional.pad(soa[cells], pad)
-    ht = torch.nn.functional.pad(h_slots[cells], pad)
-    live = t[:, 3] > 0
+    ht = torch.nn.functional.pad(ht_slots[cells], pad)
+    live = t[:, live_row] > 0
     # the key: on A_KEY_CELLS^3 over the box of each pass's live targets
     x = t[:, :3].view(k, 3, -1, nt)
     lv = live.view(k, 1, -1, nt)
@@ -1311,49 +1322,63 @@ def cells_density_walk(args: tuple, cells):
     tlo = torch.where(lvr[:, None], xyz, inf).amin(-1)        # [K, 3, W]
     thi = torch.where(lvr[:, None], xyz, -inf).amax(-1)
     reach = torch.where(lvr & ~torch.isnan(hr), hr, torch.zeros_like(hr))
-    reach = reach.amax(-1).clamp(min=0.0)
-    reach2 = reach * reach * margin.to(dev)                   # [K, W]
+    reach = reach.amax(-1).clamp(min=0.0)                     # [K, W]
     # the 27 stencil cells, their shifts and their chunk boxes
     ids, shift, inside = sc.stencil_cells(n, cells, periodic)
     sh = shift.to(f32) * torch.tensor(box, dtype=f32)         # [K, 27, 3]
-    s = soa[ids]                                              # [K, 27, 8, cap]
+    s = soa[ids]                                              # [K, 27, R, cap]
     chunks = -(-cap // 32)
     cpad = (0, chunks * 32 - cap)
-    sm = torch.nn.functional.pad(s[:, :, 3], cpad).view(k, 27, chunks, 32)
+    on = torch.nn.functional.pad(s[:, :, live_row], cpad).view(
+        k, 27, chunks, 32) > 0
+    if h_row is None:
+        hs = torch.zeros_like(s[:, :, 0])
+    else:
+        hs = torch.nan_to_num(s[:, :, h_row], nan=0.0)
+    ch = torch.where(on, torch.nn.functional.pad(hs, cpad).view(
+        k, 27, chunks, 32), torch.zeros((), device=dev)).amax(-1).clamp(
+        min=0.0).flatten(1)                                   # [K, 27 ch]
 
-    def dist2(lo_s, hi_s):
-        """Box distances [K, W, S] from the warps' boxes to the shifted
-        source boxes [K, 3, S]."""
+    def within(lo_s, hi_s, h_s):
+        """[K, W, S]: the box distance from the warps' boxes to the
+        shifted source boxes [K, 3, S] below max(reach, h_s [K, S])."""
         d2 = 0.0
         for a in range(3):
             e = torch.clamp(torch.maximum(tlo[:, a, :, None] - hi_s[:, None, a],
                                           lo_s[:, None, a]
                                           - thi[:, a, :, None]), min=0.0)
             d2 = d2 + e * e
-        return d2
+        hh = torch.maximum(reach[..., None], h_s[:, None, :])
+        return d2 < hh * hh * margin
 
     sxyz, clo, chi = [], [], []
     for a in range(3):
         raw = torch.nn.functional.pad(s[:, :, a], cpad).view(k, 27, chunks,
                                                              32)
-        on = sm > 0
         clo.append((torch.where(on, raw, inf).amin(-1)
                     + sh[:, :, a, None]).flatten(1))
         chi.append((torch.where(on, raw, -inf).amax(-1)
                     + sh[:, :, a, None]).flatten(1))
         sxyz.append((s[:, :, a] + sh[:, :, a, None]).flatten(1))
-    need = (dist2(torch.stack(clo, 1), torch.stack(chi, 1))
-            < reach2[..., None]) \
+    need = within(torch.stack(clo, 1), torch.stack(chi, 1), ch) \
         & inside.repeat_interleave(chunks, 1)[:, None, :]     # [K, W, 27 ch]
     need = need.repeat_interleave(32, -1).view(k, w, 27, chunks * 32)
     sxyz = torch.stack(sxyz, 1)                               # [K, 3, 27 cap]
-    near = (dist2(sxyz, sxyz) < reach2[..., None]) \
-        & (s[:, :, 3] > 0).flatten(1)[:, None, :] \
+    near = within(sxyz, sxyz, hs.flatten(1)) \
+        & (s[:, :, live_row] > 0).flatten(1)[:, None, :] \
         & need[..., :cap].flatten(2)                          # [K, W, 27 cap]
     walked = lvr[..., None] & near[:, :, None, :]             # [K, W, 32, .]
     out = torch.zeros_like(walked.view(k, width, -1))
     out.scatter_(1, order[..., None].expand_as(out), walked.view(k, width, -1))
     return live[:, :cap], out[:, :cap]
+
+
+def cells_density_walk(args: tuple, cells):
+    """Kernel I/J's walk (either grid) over the target cells ``cells``
+    [K] of ``args``: (its live targets [K, cap], the pairs each target
+    slot walks [K, cap, 27 cap], both in slot order)."""
+    soa, h_slots, _, n, box, periodic = args
+    return _cells_walk(soa, h_slots, 3, None, n, box, periodic, cells)
 
 
 def cells_density_evaluated_pairs(args: tuple) -> int:
@@ -1367,30 +1392,116 @@ def cells_density_evaluated_pairs(args: tuple) -> int:
     return total
 
 
+def cells_hydro_walk(args: tuple, cells):
+    """Kernel K's walk (either grid) over the target cells ``cells`` [K]
+    of ``args``: (its live targets [K, cap], the pairs each target slot
+    walks [K, cap, 27 cap], both in slot order)."""
+    soa16, _, n, box, periodic, _ = args
+    return _cells_walk(soa16, soa16[:, 7], 12, 7, n, box, periodic, cells)
+
+
+def cells_hydro_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live target and a valid source that kernel K
+    evaluates on ``args``."""
+    import torch
+    cells = torch.arange(args[0].shape[0], device=args[0].device)
+    total = 0
+    for k0 in range(0, cells.numel(), 32):
+        total += int(cells_hydro_walk(args, cells[k0:k0 + 32])[1].sum())
+    return total
+
+
+def entries_density_walk(args: tuple, entries):
+    """Kernel F's walk (either mode) over the entries ``entries`` [E] of
+    ``args``: a warp an entry, with the box of its live lanes (m > 0) and
+    the reach of their largest h, walking the 32-slot chunks of its 8 odd
+    blocks whose box of sources with m > 0 lies within reach and, in
+    those, the sources with m > 0 within reach, each for all the entry's
+    live lanes (squares times CULL_MARGIN2). Returns (the live lanes [E,
+    8], the pairs each lane walks [E, 8, 8 lanes])."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    soa_o, tgt, h, blk, nb, lf = args
+    dev, f32 = soa_o.device, torch.float32
+    lanes = soa_o.shape[2]
+    chunks = -(-lanes // 32)
+    e = len(entries)
+    t, ht = tgt[entries], h[entries]
+    live = t[:, 3] > 0                                        # [E, 8]
+    ids, units = sb.odd_sources(nb, blk[entries].long(), lf is not None)
+    rows, shift = sb._gather_sources(soa_o, ids, units, lf, (0, 1, 2, 3))
+    sv = rows[3] > 0                                          # [E, 8 L]
+    sxyz = torch.stack(rows[:3], 1)                           # [E, 3, 8 L]
+    zero = torch.zeros_like(rows[3])
+    reach = torch.where(live & ~torch.isnan(ht), ht, torch.zeros_like(ht))
+    box = _box(t[:, :3], reach, live, 8)                      # [E, ., 1]
+    box = box[:2] + (box[2].clamp(min=0.0),)
+    # the chunk boxes of each block, chunks padded to whole 32 slots
+    cpad = (0, chunks * 32 - lanes)
+    xyz_c = torch.nn.functional.pad(sxyz.view(e, 3, 8, lanes), cpad)
+    sv_c = torch.nn.functional.pad(sv.view(e, 8, lanes), cpad)
+    cells = _box(xyz_c.flatten(2), torch.zeros_like(sv_c.flatten(1),
+                                                     dtype=f32),
+                 sv_c.flatten(1), 32)                         # [E, ., 8 ch]
+    cell_shift = None if shift is None else [
+        x.view(8, lanes)[:, :1].expand(8, chunks).flatten() for x in shift]
+    need = _near(box, cells, cell_shift).view(e, -1, 8, chunks)
+    need = need.repeat_interleave(32, -1)[..., :lanes].flatten(2)
+    near = _near(box, (sxyz, sxyz, zero), shift) & need & sv[:, None]
+    walked = near & live[..., None]                           # [E, 8, 8 L]
+    return live, walked
+
+
+def entries_density_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live lane and a source with m > 0 that kernel F
+    (either mode) evaluates on ``args``."""
+    import torch
+    entries = torch.nonzero(args[3] >= 0).flatten()
+    total = 0
+    for k0 in range(0, entries.numel(), 16):
+        total += int(entries_density_walk(args, entries[k0:k0 + 16])[1].sum())
+    return total
+
+
 EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
              "shortrange_potential": gravity_evaluated_pairs,
              "sph_cells_density": cells_density_evaluated_pairs,
+             "sph_cells_hydro": cells_hydro_evaluated_pairs,
+             "sph_density_entries": entries_density_evaluated_pairs,
+             "sph_density_entries_abs": entries_density_evaluated_pairs,
              "sph_density": density_evaluated_pairs,
              "sph_density_abs": density_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
              "sph_hydro_abs": hydro_evaluated_pairs}
 
-# the times of kernels C, H and I/J in their earlier designs (one thread a
-# target walking every staged source of its stencil), on the same paths'
-# arguments, on an NVIDIA H100 80GB HBM3 at 700 W as PERF.md records them:
-# C's relative mode on the main path's last full-active sync point (phase
-# 6), its absolute mode on the vacuum cloud at 64 slots a subcell (phase
-# 12b), H on the step with sinks (phase 14), I/J on the cells path (phase
-# 8b)
+# the times of kernels C, H, I/J, K and F in their earlier designs (one
+# thread a target walking every staged source of its stencil; F one warp
+# an entry walking every slot), on the same paths' arguments, on an
+# NVIDIA H100 80GB HBM3 at 700 W as PERF.md records them: C's relative
+# mode on the main path's last full-active sync point (phase 6), its
+# absolute mode on the vacuum cloud at 64 slots a subcell (phase 12b), H
+# on the step with sinks (phase 14), I/J and K on the cells path (phase
+# 8b), F's relative mode at the near-idle sync point (phase 8), its
+# absolute mode on the vacuum cloud at 1% active (phase 12b) and on the
+# disc's own arguments (phase 15)
 EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
-              "shortrange_potential": 29.156, "sph_cells_density": 10.689}
+              "shortrange_potential": 29.156, "sph_cells_density": 10.689,
+              "sph_cells_hydro": 14.880, "sph_density_entries": 0.266,
+              "sph_density_entries_abs": 0.316,
+              "sph_density_entries_abs_disc": 1.765}
 # the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "shortrange_potential": "shortrange_gravity_kernelILb1E",
               "sph_density": "sph_density_kernelILb0E",
               "sph_density_abs": "sph_density_kernelILb1E",
-              "sph_cells_density": "sph_cells_density_kernel"}
+              "sph_cells_density": "sph_cells_density_kernel",
+              "sph_cells_hydro": "sph_cells_hydro_kernel",
+              "sph_density_entries": "sph_density_entries_kernelILb0E",
+              "sph_density_entries_abs": "sph_density_entries_kernelILb1E",
+              "sph_density_entries_abs_disc":
+                  "sph_density_entries_kernelILb1E"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -2108,6 +2219,7 @@ def phase_idle_main(results: dict, state, card: str, device="cuda",
         say_phases("idle", totals, 1)
     check_kernels(recorded, f"2x{n_side}^3 near-idle", results, ENTRIES,
                   timed=True)
+    say_against_earlier("idle", results, "sph_density_entries", card)
 
 
 def fullest_cell(pos, alive, box: float, n_cells: int) -> tuple:
@@ -2276,6 +2388,7 @@ def phase_cells(results: dict, blocks_init: dict, card: str, device="cuda",
     del cells_init
     check_kernels(recorded, f"2x{n_side}^3", results, CELLS, timed=True)
     say_against_earlier("cells", results, "sph_cells_density", card)
+    say_against_earlier("cells", results, "sph_cells_hydro", card)
     del recorded
     kernels.recorded.clear()
     with phase_timer(device, CELLS_TIMED) as totals:
@@ -2807,6 +2920,7 @@ def phase_vacuum_blocks(results: dict, state, card: str,
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3 gas as a vacuum cloud",
                   results, ABS, timed=True, every=VACUUM_MAIN_EVERY)
     say_against_earlier("vacuum", results, "sph_density_abs", card)
+    say_against_earlier("vacuum", results, "sph_density_entries_abs", card)
     for name in ABS:
         rel = name.removesuffix("_abs")
         a, r = results[name], results[rel]
@@ -3607,7 +3721,7 @@ def check_disc_launches(what: str, counts: dict) -> None:
                                  "times")
 
 
-def phase_disc_cli(results: dict, card: str) -> None:
+def phase_disc_cli(results: dict, card: str) -> dict:
     """(a) of phase 15: the IC file and ``disc.param`` written under
     ``build/disc_cli/``, the run through the CLI in a child process, its
     launch counts (the main path's counts of C, D, F and G in their
@@ -3615,7 +3729,7 @@ def phase_disc_cli(results: dict, card: str) -> None:
     2 nb^3, 16 at the 2^3 blocks the disc's capacity raises leave), its
     timings and the capacity raises of ``set_ics`` in info.txt, the
     snapshot at TimeMax (its first) held to the ICs' mass. The run's
-    directory is deleted at the end."""
+    directory is deleted at the end. Returns the launch counts."""
     import numpy as np
 
     from gadget_leicester_tpu_torch.io.snapshot import read_snapshot
@@ -3672,6 +3786,7 @@ def phase_disc_cli(results: dict, card: str) -> None:
                                  "mass")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return counts
 
 
 def disc_blocks_vs_cells(state, cfg, opts) -> None:
@@ -3734,6 +3849,50 @@ def disc_blocks_vs_cells(state, cfg, opts) -> None:
                        CELLS_VS_BLOCKS, CELLS_VS_BLOCKS_OUT)
 
 
+# gas active in the seeded share of :func:`disc_entries_args`: its
+# entries, at most 8 gas each plus one part-filled a block, fit the k_max
+# = 2 nb^3 = 16 of the disc's 2^3 blocks
+DISC_ENTRY_ACTIVE = 64
+
+
+def disc_entries_args(state, cfg, opts, recorded: dict, log: list,
+                      device="cuda") -> tuple:
+    """Kernel F's (and G's) absolute-mode arguments on the disc (phase
+    15): those the run's last entries-tier sync point gave them, where
+    the run took that tier (``recorded`` and the tier ``log`` of the
+    run), else those of one ``compute_sph`` pass on a fresh list of its
+    last ``state`` with a seeded DISC_ENTRY_ACTIVE of the gas active.
+    Returns (the arguments, what they are)."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          compute_sph)
+    from gadget_leicester_tpu_torch.models.grids import make_grid_cache
+    if any(took for *_, took in log):
+        return recorded, "the run's last entries-tier sync point"
+    p, ng = state.p, state.n_gas_max
+    gas = (p.alive[:ng] & (p.ptype[:ng] == 0)).cpu()
+    idx = torch.nonzero(gas).flatten()
+    gen = torch.Generator().manual_seed(IDLE_SEED)
+    active = torch.zeros_like(gas)
+    active[idx[torch.randperm(idx.numel(), generator=gen)
+               [:DISC_ENTRY_ACTIVE]]] = True
+    st = dataclasses.replace(
+        state, grids=make_grid_cache(p.pos.device),
+        overflow_flags=torch.zeros_like(state.overflow_flags))
+    with recorded_inputs() as rec, tier() as pass_log:
+        compute_sph(st, cfg, opts, comoving_factors(cfg, state.ti_current),
+                    active.to(p.pos.device))
+    sync(device)
+    if not pass_log[-1][3] or "sph_density_entries_abs" not in rec:
+        raise AssertionError(f"{DISC_ENTRY_ACTIVE} active gas of the disc "
+                             f"did not take the entries tier: {pass_log}")
+    return dict(rec), (f"one SPH pass of the last state with "
+                       f"{DISC_ENTRY_ACTIVE} seeded gas active")
+
+
 def phase_disc(results: dict, card: str, device="cuda") -> None:
     """The Leicester disc (phase 15): (a) :func:`phase_disc_cli`; (b) the
     Python API: ``Simulation``, ``set_ics``, ``register_sinks_from_types``,
@@ -3758,7 +3917,7 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
     from gadget_leicester_tpu_torch.models.simulation import Simulation
     from gadget_leicester_tpu_torch.models.sinks import \
         register_sinks_from_types
-    phase_disc_cli(results, card)
+    cli_counts = phase_disc_cli(results, card)
     root = Path(__file__).resolve().parent
     work = root / "build" / "disc_run"
     shutil.rmtree(work, ignore_errors=True)
@@ -3781,11 +3940,13 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         caps = [sph_blocks_geometry(cfg, o, sim.state.n_gas_max)
                 for o in (opts, sim.opts)]
         kernels.reset_launches()
-        t0 = time.time()
-        sim.run(max_steps=DISC_MAX_STEPS)
-        sync(device)
-        wall = time.time() - t0
+        with recorded_inputs() as rec, tier() as log:
+            t0 = time.time()
+            sim.run(max_steps=DISC_MAX_STEPS)
+            sync(device)
+            wall = time.time() - t0
         counts = dict(kernels.launches)
+        recorded = dict(rec)
         st = sim.state
         p = st.p
         m1 = float(p.mass[p.alive].double().sum())
@@ -3827,6 +3988,22 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         if n0 - n1 != n_acc:
             raise AssertionError(f"{n0 - n1} particles died, the tally says "
                                  f"{n_acc}")
+        # kernel F on the disc's own arguments
+        f_args, how = disc_entries_args(st, cfg, sim.opts, recorded, log)
+        del recorded
+        disc: dict = {}
+        check_kernels(f_args, f"the disc ({how})", disc,
+                      ("sph_density_entries_abs",), timed=True)
+        results["sph_density_entries_abs_disc"] = \
+            disc["sph_density_entries_abs"]
+        say_against_earlier("disc", results, "sph_density_entries_abs_disc",
+                            card)
+        say("disc", f"kernel F (absolute mode) launches: CLI "
+            f"{cli_counts['sph_density_entries_abs']}, API "
+            f"{counts['sph_density_entries_abs']}; the API run took the "
+            f"entries tier at {sum(took for *_, took in log)} of its "
+            f"{len(log)} SPH passes ({card})")
+        del f_args
         disc_blocks_vs_cells(st, cfg, sim.opts)
         # apply_cooling on the last state, card against CPU (in disc.param's
         # units of 1 cm, 1 g and 1 cm/s the gas is at the 1 K floor, so the
@@ -3906,6 +4083,8 @@ def main() -> int:
             ("A", PTXAS_NAME["shortrange_gravity"]),
             ("H", PTXAS_NAME["shortrange_potential"]),
             ("I/J (vacuum, periodic grid)", PTXAS_NAME["sph_cells_density"]),
+            ("K (vacuum, periodic grid)", PTXAS_NAME["sph_cells_hydro"]),
+            ("F (relative, absolute mode)", "sph_density_entries_kernel"),
             ("the box kernels of C, D and I/J", "subcell_boxes_kernel"))))
     del recorded
     kernels.recorded.clear()

@@ -5,7 +5,7 @@
 // ops/cells.py), so a kernel and its plain version differ only in the
 // order of the sums. Also the box culling and the cp.async staging that
 // the block SPH kernels C and D share, and the ranking of targets in space
-// order of A, H and I/J.
+// order of A, H, I/J and K.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -346,7 +346,7 @@ __device__ __forceinline__ Box warp_box(bool in, float x, float y, float z,
   return b;
 }
 
-// Targets in space order (kernels A, H and I/J): a block ranks its slots
+// Targets in space order (kernels A, H, I/J and K): a block ranks its slots
 // by the Morton key of their cells (qx, qy, qz) on a (2^kKeyBits)^3 grid,
 // so that each warp holds 32 close targets.
 constexpr int kKeyBits = 3;
@@ -375,6 +375,44 @@ __device__ __forceinline__ void rank_slots(unsigned key, int t,
   }
   s_slot[rank] = t;
   __syncthreads();
+}
+
+// The coarse-cell kernels I/J and K rank a cell's slots by the Morton key
+// over the box of the block's live slots (they do not know a vacuum
+// grid's origin): x's cell on the key's grid over [lo, lo + (2^kKeyBits)
+// / scale], with no contraction (__fsub_rn, __fmul_rn), so the host can
+// repeat it.
+__device__ __forceinline__ unsigned key_axis(float x, float lo, float scale) {
+  const float f = floorf(__fmul_rn(__fsub_rn(x, lo), scale));
+  return static_cast<unsigned>(
+      fminf(fmaxf(f, 0.f), static_cast<float>((1 << kKeyBits) - 1)));
+}
+
+// rank_slots for slot t at (x, y, z), live where `in`, keyed over the box
+// of the block's live slots; s_box holds a Box a warp. All threads call
+// it; it ends with a barrier.
+__device__ __forceinline__ void rank_by_box(bool in, float x, float y,
+                                            float z, int t, Box* s_box,
+                                            unsigned* s_key, int* s_slot) {
+  const Box wb = warp_box(in, x, y, z, 0.f);
+  if ((threadIdx.x & 31) == 0) s_box[threadIdx.x >> 5] = wb;
+  __syncthreads();
+  float lo[3], scale[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float l = s_box[0].lo[a], u = s_box[0].hi[a];
+    for (int w = 1; w < static_cast<int>(blockDim.x) / 32; ++w) {
+      l = fminf(l, s_box[w].lo[a]);
+      u = fmaxf(u, s_box[w].hi[a]);
+    }
+    lo[a] = l;
+    scale[a] = u > l ? static_cast<float>(1 << kKeyBits) / (u - l) : 0.f;
+  }
+  unsigned key = kFull;
+  if (in)
+    key = morton_key(key_axis(x, lo[0], scale[0]), key_axis(y, lo[1], scale[1]),
+                     key_axis(z, lo[2], scale[2]));
+  rank_slots(key, t, s_key, s_slot);
 }
 
 // Threads of subcell_boxes_kernel: one warp a part

@@ -85,15 +85,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 7;   // staged rows x, y, z, m, vx, vy, vz
-constexpr int kKeyBits = glt::kKeyBits;
-
-// the cell of x on the key's grid over [lo, lo + (2^kKeyBits) / scale]
-__device__ __forceinline__ unsigned key_axis(float x, float lo, float scale) {
-  // __fsub_rn and __fmul_rn: no contraction, so the host can repeat it
-  const float f = floorf(__fmul_rn(__fsub_rn(x, lo), scale));
-  return static_cast<unsigned>(
-      fminf(fmaxf(f, 0.f), static_cast<float>((1 << kKeyBits) - 1)));
-}
 
 template <bool kPeriodic>
 __global__ void __launch_bounds__(kThreads)
@@ -115,7 +106,6 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ glt::Box s_tbox[kWarps];
   __shared__ unsigned s_key[kThreads];
   __shared__ int s_slot[kThreads];
-  const int nt = blockDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float(*ring)[kRows][32] = s_ring[warp];
   const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
@@ -125,28 +115,8 @@ __global__ void __launch_bounds__(kThreads)
   // parked ones last
   {
     const bool in = t < cap && tile[3 * cap + t] > 0.f;
-    const float x = in ? tile[t] : 0.f, y = in ? tile[cap + t] : 0.f,
-                z = in ? tile[2 * cap + t] : 0.f;
-    const glt::Box wb = glt::warp_box(in, x, y, z, 0.f);
-    if (lane == 0) s_tbox[warp] = wb;
-    __syncthreads();
-    float lo[3], scale[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float l = s_tbox[0].lo[a], u = s_tbox[0].hi[a];
-      for (int w = 1; w < nt / 32; ++w) {
-        l = fminf(l, s_tbox[w].lo[a]);
-        u = fmaxf(u, s_tbox[w].hi[a]);
-      }
-      lo[a] = l;
-      scale[a] = u > l ? static_cast<float>(1 << kKeyBits) / (u - l) : 0.f;
-    }
-    unsigned key = glt::kFull;
-    if (in)
-      key = glt::morton_key(key_axis(x, lo[0], scale[0]),
-                            key_axis(y, lo[1], scale[1]),
-                            key_axis(z, lo[2], scale[2]));
-    glt::rank_slots(key, t, s_key, s_slot);
+    glt::rank_by_box(in, in ? tile[t] : 0.f, in ? tile[cap + t] : 0.f,
+                     in ? tile[2 * cap + t] : 0.f, t, s_tbox, s_key, s_slot);
   }
   const int ts = s_slot[threadIdx.x];   // the slot this thread sums for
   const bool live = ts < cap && tile[3 * cap + ts] > 0.f;

@@ -10,174 +10,291 @@
 // nearest its cell's centre), m, vx, vy, vz, h; rows 8-12
 // rho, P/rho^2 f, c_sound, Balsara, valid (the TPU kernel's soa_a and
 // soa_b in one tensor; targets and sources come from the same pack). For
-// each live target slot of a cell c, over the 27 cells around c, each pair
-// with 0 < r < max(h_i, h_j) and a valid source adds the entropy-form pair
-// force with Monaghan-Balsara viscosity, the Balsara limiter, the
-// Hubble-flow term and fac_mu [G2: hydra.c :: hydro_evaluate()];
-// out[C, 5, cap] = ax, ay, az, raw dA/dt, max signal velocity (from 0, over
-// the masked pairs only). The caller applies the (gamma-1) / (a^2 H
-// rho^(gamma-1)) factor. Wrap and vacuum edges as in sph_cells_density.cu.
+// each live target slot (valid > 0) of a cell c, over the 27 cells around
+// c, each pair with 0 < r < max(h_i, h_j) and a valid source adds the
+// entropy-form pair force with Monaghan-Balsara viscosity, the Balsara
+// limiter, the Hubble-flow term and fac_mu [G2: hydra.c ::
+// hydro_evaluate()]; out[C, 5, cap] = ax, ay, az, raw dA/dt, max signal
+// velocity (from 0, over the masked pairs only). The caller applies the
+// (gamma-1) / (a^2 H rho^(gamma-1)) factor. Wrap and vacuum edges as in
+// sph_cells_density.cu: a neighbour tile across the wrap is shifted by
+// -+box as a whole, dx = t - (s + shift); stencil cells beyond a vacuum
+// grid's edge add nothing. The self-pair is excluded by r2 > 0: the
+// coordinates are absolute and the centre cell's shift is 0, so a target
+// meets its own slot at r2 == 0 bit for bit. (Kernels D and G, on
+// block-relative coordinates, compare int32 particle indices instead.)
+// Every mask is a branch, never a product: 1 / rho_ij reaches 1e37 where
+// both densities are 0. Parked target slots write zeros.
 //
-// The self-pair is excluded by r2 > 0: the coordinates are absolute and
-// the centre cell's shift is 0, so a target meets its own slot at r2 == 0
-// bit for bit. (Kernels D and G, on block-relative coordinates, compare
-// int32 particle indices instead.) Every mask is a branch, never a
-// product: 1 / rho_ij reaches 1e37 where both densities are 0.
+// What bounds it on the card. Pairs: at 2x128^3 gas, C = 28^3 cells with
+// ~96 of cap = 128 slots live, 5.4e9 stencil pairs a pass, about 1.2% of
+// them inside max(h_i, h_j), each of those about 86 float32 operations
+// and a division. A warp pays a pair's arithmetic whenever one of its
+// lanes is inside, so the kernel is bound by instruction issue and
+// divergence at the edge of the support, not by bytes.
 //
-// What bounds it on the card. Pairs, as sph_cells_density.cu (5.4e9 at
-// 2x128^3), about 86 float32 operations for each inside the support;
-// bound by the FP32 pipes and by divergence at the support edge.
-//
-// What the design does about it. Kernel D's: one thread block per cell,
-// one thread per target slot, each 13-row neighbour tile staged once in
-// shared memory in chunks of kTile slots, shift added while staging.
-// Invalid sources are skipped with a branch uniform across the block; a
-// warp whose targets are all parked skips the pair loop; a cell with no
-// live target skips its stencil. The pair arithmetic is spelt out inline,
-// as in kernel D (a shared pair function cost D 8 registers).
-// hubble_a2_flow and fac_mu are read from device memory, so the launch
-// needs no host sync.
+// What the design does about it: kernel I/J's (csrc/sph_cells_density.cu)
+// with hydro's reach max(h_i, h_j), as kernel D takes it
+// (csrc/sph_hydro.cu).
+// - Chunk boxes. A first kernel (glt::subcell_boxes_kernel in D's
+//   instantiation, valid row 12 and h row 7, with parts of 32 slots)
+//   writes, for each cell and each chunk of 32 slots of it, the bounding
+//   box of its valid sources and their largest h (an empty chunk's box is
+//   +inf..-inf, beyond any reach), into a workspace of C x ceil(cap / 32)
+//   x 8 floats that the wrapper allocates.
+// - Targets in space order. A thread block is 128 slots of one cell, one
+//   thread a target slot. The block ranks its live slots by a Morton key
+//   on an 8^3 grid over the bounding box of those slots
+//   (glt::rank_by_box), ties by slot, parked slots last, so each warp
+//   holds 32 close targets; the warp reduces their box and its reach, the
+//   largest h of its live targets (glt::warp_box; a NaN adds nothing, and
+//   the reach is at least 0).
+// - The chunk skip. A warp walks the items (stencil cell j, chunk) in
+//   order and skips those whose shifted box lies at least max(h_max,
+//   h_chunk) (1 + 1e-5) from its targets' box; it stages the others itself
+//   (13 rows: x, y, z, m, vx, vy, vz, h, rho, P/rho^2 f, c, Balsara,
+//   valid, of 32 slots, 3.3 KB), double-buffered with cp.async, from L2.
+// - Warp-uniform culling within a chunk: each lane tests its chunk's
+//   source against the warp's box with the reach max(h_max, h_s), and a
+//   ballot keeps the valid sources within it (1 + 1e-5). Every box test
+//   (glt::near_boxes<glt::Shift::kSource>) takes the shifted source
+//   coordinate as dx does, s + shift, so the box distance per axis is in
+//   float32 never above |dx| for a target of the box (rounding is
+//   monotone); the 1e-5 covers the rounding of r = r2 rsqrt(r2) and of the
+//   squares. A culled source has r >= max(h_i, h_j) for every lane of the
+//   warp, which the earlier design left with `continue`; so msv, which
+//   takes its max over the masked pairs only, is unchanged too.
+// - The order of sums is kept: each target adds its pairs stencil cell j
+//   = 0..26, then slot ascending, skipping only pairs the earlier design
+//   skipped, with the earlier design's pair arithmetic line for line
+//   (spelt out here, not glt::hydro_pair: D's note on registers); the warp
+//   walks the kept sources two at a time where there are two, so that the
+//   two pairs' arithmetic can overlap. K equals its earlier design (one
+//   thread per target walking every staged source of each stencil cell)
+//   bit for bit, built with -fmad=false on both and, with nvcc 12.8, with
+//   its default contraction into FMAs too, periodic and vacuum, at 128
+//   and 256 slots (PERF.md section 6). No compaction of the inside pairs.
+// - hubble_a2_flow and fac_mu are read from device memory, so the launch
+//   needs no host sync.
+// nvcc 12.8 -Xptxas=-v for sm_90a: 56 registers periodic and vacuum (the
+// earlier design 64), 14,448 bytes of shared memory a block of 128
+// threads; the chunk boxes (D's instantiation of
+// glt::subcell_boxes_kernel) 40 registers.
 
 #include "glt_common.cuh"
 
 namespace {
 
-__global__ void sph_cells_hydro_kernel(const float* __restrict__ soa16,
-                                       const float* __restrict__ params,
-                                       float* __restrict__ out, int n, int cap,
-                                       float box, int periodic,
-                                       float half_visc) {
-  __shared__ float s_x[glt::kTile], s_y[glt::kTile], s_z[glt::kTile];
-  __shared__ float s_m[glt::kTile], s_h[glt::kTile];
-  __shared__ float s_vx[glt::kTile], s_vy[glt::kTile], s_vz[glt::kTile];
-  __shared__ float s_rho[glt::kTile], s_por[glt::kTile], s_c[glt::kTile];
-  __shared__ float s_bal[glt::kTile], s_valid[glt::kTile];
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 13;   // staged rows 0-12 of the pack
 
+template <bool kPeriodic>
+__global__ void __launch_bounds__(kThreads)
+    sph_cells_hydro_kernel(const float* __restrict__ soa16,
+                           const float* __restrict__ params,
+                           const float* __restrict__ boxes,
+                           float* __restrict__ out, int n, int cap,
+                           int chunks, float box, float half_visc) {
+  __shared__ float s_ring[kWarps][2][kRows][32];
+  __shared__ glt::Box s_tbox[kWarps];
+  __shared__ unsigned s_key[kThreads];
+  __shared__ int s_slot[kThreads];
   const int c = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float(*ring)[kRows][32] = s_ring[warp];
   float* o = out + static_cast<size_t>(c) * 5 * cap;
-  const float hubble_a2_flow = params[0];
-  const float fac_mu = params[1];
   const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
   const float* tile = soa16 + static_cast<size_t>(c) * 16 * cap;
 
-  for (int t0 = 0; t0 < cap; t0 += blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    const bool slot = t < cap;
-    float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
-    float ht = 0.f, trho = 0.f, tpor = 0.f, tc = 0.f, tbal = 0.f;
-    bool live = false;
-    if (slot) {
-      live = tile[12 * cap + t] > 0.f;
-      tx = tile[t];
-      ty = tile[cap + t];
-      tz = tile[2 * cap + t];
-      tvx = tile[4 * cap + t];
-      tvy = tile[5 * cap + t];
-      tvz = tile[6 * cap + t];
-      ht = tile[7 * cap + t];
-      trho = tile[8 * cap + t];
-      tpor = tile[9 * cap + t];
-      tc = tile[10 * cap + t];
-      tbal = tile[11 * cap + t];
+  // 1. rank the block's slots: live ones by Morton key over their box,
+  // parked ones last
+  {
+    const bool in = t < cap && tile[12 * cap + t] > 0.f;
+    glt::rank_by_box(in, in ? tile[t] : 0.f, in ? tile[cap + t] : 0.f,
+                     in ? tile[2 * cap + t] : 0.f, t, s_tbox, s_key, s_slot);
+  }
+  const int ts = s_slot[threadIdx.x];   // the slot this thread sums for
+  const bool live = ts < cap && tile[12 * cap + ts] > 0.f;
+  float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
+  float ht = 0.f, trho = 0.f, tpor = 0.f, tc = 0.f, tbal = 0.f;
+  if (live) {
+    tx = tile[ts];
+    ty = tile[cap + ts];
+    tz = tile[2 * cap + ts];
+    tvx = tile[4 * cap + ts];
+    tvy = tile[5 * cap + ts];
+    tvz = tile[6 * cap + ts];
+    ht = tile[7 * cap + ts];
+    trho = tile[8 * cap + ts];
+    tpor = tile[9 * cap + ts];
+    tc = tile[10 * cap + ts];
+    tbal = tile[11 * cap + ts];
+  }
+  const float hinv_t = glt::inv_or_zero(ht);
+  // 2. the warp's box and reach
+  const glt::Box tbox = glt::warp_box(live, tx, ty, tz, ht);
+  const float hubble_a2_flow = params[0];
+  const float fac_mu = params[1];
+
+  // stencil cell j: the flat id of the neighbour and its shift; false
+  // beyond the edge of a vacuum grid
+  auto neighbour = [&](int j, int& src, float (&sh)[3]) {
+    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    sh[0] = sh[1] = sh[2] = 0.f;
+    if constexpr (kPeriodic) {
+      if (nx < 0) { nx += n; sh[0] = -box; } else if (nx >= n) { nx -= n; sh[0] = box; }
+      if (ny < 0) { ny += n; sh[1] = -box; } else if (ny >= n) { ny -= n; sh[1] = box; }
+      if (nz < 0) { nz += n; sh[2] = -box; } else if (nz >= n) { nz -= n; sh[2] = box; }
+    } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
+               nz >= n) {
+      return false;
     }
-    const float hinv_t = glt::inv_or_zero(ht);
-    float ax = 0.f, ay = 0.f, az = 0.f, dte = 0.f, msv = 0.f;
-    // the barrier also closes the previous chunk's reads of the tiles
-    const bool any_live = __syncthreads_or(live) != 0;
-    for (int j = 0; any_live && j < 27; ++j) {
-      int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
-      float shx = 0.f, shy = 0.f, shz = 0.f;
-      if (periodic) {
-        if (nx < 0) { nx += n; shx = -box; } else if (nx >= n) { nx -= n; shx = box; }
-        if (ny < 0) { ny += n; shy = -box; } else if (ny >= n) { ny -= n; shy = box; }
-        if (nz < 0) { nz += n; shz = -box; } else if (nz >= n) { nz -= n; shz = box; }
-      } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
-                 nz >= n) {
-        continue;  // beyond the edge of a vacuum grid: uniform in the block
+    src = (nx * n + ny) * n + nz;
+    return true;
+  };
+  // the items (j, chunk) u = j * chunks + k of group g that the warp needs
+  const int items = 27 * chunks;
+  const int groups = (items + 31) >> 5;
+  auto need_mask = [&](int g) {
+    const int u = g * 32 + lane;
+    bool need = false;
+    int src;
+    float sh[3];
+    if (u < items && neighbour(u / chunks, src, sh)) {
+      const float* q =
+          boxes + (static_cast<size_t>(src) * chunks + u % chunks) * 8;
+      const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
+      need = glt::near_boxes<glt::Shift::kSource>(tbox, slo, shi, q[6], sh);
+    }
+    return __ballot_sync(glt::kFull, need);
+  };
+  int g = 0;
+  unsigned pending = 0;
+  // the next needed item after those taken, or -1 (warp-uniform)
+  auto next_item = [&]() {
+    while (pending == 0) {
+      if (g >= groups) return -1;
+      pending = need_mask(g++);
+    }
+    const int u = (g - 1) * 32 + __ffs(pending) - 1;
+    pending &= pending - 1;
+    return u;
+  };
+  auto stage = [&](int u, int buf) {
+    int src;
+    float sh[3];
+    neighbour(u / chunks, src, sh);
+    const int k0 = (u % chunks) * 32;
+    if (lane >= min(32, cap - k0)) return;
+    const float* s = soa16 + static_cast<size_t>(src) * 16 * cap + k0 + lane;
+    for (int r = 0; r < kRows; ++r)
+      glt::cp_async4(&ring[buf][r][lane], s + r * cap);
+  };
+
+  float ax = 0.f, ay = 0.f, az = 0.f, dte = 0.f, msv = 0.f;
+  int u = __any_sync(glt::kFull, live) ? next_item() : -1;
+  int buf = 0;
+  if (u >= 0) stage(u, 0);
+  glt::cp_async_commit();
+  while (u >= 0) {
+    const int nu = next_item();
+    if (nu >= 0) stage(nu, buf ^ 1);   // in flight while this one sums
+    glt::cp_async_commit();
+    glt::cp_async_wait_prior();
+    __syncwarp();
+
+    int src;
+    float sh[3];
+    neighbour(u / chunks, src, sh);
+    const float shx = sh[0], shy = sh[1], shz = sh[2];
+    const float(*sr)[32] = ring[buf];
+    bool near = false;
+    if (lane < min(32, cap - (u % chunks) * 32) && sr[12][lane] > 0.f) {
+      const float s3[3] = {sr[0][lane], sr[1][lane], sr[2][lane]};
+      near = glt::near_boxes<glt::Shift::kSource>(tbox, s3, s3, sr[7][lane],
+                                                  sh);
+    }
+    unsigned todo = __ballot_sync(glt::kFull, near);
+    if (!live) todo = 0;
+    // the earlier design's pair arithmetic, line for line
+    auto pair = [&](int k) {
+      const float dx = tx - (sr[0][k] + shx);
+      const float dy = ty - (sr[1][k] + shy);
+      const float dz = tz - (sr[2][k] + shz);
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
+      const float r = r2 * rinv;
+      const float hs = sr[7][k];
+      if (!(r < fmaxf(ht, hs)) || !(r2 > 0.f)) return;
+      const float dwk_i = glt::w4_dw_dr(r, hinv_t);
+      const float dwk_j = glt::w4_dw_dr(r, glt::inv_or_zero(hs));
+      const float dvx = tvx - sr[4][k];
+      const float dvy = tvy - sr[5][k];
+      const float dvz = tvz - sr[6][k];
+      const float rr = r * r;
+      const float vdotr2 = dvx * dx + dvy * dy + dvz * dz + hubble_a2_flow * rr;
+      const bool approaching = vdotr2 < 0.f;
+      const float mu = fac_mu * vdotr2 * rinv;
+      const float vsig = tc + sr[10][k] - 3.0f * (approaching ? mu : 0.f);
+      const float rho_ij = 0.5f * (trho + sr[8][k]);
+      const float rs = rsqrtf(fmaxf(rho_ij, 1e-37f));
+      const float rho_ij_inv = rs * rs;
+      const float f_ij = 0.5f * (tbal + sr[11][k]);
+      const float visc =
+          approaching ? half_visc * vsig * (-mu) * rho_ij_inv * f_ij : 0.f;
+      const float m = sr[3][k];
+      const float hfc_visc = 0.5f * m * visc * (dwk_i + dwk_j) * rinv;
+      const float hfc = hfc_visc + m * (tpor * dwk_i + sr[9][k] * dwk_j) * rinv;
+      ax -= hfc * dx;
+      ay -= hfc * dy;
+      az -= hfc * dz;
+      dte += 0.5f * (hfc_visc * vdotr2);
+      msv = fmaxf(msv, vsig);
+    };
+    while (todo) {
+      const int k1 = __ffs(todo) - 1;
+      todo &= todo - 1;
+      if (todo) {
+        const int k2 = __ffs(todo) - 1;
+        todo &= todo - 1;
+        pair(k1);
+        pair(k2);
+      } else {
+        pair(k1);
       }
-      const float* s =
-          soa16 + static_cast<size_t>((nx * n + ny) * n + nz) * 16 * cap;
-      for (int s0 = 0; s0 < cap; s0 += glt::kTile) {
-        const int len = min(glt::kTile, cap - s0);
-        __syncthreads();
-        for (int k = threadIdx.x; k < len; k += blockDim.x) {
-          const int q = s0 + k;
-          s_x[k] = s[q] + shx;
-          s_y[k] = s[cap + q] + shy;
-          s_z[k] = s[2 * cap + q] + shz;
-          s_m[k] = s[3 * cap + q];
-          s_vx[k] = s[4 * cap + q];
-          s_vy[k] = s[5 * cap + q];
-          s_vz[k] = s[6 * cap + q];
-          s_h[k] = s[7 * cap + q];
-          s_rho[k] = s[8 * cap + q];
-          s_por[k] = s[9 * cap + q];
-          s_c[k] = s[10 * cap + q];
-          s_bal[k] = s[11 * cap + q];
-          s_valid[k] = s[12 * cap + q];
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int k = 0; k < len; ++k) {
-          if (!(s_valid[k] > 0.f)) continue;  // uniform across the block
-          const float dx = tx - s_x[k];
-          const float dy = ty - s_y[k];
-          const float dz = tz - s_z[k];
-          const float r2 = dx * dx + dy * dy + dz * dz;
-          const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
-          const float r = r2 * rinv;
-          const float hs = s_h[k];
-          if (!(r < fmaxf(ht, hs)) || !(r2 > 0.f)) continue;
-          const float dwk_i = glt::w4_dw_dr(r, hinv_t);
-          const float dwk_j = glt::w4_dw_dr(r, glt::inv_or_zero(hs));
-          const float dvx = tvx - s_vx[k];
-          const float dvy = tvy - s_vy[k];
-          const float dvz = tvz - s_vz[k];
-          const float rr = r * r;
-          const float vdotr2 =
-              dvx * dx + dvy * dy + dvz * dz + hubble_a2_flow * rr;
-          const bool approaching = vdotr2 < 0.f;
-          const float mu = fac_mu * vdotr2 * rinv;
-          const float vsig = tc + s_c[k] - 3.0f * (approaching ? mu : 0.f);
-          const float rho_ij = 0.5f * (trho + s_rho[k]);
-          const float rs = rsqrtf(fmaxf(rho_ij, 1e-37f));
-          const float rho_ij_inv = rs * rs;
-          const float f_ij = 0.5f * (tbal + s_bal[k]);
-          const float visc =
-              approaching ? half_visc * vsig * (-mu) * rho_ij_inv * f_ij
-                          : 0.f;
-          const float m = s_m[k];
-          const float hfc_visc = 0.5f * m * visc * (dwk_i + dwk_j) * rinv;
-          const float hfc =
-              hfc_visc + m * (tpor * dwk_i + s_por[k] * dwk_j) * rinv;
-          ax -= hfc * dx;
-          ay -= hfc * dy;
-          az -= hfc * dz;
-          dte += 0.5f * (hfc_visc * vdotr2);
-          msv = fmaxf(msv, vsig);
-        }
-      }
     }
-    if (slot) {
-      o[t] = ax;
-      o[cap + t] = ay;
-      o[2 * cap + t] = az;
-      o[3 * cap + t] = dte;
-      o[4 * cap + t] = msv;
-    }
+    __syncwarp();   // every lane is done with this buffer before its refill
+    u = nu;
+    buf ^= 1;
+  }
+  if (ts < cap) {
+    o[ts] = ax;
+    o[cap + ts] = ay;
+    o[2 * cap + ts] = az;
+    o[3 * cap + ts] = dte;
+    o[4 * cap + ts] = msv;
   }
 }
 
 }  // namespace
 
 extern "C" int glt_sph_cells_hydro(const float* soa16, const float* params,
-                                   float* out, int n, int cap, float box,
-                                   int periodic, float half_visc,
+                                   float* boxes, float* out, int n, int cap,
+                                   float box, int periodic, float half_visc,
                                    void* stream) {
-  const int blocks = n * n * n;
-  const int threads = cap < 256 ? ((cap + 31) / 32) * 32 : 256;
-  sph_cells_hydro_kernel<<<blocks, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      soa16, params, out, n, cap, box, periodic, half_visc);
+  const int cells = n * n * n;
+  const int chunks = (cap + 31) / 32;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
+  const dim3 grid(cells, (cap + threads - 1) / threads);
+  glt::launch_boxes<16, 12, 7>(soa16, boxes, cells, cap, 32, st);
+  if (periodic)
+    sph_cells_hydro_kernel<true><<<grid, threads, 0, st>>>(
+        soa16, params, boxes, out, n, cap, chunks, box, half_visc);
+  else
+    sph_cells_hydro_kernel<false><<<grid, threads, 0, st>>>(
+        soa16, params, boxes, out, n, cap, chunks, box, half_visc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -380,8 +380,15 @@ def density_sums_blocks_entries(soa_o: torch.Tensor, tgt: torch.Tensor,
         return density_sums_blocks_entries_plain(soa_o, tgt, h_slots,
                                                  entry_blk, nb, lf)
     out = torch.empty(k, 6, ENTRY_LANES, dtype=soa_o.dtype, device=dev)
+    # the kernel's workspace: the box of each 32-slot chunk of each source
+    # block, and a word a group of 32 chunks of each entry's odd blocks
+    chunks = (lanes + 31) // 32
+    boxes = torch.empty(b * chunks * 8, dtype=torch.float32, device=dev)
+    need = torch.empty(k * ((8 * chunks + 31) // 32), dtype=torch.int32,
+                       device=dev)
     ptrs = (soa_o.data_ptr(), tgt.data_ptr(), h_slots.data_ptr(),
-            entry_blk.data_ptr(), out.data_ptr(), nb, lanes, k)
+            entry_blk.data_ptr(), boxes.data_ptr(), need.data_ptr(),
+            out.data_ptr(), nb, lanes, k)
     if lf is not None:
         ptrs += (lf,)
     kernels.launch(name, *ptrs)

@@ -299,9 +299,13 @@ def hydro_sums_cells(soa16: torch.Tensor, params: torch.Tensor, n_cells: int,
         return hydro_sums_cells_plain(soa16, params, n_cells, box, periodic,
                                       visc_const)
     out = torch.empty(c, 5, cap, dtype=soa16.dtype, device=soa16.device)
+    # the kernel's workspace: the box and largest h of each 32-slot chunk
+    # of each cell
+    boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
+                        device=soa16.device)
     kernels.launch("sph_cells_hydro", soa16.data_ptr(), params.data_ptr(),
-                   out.data_ptr(), n_cells, cap, box, int(periodic),
-                   0.5 * visc_const)
+                   boxes.data_ptr(), out.data_ptr(), n_cells, cap, box,
+                   int(periodic), 0.5 * visc_const)
     return out
 
 

@@ -919,3 +919,219 @@ def test_cells_density_kernel_edges_on_card(periodic, case):
     elif case == "one_warp":
         assert int((soa[13, 3] > 0).sum()) == 20
         assert bool((rows[-20:, 2] != 0).all())
+
+
+# Kernels K and F at the edges of their culling (csrc/sph_cells_hydro.cu,
+# csrc/sph_density_entries.cu): a source at max(h_i, h_j) (1 -+ 1e-5) from
+# a warp's box across the periodic wrap in both signs, more than 128 live
+# slots in a cell, an isolated particle; F in both modes, with entries
+# switched off (-1), chunks that are all parked and the disc's 4,096-slot
+# subcells. Each case holds the kernel to its float64 plain version.
+EDGE = 1e-5
+
+
+def _cuda(a):
+    import numpy as np
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device="cuda")
+
+
+def _cells_hydro_check(pos, h, periodic: bool, cap: int, seed: int):
+    """Kernel K on seeded gas at ``pos`` with smoothing lengths ``h`` on
+    an IJ_N^3 list of ``cap`` slots over [0, IJ_BOX), against its float64
+    plain version; parked slots write zeros. Returns (its rows per
+    particle [N, 5], the pack)."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
+                                                          merge_rows)
+    rng = np.random.default_rng(seed)
+    n = len(pos)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    cl = build_cell_list(_cuda(pos), mask, 0.0, IJ_BOX, IJ_N, cap, periodic)
+    assert not bool(cl.overflow)
+    rho = _cuda(rng.uniform(0.8, 1.2, n))
+    soa16 = sc.pack_hydro_cells(
+        cl, _cuda(pos), _cuda(rng.normal(0.0, 1.0, (n, 3))),
+        _cuda(rng.uniform(0.5, 1.5, n) / n), _cuda(h), rho,
+        0.5 * rho ** (5.0 / 3.0), _cuda(rng.uniform(0.9, 1.1, n)),
+        _cuda(rng.normal(size=n)), _cuda(rng.uniform(0.0, 1.0, n)), mask,
+        torch.tensor(0.9, device="cuda"), IJ_BOX)
+    args = (soa16, _cuda([0.1, 0.9]), IJ_N, IJ_BOX, periodic, 0.8)
+    before = kernels.launches["sph_cells_hydro"]
+    got = sc.hydro_sums_cells(*args)
+    assert kernels.launches["sph_cells_hydro"] == before + 1
+    want = sc.hydro_sums_cells_plain(*args)
+    exact = sc.hydro_sums_cells_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("sph_cells_hydro", got, want, exact)
+    assert used <= 1.0
+    assert bool((got.transpose(1, 2)[soa16[:, 12] == 0] == 0).all())
+    return merge_rows(got, cl, 5), soa16
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_cells_hydro_kernel_culling_edges_on_card(sign):
+    """Kernel K on four pairs across the periodic wrap (the source below x
+    = 0, sign -1, or above x = IJ_BOX, sign 1), each alone in its cells:
+    at max(h_i, h_j) (1 - 1e-5) apart, which add, and (1 + 1e-5), which
+    add nothing, with the reach from the source's h (chunk and source
+    reach) and from the target's. Both particles of a pair inside have a
+    force and a signal velocity; those of a pair outside write zeros."""
+    _need_card()
+    lo, hi = 0.3, 0.6
+    layout = [(0.5, 0.5, True, (lo, hi)), (1.5, 0.5, False, (lo, hi)),
+              (2.5, 0.5, True, (hi, lo)), (0.5, 1.5, False, (hi, lo))]
+    pos, h = [], []
+    for y, z, inside, (ht, hs) in layout:
+        d = max(ht, hs) * (1.0 - EDGE if inside else 1.0 + EDGE)
+        xt = 0.05 if sign < 0 else IJ_BOX - 0.05
+        pos += [[xt, y, z], [(xt + sign * d) % IJ_BOX, y, z]]
+        h += [ht, hs]
+    rows, _ = _cells_hydro_check(pos, h, True, 128, 30 + sign)
+    for i, (*_, inside, _) in enumerate(layout):
+        pair = rows[2 * i:2 * i + 2]
+        if inside:
+            assert bool((pair[:, 0] != 0).all()) and bool((pair[:, 4] > 0).all())
+        else:
+            assert bool((pair == 0).all())
+
+
+def test_cells_hydro_kernel_above_128_live_slots_on_card():
+    """Kernel K on a cell of more than 128 live slots (two blocks of 128
+    targets ranked apart), cap 256: every clump particle has neighbours
+    (a signal velocity)."""
+    _need_card()
+    import numpy as np
+    rng = np.random.default_rng(41)
+    pos = np.concatenate([rng.uniform(0.0, IJ_BOX, (800, 3)),
+                          rng.uniform(1.1, 1.9, (200, 3))])
+    rows, soa16 = _cells_hydro_check(pos, rng.uniform(0.2, 0.45, 1000), True,
+                                     256, 41)
+    assert int((soa16[:, 12] > 0).sum(1).max()) > 128
+    assert bool((rows[800:, 4] > 0).all())
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_cells_hydro_kernel_isolated_particle_on_card(periodic):
+    """Two particles 0.9 apart with h = 0.3 have zero force and zero
+    signal velocity (the self-pair adds nothing); a pair 0.2 apart
+    interacts."""
+    _need_card()
+    pos = [[0.5, 0.5, 0.5], [1.4, 0.5, 0.5], [2.2, 2.2, 2.2],
+           [2.4, 2.2, 2.2]]
+    rows, _ = _cells_hydro_check(pos, [0.3] * 4, periodic, 128, 7)
+    assert bool((rows[:2] == 0).all())
+    assert bool((rows[2:, 0] != 0).all()) and bool((rows[2:, 4] > 0).all())
+
+
+def _entries_check(pos, h, active, periodic: bool, subcap: int, seed: int,
+                   nb: int = 2, box: float = 2.0):
+    """Kernel F on the entries of the ``active`` gas at ``pos`` (smoothing
+    lengths ``h``) on an nb^3 block grid of ``subcap`` slots a subcell
+    over [0, box), periodic (relative mode) or clamped (absolute), against
+    its float64 plain version; switched-off entries and dead lanes write
+    zeros. Returns (its output [K, 6, 8], the lanes' particles [K, 8],
+    their validity, the arguments)."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
+                                                      build_active_entries,
+                                                      entry_particles)
+    rng = np.random.default_rng(seed)
+    n = len(pos)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    p = _cuda(pos)
+    cls = sb.build_block_lists(p, mask, 0.0, box, nb, subcap,
+                               periodic=periodic)
+    assert not bool(cls[0].overflow)
+    lf = box / (2 * nb) if periodic else None
+    vel, mass = _cuda(rng.normal(0.0, 1.0, (n, 3))), _cuda(
+        rng.uniform(0.5, 1.5, n) / n)
+    ones = torch.ones(n, device="cuda")
+    ec, es, total = build_active_entries(
+        cls[0], torch.tensor(np.asarray(active), device="cuda"), ENTRY_LANES,
+        2 * nb ** 3)
+    assert int(total) <= 2 * nb ** 3 and bool((ec < 0).any())
+    soa_o = sb.pack_sph_soa(cls[1], p, vel, mass, ones, mask,
+                            sb._centers(cls[1], "odd", lf), box)
+    pidx, valid = entry_particles(cls[0], ec, es, mask)
+    tgt = sb._sph_rows(cls[0], pidx, valid, sb._entry_centers(cls[0], ec, lf),
+                       box, p, vel, mass, ones).transpose(1, 2).contiguous()
+    hl = torch.where(valid, _cuda(h)[pidx.clamp_min(0).long()],
+                     torch.zeros((), device="cuda")).contiguous()
+    args = (soa_o, tgt, hl, ec, nb, lf)
+    name = "sph_density_entries" if periodic else "sph_density_entries_abs"
+    before = kernels.launches[name]
+    got = sb.density_sums_blocks_entries(*args)
+    assert kernels.launches[name] == before + 1
+    want = sb.density_sums_blocks_entries_plain(*args)
+    exact = sb.density_sums_blocks_entries_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare(name, got, want, exact)
+    assert used <= 1.0
+    assert bool((got[ec < 0] == 0).all())
+    assert bool((got.transpose(1, 2)[~valid] == 0).all())
+    return got, pidx, valid, args
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_entries_density_kernel_culling_edges_on_card(periodic, sign):
+    """Kernel F, both modes, on four active targets, each with one source
+    at h (1 - 1e-5), which adds, or h (1 + 1e-5), which adds nothing:
+    across the periodic wrap (relative mode; the source below x = 0, sign
+    -1, or above x = 2, sign 1) or inside the clamped grid (absolute mode),
+    on 2^3 blocks of 64 slots a subcell, whose chunks of slots 32-63 are
+    all parked; the padded entries are switched off (-1). A target with
+    its source inside has div v; one without has only its own self-pair
+    (rho > 0, div v and rot v 0)."""
+    _need_card()
+    import numpy as np
+    ht = 0.4
+    layout = [(0.25, 0.25, True), (1.25, 0.25, False), (0.25, 1.25, True),
+              (1.25, 1.25, False)]
+    pos, h = [], []
+    for y, z, inside in layout:
+        d = ht * (1.0 - EDGE if inside else 1.0 + EDGE)
+        if periodic:
+            xt = 0.05 if sign < 0 else 1.95
+            xs = (xt + sign * d) % 2.0
+        else:
+            xt = 0.7 if sign < 0 else 1.3
+            xs = xt + sign * d
+        pos += [[xt, y, z], [xs, y, z]]
+        h += [ht, 0.3]
+    active = np.arange(len(pos)) % 2 == 0
+    got, pidx, valid, args = _entries_check(pos, h, active, periodic, 64,
+                                            50 + sign + 2 * periodic)
+    soa_o = args[0]
+    assert not bool((soa_o[:, 3].reshape(soa_o.shape[0], -1, 32) > 0)
+                    .any(-1).all())
+    rows = got.transpose(1, 2)[valid]                         # [targets, 6]
+    who = pidx[valid].long() // 2
+    for i, (*_, inside) in enumerate(layout):
+        r = rows[who == i]
+        assert r.shape[0] == 1 and float(r[0, 0]) > 0
+        if inside:
+            assert float(r[0, 2]) != 0.0
+        else:
+            assert bool((r[0, 2:] == 0).all())
+
+
+def test_entries_density_kernel_on_disc_subcells_on_card():
+    """Kernel F in absolute mode on the Leicester disc's geometry: 2^3
+    blocks of 4,096 slots a subcell (262,144 source slots an entry, most
+    of them parked), a dense clump at the centre in a sparse cloud, 1% of
+    the gas active: every live lane has its density."""
+    _need_card()
+    import numpy as np
+    rng = np.random.default_rng(5)
+    pos = np.concatenate([rng.uniform(0.0, 2.0, (3000, 3)),
+                          rng.normal(1.0, 0.1, (3000, 3)).clip(0.01, 1.99)])
+    h = np.where(np.arange(6000) < 3000, 0.3, 0.08)
+    active = rng.uniform(size=6000) < 0.01
+    got, _, valid, args = _entries_check(pos, h, active, False, 4096, 5)
+    assert args[0].shape[2] == 8 * 4096
+    assert bool((got[:, 0][valid] > 0).all())

@@ -482,3 +482,53 @@ def test_tier_rule_counts_entries_only_past_pre_gate(n_active, n_entries,
         return torch.tensor(n_entries)
     assert use_entries(torch.tensor(n_active), count, 100) is took
     assert bool(calls) is counted
+
+
+# ---------------------------------------------------------------------------
+# (f) the model of kernel F's walk keeps every pair inside the support
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("subcap", [32, 64])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_walk_model_of_kernel_f_keeps_every_pair_inside_the_support(
+        periodic, subcap):
+    """chip_smoke.entries_density_walk, the model of kernel F's culling
+    (csrc/sph_density_entries.cu: 32-slot chunk boxes of the sources with
+    m > 0, the box of a warp's live lanes with the reach of their largest
+    h), on the smaller SPH box's gas on its periodic grid (relative
+    coordinates) or on a clamped one over the same cube (absolute), with
+    coordinates equal to the box among the active gas and an entry with
+    one live lane, on the arguments the Newton loop gives kernel F with
+    every entry on. Every pair of a live lane with h > 0 and a source with
+    m > 0 inside the support (r < h, or r (1/h) < 1 in float32 as the
+    kernel takes u) is walked, and the walk leaves out some pairs."""
+    import chip_smoke
+    pos, vel, mass, h0, gas_mask = _sph_setup(11 + subcap, n=900, box=C_BOX)
+    pos[:3] = [[C_BOX, 1.0, 1.0], [0.0, C_BOX, 0.5], [C_BOX, C_BOX, C_BOX]]
+    active = _sph_active("spread", pos, gas_mask, C_BOX)
+    active[:3] = True
+    tcls = tsb.build_block_lists(*_t(pos, gas_mask), 0.0, C_BOX, C_NB,
+                                 subcap, periodic=periodic)
+    assert not bool(tcls[0].overflow)
+    # particle 0 alone active in its even block: an entry of one live lane
+    blk = (tcls[0].gslot // (8 * subcap)).numpy()
+    active &= (blk != blk[0]) | (np.arange(len(pos)) == 0)
+    ec, es, _ = cells.build_active_entries(tcls[0], torch.from_numpy(active),
+                                           LANES, C_KMAX)
+    assert int(((es >= 0).sum(1) == 1).sum()) > 0
+    rec = _recorded(tsb.density_adaptive_blocks_entries,
+                    *_t(pos, vel, mass, h0, gas_mask), ec, es, box=C_BOX,
+                    cls=tcls, max_hsml=C_MAXH, **DKW)
+    name = "sph_density_entries" if periodic else "sph_density_entries_abs"
+    soa_o, tgt, h, _, nb, lf = rec[name]
+    args = (soa_o, tgt, h, ec, nb, lf)
+    e = torch.nonzero(ec >= 0).flatten()
+    live, walked = chip_smoke.entries_density_walk(args, e)
+    ids, units = tsb.odd_sources(nb, ec[e].long(), periodic)
+    rows, shift = tsb._gather_sources(soa_o, ids, units, lf, (0, 1, 2, 3))
+    r = tsb._pair_geometry(tgt[e], rows, shift)[3]
+    hl = h[e][:, :, None]
+    support = ((r < hl) | (r * (1.0 / hl) < 1.0)) & (hl > 0)
+    pair = live[..., None] & (rows[3] > 0)[:, None, :]
+    assert int((pair & support).sum()) > 0
+    assert not bool((pair & support & ~walked).any())
+    assert int((pair & walked).sum()) < int(pair.sum())

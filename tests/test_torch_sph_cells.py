@@ -445,3 +445,51 @@ def test_walk_model_of_kernel_ij_keeps_every_pair_inside_the_support(
     assert int((pair & support).sum()) > 0
     assert not bool((pair & support & ~walked).any())
     assert int((pair & walked).sum()) < int(pair.sum())
+
+
+@pytest.mark.parametrize("periodic,cap", [(True, 128), (False, 128),
+                                          (True, 224)])
+def test_walk_model_of_kernel_k_keeps_every_pair_inside_the_support(
+        periodic, cap):
+    """chip_smoke.cells_hydro_walk, the model of kernel K's culling
+    (csrc/sph_cells_hydro.cu: chunk boxes with the largest h of their
+    sources, warp boxes with the reach max(h_max, h_s)), on the gas of the
+    I/J case above: coordinates equal to the box (periodic), a fifth of
+    the gas at h equal to the cell edge, twenty sources at h 1.6 cell
+    edges (above it) and a target with h = 0; at 224 slots more than 128
+    live slots in one cell. Every pair of a live target and a valid
+    source in the stencil with 0 < r < max(h_i, h_j) is walked, and the
+    walk leaves out some pairs."""
+    import chip_smoke
+    d = _setup(60 + cap + periodic, 1400, periodic)
+    n_cells, n = 3, 1400
+    rng = np.random.default_rng(cap + 1)
+    if periodic:
+        d["pos"][:3] = [[BOX, 1.0, 1.0], [0.0, BOX, 0.5], [BOX, BOX, BOX]]
+    if cap > 128:
+        d["pos"][3:153] = rng.uniform(1.1, 1.9, (150, 3))
+    edge = np.float32(d["extent"] / n_cells)
+    d["h"][rng.choice(n, n // 5, replace=False)] = edge
+    d["h"][rng.choice(n, 20, replace=False)] = 1.6 * edge
+    d["h"][5] = 0.0
+    t = build_cell_list(*_t(d["pos"], d["mask"]),
+                        torch.as_tensor(d["origin"]),
+                        torch.as_tensor(d["extent"]), n_cells, cap, periodic)
+    assert not bool(t.overflow)
+    soa16 = sc.pack_hydro_cells(t, *_t(*_hydro_fields(d, 5)),
+                                torch.tensor(0.9), d["box"])
+    if cap > 128:
+        assert int((soa16[:, 12] > 0).sum(1).max()) > 128
+    args = (soa16, torch.tensor([0.1, 0.9]), n_cells, d["box"], periodic,
+            0.8)
+    k = torch.arange(n_cells ** 3)
+    live, walked = chip_smoke.cells_hydro_walk(args, k)
+    s, inside = sc._gather_sources(soa16, k, n_cells, d["box"], periodic,
+                                   (0, 1, 2, 7, 12))
+    _, _, _, r, _, r2 = sc._pair_geometry(soa16, s)
+    support = (r < torch.maximum(soa16[:, 7, :, None], s[3][:, None, :])) \
+        & (r2 > 0.0)
+    pair = live[..., None] & ((s[4] > 0) & inside)[:, None, :]
+    assert int((pair & support).sum()) > 0
+    assert not bool((pair & support & ~walked).any())
+    assert int((pair & walked).sum()) < int(pair.sum())
