@@ -4084,7 +4084,7 @@ def main() -> int:
             ("H", PTXAS_NAME["shortrange_potential"]),
             ("I/J (vacuum, periodic grid)", PTXAS_NAME["sph_cells_density"]),
             ("K (vacuum, periodic grid)", PTXAS_NAME["sph_cells_hydro"]),
-            ("F (relative, absolute mode)", "sph_density_entries_kernel"),
+            ("F (absolute, relative mode)", "sph_density_entries_kernel"),
             ("the box kernels of C, D and I/J", "subcell_boxes_kernel"))))
     del recorded
     kernels.recorded.clear()

@@ -69,7 +69,7 @@
 //   FMAs its rows may differ in their last bits (PERF.md section 6).
 // nvcc 12.8 -Xptxas=-v for sm_90a: the sums 107 registers relative, 109
 // absolute (the earlier design 92, 95), 1,152 bytes of shared memory a
-// block of 128 threads; the chunk boxes 32 registers.
+// block of 128 threads; the need words 30 registers, the chunk boxes 32.
 
 #include "glt_common.cuh"
 

@@ -3,14 +3,16 @@
 glt_common.cuh) of this checkout against an earlier tree's, in one
 process on one NVIDIA card.
 
-    python3 kernel_ab.py OLD_TREE
+    python3 kernel_ab.py OLD_TREE [--prev PREV_TREE] [--no-cells]
 
 OLD_TREE is an unpacked earlier commit of this repository, for example
 ``mkdir -p build/old && git archive <commit> | tar -x -C build/old``. Its
 C entries of K (``glt_sph_cells_hydro``) and F (``glt_sph_density_entries``
 and ``_abs``) take no workspace; the calls to them drop it. The script
 builds both trees' kernel sources twice, with this checkout's nvcc flags
-and with ``-fmad=false`` added, into ``build/kernel_ab/``; then
+and with ``-fmad=false`` added, into ``build/kernel_ab/`` (with ``--prev``
+a third tree's too, whose C entries are this checkout's, held and timed
+beside the other two); then
 
 1. records the arguments of K and I/J (lcdm_gas 2x128^3 ``set_ics`` under
    ``sph_backend="cells"``: phase 8b's; the small box under cells at 4^3
@@ -30,6 +32,8 @@ and with ``-fmad=false`` added, into ``build/kernel_ab/``; then
    floor of its chunk ballots: nothing is within reach);
 4. times one cells sync point (2x128^3) from one saved state with each
    tree's library in turns.
+
+``--no-cells`` leaves out K and I/J (steps 1-2 for them, and 4).
 
 It prints the card's name and power limit, the builds' ``-Xptxas=-v``
 lines of K and F, and a JSON line of the results. Exit code 1 when an
@@ -209,7 +213,15 @@ def _record_entries(cs, torch):
 
 def main() -> int:
     import torch
-    if len(sys.argv) != 2:
+    argv = sys.argv[1:]
+    cells = "--no-cells" not in argv
+    argv = [a for a in argv if a != "--no-cells"]
+    prev = None
+    if "--prev" in argv:
+        i = argv.index("--prev")
+        prev = Path(argv[i + 1]).resolve()
+        argv = argv[:i] + argv[i + 2:]
+    if len(argv) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device; it runs only on the card")
@@ -222,15 +234,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    old_tree = Path(sys.argv[1]).resolve()
+    old_tree = Path(argv[0]).resolve()
     libs, logs = {}, {}
-    for tag, tree, extra in (("new", ROOT, ()), ("old", old_tree, ())):
+    trees = (("new", ROOT), ("old", old_tree)) + (
+        (("prev", prev),) if prev is not None else ())
+    for tag, tree in trees:
         for flags, fl in (("default", ()), ("nofma", ("-fmad=false",))):
             libs[tag, flags], logs[tag, flags] = _build(
-                tree, f"{tag}_{flags}", extra + fl, old=tag == "old")
+                tree, f"{tag}_{flags}", fl, old=tag == "old")
     for key, log in logs.items():
         for line in _ptxas_lines(log, ("sph_cells_hydro_kernel",
                                        "sph_density_entries_kernel",
+                                       "entries_need_kernel",
                                        "sph_cells_density_kernel",
                                        "subcell_boxes_kernel")):
             print(f"[ptxas {key[0]} {key[1]}] {line}", flush=True)
@@ -284,6 +299,27 @@ def main() -> int:
               flush=True)
         return times
 
+    f_tags = ["old", "new"] + (["prev"] if prev is not None else [])
+    if cells:
+        _hold_cells(cs, torch, hold, turns, libs, res, card)
+    entries_rec = _record_entries(cs, torch)
+    for label, rec in entries_rec.items():
+        name = ("sph_density_entries" if "sph_density_entries" in rec
+                else "sph_density_entries_abs")
+        hold(name, label, rec, f_tags)
+        if label.startswith(("2x128^3", "the disc")):
+            args = cs.cases(name, rec)[0][1]
+            turns(name, label, args, f_tags, 20)
+            if label.startswith("the disc"):
+                no_h = args[:2] + (torch.zeros_like(args[2]),) + args[3:]
+                turns(name, label + ", every h 0", no_h, f_tags[1:], 20)
+    print(json.dumps(res), flush=True)
+    return 0 if ok else 1
+
+
+def _hold_cells(cs, torch, hold, turns, libs, res, card):
+    """Steps 2-4 for K and I/J."""
+    from gadget_leicester_tpu_torch import kernels
     cells_rec, cells_sim = _record_cells(cs, torch)
     for label, rec in cells_rec.items():
         for name in cs.CELLS:
@@ -310,20 +346,6 @@ def main() -> int:
           flush=True)
     del cells_sim, saved
     torch.cuda.empty_cache()
-
-    entries_rec = _record_entries(cs, torch)
-    for label, rec in entries_rec.items():
-        name = ("sph_density_entries" if "sph_density_entries" in rec
-                else "sph_density_entries_abs")
-        hold(name, label, rec, ["old", "new"])
-        if label.startswith(("2x128^3", "the disc")):
-            args = cs.cases(name, rec)[0][1]
-            turns(name, label, args, ["old", "new"], 20)
-            if label.startswith("the disc"):
-                no_h = args[:2] + (torch.zeros_like(args[2]),) + args[3:]
-                turns(name, label + ", every h 0", no_h, ["new"], 20)
-    print(json.dumps(res), flush=True)
-    return 0 if ok else 1
 
 
 if __name__ == "__main__":
