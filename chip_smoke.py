@@ -1441,12 +1441,12 @@ def entries_density_walk(args: tuple, entries):
     cpad = (0, chunks * 32 - lanes)
     xyz_c = torch.nn.functional.pad(sxyz.view(e, 3, 8, lanes), cpad)
     sv_c = torch.nn.functional.pad(sv.view(e, 8, lanes), cpad)
-    cells = _box(xyz_c.flatten(2), torch.zeros_like(sv_c.flatten(1),
-                                                     dtype=f32),
-                 sv_c.flatten(1), 32)                         # [E, ., 8 ch]
-    cell_shift = None if shift is None else [
+    chunk_boxes = _box(xyz_c.flatten(2),
+                       torch.zeros_like(sv_c.flatten(1), dtype=f32),
+                       sv_c.flatten(1), 32)                   # [E, ., 8 ch]
+    chunk_shift = None if shift is None else [
         x.view(8, lanes)[:, :1].expand(8, chunks).flatten() for x in shift]
-    need = _near(box, cells, cell_shift).view(e, -1, 8, chunks)
+    need = _near(box, chunk_boxes, chunk_shift).view(e, -1, 8, chunks)
     need = need.repeat_interleave(32, -1)[..., :lanes].flatten(2)
     near = _near(box, (sxyz, sxyz, zero), shift) & need & sv[:, None]
     walked = near & live[..., None]                           # [E, 8, 8 L]
