@@ -144,8 +144,10 @@ imports nothing of JAX. Phases, each printing its own lines:
    through ``Simulation.run()`` with the star registered as a sink for 8
    sync points: gates: finite, the alive mass kept, the accretion tally
    equal to the dead; kernel F replayed and timed on the disc's own
-   arguments (:func:`disc_entries_args`) beside its earlier design's
-   time, with its launch counts in both runs; on its last state one SPH
+   arguments at the entries-tier sync point of the most live lanes
+   (:func:`busiest_entries`) beside its earlier design's time, its three
+   launches timed apart (:func:`device_split`), with its launch counts
+   in both runs; on its last state one SPH
    pass under blocks against one under cells, and ``apply_cooling``
    (beta, Stamatellos) card against CPU.
 
@@ -1540,13 +1542,57 @@ def say_against_earlier(phase: str, results: dict, name: str,
         f"{walk}; registers {regs} ({card})")
 
 
+# for each entries kernel: which argument is its source pack, and how
+# many of the pack's rows it reads for a source slot (E: x, y, z, m, soft,
+# 1/soft; F: x, y, z, m, vx, vy, vz; G: rows 0-12)
+ENTRY_SOURCES = {"shortrange_gravity_entries": (0, 6),
+                 "shortrange_potential_entries": (0, 6),
+                 "sph_density_entries": (0, 7), "sph_hydro_entries": (2, 13)}
+
+
+def entries_bytes(name: str, args: tuple) -> int:
+    """The bytes an entries kernel (E, F, G, either mode) must read of
+    ``args``: the rows it reads of each source cell or block that its
+    switched-on entries reach, each once (for G in relative mode also
+    their particle indices), and its other tensor arguments whole (G in
+    absolute mode reads no particle index)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    absolute = name.endswith("_abs")
+    base = name.removesuffix("_abs")
+    where = _targets(name, args)[2]
+    if base.startswith("shortrange"):
+        ids = gs.stencil_sources(args[3], where)[0]
+    else:
+        nb = args[4] if base == "sph_density_entries" else args[6]
+        ids = sb.odd_sources(nb, where, not absolute)[0]
+    reached = torch.unique(ids).numel()
+    src, rows = ENTRY_SOURCES[base]
+    lanes = args[src].shape[2]
+    nbytes = reached * rows * lanes * args[src].element_size()
+    skip = {src}
+    if base == "sph_hydro_entries":     # tidx 1, idx_o 3
+        skip |= {1, 3} if absolute else {3}
+        if not absolute:
+            nbytes += reached * lanes * args[3].element_size()
+    return nbytes + sum(a.numel() * a.element_size()
+                        for i, a in enumerate(args)
+                        if torch.is_tensor(a) and i not in skip)
+
+
 def kernel_bound(name: str, args: tuple, out) -> dict:
     """The least time the card could take for what a kernel computes on
-    ``args`` (into ``out``), by the rule at PEAK_FLOPS."""
+    ``args`` (into ``out``), by the rule at PEAK_FLOPS; an entries kernel
+    counts only the sources its switched-on entries reach
+    (:func:`entries_bytes`)."""
     import torch
     stencil, in_cut = pair_count(name, args)
-    nbytes = out.numel() * out.element_size() + sum(
-        a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    nbytes = out.numel() * out.element_size() + (
+        entries_bytes(name, args)
+        if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES else
+        sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a)))
     if name == "pm_deposit":
         ops = stencil * OPS_PER_DEPOSIT
     elif name == "pm_gather":
@@ -3849,48 +3895,63 @@ def disc_blocks_vs_cells(state, cfg, opts) -> None:
                        CELLS_VS_BLOCKS, CELLS_VS_BLOCKS_OUT)
 
 
-# gas active in the seeded share of :func:`disc_entries_args`: its
-# entries, at most 8 gas each plus one part-filled a block, fit the k_max
-# = 2 nb^3 = 16 of the disc's 2^3 blocks
-DISC_ENTRY_ACTIVE = 64
-
-
-def disc_entries_args(state, cfg, opts, recorded: dict, log: list,
-                      device="cuda") -> tuple:
-    """Kernel F's (and G's) absolute-mode arguments on the disc (phase
-    15): those the run's last entries-tier sync point gave them, where
-    the run took that tier (``recorded`` and the tier ``log`` of the
-    run), else those of one ``compute_sph`` pass on a fresh list of its
-    last ``state`` with a seeded DISC_ENTRY_ACTIVE of the gas active.
-    Returns (the arguments, what they are)."""
-    import dataclasses
-
+@contextlib.contextmanager
+def busiest_entries(density: str = "sph_density_entries_abs",
+                    hydro: str = "sph_hydro_entries_abs"):
+    """Within the body, kernels F's and G's arguments (``density``,
+    ``hydro``: the names of one mode) at the entries-tier sync point whose
+    entries hold the most live lanes (the first of equals): F's first call
+    of that sync point (its first Newton sweep) and G's, cloned, as
+    ``kept["args"]`` {name: arguments}; the live lanes of each entries-tier
+    sync point in ``kept["lanes"]``. Each G call reads its count of live
+    lanes from the card."""
     import torch
 
-    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
-                                                          compute_sph)
-    from gadget_leicester_tpu_torch.models.grids import make_grid_cache
-    if any(took for *_, took in log):
-        return recorded, "the run's last entries-tier sync point"
-    p, ng = state.p, state.n_gas_max
-    gas = (p.alive[:ng] & (p.ptype[:ng] == 0)).cpu()
-    idx = torch.nonzero(gas).flatten()
-    gen = torch.Generator().manual_seed(IDLE_SEED)
-    active = torch.zeros_like(gas)
-    active[idx[torch.randperm(idx.numel(), generator=gen)
-               [:DISC_ENTRY_ACTIVE]]] = True
-    st = dataclasses.replace(
-        state, grids=make_grid_cache(p.pos.device),
-        overflow_flags=torch.zeros_like(state.overflow_flags))
-    with recorded_inputs() as rec, tier() as pass_log:
-        compute_sph(st, cfg, opts, comoving_factors(cfg, state.ti_current),
-                    active.to(p.pos.device))
-    sync(device)
-    if not pass_log[-1][3] or "sph_density_entries_abs" not in rec:
-        raise AssertionError(f"{DISC_ENTRY_ACTIVE} active gas of the disc "
-                             f"did not take the entries tier: {pass_log}")
-    return dict(rec), (f"one SPH pass of the last state with "
-                       f"{DISC_ENTRY_ACTIVE} seeded gas active")
+    from gadget_leicester_tpu_torch import kernels
+    real = kernels.note_call
+    kept: dict = {"args": None, "lanes": []}
+    first: list = []
+
+    def clone(args):
+        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    def spy(name, args):
+        real(name, args)
+        if name == density and not first:
+            first.append(clone(args))
+        elif name == hydro:
+            tgt16, blk = args[0], args[4]
+            lanes = int(((tgt16[:, 12] > 0) & (blk[:, None] >= 0)).sum())
+            if not kept["lanes"] or lanes > max(kept["lanes"]):
+                kept["args"] = {density: first[0] if first else None,
+                                hydro: clone(args)}
+            kept["lanes"].append(lanes)
+            first.clear()
+
+    kernels.note_call = spy
+    try:
+        yield kept
+    finally:
+        kernels.note_call = real
+
+
+def device_split(fn, reps: int = 20) -> dict:
+    """{device kernel: mean ms a call} of ``reps`` calls of ``fn`` (after
+    a warm-up call), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.time_range.end - e.time_range.start
+            out[e.name] = out.get(e.name, 0.0) + 1e-3 * t / reps
+    return out
 
 
 def phase_disc(results: dict, card: str, device="cuda") -> None:
@@ -3940,13 +4001,12 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         caps = [sph_blocks_geometry(cfg, o, sim.state.n_gas_max)
                 for o in (opts, sim.opts)]
         kernels.reset_launches()
-        with recorded_inputs() as rec, tier() as log:
+        with busiest_entries() as busy, tier() as log:
             t0 = time.time()
             sim.run(max_steps=DISC_MAX_STEPS)
             sync(device)
             wall = time.time() - t0
         counts = dict(kernels.launches)
-        recorded = dict(rec)
         st = sim.state
         p = st.p
         m1 = float(p.mass[p.alive].double().sum())
@@ -3988,22 +4048,32 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         if n0 - n1 != n_acc:
             raise AssertionError(f"{n0 - n1} particles died, the tally says "
                                  f"{n_acc}")
-        # kernel F on the disc's own arguments
-        f_args, how = disc_entries_args(st, cfg, sim.opts, recorded, log)
-        del recorded
+        # kernel F on the disc's own arguments, at its busiest entries-tier
+        # sync point
+        if busy["args"] is None:
+            raise AssertionError(f"the disc run took the entries tier at "
+                                 f"none of its sync points: {log}")
+        name = "sph_density_entries_abs"
         disc: dict = {}
-        check_kernels(f_args, f"the disc ({how})", disc,
-                      ("sph_density_entries_abs",), timed=True)
-        results["sph_density_entries_abs_disc"] = \
-            disc["sph_density_entries_abs"]
+        check_kernels(busy["args"], f"the disc (the entries-tier sync point "
+                      f"of the most live lanes, {max(busy['lanes'])}; all: "
+                      f"{busy['lanes']})", disc, (name,), timed=True)
+        results["sph_density_entries_abs_disc"] = disc[name]
         say_against_earlier("disc", results, "sph_density_entries_abs_disc",
                             card)
+        f_args = cases(name, busy["args"])[0][1]
+        split = device_split(lambda: kernel_pairs()[name][0](*f_args))
+        say("disc", "kernel F on those arguments under torch.profiler, ms a "
+            "call: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                                 split.items())
+            + f"; all {sum(split.values()):.4f} of {disc[name]['ms']:.4f} "
+            f"by CUDA events ({card})")
+        del busy, f_args
         say("disc", f"kernel F (absolute mode) launches: CLI "
             f"{cli_counts['sph_density_entries_abs']}, API "
             f"{counts['sph_density_entries_abs']}; the API run took the "
             f"entries tier at {sum(took for *_, took in log)} of its "
             f"{len(log)} SPH passes ({card})")
-        del f_args
         disc_blocks_vs_cells(st, cfg, sim.opts)
         # apply_cooling on the last state, card against CPU (in disc.param's
         # units of 1 cm, 1 g and 1 cm/s the gas is at the 1 K floor, so the

@@ -532,3 +532,65 @@ def test_walk_model_of_kernel_f_keeps_every_pair_inside_the_support(
     assert int((pair & support).sum()) > 0
     assert not bool((pair & support & ~walked).any())
     assert int((pair & walked).sum()) < int(pair.sum())
+
+
+# ---------------------------------------------------------------------------
+# (g) chip_smoke's bound and recorder of kernel F
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("periodic", [True, False])
+def test_kernel_f_bound_counts_only_the_sources_its_entries_reach(periodic):
+    """chip_smoke.entries_bytes on the arguments the Newton loop gives
+    kernel F: the 7 rows F reads of each odd block that a switched-on
+    entry reaches, each block once, plus tgt, h and entry_blk whole; with
+    one entry on, its 8 odd blocks; with none, no source block."""
+    import chip_smoke
+    pos, vel, mass, h0, gas_mask = _sph_setup(29, n=900, box=C_BOX)
+    active = _sph_active("spread", pos, gas_mask, C_BOX)
+    tcls = tsb.build_block_lists(*_t(pos, gas_mask), 0.0, C_BOX, C_NB, 32,
+                                 periodic=periodic)
+    ec, es, _ = cells.build_active_entries(tcls[0], torch.from_numpy(active),
+                                           LANES, C_KMAX)
+    rec = _recorded(tsb.density_adaptive_blocks_entries,
+                    *_t(pos, vel, mass, h0, gas_mask), ec, es, box=C_BOX,
+                    cls=tcls, max_hsml=C_MAXH, **DKW)
+    name = "sph_density_entries" if periodic else "sph_density_entries_abs"
+    soa_o, tgt, h, _, nb, lf = rec[name]
+    small = sum(a.numel() * a.element_size() for a in (tgt, h, ec))
+    block = 7 * soa_o.shape[2] * 4
+    on = torch.nonzero(ec >= 0).flatten()
+    assert on.numel() > 1
+    one = torch.full_like(ec, -1)
+    one[on[0]] = ec[on[0]]
+    reached = tsb.odd_sources(nb, ec[on].long(), periodic)[0].unique()
+    for blk, blocks in ((ec, reached.numel()), (one, 8),
+                        (torch.full_like(ec, -1), 0)):
+        args = (soa_o, tgt, h, blk, nb, lf)
+        assert chip_smoke.entries_bytes(name, args) == small + blocks * block
+    assert reached.numel() <= soa_o.shape[0]
+
+
+def test_busiest_entries_keeps_the_sync_point_of_the_most_live_lanes():
+    """chip_smoke.busiest_entries keeps, cloned, F's first call and G's
+    call of the entries-tier sync point whose switched-on entries hold the
+    most live lanes (the first of equals), and every such count."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch import kernels
+    f, g = "sph_density_entries_abs", "sph_hydro_entries_abs"
+
+    def g_args(lanes, off=False):
+        tgt16 = torch.zeros(3, 16, LANES)
+        tgt16[0, 12, :lanes] = 1.0
+        blk = torch.tensor([-1 if off else 0, 1, -1], dtype=torch.int32)
+        return (tgt16, None, None, None, blk)
+
+    with chip_smoke.busiest_entries(f, g) as kept:
+        for sweeps, lanes, off in ((2, 3, False), (3, 5, False),
+                                   (1, 5, False), (1, 7, True)):
+            for s in range(sweeps):
+                kernels.note_call(f, (torch.tensor([lanes, s]),))
+            args = g_args(lanes, off)
+            kernels.note_call(g, args)
+            args[0].fill_(0.0)        # a later pass reuses the buffer
+    assert kept["lanes"] == [3, 5, 5, 0]
+    assert torch.equal(kept["args"][f][0], torch.tensor([5, 0]))
+    assert int(kept["args"][g][0][0, 12].sum()) == 5
