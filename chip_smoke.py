@@ -1486,12 +1486,13 @@ EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
 # on the step with sinks (phase 14), I/J and K on the cells path (phase
 # 8b), F's relative mode at the near-idle sync point (phase 8), its
 # absolute mode on the vacuum cloud at 1% active (phase 12b) and on the
-# disc's own arguments (phase 15)
+# disc's own arguments at the sync point of the most live lanes of phase
+# 15's run() (:func:`busiest_entries`)
 EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
               "shortrange_potential": 29.156, "sph_cells_density": 10.689,
               "sph_cells_hydro": 14.880, "sph_density_entries": 0.266,
               "sph_density_entries_abs": 0.316,
-              "sph_density_entries_abs_disc": 1.765}
+              "sph_density_entries_abs_disc": 1.988}
 # the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
