@@ -3937,8 +3937,10 @@ def busiest_entries(density: str = "sph_density_entries_abs",
 
 
 def device_split(fn, reps: int = 20) -> dict:
-    """{device kernel: mean ms a call} of ``reps`` calls of ``fn`` (after
-    a warm-up call), by torch.profiler."""
+    """{device kernel: (mean ms a launch, launches seen)} over ``reps``
+    calls of ``fn`` (after a warm-up call), by torch.profiler. The mean
+    is over the launches the profiler saw, which may be fewer than
+    ``reps``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3947,12 +3949,13 @@ def device_split(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out: dict = {}
+    seen: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = e.time_range.end - e.time_range.start
-            out[e.name] = out.get(e.name, 0.0) + 1e-3 * t / reps
-    return out
+            t, n = seen.get(e.name, (0.0, 0))
+            seen[e.name] = (t + 1e-3 * (e.time_range.end - e.time_range.start),
+                            n + 1)
+    return {k: (t / n, n) for k, (t, n) in seen.items()}
 
 
 def phase_disc(results: dict, card: str, device="cuda") -> None:
@@ -4065,10 +4068,10 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         f_args = cases(name, busy["args"])[0][1]
         split = device_split(lambda: kernel_pairs()[name][0](*f_args))
         say("disc", "kernel F on those arguments under torch.profiler, ms a "
-            "call: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in
-                                 split.items())
-            + f"; all {sum(split.values()):.4f} of {disc[name]['ms']:.4f} "
-            f"by CUDA events ({card})")
+            "launch (launches seen of 20): " + ", ".join(
+                f"{k[:40]} {t:.4f} ({n})" for k, (t, n) in split.items())
+            + f"; all {sum(t for t, _ in split.values()):.4f} of "
+            f"{disc[name]['ms']:.4f} a call by CUDA events ({card})")
         del busy, f_args
         say("disc", f"kernel F (absolute mode) launches: CLI "
             f"{cli_counts['sph_density_entries_abs']}, API "
