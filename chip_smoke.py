@@ -3924,8 +3924,7 @@ def busiest_entries(density: str = "sph_density_entries_abs",
             tgt16, blk = args[0], args[4]
             lanes = int(((tgt16[:, 12] > 0) & (blk[:, None] >= 0)).sum())
             if not kept["lanes"] or lanes > max(kept["lanes"]):
-                kept["args"] = {density: first[0] if first else None,
-                                hydro: clone(args)}
+                kept["args"] = {density: first[0], hydro: clone(args)}
             kept["lanes"].append(lanes)
             first.clear()
 
