@@ -50,12 +50,13 @@ imports nothing of JAX. Phases, each printing its own lines:
    in phase 5, replayed as in phase 3, and each kernel's time beside its
    plain version's and its bound (for A, C and D also the pairs they
    evaluate by the models of their culling rules, :func:`gravity_walk`,
-   :func:`hydro_walk`, :func:`density_walk`; C's time beside its earlier
-   design's, :data:`EARLIER_MS`, and its registers, and those of A, H,
-   F, I/J and K); then the full potential of phase 5's state (kernel H on a
-   fresh cell list, L on the mesh potential), its parts timed, and H
-   replayed and timed the same way, beside its earlier design's time and
-   the pairs the model of its walk evaluates (:func:`gravity_walk`);
+   :func:`hydro_walk`, :func:`density_walk`; C's and B's times beside
+   their earlier designs', :data:`EARLIER_MS`, and their registers, and
+   those of A, H, F, G, I/J and K); then the full potential of phase 5's
+   state (kernel H on a fresh cell list, L on the mesh potential), its
+   parts timed, and H replayed and timed the same way, beside its earlier
+   design's time and the pairs the model of its walk evaluates
+   (:func:`gravity_walk`);
 7. profile: the phases of 4 more sync points, each timed with a device
    sync around it, then the device's busy and idle time over 2 more from
    ``torch.profiler``;
@@ -65,9 +66,9 @@ imports nothing of JAX. Phases, each printing its own lines:
    and not E, F, G), the two held to each other, neither with a PM step
    (no L); each timed 3 times and
    once by phases; E, F and G replayed on the arguments of the entries
-   run, with their times beside their plain versions' (F's beside its
-   earlier design's and the pairs the model of its walk evaluates,
-   :func:`entries_density_walk`);
+   run, with their times beside their plain versions' (F's and G's beside
+   their earlier designs' and the pairs the models of their walks
+   evaluate, :func:`entries_density_walk`, :func:`entries_hydro_walk`);
 8b. the coarse-cell SPH backend at full width (:func:`phase_cells`):
    lcdm_gas 2x128^3 with ``sph_backend="cells"``, ``set_ics`` and 6 sync
    points through kernels I/J and K (C and D not launched; A, B and L
@@ -113,7 +114,7 @@ imports nothing of JAX. Phases, each printing its own lines:
    cloud, ``compute_sph`` with ``periodic=False`` on 22^3 blocks, all gas
    active and a seeded 1% (the entries tier), each kernel replayed and
    timed beside its relative mode's time, its plain version and its bound,
-   C's and F's beside their earlier designs' (:data:`EARLIER_MS`);
+   C's, F's and G's beside their earlier designs' (:data:`EARLIER_MS`);
 13. the tree runs (:func:`phase_tree`): ``parameterfiles/galaxy.param`` and
    ``cluster.param`` on their 20,000-particle ICs through ``python -m
    gadget_leicester_tpu_torch`` in child processes, TimeMax cut, held to
@@ -143,11 +144,11 @@ imports nothing of JAX. Phases, each printing its own lines:
    capacity raises of ``set_ics`` and the mass of its last snapshot; then
    through ``Simulation.run()`` with the star registered as a sink for 8
    sync points: gates: finite, the alive mass kept, the accretion tally
-   equal to the dead; kernel F replayed and timed on the disc's own
-   arguments at the entries-tier sync point of the most live lanes
-   (:func:`busiest_entries`) beside its earlier design's time, its three
-   launches timed apart (:func:`device_split`), with its launch counts
-   in both runs; on its last state one SPH
+   equal to the dead; kernels F and G replayed and timed on the disc's
+   own arguments at the entries-tier sync point of the most live lanes
+   (:func:`busiest_entries`) beside their earlier designs' times, the
+   three launches of each timed apart (:func:`device_split`), with their
+   launch counts in both runs; on its last state one SPH
    pass under blocks against one under cells, and ``apply_cooling``
    (beta, Stamatellos) card against CPU.
 
@@ -1057,14 +1058,15 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-# Kernels A, H, C, D, F, I/J and K walk fewer pairs than their stencil
+# Kernels A, H, C, D, F, G, I/J and K walk fewer pairs than their stencil
 # holds, in the same order of sums (csrc/shortrange_gravity.cu,
 # csrc/sph_density.cu, csrc/sph_hydro.cu, csrc/sph_density_entries.cu,
-# csrc/sph_cells_density.cu, csrc/sph_cells_hydro.cu). The bound above counts
-# only the pairs inside the cut; these mirror each design's culling rules
-# in float32 and count the pairs they leave to evaluate, which a share of
-# the stencil pairs compares across designs. They are models of the kernels' walks, not counts taken in the
-# kernels.
+# csrc/sph_hydro_entries.cu, csrc/sph_cells_density.cu,
+# csrc/sph_cells_hydro.cu). The bound above counts only the pairs inside
+# the cut; these mirror each design's culling rules in float32 and count
+# the pairs they leave to evaluate, which a share of the stencil pairs
+# compares across designs. They are models of the kernels' walks, not
+# counts taken in the kernels.
 # A and H: live targets ranked per pass of A_THREADS slots by the Morton
 # key of their position on an A_KEY_CELLS^3 grid over their cell, in warps
 # of 32, each warp walking the live sources within rcut^2 CULL_MARGIN2 of
@@ -1084,7 +1086,7 @@ def pair_count(name: str, args: tuple) -> tuple:
 # those, the sources with m > 0 within reach (squares times CULL_MARGIN2).
 # K: I/J's walk over the valid sources (row 12) with the reach max(h_max,
 # h_chunk) for a chunk (its largest source h) and max(h_max, h_s) for a
-# source. F: :func:`entries_density_walk`.
+# source. F and G: :func:`_entries_walk`.
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1413,29 +1415,31 @@ def cells_hydro_evaluated_pairs(args: tuple) -> int:
     return total
 
 
-def entries_density_walk(args: tuple, entries):
-    """Kernel F's walk (either mode) over the entries ``entries`` [E] of
-    ``args``: a warp an entry, with the box of its live lanes (m > 0) and
-    the reach of their largest h, walking the 32-slot chunks of its 8 odd
-    blocks whose box of sources with m > 0 lies within reach and, in
-    those, the sources with m > 0 within reach, each for all the entry's
-    live lanes (squares times CULL_MARGIN2). Returns (the live lanes [E,
-    8], the pairs each lane walks [E, 8, 8 lanes])."""
+def _entries_walk(src, t, ht, live, blk, nb: int, lf, valid_row: int,
+                  h_row):
+    """The walk of kernel F or G (either mode) over entries whose target
+    rows are ``t`` [E, >=3, 8] (smoothing lengths ``ht`` [E, 8], live
+    lanes ``live`` [E, 8]) on the even blocks ``blk`` [E]: a warp an
+    entry, with the box of its live lanes and the reach of their largest
+    h, walking the 32-slot chunks of its 8 odd blocks of ``src`` whose box
+    of valid sources (row ``valid_row`` > 0) lies within reach and, in
+    those, the valid sources within reach, each for all the entry's live
+    lanes (squares times CULL_MARGIN2). With ``h_row`` the reach of a
+    chunk or a source is max(the entry's, the largest source h of row
+    ``h_row`` in it) (G); without, the entry's alone (F). Returns the
+    pairs each lane walks [E, 8, 8 lanes]."""
     import torch
 
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
-    soa_o, tgt, h, blk, nb, lf = args
-    dev, f32 = soa_o.device, torch.float32
-    lanes = soa_o.shape[2]
+    lanes = src.shape[2]
     chunks = -(-lanes // 32)
-    e = len(entries)
-    t, ht = tgt[entries], h[entries]
-    live = t[:, 3] > 0                                        # [E, 8]
-    ids, units = sb.odd_sources(nb, blk[entries].long(), lf is not None)
-    rows, shift = sb._gather_sources(soa_o, ids, units, lf, (0, 1, 2, 3))
-    sv = rows[3] > 0                                          # [E, 8 L]
-    sxyz = torch.stack(rows[:3], 1)                           # [E, 3, 8 L]
-    zero = torch.zeros_like(rows[3])
+    e = blk.shape[0]
+    rows = (0, 1, 2, valid_row) + (() if h_row is None else (h_row,))
+    ids, units = sb.odd_sources(nb, blk.long(), lf is not None)
+    s, shift = sb._gather_sources(src, ids, units, lf, rows)
+    sv = s[3] > 0                                             # [E, 8 L]
+    sxyz = torch.stack(s[:3], 1)                              # [E, 3, 8 L]
+    hs = torch.zeros_like(s[3]) if h_row is None else s[4]
     reach = torch.where(live & ~torch.isnan(ht), ht, torch.zeros_like(ht))
     box = _box(t[:, :3], reach, live, 8)                      # [E, ., 1]
     box = box[:2] + (box[2].clamp(min=0.0),)
@@ -1443,26 +1447,51 @@ def entries_density_walk(args: tuple, entries):
     cpad = (0, chunks * 32 - lanes)
     xyz_c = torch.nn.functional.pad(sxyz.view(e, 3, 8, lanes), cpad)
     sv_c = torch.nn.functional.pad(sv.view(e, 8, lanes), cpad)
-    chunk_boxes = _box(xyz_c.flatten(2),
-                       torch.zeros_like(sv_c.flatten(1), dtype=f32),
-                       sv_c.flatten(1), 32)                   # [E, ., 8 ch]
+    hs_c = torch.nn.functional.pad(hs.view(e, 8, lanes), cpad)
+    chunk_boxes = _box(xyz_c.flatten(2), hs_c.flatten(1), sv_c.flatten(1),
+                       32)                                    # [E, ., 8 ch]
     chunk_shift = None if shift is None else [
         x.view(8, lanes)[:, :1].expand(8, chunks).flatten() for x in shift]
     need = _near(box, chunk_boxes, chunk_shift).view(e, -1, 8, chunks)
     need = need.repeat_interleave(32, -1)[..., :lanes].flatten(2)
-    near = _near(box, (sxyz, sxyz, zero), shift) & need & sv[:, None]
-    walked = near & live[..., None]                           # [E, 8, 8 L]
-    return live, walked
+    near = _near(box, (sxyz, sxyz, hs), shift) & need & sv[:, None]
+    return near & live[..., None]                             # [E, 8, 8 L]
 
 
-def entries_density_evaluated_pairs(args: tuple) -> int:
-    """The pairs of a live lane and a source with m > 0 that kernel F
-    (either mode) evaluates on ``args``."""
+def entries_density_walk(args: tuple, entries):
+    """Kernel F's walk (either mode) over the entries ``entries`` [E] of
+    ``args`` (:func:`_entries_walk` with the sources with m > 0 valid and
+    the reach of the entry's h alone). Returns (the live lanes [E, 8], the
+    pairs each lane walks [E, 8, 8 lanes])."""
+    soa_o, tgt, h, blk, nb, lf = args
+    t = tgt[entries]
+    live = t[:, 3] > 0                                        # [E, 8]
+    return live, _entries_walk(soa_o, t, h[entries], live, blk[entries], nb,
+                               lf, 3, None)
+
+
+def entries_hydro_walk(args: tuple, entries):
+    """Kernel G's walk (either mode) over the entries ``entries`` [E] of
+    ``args`` (:func:`_entries_walk` with the valid sources of row 12 and
+    hydro's reach max(h_i, h_j): each chunk's and each source's h, row
+    7). Returns (the live lanes [E, 8], the pairs each lane walks [E, 8,
+    8 lanes])."""
+    tgt16, _, src16, _, blk, _, nb, lf, _ = args
+    t = tgt16[entries]
+    live = t[:, 12] > 0                                       # [E, 8]
+    return live, _entries_walk(src16, t, t[:, 7], live, blk[entries], nb,
+                               lf, 12, 7)
+
+
+def entries_evaluated_pairs(walk, blk_arg: int, args: tuple) -> int:
+    """The pairs of a live lane and a valid source that an entries kernel
+    (F or G, either mode) evaluates on ``args`` by the model of its walk
+    ``walk`` (entry blocks in argument ``blk_arg``)."""
     import torch
-    entries = torch.nonzero(args[3] >= 0).flatten()
+    entries = torch.nonzero(args[blk_arg] >= 0).flatten()
     total = 0
     for k0 in range(0, entries.numel(), 16):
-        total += int(entries_density_walk(args, entries[k0:k0 + 16])[1].sum())
+        total += int(walk(args, entries[k0:k0 + 16])[1].sum())
     return total
 
 
@@ -1470,29 +1499,39 @@ EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
              "shortrange_potential": gravity_evaluated_pairs,
              "sph_cells_density": cells_density_evaluated_pairs,
              "sph_cells_hydro": cells_hydro_evaluated_pairs,
-             "sph_density_entries": entries_density_evaluated_pairs,
-             "sph_density_entries_abs": entries_density_evaluated_pairs,
+             "sph_density_entries": functools.partial(
+                 entries_evaluated_pairs, entries_density_walk, 3),
+             "sph_density_entries_abs": functools.partial(
+                 entries_evaluated_pairs, entries_density_walk, 3),
+             "sph_hydro_entries": functools.partial(
+                 entries_evaluated_pairs, entries_hydro_walk, 4),
+             "sph_hydro_entries_abs": functools.partial(
+                 entries_evaluated_pairs, entries_hydro_walk, 4),
              "sph_density": density_evaluated_pairs,
              "sph_density_abs": density_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
              "sph_hydro_abs": hydro_evaluated_pairs}
 
-# the times of kernels C, H, I/J, K and F in their earlier designs (one
-# thread a target walking every staged source of its stencil; F one warp
-# an entry walking every slot), on the same paths' arguments, on an
-# NVIDIA H100 80GB HBM3 at 700 W as PERF.md records them: C's relative
-# mode on the main path's last full-active sync point (phase 6), its
-# absolute mode on the vacuum cloud at 64 slots a subcell (phase 12b), H
-# on the step with sinks (phase 14), I/J and K on the cells path (phase
-# 8b), F's relative mode at the near-idle sync point (phase 8), its
-# absolute mode on the vacuum cloud at 1% active (phase 12b) and on the
-# disc's own arguments at the sync point of the most live lanes of phase
-# 15's run() (:func:`busiest_entries`)
+# the times of kernels C, H, I/J, K, F, G and B in their earlier designs
+# (one thread a target walking every staged source of its stencil; F and
+# G one warp an entry walking every slot; B one thread a slot with 8
+# global atomics), on the same paths' arguments, on an NVIDIA H100 80GB
+# HBM3 at 700 W as PERF.md records them: C's relative mode and B on the
+# main path's last full-active sync point (phase 6), C's absolute mode on
+# the vacuum cloud at 64 slots a subcell (phase 12b), H on the step with
+# sinks (phase 14), I/J and K on the cells path (phase 8b), F's and G's
+# relative mode at the near-idle sync point (phase 8), their absolute mode
+# on the vacuum cloud at 1% active (phase 12b) and on the disc's own
+# arguments at the sync point of the most live lanes of phase 15's run()
+# (:func:`busiest_entries`)
 EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
               "shortrange_potential": 29.156, "sph_cells_density": 10.689,
               "sph_cells_hydro": 14.880, "sph_density_entries": 0.266,
               "sph_density_entries_abs": 0.316,
-              "sph_density_entries_abs_disc": 1.988}
+              "sph_density_entries_abs_disc": 1.988,
+              "sph_hydro_entries": 0.376, "sph_hydro_entries_abs": 0.385,
+              "sph_hydro_entries_abs_disc": 2.091,
+              "pm_deposit": 0.281}
 # the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
@@ -1504,7 +1543,11 @@ PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "sph_density_entries": "sph_density_entries_kernelILb0E",
               "sph_density_entries_abs": "sph_density_entries_kernelILb1E",
               "sph_density_entries_abs_disc":
-                  "sph_density_entries_kernelILb1E"}
+                  "sph_density_entries_kernelILb1E",
+              "sph_hydro_entries": "sph_hydro_entries_kernelILb0E",
+              "sph_hydro_entries_abs": "sph_hydro_entries_kernelILb1E",
+              "sph_hydro_entries_abs_disc": "sph_hydro_entries_kernelILb1E",
+              "pm_deposit": "pm_deposit_kernel"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -1583,17 +1626,31 @@ def entries_bytes(name: str, args: tuple) -> int:
                         if torch.is_tensor(a) and i not in skip)
 
 
+def deposit_bytes(args: tuple) -> int:
+    """The bytes kernel B must read of its pack ``args[0]`` [C, 8, cap]:
+    the mass (row 3) of every slot, and x, y, z and the packed flag (rows
+    0-2, 5) of the slots with m != 0, each once."""
+    soa = args[0]
+    packed = int((soa[:, 3] != 0).sum())
+    return (soa.shape[0] * soa.shape[2] + 4 * packed) * soa.element_size()
+
+
 def kernel_bound(name: str, args: tuple, out) -> dict:
     """The least time the card could take for what a kernel computes on
     ``args`` (into ``out``), by the rule at PEAK_FLOPS; an entries kernel
     counts only the sources its switched-on entries reach
-    (:func:`entries_bytes`)."""
+    (:func:`entries_bytes`), kernel B only the rows of its pack that it
+    must read (:func:`deposit_bytes`)."""
     import torch
     stencil, in_cut = pair_count(name, args)
-    nbytes = out.numel() * out.element_size() + (
-        entries_bytes(name, args)
-        if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES else
-        sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a)))
+    if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
+        nbytes = entries_bytes(name, args)
+    elif name == "pm_deposit":
+        nbytes = deposit_bytes(args)
+    else:
+        nbytes = sum(a.numel() * a.element_size() for a in args
+                     if torch.is_tensor(a))
+    nbytes += out.numel() * out.element_size()
     if name == "pm_deposit":
         ops = stencil * OPS_PER_DEPOSIT
     elif name == "pm_gather":
@@ -2267,6 +2324,7 @@ def phase_idle_main(results: dict, state, card: str, device="cuda",
     check_kernels(recorded, f"2x{n_side}^3 near-idle", results, ENTRIES,
                   timed=True)
     say_against_earlier("idle", results, "sph_density_entries", card)
+    say_against_earlier("idle", results, "sph_hydro_entries", card)
 
 
 def fullest_cell(pos, alive, box: float, n_cells: int) -> tuple:
@@ -2968,6 +3026,7 @@ def phase_vacuum_blocks(results: dict, state, card: str,
                   results, ABS, timed=True, every=VACUUM_MAIN_EVERY)
     say_against_earlier("vacuum", results, "sph_density_abs", card)
     say_against_earlier("vacuum", results, "sph_density_entries_abs", card)
+    say_against_earlier("vacuum", results, "sph_hydro_entries_abs", card)
     for name in ABS:
         rel = name.removesuffix("_abs")
         a, r = results[name], results[rel]
@@ -4051,32 +4110,33 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         if n0 - n1 != n_acc:
             raise AssertionError(f"{n0 - n1} particles died, the tally says "
                                  f"{n_acc}")
-        # kernel F on the disc's own arguments, at its busiest entries-tier
-        # sync point
+        # kernels F and G on the disc's own arguments, at its busiest
+        # entries-tier sync point
         if busy["args"] is None:
             raise AssertionError(f"the disc run took the entries tier at "
                                  f"none of its sync points: {log}")
-        name = "sph_density_entries_abs"
         disc: dict = {}
-        check_kernels(busy["args"], f"the disc (the entries-tier sync point "
-                      f"of the most live lanes, {max(busy['lanes'])}; all: "
-                      f"{busy['lanes']})", disc, (name,), timed=True)
-        results["sph_density_entries_abs_disc"] = disc[name]
-        say_against_earlier("disc", results, "sph_density_entries_abs_disc",
-                            card)
-        f_args = cases(name, busy["args"])[0][1]
-        split = device_split(lambda: kernel_pairs()[name][0](*f_args))
-        say("disc", "kernel F on those arguments under torch.profiler, ms a "
-            "launch (launches seen of 20): " + ", ".join(
-                f"{k[:40]} {t:.4f} ({n})" for k, (t, n) in split.items())
-            + f"; all {sum(t for t, _ in split.values()):.4f} of "
-            f"{disc[name]['ms']:.4f} a call by CUDA events ({card})")
-        del busy, f_args
-        say("disc", f"kernel F (absolute mode) launches: CLI "
-            f"{cli_counts['sph_density_entries_abs']}, API "
-            f"{counts['sph_density_entries_abs']}; the API run took the "
-            f"entries tier at {sum(took for *_, took in log)} of its "
-            f"{len(log)} SPH passes ({card})")
+        for name, what in (("sph_density_entries_abs", "F"),
+                           ("sph_hydro_entries_abs", "G")):
+            check_kernels(busy["args"], f"the disc (the entries-tier sync "
+                          f"point of the most live lanes, "
+                          f"{max(busy['lanes'])}; all: {busy['lanes']})",
+                          disc, (name,), timed=True)
+            results[f"{name}_disc"] = disc[name]
+            say_against_earlier("disc", results, f"{name}_disc", card)
+            args = cases(name, busy["args"])[0][1]
+            split = device_split(lambda: kernel_pairs()[name][0](*args))
+            say("disc", f"kernel {what} on those arguments under "
+                "torch.profiler, ms a launch (launches seen of 20): "
+                + ", ".join(f"{k[:40]} {t:.4f} ({n})"
+                            for k, (t, n) in split.items())
+                + f"; all {sum(t for t, _ in split.values()):.4f} of "
+                f"{disc[name]['ms']:.4f} a call by CUDA events ({card})")
+            say("disc", f"kernel {what} (absolute mode) launches: CLI "
+                f"{cli_counts[name]}, API {counts[name]}; the API run took "
+                f"the entries tier at {sum(took for *_, took in log)} of "
+                f"its {len(log)} SPH passes ({card})")
+        del busy, args
         disc_blocks_vs_cells(st, cfg, sim.opts)
         # apply_cooling on the last state, card against CPU (in disc.param's
         # units of 1 cm, 1 g and 1 cm/s the gas is at the 1 K floor, so the
@@ -4149,6 +4209,7 @@ def main() -> int:
     main_state = sim.state
     check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
     say_against_earlier("kernels", results, "sph_density", card)
+    say_against_earlier("kernels", results, "pm_deposit", card)
     say("kernels", "registers: " + "; ".join(
         f"{what} {[n for _, n in ptxas_registers(fragment)]}"
         for what, fragment in (
@@ -4158,7 +4219,11 @@ def main() -> int:
             ("I/J (vacuum, periodic grid)", PTXAS_NAME["sph_cells_density"]),
             ("K (vacuum, periodic grid)", PTXAS_NAME["sph_cells_hydro"]),
             ("F (absolute, relative mode)", "sph_density_entries_kernel"),
-            ("the box kernels of C, D and I/J", "subcell_boxes_kernel"))))
+            ("G (absolute, relative mode)", "sph_hydro_entries_kernel"),
+            ("the need words of F and G", "entries_need_kernel"),
+            ("B", PTXAS_NAME["pm_deposit"]),
+            ("the box kernels of C, D, F, G, I/J and K",
+             "subcell_boxes_kernel"))))
     del recorded
     kernels.recorded.clear()
     phase_potential(results, main_state, card)

@@ -4,8 +4,9 @@
 // of its plain PyTorch twin (ops/sph_kernels.py, ops/softening.py,
 // ops/cells.py), so a kernel and its plain version differ only in the
 // order of the sums. Also the box culling and the cp.async staging that
-// the block SPH kernels C and D share, and the ranking of targets in space
-// order of A, H, I/J and K.
+// the block SPH kernels C and D share, the ranking of targets in space
+// order of A, H, I/J and K, and the chunk walk of the entries kernels F
+// and G (their need words and the items those name).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -475,6 +476,150 @@ void launch_boxes(const float* src, float* boxes, int tiles, int lanes,
   subcell_boxes_kernel<kStride, kValidRow, kHRow>
       <<<(items + per_block - 1) / per_block, kBoxThreads, 0, st>>>(
           src, boxes, lanes, part, parts, items);
+}
+
+}  // namespace
+
+// The active-entry SPH kernels F and G (csrc/sph_density_entries.cu,
+// csrc/sph_hydro_entries.cu, whose headers set out the walk): an entry's
+// target rows sit at tgt + e * kTgtRows * kEntryLanes (x, y, z in rows
+// 0-2), a lane is live where row kLiveRow is > 0, and its h is row kHRow
+// of the entry, or, where kHRow < 0, h[e * kEntryLanes + lane].
+template <int kTgtRows, int kLiveRow, int kHRow>
+struct EntryRows {
+  __device__ __forceinline__ static const float* rows(const float* tgt,
+                                                      int e) {
+    return tgt + static_cast<size_t>(e) * kTgtRows * kEntryLanes;
+  }
+  __device__ __forceinline__ static const float* hs(const float* tg,
+                                                    const float* h, int e) {
+    if constexpr (kHRow >= 0) return tg + kHRow * kEntryLanes;
+    return h + static_cast<size_t>(e) * kEntryLanes;
+  }
+  // The box of the entry's live lanes and the reach of their largest h
+  // (all lanes call it; lanes 0-7 read the entry's lanes). A NaN h adds
+  // nothing, and the reach is at least 0.
+  __device__ __forceinline__ static Box box(const float* tg, const float* he,
+                                            int lane) {
+    const bool in =
+        lane < kEntryLanes && tg[kLiveRow * kEntryLanes + lane] > 0.f;
+    const int l = in ? lane : 0;
+    return warp_box(in, tg[l], tg[kEntryLanes + l], tg[2 * kEntryLanes + l],
+                    in ? he[l] : 0.f);
+  }
+};
+
+// The 8 odd source blocks of even block b and their shifts
+struct OddBlocks {
+  int bx, by, bz, nb;
+  float lf;
+  template <bool kAbs>
+  __device__ __forceinline__ int block(int g) const {
+    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
+    if constexpr (kAbs) {
+      const int nbo = nb + 1;
+      return ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz);
+    } else {
+      return (wrap(bx + gx, nb) * nb + wrap(by + gy, nb)) * nb +
+             wrap(bz + gz, nb);
+    }
+  }
+  template <bool kAbs>
+  __device__ __forceinline__ void shifts(int g, float (&sh)[3]) const {
+    sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
+    sh[1] = kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
+    sh[2] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
+  }
+};
+
+__device__ __forceinline__ OddBlocks odd_blocks(int b, int nb, float lf) {
+  return {b / (nb * nb), (b / nb) % nb, b % nb, nb, lf};
+}
+
+// The items (odd block g, chunk c), u = g * chunks + c, that an entry's
+// need words name, in ascending order: each lane holds the need word of
+// one group of a round of 32 groups. All lanes call next(); it returns
+// -1 past the last.
+struct NeedItems {
+  const unsigned* ne;
+  int groups, lane;
+  int round = -32, q = 0;
+  unsigned word = 0, full = 0, pending = 0;
+  __device__ __forceinline__ int next() {
+    while (pending == 0) {
+      while (full == 0) {
+        round += 32;
+        if (round >= groups) return -1;
+        word = round + lane < groups ? ne[round + lane] : 0u;
+        full = __ballot_sync(kFull, word != 0);
+      }
+      const int i = __ffs(full) - 1;
+      full &= full - 1;
+      pending = __shfl_sync(kFull, word, i);
+      q = round + i;
+    }
+    const int u = q * 32 + __ffs(pending) - 1;
+    pending &= pending - 1;
+    return u;
+  }
+};
+
+// Threads of entries_need_kernel: one warp a group
+constexpr int kNeedThreads = 256;
+
+namespace {
+
+// need[e * groups + q], bit i: item u = 32 q + i of entry e (odd block g =
+// u / chunks, chunk u % chunks) lies within reach of the entry's box: the
+// chunk box (boxes, as subcell_boxes_kernel writes them with parts of 32
+// slots) within max(the entry's reach, the chunk's largest h), dx taken
+// as the sums take it (Shift::kPair with the shift (1 - 2g) Lf, Shift::kNone
+// in absolute mode); 0 for a switched-off entry. One warp a (entry,
+// group).
+template <class Rows, bool kAbs>
+__global__ void __launch_bounds__(kNeedThreads)
+    entries_need_kernel(const float* __restrict__ tgt,
+                        const float* __restrict__ h,
+                        const int* __restrict__ entry_blk,
+                        const float* __restrict__ boxes,
+                        unsigned* __restrict__ need, int nb, int chunks,
+                        int groups, int k_entries, float lf) {
+  constexpr Shift kShift = kAbs ? Shift::kNone : Shift::kPair;
+  const int w = blockIdx.x * (kNeedThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= k_entries * groups) return;   // the whole warp
+  const int e = w / groups, u = (w % groups) * 32 + lane;
+  const int b = entry_blk[e];
+  bool near = false;
+  if (b >= 0) {
+    const float* tg = Rows::rows(tgt, e);
+    const Box tbox = Rows::box(tg, Rows::hs(tg, h, e), lane);
+    if (u < 8 * chunks) {
+      const OddBlocks ob = odd_blocks(b, nb, lf);
+      const int g = u / chunks;
+      const float* q =
+          boxes +
+          (static_cast<size_t>(ob.block<kAbs>(g)) * chunks + u % chunks) * 8;
+      const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
+      float sh[3];
+      ob.shifts<kAbs>(g, sh);
+      near = near_boxes<kShift>(tbox, slo, shi, q[6], sh);
+    }
+  }
+  const unsigned m = __ballot_sync(kFull, near);
+  if (lane == 0) need[w] = m;
+}
+
+// entries_need_kernel over k_entries x groups warps, on st
+template <class Rows, bool kAbs>
+void launch_need(const float* tgt, const float* h, const int* entry_blk,
+                 const float* boxes, unsigned* need, int nb, int chunks,
+                 int groups, int k_entries, float lf, cudaStream_t st) {
+  constexpr int per_block = kNeedThreads / 32;
+  entries_need_kernel<Rows, kAbs>
+      <<<(k_entries * groups + per_block - 1) / per_block, kNeedThreads, 0,
+         st>>>(tgt, h, entry_blk, boxes, need, nb, chunks, groups, k_entries,
+               lf);
 }
 
 }  // namespace

@@ -11,65 +11,184 @@
 // periodically. Only alive particles are packed, so the mesh holds the
 // mass of alive particles only, as pm_forces_periodic requires.
 //
-// What bounds it on the card. 8 float atomics per particle into a
-// 192^3 x 4 B = 28 MB mesh, which fits in the 50 MB L2: it is bound by
-// atomic throughput in L2, with about 34 M atomics per deposit at
-// 2x128^3.
+// What bounds it on the card. Row 3 of every slot, rows 0-2 and 5 of the
+// packed ones, and the 192^3 x 4 B = 28 MB mesh written once: 0.035 ms of
+// bytes at 2x128^3. One thread a slot with 8 global atomics each (the
+// earlier design) makes about 34 M float atomics a deposit, and the ~107
+// particles of a cell fall on ~180 mesh cells, so neighbouring threads
+// queue on the same L2 addresses: the atomics bound it.
 //
-// What the design does about it. One thread per slot, so consecutive
-// threads hold particles of one cell and their atomics hit neighbouring
-// mesh cells in L2. The TPU kernel's padded windows, colour-class order and
-// one-hot matmuls existed to avoid scatters on a machine without atomics;
-// atomicAdd replaces all of them, and the periodic wrap replaces the fold
-// of the pads. Atomics make the order of each sum vary from run to run.
+// What the design does about it. A thread block takes a column of
+// kColumn x kColumn short-range cells along z (a piece of it where the
+// mesh is too large for the whole): the column's slots lie in kColumn^2
+// contiguous runs of the pack. The block sums their CIC weights into a
+// slab of the mesh in shared memory that covers the column's footprint,
+// ceil(kColumn n_pm / n_cells) + 2 mesh cells a side in x and y and the
+// whole z axis, each row of z padded to an odd length so that the rows of
+// one z fall in different banks; then it adds the slab's non-zero runs of
+// 4 z cells into the mesh with one vector reduction each (atomicAdd on
+// float4, sm_90). At 2x128^3 and kColumn 1: 34^2 blocks of 8 x 8 x 193
+// floats (49,408 B of dynamic shared memory, three blocks an SM), about
+// 3.5 M vector reductions in place of 34 M scalar atomics. sm_90 has no
+// float add in shared memory: nvcc makes each atomicAdd on the slab a
+// compare-and-swap loop (ATOMS.CAST.SPIN), about 0.085 ms of the deposit
+// at 2x128^3 (PERF.md section 6). An axis whose slab would cover n_pm or
+// more mesh cells (the small boxes of the tests) takes the whole axis, so
+// no mesh cell has two places in the slab. A slot with a corner outside
+// the slab (a particle staler than the fraction of a mesh cell left
+// between its cell's edge and the slab's) adds its 8 weights straight into
+// the mesh, as the earlier design did, so no mass is lost; so does every
+// slot where even a slab of one cell along z would not fit in shared
+// memory (short-range cells of tens of mesh cells, as a sparse box on a
+// fine mesh may have). u, the floor and the weights are the earlier
+// design's arithmetic line for line: each term is the same float, and
+// only the order of the sums changes (atomics make it vary from run to
+// run, as before). Columns of 2 x 2 cells (one block an SM) took twice as
+// long; 512 threads held to 40 registers (three blocks an SM, a 12-byte
+// spill) beat 50 registers (two) by a fifth (PERF.md section 6).
+// nvcc 12.8 -Xptxas=-v for sm_90a: 40 registers.
+
+#include <cmath>
 
 #include "glt_common.cuh"
 
 namespace {
 
-__global__ void pm_deposit_kernel(const float* __restrict__ soa,
-                                  float* __restrict__ mesh, int n_cells,
-                                  int cap, int n_pm, float scale,
-                                  float edge_pm) {
-  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x +
-                         threadIdx.x;
-  const long long total =
-      static_cast<long long>(n_cells) * n_cells * n_cells * cap;
-  if (slot >= total) return;
-  const int c = static_cast<int>(slot / cap);
-  const int s = static_cast<int>(slot % cap);
-  const float* t = soa + static_cast<size_t>(c) * 8 * cap;
-  const float m = t[3 * cap + s];
-  if (m == 0.f) return;  // parked slot
-  const float valid = t[5 * cap + s];
-  const int cx = c / (n_cells * n_cells);
-  const int cy = (c / n_cells) % n_cells;
-  const int cz = c % n_cells;
-  const float ux = t[s] * scale + (static_cast<float>(cx) + 0.5f) * edge_pm;
-  const float uy = t[cap + s] * scale +
-                   (static_cast<float>(cy) + 0.5f) * edge_pm;
-  const float uz = t[2 * cap + s] * scale +
-                   (static_cast<float>(cz) + 0.5f) * edge_pm;
-  const float fx0 = floorf(ux), fy0 = floorf(uy), fz0 = floorf(uz);
-  const float fx = ux - fx0, fy = uy - fy0, fz = uz - fz0;
-  const int ix = glt::wrap(static_cast<int>(fx0), n_pm);
-  const int iy = glt::wrap(static_cast<int>(fy0), n_pm);
-  const int iz = glt::wrap(static_cast<int>(fz0), n_pm);
-  const int jx[2] = {ix, ix + 1 == n_pm ? 0 : ix + 1};
-  const int jy[2] = {iy, iy + 1 == n_pm ? 0 : iy + 1};
-  const int jz[2] = {iz, iz + 1 == n_pm ? 0 : iz + 1};
-  const float wx[2] = {1.0f - fx, fx};
-  const float wy[2] = {1.0f - fy, fy};
-  const float wz[2] = {m * (1.0f - fz), m * fz};
+constexpr int kColumn = 1;           // short-range cells a column side
+constexpr int kDepositThreads = 512;
+
+// One axis of a block's slab: mesh cells lo .. lo + w - 1 (periodic), or
+// the whole axis where w == n (lo = 0).
+struct SlabAxis {
+  int lo, w, n;
+  // the slab index of mesh cell i (unwrapped, as floor(u) gives it), with
+  // i + 1 at index + 1 (mod w on the whole axis); false where either lies
+  // outside the slab
+  __device__ __forceinline__ bool index(int i, int& a, int& a1) const {
+    if (w == n) {
+      a = glt::wrap(i, n);
+      a1 = a + 1 == n ? 0 : a + 1;
+      return true;
+    }
+    a = i - lo;
+    a1 = a + 1;
+    return a >= 0 && a1 < w;
+  }
+  __device__ __forceinline__ int mesh(int a) const {
+    return glt::wrap(lo + a, n);
+  }
+};
+
+// the slab axis of cells c0 .. c0 + k - 1 (of edge e mesh cells) for a
+// slab of w cells, its first cell aligned down to a multiple of `align`
+__device__ __forceinline__ SlabAxis slab_axis(int c0, float e, int w, int n,
+                                              int align) {
+  if (w == n) return {0, w, n};
+  int lo = static_cast<int>(floorf(static_cast<float>(c0) * e));
+  lo -= glt::wrap(lo, align);
+  return {lo, w, n};
+}
+
+__global__ void __launch_bounds__(kDepositThreads, 3)
+    pm_deposit_kernel(const float* __restrict__ soa,
+                      float* __restrict__ mesh, int n_cells, int cap,
+                      int n_pm, float scale, float edge_pm, int columns,
+                      int kz, int pieces, int slab_xy, int slab_z, int vec) {
+  extern __shared__ float slab[];
+  const int p = blockIdx.x % pieces;
+  const int qy = (blockIdx.x / pieces) % columns;
+  const int qx = blockIdx.x / (pieces * columns);
+  const int cx0 = qx * kColumn, cy0 = qy * kColumn, cz0 = p * kz;
+  const int ncx = min(kColumn, n_cells - cx0);
+  const int ncy = min(kColumn, n_cells - cy0);
+  const int ncz = min(kz, n_cells - cz0);
+  const SlabAxis ax = slab_axis(cx0, edge_pm, slab_xy, n_pm, 1);
+  const SlabAxis ay = slab_axis(cy0, edge_pm, slab_xy, n_pm, 1);
+  const SlabAxis az = slab_axis(cz0, edge_pm, slab_z, n_pm, vec ? 4 : 1);
+  // a slab row (x, y) holds slab_z + 1 floats: an odd stride spreads the
+  // rows of one z over the 32 banks
+  const int row_len = slab_z + 1;
+  const int n_rows = slab_xy * slab_xy;
+  for (int i = threadIdx.x; i < n_rows * row_len; i += blockDim.x)
+    slab[i] = 0.f;
+  __syncthreads();
+
+  const int run = ncz * cap;   // the slots of one (cx, cy) of the column
+  const int total = ncx * ncy * run;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int q = i / run, r = i - q * run;
+    const int cx = cx0 + q / ncy, cy = cy0 + q % ncy, cz = cz0 + r / cap;
+    const int s = r % cap;
+    const int c = (cx * n_cells + cy) * n_cells + cz;
+    const float* t = soa + static_cast<size_t>(c) * 8 * cap;
+    const float m = t[3 * cap + s];
+    if (m == 0.f) continue;  // parked slot
+    const float valid = t[5 * cap + s];
+    const float ux = t[s] * scale + (static_cast<float>(cx) + 0.5f) * edge_pm;
+    const float uy = t[cap + s] * scale +
+                     (static_cast<float>(cy) + 0.5f) * edge_pm;
+    const float uz = t[2 * cap + s] * scale +
+                     (static_cast<float>(cz) + 0.5f) * edge_pm;
+    const float fx0 = floorf(ux), fy0 = floorf(uy), fz0 = floorf(uz);
+    const float fx = ux - fx0, fy = uy - fy0, fz = uz - fz0;
+    const float wx[2] = {1.0f - fx, fx};
+    const float wy[2] = {1.0f - fy, fy};
+    const float wz[2] = {m * (1.0f - fz), m * fz};
+    int jx[2], jy[2], jz[2];
+    if (ax.index(static_cast<int>(fx0), jx[0], jx[1]) &
+        ay.index(static_cast<int>(fy0), jy[0], jy[1]) &
+        az.index(static_cast<int>(fz0), jz[0], jz[1])) {
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
+      for (int a = 0; a < 2; ++a) {
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const float wxy = wx[a] * wy[b] * valid;
-      const size_t row =
-          (static_cast<size_t>(jx[a]) * n_pm + jy[b]) * n_pm;
-      atomicAdd(mesh + row + jz[0], wxy * wz[0]);
-      atomicAdd(mesh + row + jz[1], wxy * wz[1]);
+        for (int b = 0; b < 2; ++b) {
+          const float wxy = wx[a] * wy[b] * valid;
+          float* row = slab + (jx[a] * slab_xy + jy[b]) * row_len;
+          atomicAdd(row + jz[0], wxy * wz[0]);
+          atomicAdd(row + jz[1], wxy * wz[1]);
+        }
+      }
+      continue;
+    }
+    // a corner outside the slab: straight into the mesh
+    const int ix = glt::wrap(static_cast<int>(fx0), n_pm);
+    const int iy = glt::wrap(static_cast<int>(fy0), n_pm);
+    const int iz = glt::wrap(static_cast<int>(fz0), n_pm);
+    jx[0] = ix;
+    jx[1] = ix + 1 == n_pm ? 0 : ix + 1;
+    jy[0] = iy;
+    jy[1] = iy + 1 == n_pm ? 0 : iy + 1;
+    jz[0] = iz;
+    jz[1] = iz + 1 == n_pm ? 0 : iz + 1;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float wxy = wx[a] * wy[b] * valid;
+        const size_t row =
+            (static_cast<size_t>(jx[a]) * n_pm + jy[b]) * n_pm;
+        atomicAdd(mesh + row + jz[0], wxy * wz[0]);
+        atomicAdd(mesh + row + jz[1], wxy * wz[1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the slab into the mesh: a vector reduction a non-zero run of 4 z
+  // cells (aligned: the slab's z cells start at a multiple of 4 and n_pm
+  // is one), a scalar one a non-zero cell otherwise
+  const int run_len = vec ? 4 : 1, runs = slab_z / run_len;
+  for (int i = threadIdx.x; i < n_rows * runs; i += blockDim.x) {
+    const int row = i / runs, c = (i - row * runs) * run_len;
+    const float* v = slab + row * row_len + c;
+    const size_t at = (static_cast<size_t>(ax.mesh(row / slab_xy)) * n_pm +
+                       ay.mesh(row % slab_xy)) * n_pm + az.mesh(c);
+    if (vec) {
+      const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
+      if (v4.x != 0.f || v4.y != 0.f || v4.z != 0.f || v4.w != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(mesh + at), v4);
+    } else if (v[0] != 0.f) {
+      atomicAdd(mesh + at, v[0]);
     }
   }
 }
@@ -79,12 +198,41 @@ __global__ void pm_deposit_kernel(const float* __restrict__ soa,
 extern "C" int glt_pm_deposit(const float* soa, float* mesh, int n_cells,
                               int cap, int n_pm, float scale, float edge_pm,
                               void* stream) {
-  const long long total =
-      static_cast<long long>(n_cells) * n_cells * n_cells * cap;
-  const int threads = 256;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
-  pm_deposit_kernel<<<blocks, threads, 0,
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  // the slab: x and y cover the footprint of a column's cells (or the
+  // whole axis); z the whole axis where that fits, else pieces of kz
+  // cells with 3 more mesh cells for the alignment of their start; where
+  // a piece of one cell does not fit (cells of many mesh cells), no slab:
+  // every slot adds straight into the mesh
+  const int vec = n_pm % 4 == 0;
+  int wxy = static_cast<int>(std::ceil(kColumn * edge_pm)) + 2;
+  if (wxy >= n_pm) wxy = n_pm;
+  int kz = n_cells, wz = n_pm;
+  auto bytes = [&]() {
+    return static_cast<size_t>(wxy) * wxy * (wz + 1) * sizeof(float);
+  };
+  while (bytes() > static_cast<size_t>(max_smem)) {
+    if (kz == 1) {
+      kz = n_cells;
+      wxy = wz = 0;
+      break;
+    }
+    kz = (kz + 1) / 2;
+    wz = static_cast<int>(std::ceil(kz * edge_pm)) + 2 + (vec ? 3 : 0);
+    wz = vec ? (wz + 3) / 4 * 4 : wz;
+    if (wz >= n_pm) wz = n_pm;
+  }
+  const int columns = (n_cells + kColumn - 1) / kColumn;
+  const int pieces = (n_cells + kz - 1) / kz;
+  const int smem = wxy == 0 ? 0 : static_cast<int>(bytes());
+  cudaFuncSetAttribute(pm_deposit_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  pm_deposit_kernel<<<columns * columns * pieces, kDepositThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      soa, mesh, n_cells, cap, n_pm, scale, edge_pm);
+      soa, mesh, n_cells, cap, n_pm, scale, edge_pm, columns, kz, pieces,
+      wxy, wz, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,10 +39,12 @@
 //   with m > 0 (an empty chunk's box is +inf..-inf, beyond any reach),
 //   into a workspace of Bo x ceil(lanes / 32) x 8 floats that the wrapper
 //   allocates.
-// - Need words. entries_need_kernel, a warp for each group of 32 items
-//   (odd block g, chunk c) of each entry, takes the box of the entry's
-//   live lanes (m > 0) and their largest h as its reach (entry_box: a NaN
-//   adds nothing, and the reach is at least 0), tests its 32 chunk boxes
+// - Need words. glt::entries_need_kernel (glt_common.cuh, shared with
+//   kernel G), a warp for each group of 32 items (odd block g, chunk c) of
+//   each entry, takes the box of the entry's live lanes (m > 0) and their
+//   largest h as its reach (glt::EntryRows::box: a NaN adds nothing, and
+//   the reach is at least 0; the chunks' largest h is 0 here), tests its
+//   32 chunk boxes
 //   (glt::near_boxes with dx as the sums take it: Shift::kPair with the
 //   shift (1 - 2g) Lf, Shift::kNone in absolute mode) and writes the
 //   ballot, one word a group, into a second workspace of K x ceil(8
@@ -51,9 +53,9 @@
 //   (there they took 70% of the walk's time: PERF.md section 6).
 // - Sums. One warp an entry, four entries a thread block, as the earlier
 //   design. The warp reads the entry's need words 32 at a time (a word a
-//   lane, a ballot of the non-zero ones) and walks only the chunks within
-//   reach (1 + 1e-5), the next chunk's rows loaded into registers while
-//   this one sums. A lane whose own source has m = 0 or fails the same
+//   lane, a ballot of the non-zero ones: glt::NeedItems) and walks only
+//   the chunks within reach (1 + 1e-5), the next chunk's rows loaded into
+//   registers while this one sums. A lane whose own source has m = 0 or fails the same
 //   test skips the target loop: density_pair would have added nothing for
 //   it, since u >= 1 for every target. A target whose 1/h is 0
 //   (glt::inv_or_zero) adds only zeros, so what its h reaches does not
@@ -79,83 +81,9 @@ using glt::kEntryLanes;
 using glt::kFull;
 
 constexpr int kRows = 7;             // soa_o rows x, y, z, m, vx, vy, vz
-constexpr int kNeedThreads = 256;    // entries_need_kernel: a warp a group
-
-// The box of entry e's live lanes (m > 0) and the reach of their largest
-// h (all lanes call it; lanes 0-7 read the entry's lanes).
-__device__ __forceinline__ glt::Box entry_box(const float* __restrict__ tg,
-                                              const float* __restrict__ he,
-                                              int lane) {
-  const bool in = lane < kEntryLanes && tg[3 * kEntryLanes + lane] > 0.f;
-  const int l = in ? lane : 0;
-  return glt::warp_box(in, tg[l], tg[kEntryLanes + l],
-                       tg[2 * kEntryLanes + l], in ? he[l] : 0.f);
-}
-
-// The 8 odd source blocks of even block b and their shifts
-struct OddBlocks {
-  int bx, by, bz, nb;
-  float lf;
-  template <bool kAbs>
-  __device__ __forceinline__ int block(int g) const {
-    const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-    if constexpr (kAbs) {
-      const int nbo = nb + 1;
-      return ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz);
-    } else {
-      return (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
-             glt::wrap(bz + gz, nb);
-    }
-  }
-  template <bool kAbs>
-  __device__ __forceinline__ void shifts(int g, float (&sh)[3]) const {
-    sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
-    sh[1] = kAbs ? 0.f : static_cast<float>(1 - 2 * ((g >> 1) & 1)) * lf;
-    sh[2] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g & 1)) * lf;
-  }
-};
-
-__device__ __forceinline__ OddBlocks odd_blocks(int b, int nb, float lf) {
-  return {b / (nb * nb), (b / nb) % nb, b % nb, nb, lf};
-}
-
-// need[e * groups + q], bit i: item u = 32 q + i of entry e (odd block g =
-// u / chunks, chunk u % chunks) lies within reach of the entry's box; 0
-// for a switched-off entry. One warp a (entry, group).
-template <bool kAbs>
-__global__ void __launch_bounds__(kNeedThreads)
-    entries_need_kernel(const float* __restrict__ tgt,
-                        const float* __restrict__ h,
-                        const int* __restrict__ entry_blk,
-                        const float* __restrict__ boxes,
-                        unsigned* __restrict__ need, int nb, int chunks,
-                        int groups, int k_entries, float lf) {
-  constexpr glt::Shift kShift = kAbs ? glt::Shift::kNone : glt::Shift::kPair;
-  const int w = blockIdx.x * (kNeedThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= k_entries * groups) return;   // the whole warp
-  const int e = w / groups, u = (w % groups) * 32 + lane;
-  const int b = entry_blk[e];
-  bool near = false;
-  if (b >= 0) {
-    const glt::Box tbox =
-        entry_box(tgt + static_cast<size_t>(e) * 8 * kEntryLanes,
-                  h + static_cast<size_t>(e) * kEntryLanes, lane);
-    if (u < 8 * chunks) {
-      const OddBlocks ob = odd_blocks(b, nb, lf);
-      const int g = u / chunks;
-      const float* q =
-          boxes +
-          (static_cast<size_t>(ob.block<kAbs>(g)) * chunks + u % chunks) * 8;
-      const float slo[3] = {q[0], q[1], q[2]}, shi[3] = {q[3], q[4], q[5]};
-      float sh[3];
-      ob.shifts<kAbs>(g, sh);
-      near = glt::near_boxes<kShift>(tbox, slo, shi, 0.f, sh);
-    }
-  }
-  const unsigned m = __ballot_sync(kFull, near);
-  if (lane == 0) need[w] = m;
-}
+// the entry's target rows: tgt [K, 8, 8], live where m (row 3) > 0, h
+// apart
+using Rows = glt::EntryRows<8, 3, -1>;
 
 template <bool kAbs>
 __global__ void __launch_bounds__(32 * glt::kEntryWarps)
@@ -188,31 +116,10 @@ __global__ void __launch_bounds__(32 * glt::kEntryWarps)
   __syncwarp();
   const unsigned live = __ballot_sync(
       kFull, lane < kEntryLanes && t[3 * kEntryLanes + lane] > 0.f);
-  const glt::Box tbox = entry_box(t, he, lane);
-  const OddBlocks ob = odd_blocks(b, nb, lf);
-
-  // the items within reach, in order: each lane holds the need word of
-  // one group of a round of 32 groups
-  const unsigned* ne = need + static_cast<size_t>(e) * groups;
-  int round = -32, q = 0;
-  unsigned word = 0, full = 0, pending = 0;
-  auto next_item = [&]() {
-    while (pending == 0) {
-      while (full == 0) {
-        round += 32;
-        if (round >= groups) return -1;
-        word = round + lane < groups ? ne[round + lane] : 0u;
-        full = __ballot_sync(kFull, word != 0);
-      }
-      const int i = __ffs(full) - 1;
-      full &= full - 1;
-      pending = __shfl_sync(kFull, word, i);
-      q = round + i;
-    }
-    const int u = q * 32 + __ffs(pending) - 1;
-    pending &= pending - 1;
-    return u;
-  };
+  const glt::Box tbox = Rows::box(t, he, lane);
+  const glt::OddBlocks ob = glt::odd_blocks(b, nb, lf);
+  // the items within reach, in order
+  glt::NeedItems items{need + static_cast<size_t>(e) * groups, groups, lane};
   // this lane's source of item u into v (left as it is past the last
   // slot: the caller zeroes it, so m = 0 there)
   auto load = [&](int u, float (&v)[kRows]) {
@@ -232,11 +139,11 @@ __global__ void __launch_bounds__(32 * glt::kEntryWarps)
 #pragma unroll
     for (int r = 0; r < 6; ++r) acc[l][r] = 0.f;
 
-  int u = live ? next_item() : -1;
+  int u = live ? items.next() : -1;
   float cur[kRows] = {};
   if (u >= 0) load(u, cur);
   while (u >= 0) {
-    const int nu = next_item();
+    const int nu = items.next();
     float nxt[kRows] = {};
     if (nu >= 0) load(nu, nxt);   // in flight while this chunk sums
     float sh[3];
@@ -281,12 +188,9 @@ int launch_entries(const float* soa_o, const float* tgt, const float* h,
   const int bo = kAbs ? (nb + 1) * (nb + 1) * (nb + 1) : nb * nb * nb;
   const int chunks = (lanes + 31) / 32;
   const int groups = (8 * chunks + 31) / 32;
-  constexpr int per_block = kNeedThreads / 32;
   glt::launch_boxes<8, 3, -1>(soa_o, boxes, bo, lanes, 32, st);
-  entries_need_kernel<kAbs>
-      <<<(k_entries * groups + per_block - 1) / per_block, kNeedThreads, 0,
-         st>>>(tgt, h, entry_blk, boxes, need, nb, chunks, groups, k_entries,
-               lf);
+  glt::launch_need<Rows, kAbs>(tgt, h, entry_blk, boxes, need, nb, chunks,
+                               groups, k_entries, lf, st);
   sph_density_entries_kernel<kAbs>
       <<<(k_entries + glt::kEntryWarps - 1) / glt::kEntryWarps,
          32 * glt::kEntryWarps, 0, st>>>(soa_o, tgt, h, entry_blk, need, out,

@@ -65,8 +65,8 @@ SIGNATURES = {
                                    _P),
     "sph_density_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _P),
-    "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                          _P),
+    "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _F, _P),
     "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "sph_cells_density": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     "sph_cells_hydro": (_P, _P, _P, _P, _I, _I, _F, _I, _F, _P),
@@ -79,7 +79,8 @@ SIGNATURES = {
     "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_density_entries_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _P),
-    "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                              _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

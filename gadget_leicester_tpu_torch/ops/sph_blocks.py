@@ -356,6 +356,18 @@ def density_sums_blocks_entries_plain(soa_o, tgt, h_slots, entry_blk,
     return out
 
 
+def _chunk_workspace(blocks: int, lanes: int, entries: int, dev):
+    """The workspace of the entries kernels F and G: the box (and largest
+    h) of each 32-slot chunk of each of ``blocks`` source blocks of
+    ``lanes`` slots, and a need word a group of 32 chunks of each entry's
+    8 odd blocks."""
+    chunks = (lanes + 31) // 32
+    boxes = torch.empty(blocks * chunks * 8, dtype=torch.float32, device=dev)
+    need = torch.empty(entries * ((8 * chunks + 31) // 32),
+                       dtype=torch.int32, device=dev)
+    return boxes, need
+
+
 def density_sums_blocks_entries(soa_o: torch.Tensor, tgt: torch.Tensor,
                                 h_slots: torch.Tensor, entry_blk: torch.Tensor,
                                 nb: int, lf) -> torch.Tensor:
@@ -380,12 +392,7 @@ def density_sums_blocks_entries(soa_o: torch.Tensor, tgt: torch.Tensor,
         return density_sums_blocks_entries_plain(soa_o, tgt, h_slots,
                                                  entry_blk, nb, lf)
     out = torch.empty(k, 6, ENTRY_LANES, dtype=soa_o.dtype, device=dev)
-    # the kernel's workspace: the box of each 32-slot chunk of each source
-    # block, and a word a group of 32 chunks of each entry's odd blocks
-    chunks = (lanes + 31) // 32
-    boxes = torch.empty(b * chunks * 8, dtype=torch.float32, device=dev)
-    need = torch.empty(k * ((8 * chunks + 31) // 32), dtype=torch.int32,
-                       device=dev)
+    boxes, need = _chunk_workspace(b, lanes, k, dev)
     ptrs = (soa_o.data_ptr(), tgt.data_ptr(), h_slots.data_ptr(),
             entry_blk.data_ptr(), boxes.data_ptr(), need.data_ptr(),
             out.data_ptr(), nb, lanes, k)
@@ -560,15 +567,16 @@ def hydro_sums_blocks_entries(tgt16: torch.Tensor, tidx: torch.Tensor,
                                                entry_blk, params, nb, lf,
                                                visc_const)
     out = torch.empty(k, 5, ENTRY_LANES, dtype=src16.dtype, device=dev)
+    boxes, need = _chunk_workspace(b, lanes, k, dev)
+    work = (params.data_ptr(), boxes.data_ptr(), need.data_ptr(),
+            out.data_ptr(), nb, lanes, k)
     if lf is None:
         kernels.launch(name, tgt16.data_ptr(), src16.data_ptr(),
-                       entry_blk.data_ptr(), params.data_ptr(),
-                       out.data_ptr(), nb, lanes, k, 0.5 * visc_const)
+                       entry_blk.data_ptr(), *work, 0.5 * visc_const)
     else:
         kernels.launch(name, tgt16.data_ptr(), tidx.data_ptr(),
                        src16.data_ptr(), idx_o.data_ptr(),
-                       entry_blk.data_ptr(), params.data_ptr(),
-                       out.data_ptr(), nb, lanes, k, lf, 0.5 * visc_const)
+                       entry_blk.data_ptr(), *work, lf, 0.5 * visc_const)
     return out
 
 

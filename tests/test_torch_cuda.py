@@ -19,7 +19,12 @@ planes, u == n, a coordinate equal to the box, positions far outside the
 box or not finite), held to its plain version bit for bit; and at the
 edges of the rules by which A culls sources (a warp's box), and C and D
 skip source subcells (the boxes of the subcells), in both of C's and D's
-modes."""
+modes; the entries kernels F and G at the edges of their chunk walks (the
+reach across the periodic wrap, all-parked chunks, switched-off entries,
+the Leicester disc's subcells); and B where its slab is tight (slots
+beyond their cells by the grid cache's margin and by more than a mesh
+cell, the mesh wrap, a slab that takes the whole axis, a mesh side that
+is not a multiple of 4, cells too large for any slab)."""
 
 import pytest
 import torch
@@ -1139,3 +1144,171 @@ def test_entries_density_kernel_on_disc_subcells_on_card():
     got, _, valid, args = _entries_check(pos, h, active, False, 4096, 5)
     assert args[0].shape[2] == 8 * 4096
     assert bool((got[:, 0][valid] > 0).all())
+
+
+def _entries_hydro_check(pos, h, active, periodic: bool, subcap: int,
+                         seed: int, nb: int = 2, box: float = 2.0):
+    """Kernel G on the entries of the ``active`` gas at ``pos`` (smoothing
+    lengths ``h``) on an nb^3 block grid of ``subcap`` slots a subcell
+    over [0, box), periodic (relative mode) or clamped (absolute), with
+    seeded gas fields, against its float64 plain version, with all entries
+    on and with every other one switched off; switched-off entries and
+    dead lanes write zeros. Returns (its output [K, 5, 8] with all
+    entries on, the lanes' particles [K, 8], their validity, the
+    arguments)."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
+                                                      build_active_entries,
+                                                      entry_particles)
+    rng = np.random.default_rng(seed)
+    n = len(pos)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    p = _cuda(pos)
+    cls = sb.build_block_lists(p, mask, 0.0, box, nb, subcap,
+                               periodic=periodic)
+    assert not bool(cls[0].overflow)
+    ec, es, total = build_active_entries(
+        cls[0], torch.tensor(np.asarray(active), device="cuda"), ENTRY_LANES,
+        2 * nb ** 3)
+    assert int(total) <= 2 * nb ** 3 and bool((ec < 0).any())
+    rho = _cuda(rng.uniform(0.5, 2.0, n))
+    name = "sph_hydro_entries" if periodic else "sph_hydro_entries_abs"
+    with chip_smoke.recorded_inputs() as rec:
+        sb.hydro_force_blocks_entries(
+            cls, p, _cuda(rng.normal(0.0, 1.0, (n, 3))),
+            _cuda(rng.uniform(0.5, 1.5, n) / n), _cuda(h), rho,
+            0.05 * rho ** (5.0 / 3.0), _cuda(rng.uniform(0.8, 1.2, n)),
+            _cuda(rng.normal(0.0, 1.0, n)), _cuda(rng.uniform(0.0, 1.0, n)),
+            mask, ec, es, 0.8, box, 0.1, 1.0, 1.0)
+    args = rec[name]
+    pidx, valid = entry_particles(cls[0], ec, es, mask)
+    outs = []
+    for _, case in chip_smoke.cases(name, {name: args}):
+        before = kernels.launches[name]
+        got = sb.hydro_sums_blocks_entries(*case)
+        assert kernels.launches[name] == before + 1
+        want = sb.hydro_sums_blocks_entries_plain(*case)
+        exact = sb.hydro_sums_blocks_entries_plain(
+            *chip_smoke.as_float64(case))
+        torch.cuda.synchronize()
+        *_, used = chip_smoke.compare(name, got, want, exact)
+        assert used <= 1.0
+        blk = case[4]
+        assert bool((got[blk < 0] == 0).all())
+        assert bool((got.transpose(1, 2)[~valid] == 0).all())
+        outs.append(got)
+    return outs[0], pidx, valid, args
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_entries_hydro_kernel_culling_edges_on_card(periodic, sign):
+    """Kernel G, both modes, on four active targets, each with one
+    inactive source at r = (1 - 1e-5) of the larger h, which adds, or (1 +
+    1e-5), which adds nothing: across the periodic wrap (relative mode;
+    the source below x = 0, sign -1, or above x = 2, sign 1) or inside the
+    clamped grid (absolute mode). Two targets reach by the source's h (h_j
+    0.4 against h_i 0.1: the reach of hydro, not of the target's h), two
+    by their own (0.4 against 0.1); on 2^3 blocks of 64 slots a subcell,
+    whose chunks of slots 32-63 are all parked; the padded entries and,
+    in a second case, every other entry switched off. A target with its
+    source inside has a force and a signal velocity; one without, zeros."""
+    _need_card()
+    import numpy as np
+    layout = [(0.25, 0.25, True, "source"), (1.25, 0.25, False, "source"),
+              (0.25, 1.25, True, "target"), (1.25, 1.25, False, "target")]
+    pos, h = [], []
+    for y, z, inside, reach in layout:
+        d = 0.4 * (1.0 - EDGE if inside else 1.0 + EDGE)
+        if periodic:
+            xt = 0.05 if sign < 0 else 1.95
+            xs = (xt + sign * d) % 2.0
+        else:
+            xt = 0.7 if sign < 0 else 1.3
+            xs = xt + sign * d
+        pos += [[xt, y, z], [xs, y, z]]
+        h += [0.1, 0.4] if reach == "source" else [0.4, 0.1]
+    active = np.arange(len(pos)) % 2 == 0
+    got, pidx, valid, args = _entries_hydro_check(
+        pos, h, active, periodic, 64, 60 + sign + 2 * periodic)
+    src16 = args[2]
+    assert not bool((src16[:, 12].reshape(src16.shape[0], -1, 32) > 0)
+                    .any(-1).all())
+    rows = got.transpose(1, 2)[valid]                         # [targets, 5]
+    who = pidx[valid].long() // 2
+    for i, (*_, inside, _) in enumerate(layout):
+        r = rows[who == i]
+        assert r.shape[0] == 1
+        if inside:
+            assert float(r[0, 4]) > 0 and float(r[0, 0]) != 0.0
+        else:
+            assert bool((r[0] == 0).all())
+
+
+def test_entries_hydro_kernel_on_disc_subcells_on_card():
+    """Kernel G in absolute mode on the Leicester disc's geometry: 2^3
+    blocks of 4,096 slots a subcell (262,144 source slots an entry, most
+    of them parked), a dense clump at the centre in a sparse cloud, 1% of
+    the gas active: every live lane has its signal velocity."""
+    _need_card()
+    import numpy as np
+    rng = np.random.default_rng(7)
+    pos = np.concatenate([rng.uniform(0.0, 2.0, (3000, 3)),
+                          rng.normal(1.0, 0.1, (3000, 3)).clip(0.01, 1.99)])
+    h = np.where(np.arange(6000) < 3000, 0.3, 0.08)
+    active = rng.uniform(size=6000) < 0.01
+    got, _, valid, args = _entries_hydro_check(pos, h, active, False, 4096, 7)
+    assert args[2].shape[2] == 8 * 4096
+    assert bool((got[:, 4][valid] > 0).all())
+
+
+@pytest.mark.parametrize("n_cells,n_pm,n,stale", [
+    (34, 192, 200_000, 0.45), (34, 192, 200_000, 1.5), (3, 16, 5000, 0.5),
+    (5, 22, 5000, 0.5), (5, 256, 5000, 0.5)])
+def test_deposit_kernel_matches_plain_on_card(n_cells, n_pm, n, stale):
+    """Kernel B against its float64 plain version (chip_smoke.compare, per
+    plane of the mesh), on a pack built at positions then moved by up to
+    ``stale`` mesh cells per axis: the 2x128^3 geometry (34^3 cells on a
+    192 mesh) with slots up to the grid cache's margin (0.45 mesh cells)
+    beyond their cells, and staler than a mesh cell (corners outside the
+    block's slab, added straight into the mesh); a small box whose slab
+    takes the whole axis; a mesh side that is not a multiple of 4 (no
+    vector flush); cells of 51 mesh cells (no slab fits: every slot
+    straight into the mesh). Particles sit on the mesh wrap (a coordinate
+    equal to the box, u just below n_pm); the mesh keeps the alive mass."""
+    _need_card()
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import pm_tiles
+    from gadget_leicester_tpu_torch.ops.cells import pack_cells_soa
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    box = 100.0
+    rng = np.random.default_rng(n_pm + n_cells)
+    pos = rng.uniform(0.0, box, (n, 3))
+    alive = rng.uniform(size=n) > 0.05
+    mass = rng.uniform(0.5, 2.0, n)
+    now = pos + rng.uniform(-stale, stale, (n, 3)) * (box / n_pm)
+    now[:3] = [[box, 0.5 * box, 0.5 * box], [0.0, box, box],
+               [box * (1 - 1e-7), 1.0, box]]
+    pos[:3] = np.mod(now[:3], box)
+    alive[:3] = True
+    cap = 128 * -(-int(2.0 * n / n_cells ** 3) // 128)
+    cl = build_cell_list(_cuda(pos), torch.tensor(alive, device="cuda"),
+                         0.0, box, n_cells, cap)
+    assert not bool(cl.overflow)
+    m = _cuda(mass)
+    soa = pack_cells_soa(cl, _cuda(now), m, torch.ones_like(m),
+                         torch.tensor(alive, device="cuda"))
+    args = (soa, n_cells, box, n_pm)
+    before = kernels.launches["pm_deposit"]
+    got = pm_tiles.pm_deposit_tiles(*args)
+    assert kernels.launches["pm_deposit"] == before + 1
+    want = pm_tiles.pm_deposit_tiles_plain(*args)
+    exact = pm_tiles.pm_deposit_tiles_plain(*chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("pm_deposit", got, want, exact)
+    assert used <= 1.0
+    total = float(np.where(alive, mass.astype(np.float32), 0.0).sum())
+    assert abs(float(got.double().sum()) - total) <= 1e-5 * total

@@ -534,6 +534,85 @@ def test_walk_model_of_kernel_f_keeps_every_pair_inside_the_support(
     assert int((pair & walked).sum()) < int(pair.sum())
 
 
+@pytest.mark.parametrize("subcap", [32, 64])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_walk_model_of_kernel_g_keeps_every_pair_inside_the_support(
+        periodic, subcap):
+    """chip_smoke.entries_hydro_walk, the model of kernel G's culling
+    (csrc/sph_hydro_entries.cu: 32-slot chunk boxes of the valid sources
+    with their largest h, the box of a warp's live lanes with the reach
+    max(their largest h, the chunk's or the source's h)), on the smaller
+    SPH box's gas on its periodic grid (relative coordinates) or on a
+    clamped one over the same cube (absolute), on the arguments
+    hydro_force_blocks_entries gives kernel G. The gas holds coordinates
+    equal to the box, an entry of one live lane, and active targets of h
+    0.1 whose only neighbour within reach is an inactive source of h 0.3
+    at 0.3 (1 -+ 1e-5) (across the periodic wrap on the periodic grid).
+    Every pair of a live lane and a valid source other than itself with r
+    < max(h_i, h_j), the source's own h among them, is walked, and the
+    walk leaves out some pairs."""
+    import chip_smoke
+    pos, vel, mass, _, gas_mask = _sph_setup(41 + subcap, n=900, box=C_BOX)
+    h = np.full(len(pos), 0.2, np.float32)
+    pos[:3] = [[C_BOX, 1.0, 1.0], [0.0, C_BOX, 0.5], [C_BOX, C_BOX, C_BOX]]
+    # targets 3 and 5 (h 0.1) with a source of h 0.3 at 0.3 (1 -+ 1e-5)
+    # in -x: across x = 0 on the periodic grid; the other gas within 0.45
+    # of them made dark matter
+    special = np.array([[0.05, 1.25, 0.25], [0.05, 1.25, 0.25],
+                        [0.05, 0.25, 1.25], [0.05, 0.25, 1.25]], np.float32)
+    for i, sign in ((0, -1.0), (2, 1.0)):
+        special[i + 1, 0] = np.float32(
+            (0.05 - 0.3 * (1.0 + sign * 1e-5)) % C_BOX) if periodic else \
+            np.float32(0.05 + 0.3 * (1.0 + sign * 1e-5))
+    pos[3:7] = special
+    h[3:7] = [0.1, 0.3, 0.1, 0.3]
+    near = np.zeros(len(pos), bool)
+    for c in special:
+        d = np.abs(pos - c)
+        if periodic:
+            d = np.minimum(d, C_BOX - d)
+        near |= np.sqrt((d ** 2).sum(1)) < 0.45
+    near[:7] = False
+    gas_mask &= ~near
+    active = _sph_active("spread", pos, gas_mask, C_BOX)
+    active[:7] = [True, True, True, True, False, True, False]
+    tcls = tsb.build_block_lists(*_t(pos, gas_mask), 0.0, C_BOX, C_NB,
+                                 subcap, periodic=periodic)
+    assert not bool(tcls[0].overflow)
+    # particle 0 alone active in its even block: an entry of one live lane
+    blk = (tcls[0].gslot // (8 * subcap)).numpy()
+    active &= (blk != blk[0]) | (np.arange(len(pos)) == 0)
+    assert active[[3, 5]].all()
+    ec, es, _ = cells.build_active_entries(tcls[0], torch.from_numpy(active),
+                                           LANES, C_KMAX)
+    assert int(((es >= 0).sum(1) == 1).sum()) > 0
+    fields = (pos, vel, mass, h, *_hydro_fields(43, pos, gas_mask), gas_mask)
+    rec = _recorded(tsb.hydro_force_blocks_entries, tcls, *_t(*fields), ec,
+                    es, box=C_BOX, **HKW)
+    name = "sph_hydro_entries" if periodic else "sph_hydro_entries_abs"
+    args = rec[name]
+    tgt16, tidx, src16, idx_o, _, _, nb, lf, _ = args
+    e = torch.nonzero(ec >= 0).flatten()
+    live, walked = chip_smoke.entries_hydro_walk(args, e)
+    ids, units = tsb.odd_sources(nb, ec[e].long(), periodic)
+    rows, shift = tsb._gather_sources(src16, ids, units, lf, (0, 1, 2, 7, 12))
+    r = tsb._pair_geometry(tgt16[e], rows, shift)[3]
+    ht, hs = tgt16[e][:, 7, :, None], rows[3][:, None, :]
+    support = r < torch.maximum(ht, hs)
+    if periodic:
+        other = tidx[e][:, :, None] != idx_o[ids].flatten(1)[:, None, :]
+    else:
+        other = r > 0.0
+    pair = live[..., None] & (rows[4] > 0)[:, None, :] & other
+    assert int((pair & support).sum()) > 0
+    assert not bool((pair & support & ~walked).any())
+    assert int((pair & walked).sum()) < int(pair.sum())
+    # the sources' own h is the only reach of some pairs, and those are
+    # walked
+    own = pair & support & ~(r < ht)
+    assert int(own.sum()) > 0 and bool(walked[own].all())
+
+
 # ---------------------------------------------------------------------------
 # (g) chip_smoke's bound and recorder of kernel F
 # ---------------------------------------------------------------------------

@@ -123,3 +123,71 @@ def test_pm_potential_gathered_apart_equals_the_stack_gather():
     assert torch.equal(acc, rows[:, :3]) and torch.equal(pot, rows[:, 3])
     assert torch.equal(acc, pm.pm_forces_periodic(*t, BOX, N_PM))
     assert not pot[~t[2]].any() and pot[t[2]].abs().min() > 0
+
+
+def _stale_pack(seed, n_cells, n_pm, n=900, margin=None):
+    """A short-range pack on an n_cells^3 grid built at ``pos`` and packed
+    at positions moved by up to ``margin`` per axis (the grid cache's
+    staleness margin of models/grids.py :: grav_grid_geometry unless
+    given), with coordinates equal to the box and a mesh coordinate just
+    below n_pm among them; returns (pack, positions now, alive mass)."""
+    from gadget_leicester_tpu_torch.models.grids import SOFT_RCUT_FRAC
+    if margin is None:
+        rcut = pm.RCUT * pm.ASMTH * BOX / n_pm
+        margin = max(BOX / n_cells - rcut, SOFT_RCUT_FRAC * rcut)
+    pos, mass, alive = _setup(seed, n)
+    rng = np.random.default_rng(seed + 1)
+    now = pos + rng.uniform(-margin, margin, pos.shape).astype(np.float32)
+    now[:3] = [[BOX, 0.5 * BOX, 0.5 * BOX], [0.0, BOX, BOX],
+               [BOX * (1 - 1e-6), 1.0, BOX]]
+    pos[:3] = np.mod(now[:3], BOX)
+    alive[:3] = True
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(b=pos, p=now, m=mass, a=alive).items()}
+    cl = build_cell_list(t["b"], t["a"], 0.0, BOX, n_cells, 128)
+    assert not bool(cl.overflow)
+    soa = pack_cells_soa(cl, t["p"], t["m"], torch.ones_like(t["m"]), t["a"])
+    return soa, now, np.where(alive, mass, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_cells,n_pm", [(N_CELLS, N_PM), (3, 16)])
+def test_deposit_plain_equals_cic_deposit_with_stale_slots(n_cells, n_pm):
+    """Kernel B's plain version on a pack whose slots lie up to the grid
+    cache's staleness margin outside their cells (and on the mesh wrap)
+    equals ops/pm.py :: cic_deposit of the alive mass at the wrapped
+    positions, within 2e-5 of the largest mesh cell (float32 sums in
+    another order), and keeps the alive mass to float32 rounding."""
+    from gadget_leicester_tpu_torch.ops.pm_tiles import \
+        pm_deposit_tiles_plain
+    soa, now, w_alive = _stale_pack(5, n_cells, n_pm)
+    half = 0.5 * BOX / n_cells
+    live = soa[:, 3] != 0
+    beyond = (soa[:, :3].abs() > half).any(1) & live
+    assert int(beyond.sum()) > 0           # slots outside their cells
+    got = pm_deposit_tiles_plain(soa, n_cells, BOX, n_pm).numpy()
+    want = pm.cic_deposit(torch.from_numpy(np.mod(now, BOX)),
+                          torch.from_numpy(w_alive), BOX, n_pm).numpy()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * scale)
+    np.testing.assert_allclose(got.sum(dtype=np.float64),
+                               w_alive.sum(dtype=np.float64), rtol=1e-5)
+
+
+def test_kernel_b_bound_counts_only_the_rows_it_reads():
+    """chip_smoke.deposit_bytes on kernel B's arguments: the mass of every
+    slot and x, y, z and the packed flag of the packed ones (m != 0), each
+    once; chip_smoke.kernel_bound adds the mesh, written once, and 44
+    operations a packed slot."""
+    import chip_smoke
+    soa, _, w_alive = _stale_pack(6, N_CELLS, N_PM)
+    args = (soa, N_CELLS, BOX, N_PM)
+    packed = int(np.count_nonzero(w_alive))
+    slots = soa.shape[0] * soa.shape[2]
+    assert packed == int((soa[:, 3] != 0).sum()) and packed < slots
+    assert chip_smoke.deposit_bytes(args) == 4 * (slots + 4 * packed)
+    mesh = pm_deposit_tiles(*args)
+    bound = chip_smoke.kernel_bound("pm_deposit", args, mesh)
+    assert bound["bytes"] == 4 * (slots + 4 * packed) + 4 * N_PM ** 3
+    assert bound["ops"] == packed * chip_smoke.OPS_PER_DEPOSIT
+    empty = torch.zeros_like(soa)
+    assert chip_smoke.deposit_bytes((empty,) + args[1:]) == 4 * slots
