@@ -19,15 +19,13 @@
 // queue on the same L2 addresses: the atomics bound it.
 //
 // What the design does about it. A thread block takes a column of
-// kColumn x kColumn short-range cells along z (a piece of it where the
-// mesh is too large for the whole): the column's slots lie in kColumn^2
-// contiguous runs of the pack. The block sums their CIC weights into a
-// slab of the mesh in shared memory that covers the column's footprint,
-// ceil(kColumn n_pm / n_cells) + 2 mesh cells a side in x and y and the
-// whole z axis, each row of z padded to an odd length so that the rows of
-// one z fall in different banks; then it adds the slab's non-zero runs of
-// 4 z cells into the mesh with one vector reduction each (atomicAdd on
-// float4, sm_90). At 2x128^3 and kColumn 1: 34^2 blocks of 8 x 8 x 193
+// short-range cells along z, whose slots are one run of the pack, and sums
+// their CIC weights into a slab of the mesh in shared memory that covers
+// the column's footprint: ceil(n_pm / n_cells) + 2 mesh cells a side in x
+// and y and the whole z axis, each row of z padded to an odd length so
+// that the rows of one z fall in different banks. Then it adds the slab's
+// non-zero runs of 4 z cells into the mesh with one vector reduction each
+// (atomicAdd on float4, sm_90). At 2x128^3: 34^2 blocks of 8 x 8 x 193
 // floats (49,408 B of dynamic shared memory, three blocks an SM), about
 // 3.5 M vector reductions in place of 34 M scalar atomics. sm_90 has no
 // float add in shared memory: nvcc makes each atomicAdd on the slab a
@@ -35,18 +33,18 @@
 // at 2x128^3 (PERF.md section 6). An axis whose slab would cover n_pm or
 // more mesh cells (the small boxes of the tests) takes the whole axis, so
 // no mesh cell has two places in the slab. A slot with a corner outside
-// the slab (a particle staler than the fraction of a mesh cell left
-// between its cell's edge and the slab's) adds its 8 weights straight into
-// the mesh, as the earlier design did, so no mass is lost; so does every
-// slot where even a slab of one cell along z would not fit in shared
-// memory (short-range cells of tens of mesh cells, as a sparse box on a
-// fine mesh may have). u, the floor and the weights are the earlier
-// design's arithmetic line for line: each term is the same float, and
-// only the order of the sums changes (atomics make it vary from run to
-// run, as before). Columns of 2 x 2 cells (one block an SM) took twice as
-// long; 512 threads held to 40 registers (three blocks an SM, a 12-byte
-// spill) beat 50 registers (two) by a fifth (PERF.md section 6).
-// nvcc 12.8 -Xptxas=-v for sm_90a: 40 registers.
+// the slab (a particle staler than the fraction of a mesh cell between
+// its cell's edge and the slab's) adds its 8 weights straight into the
+// mesh, as the earlier design did, so no mass is lost; so does every slot
+// where the slab would not fit in shared memory (short-range cells of tens
+// of mesh cells, or a mesh of some thousand cells a side). u, the floor
+// and the weights are the earlier design's arithmetic line for line: each
+// term is the same float, and only the order of the sums changes (atomics
+// make it vary from run to run, as before). Columns of 2 x 2 cells (one
+// block an SM) took more than twice as long; 512 threads held to 40
+// registers by __launch_bounds__ (three blocks an SM) beat 50 registers
+// (two) by a fifth (PERF.md section 6).
+// nvcc 12.8 -Xptxas=-v for sm_90a: 40 registers, no spill.
 
 #include <cmath>
 
@@ -54,7 +52,6 @@
 
 namespace {
 
-constexpr int kColumn = 1;           // short-range cells a column side
 constexpr int kDepositThreads = 512;
 
 // One axis of a block's slab: mesh cells lo .. lo + w - 1 (periodic), or
@@ -79,46 +76,35 @@ struct SlabAxis {
   }
 };
 
-// the slab axis of cells c0 .. c0 + k - 1 (of edge e mesh cells) for a
-// slab of w cells, its first cell aligned down to a multiple of `align`
-__device__ __forceinline__ SlabAxis slab_axis(int c0, float e, int w, int n,
-                                              int align) {
+// the slab axis of w mesh cells from the first mesh cell of cell c (of
+// edge e mesh cells)
+__device__ __forceinline__ SlabAxis slab_axis(int c, float e, int w, int n) {
   if (w == n) return {0, w, n};
-  int lo = static_cast<int>(floorf(static_cast<float>(c0) * e));
-  lo -= glt::wrap(lo, align);
-  return {lo, w, n};
+  return {static_cast<int>(floorf(static_cast<float>(c) * e)), w, n};
 }
 
 __global__ void __launch_bounds__(kDepositThreads, 3)
     pm_deposit_kernel(const float* __restrict__ soa,
                       float* __restrict__ mesh, int n_cells, int cap,
-                      int n_pm, float scale, float edge_pm, int columns,
-                      int kz, int pieces, int slab_xy, int slab_z, int vec) {
+                      int n_pm, float scale, float edge_pm, int slab_xy,
+                      int vec) {
   extern __shared__ float slab[];
-  const int p = blockIdx.x % pieces;
-  const int qy = (blockIdx.x / pieces) % columns;
-  const int qx = blockIdx.x / (pieces * columns);
-  const int cx0 = qx * kColumn, cy0 = qy * kColumn, cz0 = p * kz;
-  const int ncx = min(kColumn, n_cells - cx0);
-  const int ncy = min(kColumn, n_cells - cy0);
-  const int ncz = min(kz, n_cells - cz0);
-  const SlabAxis ax = slab_axis(cx0, edge_pm, slab_xy, n_pm, 1);
-  const SlabAxis ay = slab_axis(cy0, edge_pm, slab_xy, n_pm, 1);
-  const SlabAxis az = slab_axis(cz0, edge_pm, slab_z, n_pm, vec ? 4 : 1);
-  // a slab row (x, y) holds slab_z + 1 floats: an odd stride spreads the
+  const int cx = blockIdx.x / n_cells, cy = blockIdx.x % n_cells;
+  const SlabAxis ax = slab_axis(cx, edge_pm, slab_xy, n_pm);
+  const SlabAxis ay = slab_axis(cy, edge_pm, slab_xy, n_pm);
+  const SlabAxis az = {0, n_pm, n_pm};
+  // a slab row (x, y) holds n_pm + 1 floats: an odd stride spreads the
   // rows of one z over the 32 banks
-  const int row_len = slab_z + 1;
+  const int row_len = n_pm + 1;
   const int n_rows = slab_xy * slab_xy;
   for (int i = threadIdx.x; i < n_rows * row_len; i += blockDim.x)
     slab[i] = 0.f;
   __syncthreads();
 
-  const int run = ncz * cap;   // the slots of one (cx, cy) of the column
-  const int total = ncx * ncy * run;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int q = i / run, r = i - q * run;
-    const int cx = cx0 + q / ncy, cy = cy0 + q % ncy, cz = cz0 + r / cap;
-    const int s = r % cap;
+  // the column's slots: cells (cx, cy, 0 .. n_cells - 1), one run of the
+  // pack
+  for (int i = threadIdx.x; i < n_cells * cap; i += blockDim.x) {
+    const int cz = i / cap, s = i - cz * cap;
     const int c = (cx * n_cells + cy) * n_cells + cz;
     const float* t = soa + static_cast<size_t>(c) * 8 * cap;
     const float m = t[3 * cap + s];
@@ -175,9 +161,9 @@ __global__ void __launch_bounds__(kDepositThreads, 3)
   __syncthreads();
 
   // the slab into the mesh: a vector reduction a non-zero run of 4 z
-  // cells (aligned: the slab's z cells start at a multiple of 4 and n_pm
-  // is one), a scalar one a non-zero cell otherwise
-  const int run_len = vec ? 4 : 1, runs = slab_z / run_len;
+  // cells (aligned where n_pm is a multiple of 4), a scalar one a
+  // non-zero cell otherwise
+  const int run_len = vec ? 4 : 1, runs = n_pm / run_len;
   for (int i = threadIdx.x; i < n_rows * runs; i += blockDim.x) {
     const int row = i / runs, c = (i - row * runs) * run_len;
     const float* v = slab + row * row_len + c;
@@ -202,37 +188,22 @@ extern "C" int glt_pm_deposit(const float* soa, float* mesh, int n_cells,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  // the slab: x and y cover the footprint of a column's cells (or the
-  // whole axis); z the whole axis where that fits, else pieces of kz
-  // cells with 3 more mesh cells for the alignment of their start; where
-  // a piece of one cell does not fit (cells of many mesh cells), no slab:
-  // every slot adds straight into the mesh
-  const int vec = n_pm % 4 == 0;
-  int wxy = static_cast<int>(std::ceil(kColumn * edge_pm)) + 2;
+  // the slab: x and y cover the footprint of a cell (or the whole axis),
+  // z the whole axis; where that does not fit (cells of many mesh cells,
+  // or a mesh of some thousand cells a side), no slab: every slot adds
+  // straight into the mesh
+  int wxy = static_cast<int>(std::ceil(edge_pm)) + 2;
   if (wxy >= n_pm) wxy = n_pm;
-  int kz = n_cells, wz = n_pm;
-  auto bytes = [&]() {
-    return static_cast<size_t>(wxy) * wxy * (wz + 1) * sizeof(float);
-  };
-  while (bytes() > static_cast<size_t>(max_smem)) {
-    if (kz == 1) {
-      kz = n_cells;
-      wxy = wz = 0;
-      break;
-    }
-    kz = (kz + 1) / 2;
-    wz = static_cast<int>(std::ceil(kz * edge_pm)) + 2 + (vec ? 3 : 0);
-    wz = vec ? (wz + 3) / 4 * 4 : wz;
-    if (wz >= n_pm) wz = n_pm;
+  size_t smem = static_cast<size_t>(wxy) * wxy * (n_pm + 1) * sizeof(float);
+  if (smem > static_cast<size_t>(max_smem)) {
+    wxy = 0;
+    smem = 0;
   }
-  const int columns = (n_cells + kColumn - 1) / kColumn;
-  const int pieces = (n_cells + kz - 1) / kz;
-  const int smem = wxy == 0 ? 0 : static_cast<int>(bytes());
   cudaFuncSetAttribute(pm_deposit_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pm_deposit_kernel<<<columns * columns * pieces, kDepositThreads, smem,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  pm_deposit_kernel<<<n_cells * n_cells, kDepositThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      soa, mesh, n_cells, cap, n_pm, scale, edge_pm, columns, kz, pieces,
-      wxy, wz, vec);
+      soa, mesh, n_cells, cap, n_pm, scale, edge_pm, wxy, n_pm % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }

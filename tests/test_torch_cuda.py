@@ -1266,17 +1266,17 @@ def test_entries_hydro_kernel_on_disc_subcells_on_card():
 
 @pytest.mark.parametrize("n_cells,n_pm,n,stale", [
     (34, 192, 200_000, 0.45), (34, 192, 200_000, 1.5), (3, 16, 5000, 0.5),
-    (5, 22, 5000, 0.5), (5, 256, 5000, 0.5)])
+    (3, 4, 5000, 0.5), (5, 22, 5000, 0.5), (5, 256, 5000, 0.5)])
 def test_deposit_kernel_matches_plain_on_card(n_cells, n_pm, n, stale):
     """Kernel B against its float64 plain version (chip_smoke.compare, per
     plane of the mesh), on a pack built at positions then moved by up to
     ``stale`` mesh cells per axis: the 2x128^3 geometry (34^3 cells on a
     192 mesh) with slots up to the grid cache's margin (0.45 mesh cells)
     beyond their cells, and staler than a mesh cell (corners outside the
-    block's slab, added straight into the mesh); a small box whose slab
-    takes the whole axis; a mesh side that is not a multiple of 4 (no
-    vector flush); cells of 51 mesh cells (no slab fits: every slot
-    straight into the mesh). Particles sit on the mesh wrap (a coordinate
+    block's slab, added straight into the mesh); a small box (3^3 cells
+    on a 16 mesh); a mesh of 4 cells a side, whose slab takes the whole
+    axis; a mesh side that is not a multiple of 4 (no vector flush); cells
+    of 51 mesh cells (no slab fits: every slot straight into the mesh). Particles sit on the mesh wrap (a coordinate
     equal to the box, u just below n_pm); the mesh keeps the alive mass."""
     _need_card()
     import numpy as np
