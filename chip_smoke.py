@@ -1058,11 +1058,12 @@ def pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-# Kernels A, H, C, D, F, G, I/J and K walk fewer pairs than their stencil
-# holds, in the same order of sums (csrc/shortrange_gravity.cu,
-# csrc/sph_density.cu, csrc/sph_hydro.cu, csrc/sph_density_entries.cu,
+# Kernels A, H, C, D, E, F, G, I/J, K and M walk fewer pairs than their
+# stencil holds, in the same order of sums (csrc/shortrange_gravity.cu,
+# csrc/sph_density.cu, csrc/sph_hydro.cu,
+# csrc/shortrange_gravity_entries.cu, csrc/sph_density_entries.cu,
 # csrc/sph_hydro_entries.cu, csrc/sph_cells_density.cu,
-# csrc/sph_cells_hydro.cu). The bound above counts only the pairs inside
+# csrc/sph_cells_hydro.cu, csrc/shortrange_gravity_cells.cu). The bound above counts only the pairs inside
 # the cut; these mirror each design's culling rules in float32 and count
 # the pairs they leave to evaluate, which a share of the stencil pairs
 # compares across designs. They are models of the kernels' walks, not
@@ -1086,7 +1087,9 @@ def pair_count(name: str, args: tuple) -> tuple:
 # those, the sources with m > 0 within reach (squares times CULL_MARGIN2).
 # K: I/J's walk over the valid sources (row 12) with the reach max(h_max,
 # h_chunk) for a chunk (its largest source h) and max(h_max, h_s) for a
-# source. F and G: :func:`_entries_walk`.
+# source. F and G: :func:`_entries_walk`. E: :func:`entries_gravity_walk`;
+# M: :func:`gravity_cells_walk` (I/J's ranking, A's walk with a torus-aware
+# box test).
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1287,6 +1290,37 @@ def density_evaluated_pairs(args: tuple) -> int:
     return total
 
 
+def _ranked_by_box(xyz, live):
+    """The targets ``xyz`` [K, 3, cap] of a cell, ``live`` [K, cap], as
+    ``glt::rank_by_box`` orders them (kernels I/J, K and M): passes of
+    A_THREADS slots (fewer for a smaller cap, whole warps), each ranked by
+    the Morton key of its slots on an A_KEY_CELLS^3 grid over the box of
+    the pass's live ones. Returns (the slot of each rank [K, P nt], the
+    ranked coordinates [K, 3, W, 32] and live mask [K, W, 32], each warp's
+    box lo, hi [K, 3, W])."""
+    import torch
+    k, _, cap = xyz.shape
+    f32, dev = torch.float32, xyz.device
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    nt = min(-(-cap // 32) * 32, A_THREADS)
+    width = -(-cap // nt) * nt
+    x = torch.nn.functional.pad(xyz, (0, width - cap))
+    live = torch.nn.functional.pad(live, (0, width - cap))
+    xp, lv = x.view(k, 3, -1, nt), live.view(k, 1, -1, nt)
+    lo = torch.where(lv, xp, inf).amin(-1, keepdim=True)
+    hi = torch.where(lv, xp, -inf).amax(-1, keepdim=True)
+    scale = torch.where(hi > lo, torch.tensor(float(A_KEY_CELLS), dtype=f32,
+                                              device=dev) / (hi - lo),
+                        torch.zeros_like(lo))
+    order = _morton_order(((xp - lo) * scale).view(k, 3, width), live, nt)
+    w = width // 32
+    xyz = x.gather(2, order[:, None].expand(-1, 3, -1)).view(k, 3, w, 32)
+    lvr = live.gather(1, order).view(k, w, 32)
+    tlo = torch.where(lvr[:, None], xyz, inf).amin(-1)        # [K, 3, W]
+    thi = torch.where(lvr[:, None], xyz, -inf).amax(-1)
+    return order, xyz, lvr, tlo, thi
+
+
 def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
                 periodic: bool, cells):
     """The walk of kernel I/J (``h_row`` None: the reach of the target's h
@@ -1300,31 +1334,14 @@ def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
     from gadget_leicester_tpu_torch.ops import sph_cells as sc
     dev, f32 = soa.device, torch.float32
     k, cap = len(cells), soa.shape[2]
-    nt = min(-(-cap // 32) * 32, A_THREADS)
-    width = -(-cap // nt) * nt
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
     margin = torch.tensor(CULL_MARGIN2, dtype=f32, device=dev)
-    pad = (0, width - cap)
-    t = torch.nn.functional.pad(soa[cells], pad)
-    ht = torch.nn.functional.pad(ht_slots[cells], pad)
+    t = soa[cells]
     live = t[:, live_row] > 0
-    # the key: on A_KEY_CELLS^3 over the box of each pass's live targets
-    x = t[:, :3].view(k, 3, -1, nt)
-    lv = live.view(k, 1, -1, nt)
-    lo = torch.where(lv, x, inf).amin(-1, keepdim=True)
-    hi = torch.where(lv, x, -inf).amax(-1, keepdim=True)
-    scale = torch.where(hi > lo, torch.tensor(float(A_KEY_CELLS), dtype=f32,
-                                              device=dev) / (hi - lo),
-                        torch.zeros_like(lo))
-    order = _morton_order(((x - lo) * scale).view(k, 3, width), live, nt)
-    xyz = t[:, :3].gather(2, order[:, None].expand(-1, 3, -1))
-    lvr = live.gather(1, order)
-    hr = ht.gather(1, order)
-    w = width // 32
-    xyz, lvr, hr = xyz.view(k, 3, w, 32), lvr.view(k, w, 32), hr.view(k, w,
-                                                                       32)
-    tlo = torch.where(lvr[:, None], xyz, inf).amin(-1)        # [K, 3, W]
-    thi = torch.where(lvr[:, None], xyz, -inf).amax(-1)
+    order, xyz, lvr, tlo, thi = _ranked_by_box(t[:, :3], live)
+    w = lvr.shape[1]
+    hr = torch.nn.functional.pad(ht_slots[cells], (0, 32 * w - cap)).gather(
+        1, order).view(k, w, 32)
     reach = torch.where(lvr & ~torch.isnan(hr), hr, torch.zeros_like(hr))
     reach = reach.amax(-1).clamp(min=0.0)                     # [K, W]
     # the 27 stencil cells, their shifts and their chunk boxes
@@ -1372,9 +1389,10 @@ def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
         & (s[:, :, live_row] > 0).flatten(1)[:, None, :] \
         & need[..., :cap].flatten(2)                          # [K, W, 27 cap]
     walked = lvr[..., None] & near[:, :, None, :]             # [K, W, 32, .]
-    out = torch.zeros_like(walked.view(k, width, -1))
-    out.scatter_(1, order[..., None].expand_as(out), walked.view(k, width, -1))
-    return live[:, :cap], out[:, :cap]
+    out = torch.zeros_like(walked.view(k, 32 * w, -1))
+    out.scatter_(1, order[..., None].expand_as(out),
+                 walked.view(k, 32 * w, -1))
+    return live, out[:, :cap]
 
 
 def cells_density_walk(args: tuple, cells):
@@ -1495,7 +1513,129 @@ def entries_evaluated_pairs(walk, blk_arg: int, args: tuple) -> int:
     return total
 
 
+def entries_gravity_walk(args: tuple, entries):
+    """Kernel E's walk (either mode) over the entries ``entries`` [E] of
+    ``args``: a warp an entry, with the box of its live lanes and rcut as
+    its reach, walking the 32-slot chunks of its 27 stencil cells whose
+    box of sources with m > 0 lies within reach and, in those, the
+    sources with m != 0 within reach, each for all the entry's live lanes
+    (squares times CULL_MARGIN2; every box and source shifted by the
+    stencil offset times the cell edge, as E takes dx = t - (s + shift)).
+    Returns (the live lanes [E, 8], the pairs each lane walks [E, 8, 27
+    cap], sources in stencil order)."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    soa, entry_cell, tgt, n, box, _, rcut = args
+    f32 = torch.float32
+    cap = soa.shape[2]
+    chunks = -(-cap // 32)
+    t = tgt[entries]
+    live = t[:, 5] > 0                                        # [E, 8]
+    ids, offs = gs.stencil_sources(n, entry_cell[entries].long())
+    edge = torch.tensor(box / n, dtype=f32)                   # the c_float
+    sh = offs.to(f32) * edge.to(soa.device)                   # [27, 3]
+    s = soa[ids]                                              # [E, 27, 8, cap]
+    lo, hi, _ = _box(t[:, :3], t[:, 5], live, 8)              # [E, 3, 1]
+    reach = torch.sqrt(torch.tensor(rcut * rcut, dtype=f32))
+    cull = reach * reach * CULL_MARGIN2
+    pad = (0, chunks * 32 - cap)
+    valid = torch.nn.functional.pad(s[:, :, 3], pad).view(-1, 27, chunks,
+                                                          32) > 0
+    d2 = c2 = 0.0
+    for a in range(3):
+        sa = s[:, :, a] + sh[None, :, a, None]                # [E, 27, cap]
+        e = torch.clamp(torch.maximum(lo[:, a, :, None] - sa,
+                                      sa - hi[:, a, :, None]), min=0.0)
+        d2 = d2 + e * e
+        raw = torch.nn.functional.pad(s[:, :, a], pad).view(-1, 27, chunks,
+                                                            32)
+        clo = torch.where(valid, raw, torch.inf).amin(-1) + sh[None, :, a,
+                                                               None]
+        chi = torch.where(valid, raw, -torch.inf).amax(-1) + sh[None, :, a,
+                                                                None]
+        g = torch.clamp(torch.maximum(lo[:, a, :, None] - chi,
+                                      clo - hi[:, a, :, None]), min=0.0)
+        c2 = c2 + g * g                                       # [E, 27, ch]
+    need = (c2 < cull).repeat_interleave(32, -1)[..., :cap]
+    near = ((d2 < cull) & (s[:, :, 3] != 0) & need).flatten(1)
+    return live, live[..., None] & near[:, None, :]
+
+
+def entries_gravity_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live lane and a source with m != 0 that kernel E
+    (either mode) evaluates on ``args``."""
+    import torch
+    entries = torch.nonzero(args[1] >= 0).flatten()
+    total = 0
+    for k0 in range(0, entries.numel(), 64):
+        total += int(entries_gravity_walk(args, entries[k0:k0 + 64])[1].sum())
+    return total
+
+
+def gravity_cells_walk(args: tuple, cells):
+    """Kernel M's walk over the target cells ``cells`` [K] of ``args``:
+    live targets (row 5 > 0) ranked as ``glt::rank_by_box`` ranks them,
+    in warps of 32, each warp walking the sources with m != 0 of the
+    stencil cells on the grid whose distance from its box, per axis that
+    of the interval [lo - s, hi - s] of dx from the nearest multiple of
+    the box on a periodic grid (0 where the interval spans half the box
+    or more), from 0 on a clamped one, is below rcut (square times (1 +
+    1e-6), clamped to the largest float, times CULL_MARGIN2). Returns (the
+    ranked targets [K, 3, W, 32], their live mask [K, W, 32], the sources
+    [K, 3, 27 cap], the sources each warp walks [K, W, 27 cap])."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    soa, n, box, periodic, _, rcut = args
+    f32 = torch.float32
+    t = soa[cells]
+    _, xyz, lvr, tlo, thi = _ranked_by_box(t[:, :3], t[:, 5] > 0)
+    ids, inside = gs.stencil_cells(n, cells, periodic)
+    s = soa[ids]                                              # [K, 27, 8, cap]
+    sxyz = s[:, :, :3].transpose(1, 2).flatten(2)             # [K, 3, 27 cap]
+    up = float(rcut) * float(rcut) * (1.0 + 1e-6)
+    rcut2_up = torch.tensor(min(up, float(np.finfo(np.float32).max)),
+                            dtype=f32)
+    cull2 = rcut2_up * torch.tensor(CULL_MARGIN2, dtype=f32)  # inf at 1e30
+    boxf = torch.tensor(box, dtype=f32, device=soa.device)
+    inv_box = 1.0 / boxf
+    d2 = 0.0
+    for a in range(3):
+        sa = sxyz[:, None, a]
+        lo, hi = tlo[:, a, :, None] - sa, thi[:, a, :, None] - sa
+        if periodic:
+            kb = torch.round(0.5 * (lo + hi) * inv_box) * boxf
+            e = None
+            for k in (kb, kb - boxf, kb + boxf):
+                g = torch.clamp(torch.maximum(lo - k, k - hi), min=0.0)
+                e = g if e is None else torch.minimum(e, g)
+            e = torch.where(hi - lo < 0.5 * boxf, e, torch.zeros_like(e))
+        else:
+            e = torch.clamp(torch.maximum(lo, -hi), min=0.0)
+        d2 = d2 + e * e
+    src = ((s[:, :, 3] != 0) & inside[:, :, None]).flatten(1)
+    near = (d2 < cull2.to(soa.device)) & src[:, None, :]      # [K, W, 27 cap]
+    return xyz, lvr, sxyz, near
+
+
+def gravity_cells_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live target and a source that kernel M evaluates on
+    ``args``."""
+    import torch
+    cells = torch.nonzero((args[0][:, 5] > 0).any(-1)).flatten()
+    total = 0
+    for k0 in range(0, cells.numel(), 64):
+        _, lv, _, near = gravity_cells_walk(args, cells[k0:k0 + 64])
+        total += int((near.sum(-1) * lv.sum(-1)).sum())
+    return total
+
+
 EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
+             "shortrange_gravity_entries": entries_gravity_evaluated_pairs,
+             "shortrange_potential_entries": entries_gravity_evaluated_pairs,
+             "shortrange_gravity_cells": gravity_cells_evaluated_pairs,
              "shortrange_potential": gravity_evaluated_pairs,
              "sph_cells_density": cells_density_evaluated_pairs,
              "sph_cells_hydro": cells_hydro_evaluated_pairs,
@@ -1512,17 +1652,19 @@ EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
              "sph_hydro_abs": hydro_evaluated_pairs}
 
-# the times of kernels C, H, I/J, K, F, G and B in their earlier designs
-# (one thread a target walking every staged source of its stencil; F and
-# G one warp an entry walking every slot; B one thread a slot with 8
-# global atomics), on the same paths' arguments, on an NVIDIA H100 80GB
-# HBM3 at 700 W as PERF.md records them: C's relative mode and B on the
-# main path's last full-active sync point (phase 6), C's absolute mode on
-# the vacuum cloud at 64 slots a subcell (phase 12b), H on the step with
-# sinks (phase 14), I/J and K on the cells path (phase 8b), F's and G's
-# relative mode at the near-idle sync point (phase 8), their absolute mode
-# on the vacuum cloud at 1% active (phase 12b) and on the disc's own
-# arguments at the sync point of the most live lanes of phase 15's run()
+# the times of kernels C, H, I/J, K, F, G, B, E and M in their earlier
+# designs (one thread a target walking every staged source of its
+# stencil, M also; F, G and E one warp an entry walking every slot; B one
+# thread a slot with 8 global atomics), on the same paths' arguments, on
+# an NVIDIA H100 80GB HBM3 at 700 W as PERF.md records them: C's relative
+# mode and B on the main path's last full-active sync point (phase 6),
+# C's absolute mode on the vacuum cloud at 64 slots a subcell (phase 12b),
+# H on the step with sinks (phase 14), I/J and K on the cells path (phase
+# 8b), E and F's and G's relative mode at the near-idle sync point (phase
+# 8), E's potential mode at the near-idle sync point with sinks (phase
+# 14), M on the fresh list of phase 12, F's and G's absolute mode on the
+# vacuum cloud at 1% active (phase 12b) and on the disc's own arguments at
+# the sync point of the most live lanes of phase 15's run()
 # (:func:`busiest_entries`)
 EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
               "shortrange_potential": 29.156, "sph_cells_density": 10.689,
@@ -1531,7 +1673,9 @@ EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
               "sph_density_entries_abs_disc": 1.988,
               "sph_hydro_entries": 0.376, "sph_hydro_entries_abs": 0.385,
               "sph_hydro_entries_abs_disc": 2.091,
-              "pm_deposit": 0.281}
+              "pm_deposit": 0.281, "shortrange_gravity_entries": 0.595,
+              "shortrange_potential_entries": 0.763,
+              "shortrange_gravity_cells": 25.849}
 # the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
@@ -1547,7 +1691,12 @@ PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "sph_hydro_entries": "sph_hydro_entries_kernelILb0E",
               "sph_hydro_entries_abs": "sph_hydro_entries_kernelILb1E",
               "sph_hydro_entries_abs_disc": "sph_hydro_entries_kernelILb1E",
-              "pm_deposit": "pm_deposit_kernel"}
+              "pm_deposit": "pm_deposit_kernel",
+              "shortrange_gravity_entries":
+                  "shortrange_gravity_entries_kernelILb0E",
+              "shortrange_potential_entries":
+                  "shortrange_gravity_entries_kernelILb1E",
+              "shortrange_gravity_cells": "shortrange_gravity_cells_kernel"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -1586,32 +1735,66 @@ def say_against_earlier(phase: str, results: dict, name: str,
         f"{walk}; registers {regs} ({card})")
 
 
-# for each entries kernel: which argument is its source pack, and how
-# many of the pack's rows it reads for a source slot (E: x, y, z, m, soft,
-# 1/soft; F: x, y, z, m, vx, vy, vz; G: rows 0-12)
-ENTRY_SOURCES = {"shortrange_gravity_entries": (0, 6),
-                 "shortrange_potential_entries": (0, 6),
-                 "sph_density_entries": (0, 7), "sph_hydro_entries": (2, 13)}
+# for each SPH entries kernel: which argument is its source pack, and how
+# many of the pack's rows it reads for a source slot (F: x, y, z, m, vx,
+# vy, vz; G: rows 0-12); E: :func:`gravity_entries_bytes`
+ENTRY_SOURCES = {"sph_density_entries": (0, 7), "sph_hydro_entries": (2, 13)}
+
+
+def gravity_entries_bytes(args: tuple) -> int:
+    """The bytes kernel E (either mode) must read of ``args``: of the
+    cells its switched-on entries reach, the mass (row 3) of every slot,
+    x, y, z (rows 0-2) of the slots with m != 0, and soft and 1/soft (rows
+    4, 6) of those within rcut (0 < r2 < rcut^2) of a live lane of an
+    entry that reaches them, each once; entry_cell and tgt whole."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    soa, entry_cell, tgt, n, box, _, rcut = args
+    cap, size = soa.shape[2], soa.element_size()
+    e_on = torch.nonzero(entry_cell >= 0).flatten()
+    ids_all = gs.stencil_sources(n, entry_cell[e_on].long())[0]
+    reached = torch.unique(ids_all)
+    packed = int((soa[reached, 3] != 0).sum())
+    needed = torch.zeros(soa.shape[0] * cap, dtype=torch.bool,
+                         device=soa.device)
+    slots = torch.arange(cap, device=soa.device)
+    for k0 in range(0, e_on.numel(), 64):
+        e = e_on[k0:k0 + 64]
+        ids, offs = gs.stencil_sources(n, entry_cell[e].long())
+        shift = offs.to(soa.dtype) * (box / n)
+        t, s = tgt[e], soa[ids]
+        d2 = 0.0
+        for a in range(3):
+            sa = (s[:, :, a] + shift[None, :, a, None]).flatten(1)
+            d = t[:, a, :, None] - sa[:, None, :]
+            d2 = d2 + d * d
+        near = ((d2 < rcut * rcut) & (d2 > 0.0)
+                & (t[:, 5] > 0)[:, :, None]).any(1) \
+            & (s[:, :, 3] != 0).flatten(1)                    # [E, 27 cap]
+        flat = (ids.long()[:, :, None] * cap + slots).flatten(1)
+        needed[flat[near]] = True
+    return (reached.numel() * cap + 3 * packed + 2 * int(needed.sum())) \
+        * size + sum(a.numel() * a.element_size() for a in (entry_cell, tgt))
 
 
 def entries_bytes(name: str, args: tuple) -> int:
     """The bytes an entries kernel (E, F, G, either mode) must read of
-    ``args``: the rows it reads of each source cell or block that its
-    switched-on entries reach, each once (for G in relative mode also
-    their particle indices), and its other tensor arguments whole (G in
-    absolute mode reads no particle index)."""
+    ``args``: E's by :func:`gravity_entries_bytes`; for F and G the rows
+    they read of each source block that their switched-on entries reach,
+    each once (for G in relative mode also their particle indices), and
+    their other tensor arguments whole (G in absolute mode reads no
+    particle index)."""
     import torch
 
-    from gadget_leicester_tpu_torch.ops import gravity_short as gs
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
     absolute = name.endswith("_abs")
     base = name.removesuffix("_abs")
-    where = _targets(name, args)[2]
     if base.startswith("shortrange"):
-        ids = gs.stencil_sources(args[3], where)[0]
-    else:
-        nb = args[4] if base == "sph_density_entries" else args[6]
-        ids = sb.odd_sources(nb, where, not absolute)[0]
+        return gravity_entries_bytes(args)
+    where = _targets(name, args)[2]
+    nb = args[4] if base == "sph_density_entries" else args[6]
+    ids = sb.odd_sources(nb, where, not absolute)[0]
     reached = torch.unique(ids).numel()
     src, rows = ENTRY_SOURCES[base]
     lanes = args[src].shape[2]
@@ -2323,8 +2506,8 @@ def phase_idle_main(results: dict, state, card: str, device="cuda",
         say_phases("idle", totals, 1)
     check_kernels(recorded, f"2x{n_side}^3 near-idle", results, ENTRIES,
                   timed=True)
-    say_against_earlier("idle", results, "sph_density_entries", card)
-    say_against_earlier("idle", results, "sph_hydro_entries", card)
+    for name in ENTRIES:
+        say_against_earlier("idle", results, name, card)
 
 
 def fullest_cell(pos, alive, box: float, n_cells: int) -> tuple:
@@ -2916,6 +3099,8 @@ def phase_gravity_cells(results: dict, state, main_counts: dict, card: str,
     del acc, acc_h, d
     check_kernels(recorded, f"2x{n_side}^3", results, GRAVITY_CELLS,
                   timed=True)
+    say_against_earlier("gravity_cells", results, "shortrange_gravity_cells",
+                        card)
     say("gravity_cells", f"kernel M "
         f"{results['shortrange_gravity_cells']['ms']:.3f} ms beside A "
         f"{results['shortrange_gravity']['ms']:.3f} and H "
@@ -3751,6 +3936,8 @@ def phase_sinks(results: dict, card: str, device="cuda",
     del st_a, st_b, idle
     check_kernels(recorded, f"2x{n_side}^3 near-idle, sinks", results,
                   POTENTIAL_ENTRIES, timed=True)
+    say_against_earlier("sinks", results, "shortrange_potential_entries",
+                        card)
     say("sinks", f"kernel H on the step {results['shortrange_potential']['ms']:.3f}"
         f" ms beside A {results['shortrange_gravity']['ms']:.3f} ms; E's "
         f"potential mode {results['shortrange_potential_entries']['ms']:.3f}"

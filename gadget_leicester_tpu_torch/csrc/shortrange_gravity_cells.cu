@@ -25,18 +25,66 @@
 // reduction is immune to where a coordinate was wrapped, at a multiply, a
 // round and an FMA per axis and pair.
 //
-// What bounds it on the card. As kernel A: 27 * cap * cap pair tests per
-// cell, bound by the FP32 pipes, not by memory (27 tiles of 3 KB
-// per block). The minimum image and the exact r < rcut test (an rsqrt
-// before the cut, where A compares r^2) make each pair dearer than A's.
+// What bounds it on the card. At 2x128^3 on the potential pass's grid (34^3
+// cells of 128 slots) the stencil holds 1.2e10 pairs, 15% of them inside
+// rcut. The earlier design (kernel A's before its redesign: one thread a
+// target slot, tiles staged in shared memory, no culling) paid the whole
+// pair arithmetic, the minimum image and the exact r < rcut test after
+// the rsqrt included, for every source whenever one of a warp's 32
+// targets was within reach: 25.849 ms against a bound of 1.777 ms
+// (operations), bound by instruction issue and the latency of the pair
+// arithmetic's dependent chain, as A was (PERF.md section 6).
 //
-// What the design does about it. Kernel A's shape on the absolute pack: one
-// thread block per target cell, one thread per target slot, each neighbour
-// tile staged once in shared memory in chunks of kTile slots. A cheap
-// r^2 < rcut^2 (1 + 1e-6) test, clamped to the largest float so that
-// rcut = 1e30 does not square to inf, comes before the rsqrt; the exact
-// r < rcut of the reference after it. The TPU kernel's grid of (cell, 27)
-// steps with one BlockSpec per neighbour is not carried over.
+// What the design does about it: kernel A's (csrc/shortrange_gravity.cu),
+// on the absolute pack.
+// - Targets in space order. A thread block is one cell, one thread a
+//   target slot, in passes of 128 slots for a cell of more (a fresh list
+//   may hold 256). Each pass ranks its live slots by a Morton key over the
+//   box of the pass's live slots (glt::rank_by_box: the absolute pack has
+//   no cell centre at 0), parked slots last, so each warp holds 32 close
+//   targets, and takes their bounding box.
+// - Warp-uniform culling, torus-aware. The stencil is the list of its
+//   cells that lie on the grid (all 27 on a periodic one; on a clamped
+//   one those inside, the same for the whole block). For each staged
+//   chunk of sources every lane tests one source s against its warp's box
+//   [lo, hi]; a ballot gives those within rcut of it, and the warp walks
+//   only those, in slot order, two at a time where there are two. On a
+//   periodic grid the test may not shift the tile (see above): per axis,
+//   every dx = t - s of the box lies in [l, u] = [lo - s, hi - s] (float32
+//   rounding is monotone), and the test takes the distance of that
+//   interval from the nearest multiple of the box, k box for k = k0 - 1,
+//   k0, k0 + 1 with k0 = rint(mid / box). Where u - l < box / 2, a pair's
+//   reduced dx - box rint(dx / box) has k within 1 of k0, so its |minimum
+//   image| is never below that distance; a wider interval (a warp that
+//   holds a slot at x = box, filed in cell 0 beside slots near x = 0)
+//   counts as distance 0. The reduction itself is exact where it matters:
+//   k box is exact for |k| <= 2, and dx - k box is exact (Sterbenz) for
+//   |dx| >= box / 2, where k = +-1; even half an ulp of the box, 1.9e-6 at
+//   box 50, would sit well inside the margin of rcut^2 (1 + 2e-5), about
+//   1.5e-5 at rcut 1.465. So the margin covers only the rounding of the
+//   sum of squares, as in A, and a dropped source is one that the pair
+//   arithmetic would have added nothing for, for every target of the
+//   warp. On a clamped grid the test is A's, with no image. With rcut =
+//   1e30 its square is clamped to the largest float and the culling bound
+//   is inf: nothing is culled and nothing turns NaN.
+// - The order of sums is kept: each target adds its pairs stencil cell j
+//   = 0..26 (those on the grid), then slot k = 0..cap-1, skipping only
+//   pairs that add nothing, so M equals its earlier design bit for bit
+//   (PERF.md section 6 says with which flags).
+// - Staging through registers, double-buffered, as A: the stencil's cells
+//   are one stream of n_src * cap sources in chunks of one slot a thread,
+//   each thread loading its slot of the next chunk while the warp sums the
+//   current one.
+// - At most 56 registers (__launch_bounds__ with 9 blocks an SM): the
+//   periodic instantiation takes 63 without it, and 8 blocks an SM were
+//   1.07x the time (PERF.md section 6).
+// On phase 12's arguments (34^3 cells of 128 slots) the model of this walk
+// (chip_smoke.gravity_cells_walk) evaluates 54.9% of the stencil pairs,
+// and M took 21.08 ms against the earlier design's 25.58-25.76, in turns
+// on an H100 (PERF.md section 6); what is left is the pair arithmetic of
+// the evaluated pairs, dearer than A's by the minimum image and the exact
+// r < rcut test. -Xptxas=-v for sm_90a: 56 registers either grid, 7,392
+// bytes of shared memory a block of 128 threads, no spills.
 
 #include <cfloat>
 
@@ -44,88 +92,212 @@
 
 namespace {
 
-__global__ void shortrange_gravity_cells_kernel(
-    const float* __restrict__ soa, float* __restrict__ out, int n, int cap,
-    float box, int periodic, float half_inv_asmth, float rcut, float rcut2_up) {
+constexpr int kThreads = 128;
+constexpr int kBlocksPerSm = 9;   // at most 56 registers, as kernel A
+using glt::kFull;
+
+// The earlier design's pair arithmetic, unchanged: the pull of source (q,
+// hq) = (x, y, z, m), (soft, 1/soft) on target (tx, ty, tz) with (th,
+// thinv), per-pair minimum image where kPeriodic.
+template <bool kPeriodic>
+__device__ __forceinline__ void cells_pair(float tx, float ty, float tz,
+                                           float th, float thinv,
+                                           const float4& q, const float2& hq,
+                                           float box, float inv_box,
+                                           float half_inv_asmth, float rcut,
+                                           float rcut2_up, float& ax,
+                                           float& ay, float& az) {
+  float dx = tx - q.x;
+  float dy = ty - q.y;
+  float dz = tz - q.z;
+  if constexpr (kPeriodic) {
+    dx = dx - box * rintf(dx * inv_box);
+    dy = dy - box * rintf(dy * inv_box);
+    dz = dz - box * rintf(dz * inv_box);
+  }
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  if (!(r2 < rcut2_up && r2 > 0.f)) return;
+  const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
+  const float r = r2 * rinv;
+  if (!(r < rcut && r > 0.f)) return;
+  const float hh = fmaxf(th, hq.x);
+  const float hhinv = fminf(thinv, hq.y);
+  float fac = glt::grav_fac_nodiv(r, rinv, hh, hhinv);
+  if (half_inv_asmth > 0.f)
+    fac = fac * glt::trunc_p10(fminf(r * half_inv_asmth, 2.25f));
+  const float w = q.w * fac;
+  ax -= w * dx;
+  ay -= w * dy;
+  az -= w * dz;
+}
+
+// The distance of the interval [l, u] of dx on one axis from the nearest
+// multiple of the box (kPeriodic), or from 0.
+template <bool kPeriodic>
+__device__ __forceinline__ float image_gap(float l, float u, float box,
+                                           float inv_box) {
+  if constexpr (!kPeriodic) {
+    return fmaxf(fmaxf(l, -u), 0.f);
+  } else {
+    // an interval of half the box or more (a pass that holds a slot at x
+    // = box, filed with those near x = 0) is taken to reach a multiple
+    if (!(u - l < 0.5f * box)) return 0.f;
+    const float kb = rintf(0.5f * (l + u) * inv_box) * box;
+    float e = fmaxf(fmaxf(l - kb, kb - u), 0.f);
+    e = fminf(e, fmaxf(fmaxf(l - (kb - box), (kb - box) - u), 0.f));
+    return fminf(e, fmaxf(fmaxf(l - (kb + box), (kb + box) - u), 0.f));
+  }
+}
+
+template <bool kPeriodic>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    shortrange_gravity_cells_kernel(const float* __restrict__ soa,
+                                    float* __restrict__ out, int n, int cap,
+                                    float box, float half_inv_asmth,
+                                    float rcut, float rcut2_up, float cull2) {
+  __shared__ float4 s_pos[2][kThreads];   // x, y, z; m
+  __shared__ float2 s_soft[2][kThreads];  // soft, 1/soft
+  __shared__ unsigned s_key[kThreads];
+  __shared__ int s_slot[kThreads];
+  __shared__ glt::Box s_box[kThreads / 32];
+  __shared__ int s_src[27];
+  __shared__ int s_nsrc;
+
   const int c = blockIdx.x;
   float* o = out + static_cast<size_t>(c) * 3 * cap;
-  __shared__ float s_x[glt::kTile], s_y[glt::kTile], s_z[glt::kTile];
-  __shared__ float s_m[glt::kTile], s_h[glt::kTile], s_hinv[glt::kTile];
-
+  const int nt = blockDim.x;
+  const int lane = threadIdx.x & 31;
   const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
   const float* tile = soa + static_cast<size_t>(c) * 8 * cap;
-  const float inv_box = periodic ? 1.0f / box : 0.f;
+  const float inv_box = kPeriodic ? 1.0f / box : 0.f;
 
-  for (int t0 = 0; t0 < cap; t0 += blockDim.x) {
-    const int t = t0 + threadIdx.x;
-    const bool live = t < cap && tile[5 * cap + t] > 0.f;
+  // the stencil's cells on the grid, in order j = 0..26
+  if (threadIdx.x < 32) {
+    const int j = lane;
+    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    bool on = j < 27;
+    if constexpr (kPeriodic) {
+      nx = glt::wrap(nx, n);
+      ny = glt::wrap(ny, n);
+      nz = glt::wrap(nz, n);
+    } else {
+      on = on && nx >= 0 && nx < n && ny >= 0 && ny < n && nz >= 0 && nz < n;
+    }
+    const unsigned mask = __ballot_sync(kFull, on);
+    if (on) s_src[__popc(mask & ((1u << lane) - 1u))] = (nx * n + ny) * n + nz;
+    if (lane == 0) s_nsrc = __popc(mask);
+  }
+  __syncthreads();
+  const int total = s_nsrc * cap;
+  const int steps = (total + nt - 1) / nt;
+
+  // source u of the stream (stencil cell s_src[u / cap], slot u % cap; m
+  // = 0 past the stream's end)
+  auto fetch = [&](int u, float4& p, float2& h) {
+    p = make_float4(0.f, 0.f, 0.f, 0.f);
+    h = make_float2(0.f, 0.f);
+    if (u >= total) return;
+    const int j = u / cap, k = u - j * cap;
+    const float* s = soa + static_cast<size_t>(s_src[j]) * 8 * cap;
+    p = make_float4(s[k], s[cap + k], s[2 * cap + k], s[3 * cap + k]);
+    h = make_float2(s[4 * cap + k], s[6 * cap + k]);
+  };
+
+  for (int t0 = 0; t0 < cap; t0 += nt) {
+    // 1. rank this pass's slots: live ones by Morton key over their box,
+    // parked ones last
+    {
+      const int t = t0 + threadIdx.x;
+      const bool in = t < cap && tile[5 * cap + t] > 0.f;
+      glt::rank_by_box(in, in ? tile[t] : 0.f, in ? tile[cap + t] : 0.f,
+                       in ? tile[2 * cap + t] : 0.f, t, s_box, s_key, s_slot);
+    }
+    const int ts = s_slot[threadIdx.x];   // the slot this thread sums for
+    const bool live = ts < cap && tile[5 * cap + ts] > 0.f;
     float tx = 0.f, ty = 0.f, tz = 0.f, th = 0.f, thinv = 0.f;
     if (live) {
-      tx = tile[t];
-      ty = tile[cap + t];
-      tz = tile[2 * cap + t];
-      th = tile[4 * cap + t];
-      thinv = tile[6 * cap + t];
+      tx = tile[ts];
+      ty = tile[cap + ts];
+      tz = tile[2 * cap + ts];
+      th = tile[4 * cap + ts];
+      thinv = tile[6 * cap + ts];
     }
+    // 2. the warp's box (empty for a warp of parked slots)
+    const glt::Box wb = glt::warp_box(live, tx, ty, tz, 0.f);
+    const bool warp_live = __any_sync(kFull, live);
+
+    // 3. the stream of the stencil's sources in chunks of nt,
+    // double-buffered (none for a pass of parked slots: uniform in the
+    // block)
     float ax = 0.f, ay = 0.f, az = 0.f;
-    // the barrier also closes the previous chunk's reads of the tiles
+    float4 p;
+    float2 h;
     const bool any_live = __syncthreads_or(live) != 0;
-    for (int j = 0; any_live && j < 27; ++j) {
-      int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
-      if (periodic) {
-        nx = glt::wrap(nx, n);
-        ny = glt::wrap(ny, n);
-        nz = glt::wrap(nz, n);
-      } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
-                 nz >= n) {
-        continue;  // beyond the edge of a clamped grid: uniform in the block
-      }
-      const float* s = soa + static_cast<size_t>((nx * n + ny) * n + nz) * 8 * cap;
-      for (int s0 = 0; s0 < cap; s0 += glt::kTile) {
-        const int len = min(glt::kTile, cap - s0);
-        __syncthreads();
-        for (int k = threadIdx.x; k < len; k += blockDim.x) {
-          s_x[k] = s[s0 + k];
-          s_y[k] = s[cap + s0 + k];
-          s_z[k] = s[2 * cap + s0 + k];
-          s_m[k] = s[3 * cap + s0 + k];
-          s_h[k] = s[4 * cap + s0 + k];
-          s_hinv[k] = s[6 * cap + s0 + k];
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int k = 0; k < len; ++k) {
-          const float m = s_m[k];
-          if (m == 0.f) continue;  // parked slot: uniform across the block
-          float dx = tx - s_x[k];
-          float dy = ty - s_y[k];
-          float dz = tz - s_z[k];
-          if (periodic) {
-            dx = dx - box * rintf(dx * inv_box);
-            dy = dy - box * rintf(dy * inv_box);
-            dz = dz - box * rintf(dz * inv_box);
-          }
-          const float r2 = dx * dx + dy * dy + dz * dz;
-          if (!(r2 < rcut2_up && r2 > 0.f)) continue;
-          const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
-          const float r = r2 * rinv;
-          if (!(r < rcut && r > 0.f)) continue;
-          const float hh = fmaxf(th, s_h[k]);
-          const float hhinv = fminf(thinv, s_hinv[k]);
-          float fac = glt::grav_fac_nodiv(r, rinv, hh, hhinv);
-          if (half_inv_asmth > 0.f)
-            fac = fac * glt::trunc_p10(fminf(r * half_inv_asmth, 2.25f));
-          const float w = m * fac;
-          ax -= w * dx;
-          ay -= w * dy;
-          az -= w * dz;
-        }
-      }
+    if (any_live) {
+      fetch(threadIdx.x, p, h);
+      s_pos[0][threadIdx.x] = p;
+      s_soft[0][threadIdx.x] = h;
     }
-    if (t < cap) {
-      o[t] = ax;
-      o[cap + t] = ay;
-      o[2 * cap + t] = az;
+    __syncthreads();
+    auto pair = [&](const float4& q, const float2& hq) {
+      cells_pair<kPeriodic>(tx, ty, tz, th, thinv, q, hq, box, inv_box,
+                            half_inv_asmth, rcut, rcut2_up, ax, ay, az);
+    };
+    for (int step = 0; any_live && step < steps; ++step) {
+      const int b = step & 1;
+      const bool more = step + 1 < steps;
+      if (more) fetch((step + 1) * nt + threadIdx.x, p, h);   // in flight
+      if (warp_live) {
+        const int len = min(nt, total - step * nt);
+        for (int i0 = 0; i0 < len; i0 += 32) {
+          const int k = i0 + lane;
+          bool near = false;
+          if (k < len) {
+            const float4 q = s_pos[b][k];
+            const float ex = image_gap<kPeriodic>(wb.lo[0] - q.x,
+                                                  wb.hi[0] - q.x, box,
+                                                  inv_box);
+            const float ey = image_gap<kPeriodic>(wb.lo[1] - q.y,
+                                                  wb.hi[1] - q.y, box,
+                                                  inv_box);
+            const float ez = image_gap<kPeriodic>(wb.lo[2] - q.z,
+                                                  wb.hi[2] - q.z, box,
+                                                  inv_box);
+            near = q.w != 0.f && ex * ex + ey * ey + ez * ez < cull2;
+          }
+          // the near sources in slot order, two at a time where there are
+          // two, so that the two pairs' arithmetic can overlap
+          unsigned todo = __ballot_sync(kFull, near);
+          while (todo) {
+            const int k1 = i0 + __ffs(todo) - 1;
+            todo &= todo - 1;
+            const float4 q1 = s_pos[b][k1];
+            const float2 h1 = s_soft[b][k1];
+            if (todo) {
+              const int k2 = i0 + __ffs(todo) - 1;
+              todo &= todo - 1;
+              const float4 q2 = s_pos[b][k2];
+              const float2 h2 = s_soft[b][k2];
+              if (live) {
+                pair(q1, h1);
+                pair(q2, h2);
+              }
+            } else if (live) {
+              pair(q1, h1);
+            }
+          }
+        }
+      }
+      if (more) {
+        s_pos[b ^ 1][threadIdx.x] = p;
+        s_soft[b ^ 1][threadIdx.x] = h;
+      }
+      __syncthreads();
+    }
+    if (ts < cap) {
+      o[ts] = ax;
+      o[cap + ts] = ay;
+      o[2 * cap + ts] = az;
     }
   }
 }
@@ -137,11 +309,18 @@ extern "C" int glt_shortrange_gravity_cells(const float* soa, float* out,
                                             int periodic, float half_inv_asmth,
                                             float rcut, void* stream) {
   const int c = n_cells * n_cells * n_cells;
-  const int threads = cap < 128 ? ((cap + 31) / 32) * 32 : 128;
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
   const double up = static_cast<double>(rcut) * rcut * (1.0 + 1e-6);
   const float rcut2_up = up < FLT_MAX ? static_cast<float>(up) : FLT_MAX;
-  shortrange_gravity_cells_kernel<<<c, threads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      soa, out, n_cells, cap, box, periodic, half_inv_asmth, rcut, rcut2_up);
+  // a source is culled only beyond rcut (1 + 2e-5 on the square) of its
+  // warp's box; inf where rcut2_up is the largest float: nothing is culled
+  const float cull2 = rcut2_up * glt::kCullMargin2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (periodic)
+    shortrange_gravity_cells_kernel<true><<<c, threads, 0, st>>>(
+        soa, out, n_cells, cap, box, half_inv_asmth, rcut, rcut2_up, cull2);
+  else
+    shortrange_gravity_cells_kernel<false><<<c, threads, 0, st>>>(
+        soa, out, n_cells, cap, box, half_inv_asmth, rcut, rcut2_up, cull2);
   return static_cast<int>(cudaGetLastError());
 }

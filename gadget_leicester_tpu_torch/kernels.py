@@ -61,8 +61,8 @@ SIGNATURES = {
     "pm_deposit": (_P, _P, _I, _I, _I, _F, _F, _P),
     "sph_density": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "sph_hydro": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
-    "shortrange_gravity_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                   _P),
+    "shortrange_gravity_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                   _F, _P),
     "sph_density_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _P),
     "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -72,8 +72,8 @@ SIGNATURES = {
     "sph_cells_hydro": (_P, _P, _P, _P, _I, _I, _F, _I, _F, _P),
     "pm_gather": (_P, _P, _P, _I, _I, _I, _D, _I, _P),
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
-    "shortrange_potential_entries": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
-                                     _F, _P),
+    "shortrange_potential_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                     _F, _F, _P),
     # the absolute-coordinate modes of C, D, F, G (clamped vacuum grids)
     "sph_density_abs": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "sph_hydro_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),

@@ -21,15 +21,20 @@ Kernel A (``csrc/shortrange_gravity.cu``) takes the ``[C, 8, cap]`` pack
 directly and walks the 27 neighbour cells itself; the TPU kernel's
 z-padded column layout is a DMA device and is not carried over. Kernel E
 (``csrc/shortrange_gravity_entries.cu``) runs A's physics for the few
-active targets of each entry against the same pack; its potential mode
-adds H's potential row. Kernel H (``csrc/shortrange_gravity.cu``, A's
-kernel with the potential, ``kPot``) adds the potential row to A's sums,
-for the full potential of the diagnostics and, on the step's cached
-pack, for the in-step potential that sinks and Stamatellos cooling read:
-A's own ``with_potential`` mode is H. Kernel M
+active targets of each entry against the same pack, one warp an entry:
+it first writes the box of each 32-slot chunk of each cell into a
+workspace the wrapper allocates, then each warp loads only the chunks of
+its 27 cells whose box lies within rcut of its live lanes, in the earlier
+design's order of sums; its potential mode adds H's potential row.
+Kernel H (``csrc/shortrange_gravity.cu``, A's kernel with the potential,
+``kPot``) adds the potential row to A's sums, for the full potential of
+the diagnostics and, on the step's cached pack, for the in-step
+potential that sinks and Stamatellos cooling read: A's own
+``with_potential`` mode is H. Kernel M
 (``csrc/shortrange_gravity_cells.cu``) sums the same pair force on the
 absolute pack with a per-pair minimum image, on a periodic or a clamped
-grid. Their plain versions are in ``ops/gravity_short.py``.
+grid, with A's warp-box culling under a box test that allows for the
+image. Their plain versions are in ``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -282,9 +287,12 @@ def shortrange_gravity_entries(soa: torch.Tensor, entry_cell: torch.Tensor,
                                                 with_potential)
     out = torch.empty(k, 4 if with_potential else 3, ENTRY_LANES,
                       dtype=soa.dtype, device=soa.device)
+    # the workspace of E's chunk boxes: 8 floats a 32-slot chunk a cell
+    boxes = torch.empty(c, (cap + 31) // 32, 8, dtype=soa.dtype,
+                        device=soa.device)
     kernels.launch(name, soa.data_ptr(), entry_cell.data_ptr(),
-                   tgt.data_ptr(), out.data_ptr(), n_cells, cap, k,
-                   box / n_cells, 0.5 / asmth, rcut * rcut)
+                   tgt.data_ptr(), boxes.data_ptr(), out.data_ptr(), n_cells,
+                   cap, k, box / n_cells, 0.5 / asmth, rcut * rcut)
     return out
 
 

@@ -419,6 +419,223 @@ def test_gravity_kernel_culling_edges_on_card(kind, sign):
         assert (ax > 20.0) == (sign < 0)
 
 
+def _entries_case(where: str, sign: int):
+    """Kernel E's arguments (soa, entry_cell, tgt, n, box, asmth, rcut)
+    on a cell-relative [27, 8, 128] pack of random cells: 32 targets of
+    cell tc in a small box whose corner target has a heavy source at rcut
+    (1 + sign 1e-6) along the diagonal, in the stencil's centre cell
+    ("centre": tc = 13, the source in cell 13 along x alone) or across
+    the periodic wrap ("wrap": tc = 0, the source in cell 26 at offset
+    (-1, -1, -1)), cell 5 all parked; "isolated": one live slot in the
+    whole pack. The entries: 8 live lanes of tc (the corner first), the
+    corner alone (1 live lane), a padded entry (-1), and one of 8 lanes
+    of cell 7. Each target row equals its pack slot."""
+    import numpy as np
+    rng = np.random.default_rng({"centre": 21, "wrap": 22,
+                                 "isolated": 23}[where] + sign)
+    cap, half = 128, A_EDGE / 2
+    soa = np.zeros((A_N ** 3, 8, cap), np.float64)
+    soa[:, :3] = -7.0 * A_EDGE
+
+    def fill(c, xyz, m=None):
+        k = xyz.shape[0]
+        soa[c, :3, :k] = xyz.T
+        soa[c, 3, :k] = rng.uniform(0.5, 1.5, k) if m is None else m
+        soa[c, 4, :k] = rng.uniform(0.05, 0.3, k)
+        soa[c, 5, :k] = 1.0
+        soa[c, 6, :k] = 1.0 / soa[c, 4, :k]
+
+    tc = 0 if where == "wrap" else 13
+    if where == "isolated":
+        fill(tc, rng.uniform(-half, half, (1, 3)))
+    else:
+        for c in range(A_N ** 3):
+            if c != 5:
+                fill(c, rng.uniform(-half, half, (rng.integers(60, 110), 3)))
+        soa[tc, :, :] = 0.0
+        soa[tc, :3] = -7.0 * A_EDGE
+        f32 = np.float32
+        if where == "centre":
+            a = -half + 0.4                      # the box's +x face
+            box = rng.uniform(0.0, 1.0, (32, 3)) * [0.3, 1.5, 1.5] \
+                + [a - 0.3, -0.7, -0.7]
+            box[0] = [a, 0.0, 0.0]
+            src, sc = [a + A_RCUT * (1.0 + sign * 1e-6), 0.0, 0.0], tc
+            r2 = (f32(a) - f32(src[0])) ** 2
+        else:
+            a = -0.3 * half                      # the box's low corner
+            box = rng.uniform(a, a + 1.5, (32, 3))
+            box[0] = a
+            d = A_RCUT * (1.0 + sign * 1e-6) / np.sqrt(3.0)
+            src, sc = [a - d + A_EDGE] * 3, A_N ** 3 - 1
+            r2 = sum((f32(a) - (f32(src[0]) - f32(A_EDGE))) ** 2
+                     for _ in range(3))
+        assert (r2 < f32(A_RCUT) ** 2) == (sign < 0)
+        fill(tc, box)
+        k = int((soa[sc, 5] > 0).sum())
+        soa[sc, :3, k] = src
+        soa[sc, 3, k] = 1e6
+        soa[sc, 4, k], soa[sc, 5, k], soa[sc, 6, k] = 0.1, 1.0, 10.0
+    lanes = 8
+    ec = np.array([tc, tc, -1, 7], np.int32)
+    slots = [list(range(8)), [0], [], list(range(8))]
+    if where == "isolated":
+        ec[[0, 3]] = [tc, -1]
+        slots = [[0], [0], [], []]
+    tgt = np.zeros((len(ec), 8, lanes))
+    for e, (c, sl) in enumerate(zip(ec, slots)):
+        for lane, k in enumerate(sl):
+            tgt[e, :, lane] = soa[c, :, k]
+    dev = "cuda"
+    return (torch.tensor(soa, dtype=torch.float32, device=dev),
+            torch.tensor(ec, device=dev),
+            torch.tensor(tgt, dtype=torch.float32, device=dev), A_N,
+            A_N * A_EDGE, A_ASMTH, A_RCUT)
+
+
+@pytest.mark.parametrize("with_potential", [False, True])
+@pytest.mark.parametrize("where,sign", [("centre", -1), ("centre", 1),
+                                        ("wrap", -1), ("wrap", 1),
+                                        ("isolated", 0)])
+def test_entries_gravity_kernel_culling_edges_on_card(where, sign,
+                                                      with_potential):
+    """Kernel E (either mode) where its culling against the box of an
+    entry's live lanes is tight: a source at rcut (1 - 1e-6) of the
+    corner lane is kept, one at rcut (1 + 1e-6) adds nothing, in the
+    stencil's centre cell and across the periodic wrap; entries of 8 live
+    lanes and of 1; a stencil cell all parked; padded entries, and every
+    other entry switched off; the isolated target (zero force and
+    potential). Each case within E's bound of its float64 plain
+    version."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    name = ("shortrange_potential_entries" if with_potential
+            else "shortrange_gravity_entries")
+    args = _entries_case(where, sign)
+    off = torch.where(torch.arange(4, device="cuda") % 2 == 1, -1,
+                      args[1]).to(torch.int32)
+    for ec in (args[1], off):
+        a = args[:1] + (ec,) + args[2:]
+        got = cells.shortrange_gravity_entries(*a, with_potential)
+        want = gravity_short.shortrange_gravity_entries_plain(
+            *a, with_potential)
+        exact = gravity_short.shortrange_gravity_entries_plain(
+            *chip_smoke.as_float64(a), with_potential)
+        torch.cuda.synchronize()
+        *_, used = chip_smoke.compare(name, got, want, exact)
+        assert used <= 1.0
+        assert not bool(got[ec < 0].any())            # padded or off
+        assert not bool(got[1, :, 1:].any())          # dead lanes
+        if where == "isolated":
+            assert not bool(got.any())
+        elif ec is args[1]:
+            # the heavy source's share of the corner lane's pull, in the
+            # 8-lane and the 1-lane entry alike: large, or nothing
+            a64 = chip_smoke.as_float64(a)
+            light = a64[0].clone()
+            c, k = torch.nonzero(light[:, 3] == 1e6, as_tuple=True)
+            light[c, 3, k] = 0.0
+            share = exact - gravity_short.shortrange_gravity_entries_plain(
+                light, *a64[1:], with_potential)
+            for e in (0, 1):
+                assert (abs(float(share[e, 0, 0])) > 20.0) == (sign < 0)
+            # each lane adds the earlier design's terms in its order, less
+            # only those that add nothing: the corner lane's sums do not
+            # depend on the other lanes of its entry
+            assert torch.equal(got[0, :, 0], got[1, :, 0])
+
+
+def _fresh_case(kind: str, sign: int):
+    """Kernel M's arguments from ``shortrange_gravity_fresh``: "seam", a
+    periodic box of 30 on 3^3 cells of 256 slots, 32 targets of cell (2,
+    1, 1) in a small box whose corner (29.7, 12, 12) has a heavy source
+    at rcut (1 + sign 1e-6) along the diagonal across x = box, random
+    particles in the other cells and 200 in cell (0, 0, 0) (two passes
+    of 128 targets); "blob", the vacuum blob on a clamped 4^3 grid with
+    asmth = 0 and rcut = 1e30."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops.gravity_short import \
+        shortrange_gravity_fresh
+    if kind == "blob":
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(3000, 3))
+        x *= (rng.uniform(size=3000) ** (1 / 3)
+              / np.linalg.norm(x, axis=1))[:, None]
+        pos, box, n_cells = 0.5 + 0.45 * x, 1.0, 4
+        mass = rng.uniform(0.5, 1.5, 3000) / 3000
+        soft = rng.uniform(0.01, 0.05, 3000)
+        asmth, rcut, periodic = 0.0, 1e30, False
+        corner_at = None
+    else:
+        rng = np.random.default_rng(31 + sign)
+        box, n_cells, edge = 30.0, 3, 10.0
+        rcut, asmth, periodic = 0.95 * edge, 0.95 * edge / 4.5, True
+        bg = rng.uniform(0.0, box, (2400, 3))
+        cell = np.floor(bg / edge).astype(int)
+        # cell (2, 1, 1) holds the targets alone, cell (0, 0, 0) the clump
+        bg = bg[~(cell == [2, 1, 1]).all(1) & ~(cell == 0).all(1)]
+        clump = rng.uniform(0.5, 9.5, (200, 3))
+        corner = np.array([29.7, 12.0, 12.0])
+        tg = corner - rng.uniform(0.0, 1.5, (32, 3))
+        tg[0] = corner
+        d = rcut * (1.0 + sign * 1e-6) / np.sqrt(3.0)
+        src = corner + d
+        src[0] -= box
+        f32 = np.float32
+        dx = [f32(corner[a]) - f32(src[a]) for a in range(3)]
+        dx[0] = dx[0] - f32(box) * np.round(dx[0] * (f32(1.0) / f32(box)))
+        r = np.sqrt(sum(f32(v) ** 2 for v in dx))
+        assert (r < rcut) == (sign < 0)
+        pos = np.concatenate([bg, clump, tg, src[None]])
+        corner_at = len(bg) + len(clump)
+        n = len(pos)
+        mass = rng.uniform(0.5, 1.5, n)
+        mass[-1] = 1e6
+        soft = rng.uniform(0.05, 0.3, n)
+        soft[-1] = 0.1
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device="cuda")
+
+    alive = torch.ones(len(pos), dtype=torch.bool, device="cuda")
+    with chip_smoke.recorded_inputs() as rec:
+        acc, ovf = shortrange_gravity_fresh(
+            t(pos), t(mass), t(soft), alive, box, n_cells, capacity=256,
+            asmth=asmth, rcut=rcut, periodic=periodic)
+    assert not bool(ovf) and bool(torch.isfinite(acc).all())
+    return rec["shortrange_gravity_cells"], acc, corner_at
+
+
+@pytest.mark.parametrize("kind,sign", [("seam", -1), ("seam", 1),
+                                       ("blob", 0)])
+def test_gravity_cells_kernel_culling_edges_on_card(kind, sign):
+    """Kernel M where its torus-aware warp-box culling is tight: a source
+    at rcut (1 - 1e-6) of a warp's corner target across the periodic seam
+    is kept, one at rcut (1 + 1e-6) adds nothing; a cell of 200 live
+    slots (two passes of 128 targets); the clamped blob with asmth = 0
+    and rcut = 1e30, where nothing may be culled or turn NaN. Each case
+    within M's bound of its float64 plain version."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    args, acc, corner_at = _fresh_case(kind, sign)
+    got = cells.shortrange_gravity_cells(*args)
+    want = gravity_short.shortrange_gravity_cells_plain(*args)
+    exact = gravity_short.shortrange_gravity_cells_plain(
+        *chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("shortrange_gravity_cells", got, want,
+                                  exact)
+    assert used <= 1.0
+    if kind == "seam":
+        assert int((args[0][:, 5] > 0).sum(1).max()) > 128
+        # the heavy source dominates the corner target's pull towards +x,
+        # or adds nothing
+        ax = float(acc[corner_at, 0])
+        assert (ax > 20.0) == (sign < 0)
+
+
 D_NB, D_LF = 3, 1.0              # blocks per axis, fine-cell edge
 
 

@@ -534,6 +534,54 @@ def test_walk_model_of_kernel_f_keeps_every_pair_inside_the_support(
     assert int((pair & walked).sum()) < int(pair.sum())
 
 
+@pytest.mark.parametrize("with_potential", [False, True])
+@pytest.mark.parametrize("mode", ["wrap", "spread"])
+def test_walk_model_of_kernel_e_keeps_every_pair_inside_rcut(mode,
+                                                              with_potential):
+    """chip_smoke.entries_gravity_walk, the model of kernel E's culling
+    (csrc/shortrange_gravity_entries.cu: the 32-slot chunks of the
+    stencil cells whose box lies within rcut of the box of the entry's
+    live lanes and, in those, the sources with m != 0 within rcut,
+    shifted as E takes dx = t - (s + shift)), on the arguments
+    gravity_entries gives E in either mode, the gravity setup's targets across the periodic wrap at x
+    = 0 ("wrap") or spread over the box, with an entry of one live lane.
+    Every pair of a live lane and a source with m != 0 at 0 < r2 <
+    rcut^2 (float32, as the kernel takes it: the support of the force and
+    of the potential alike) is walked, and the walk leaves out some
+    pairs."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch.ops.gravity_short import stencil_sources
+    pos, mass, soft, alive = _grav_setup()
+    active = _grav_active(mode, pos, alive)
+    tp, tm, ts, ta, tact = _t(pos, mass, soft, alive, active)
+    cl = build_cell_list(tp, ta, 0.0, G_BOX, G_CELLS, G_CAP)
+    soa = cells.pack_cells_soa(cl, tp, tm, ts, ta)
+    ec, es, _ = cells.build_active_entries(cl, tact, LANES, G_KMAX)
+    assert int(((es >= 0).sum(1) == 1).sum()) > 0
+    name = ("shortrange_potential_entries" if with_potential
+            else "shortrange_gravity_entries")
+    rec = _recorded(cells.gravity_entries, cl, soa, ec, es, tp, tm, ts, ta,
+                    G_BOX, ASMTH, RCUT, with_potential)
+    args = rec[name]
+    _, entry_cell, tgt, n, box, _, rcut = args
+    e = torch.nonzero(entry_cell >= 0).flatten()
+    live, walked = chip_smoke.entries_gravity_walk(args, e)
+    ids, offs = stencil_sources(n, entry_cell[e].long())
+    sh = offs.float() * torch.tensor(box / n, dtype=torch.float32)
+    s = soa[ids]
+    d2 = 0.0
+    for a in range(3):
+        sa = (s[:, :, a] + sh[None, :, a, None]).flatten(1)
+        d = tgt[e][:, a, :, None] - sa[:, None, :]
+        d2 = d2 + d * d
+    rcut2 = torch.tensor(rcut * rcut, dtype=torch.float32)
+    pair = live[..., None] & (s[:, :, 3] != 0).flatten(1)[:, None, :]
+    in_cut = pair & (d2 > 0) & (d2 < rcut2)
+    assert int(in_cut.sum()) > 0
+    assert not bool((in_cut & ~walked).any())
+    assert int((pair & walked).sum()) < int(pair.sum())
+
+
 @pytest.mark.parametrize("subcap", [32, 64])
 @pytest.mark.parametrize("periodic", [True, False])
 def test_walk_model_of_kernel_g_keeps_every_pair_inside_the_support(
@@ -646,6 +694,55 @@ def test_kernel_f_bound_counts_only_the_sources_its_entries_reach(periodic):
         args = (soa_o, tgt, h, blk, nb, lf)
         assert chip_smoke.entries_bytes(name, args) == small + blocks * block
     assert reached.numel() <= soa_o.shape[0]
+
+
+def test_kernel_e_bound_counts_only_the_rows_a_design_needs():
+    """chip_smoke.entries_bytes of kernel E (either mode) on the arguments
+    gravity_entries gives it: of the cells its switched-on entries reach,
+    the mass of every slot, x, y, z of the slots with m != 0, and soft and
+    1/soft of those within rcut of a live lane of an entry reaching them,
+    plus entry_cell and tgt whole; with no entry on, only those two. The
+    rule of PRs 11-12 (six rows of every slot of every reached cell)
+    counts more."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch.ops.gravity_short import stencil_sources
+    pos, mass, soft, alive = _grav_setup()
+    active = _grav_active("spread", pos, alive)
+    tp, tm, ts, ta, tact = _t(pos, mass, soft, alive, active)
+    cl = build_cell_list(tp, ta, 0.0, G_BOX, G_CELLS, G_CAP)
+    soa = cells.pack_cells_soa(cl, tp, tm, ts, ta)
+    ec, es, _ = cells.build_active_entries(cl, tact, LANES, G_KMAX)
+    args = _recorded(cells.gravity_entries, cl, soa, ec, es, tp, tm, ts, ta,
+                     G_BOX, ASMTH, RCUT)["shortrange_gravity_entries"]
+    tgt = args[2]
+    small = (ec.numel() + tgt.numel()) * 4
+    on = torch.nonzero(ec >= 0).flatten()
+    ids, offs = stencil_sources(G_CELLS, ec[on].long())
+    reached = ids.unique()
+    # the sources within rcut of a live lane, by an explicit loop
+    need = set()
+    edge = G_BOX / G_CELLS
+    for row, e in enumerate(on.tolist()):
+        for j in range(27):
+            c = int(ids[row, j])
+            for k in range(G_CAP):
+                if float(soa[c, 3, k]) == 0.0:
+                    continue
+                s = soa[c, :3, k] + offs[j].float() * edge
+                d2 = ((tgt[e, :3] - s[:, None]) ** 2).sum(0)
+                hit = (d2 < RCUT * RCUT) & (d2 > 0) & (tgt[e, 5] > 0)
+                if bool(hit.any()):
+                    need.add((c, k))
+    packed = int((soa[reached, 3] != 0).sum())
+    want = small + 4 * (reached.numel() * G_CAP + 3 * packed + 2 * len(need))
+    assert chip_smoke.entries_bytes("shortrange_gravity_entries", args) \
+        == want
+    assert chip_smoke.entries_bytes("shortrange_potential_entries",
+                                    args) == want
+    assert want < small + 6 * reached.numel() * G_CAP * 4
+    none = (args[0], torch.full_like(ec, -1)) + args[2:]
+    assert chip_smoke.entries_bytes("shortrange_gravity_entries",
+                                    none) == small
 
 
 def test_busiest_entries_keeps_the_sync_point_of_the_most_live_lanes():

@@ -244,3 +244,67 @@ def test_walk_model_of_kernel_h_keeps_every_pair_inside_rcut():
         stencil += int(pair.sum())
     assert inside > 0 and kept == inside
     assert walked < stencil
+
+
+@pytest.mark.parametrize("grid", ["periodic", "clamped", "clamped, no cut"])
+def test_walk_model_of_kernel_m_keeps_every_pair_inside_rcut(grid):
+    """chip_smoke.gravity_cells_walk, the model of kernel M's culling
+    (csrc/shortrange_gravity_cells.cu: targets ranked by glt::rank_by_box,
+    a box a warp, the distance of each axis's interval of dx from the
+    nearest multiple of the box), on a fresh list of 3^3 cells of 256
+    slots (two passes of 128 targets where a cell holds more): periodic,
+    with coordinates equal to the box, filed in cell 0 beside their
+    neighbours' images; on a clamped grid cut at the cell edge; and on a
+    clamped grid with rcut = 1e30 (plain softened gravity, nothing may be
+    culled). Every pair of a live target and a source with m != 0 in a
+    stencil cell on the grid at 0 < r2 < rcut^2 (1 + 1e-6) (float32,
+    after the per-pair minimum image, as the kernel takes it) is walked;
+    with a cut, the walk leaves out some pairs."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch.ops.gravity_short import (
+        shortrange_gravity_fresh, stencil_cells)
+    periodic = grid == "periodic"
+    box, n_cells, n = 10.0, 3, 4000
+    rcut = 1e30 if grid.endswith("no cut") else 3.15
+    rng = np.random.default_rng(21)
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    pos[:3] = [[box, 1.0, 1.0], [0.0, box, 0.5], [box, box, box]]
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    soft = rng.uniform(0.05, 0.3, n).astype(np.float32)
+    alive = np.ones(n, bool)
+    alive[-9:] = False
+    t = [torch.from_numpy(a) for a in (pos, mass, soft, alive)]
+    with chip_smoke.recorded_inputs() as rec:
+        _, ovf = shortrange_gravity_fresh(
+            *t, box, n_cells, capacity=256, asmth=0.7 if periodic else 0.0,
+            rcut=rcut, periodic=periodic)
+    assert not bool(ovf)
+    args = rec["shortrange_gravity_cells"]
+    soa = args[0]
+    assert int((soa[:, 5] > 0).sum(1).max()) > 128
+    up = torch.tensor(min(rcut * rcut * (1.0 + 1e-6),
+                          float(np.finfo(np.float32).max)))
+    fbox = torch.tensor(box)
+    inside = kept = walked = stencil = 0
+    for c0 in range(0, n_cells ** 3, 3):
+        cells = torch.arange(c0, c0 + 3)
+        xyz, lv, sxyz, near = chip_smoke.gravity_cells_walk(args, cells)
+        d2 = 0.0
+        for a in range(3):
+            d = xyz[:, a, :, :, None] - sxyz[:, a, None, None, :]
+            if periodic:
+                d = d - fbox * torch.round(d * (1.0 / fbox))
+            d2 = d2 + d * d
+        ids, on = stencil_cells(n_cells, cells, periodic)
+        src = ((soa[ids][:, :, 3] != 0) & on[:, :, None]).flatten(1)
+        pair = lv[..., None] & src[:, None, None, :]
+        in_cut = pair & (d2 > 0) & (d2 < up)
+        inside += int(in_cut.sum())
+        kept += int((in_cut & near[:, :, None, :]).sum())
+        walked += int((pair & near[:, :, None, :]).sum())
+        stencil += int(pair.sum())
+    assert inside > 0 and kept == inside
+    if rcut < 1e30:
+        assert walked < stencil
+    else:
+        assert walked == stencil
