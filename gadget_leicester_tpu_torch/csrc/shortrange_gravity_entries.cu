@@ -34,19 +34,22 @@
 // bound). Only about 15% of the stencil's pairs lie inside rcut, about
 // one cell edge. The earlier design (one warp an entry, lane l walking
 // slots l, l + 32, ... of each stencil cell) took 0.589 ms, 0.491 of it
-// with its pair arithmetic cut out: its walk, loads and per-source
-// instructions at a low issue rate, costs more than its pairs, and
-// neither more loads in flight nor fewer bytes made that walk faster
-// (PERF.md section 6).
+// with its pair arithmetic cut out: its walk costs more than its pairs.
+// The walk is bound by the latency of its loads and of its instructions'
+// chain at too few warps an SM: fewer bytes did not make it faster, more
+// loads in flight a warp (more registers, fewer warps) made it slower,
+// and more warps an SM made it faster (PERF.md section 6).
 //
 // What the design does about it: two launches, F's chunk walk on the
-// 27-cell stencil, with fewer instructions a source.
+// 27-cell stencil, with fewer instructions a source and more warps an SM.
 // - Chunk boxes. glt::subcell_boxes_kernel in F's instantiation (m > 0
 //   valid, no h row) with parts of 32 slots writes the box of each chunk
 //   of 32 slots of each cell of the pack into a workspace of C x
 //   ceil(cap / 32) x 8 floats that the wrapper allocates (an empty
 //   chunk's box is +inf..-inf, beyond any reach): 0.046 ms at 2x128^3.
-// - Sums. One warp an entry, four entries a block. The warp takes the
+// - Sums. One warp an entry, two entries a block, at most 64 registers
+//   (__launch_bounds__ for 16 blocks an SM: 32 warps, not the 24 that 76
+//   registers left, at the price of a small spill). The warp takes the
 //   box of its live lanes with rcut as its reach (glt::warp_box) and
 //   tests the chunk boxes of its stencil 32 at a time, a ballot each
 //   (glt::near_boxes<Shift::kSource> with the stencil shift: E takes dx
@@ -67,21 +70,26 @@
 // Designs measured and not kept (PERF.md section 6): a bit a source and
 // a walk of each lane's kept sources, a queue of the kept sources a warp
 // or a lane, batches of loads in flight, a block's entries sharing their
-// stencil cells in shared memory, 8 entries a block.
-// -Xptxas=-v for sm_90a: the sums 76 registers (the potential mode 80,
-// with a 24-byte spill), 2,800 bytes of shared memory a block of 128
-// threads; the box kernel 32 registers.
+// stencil cells in shared memory, 8 entries a block, 4 entries a block
+// with or without a register bound.
+// -Xptxas=-v for sm_90a: the sums 64 registers with a 24-byte spill (the
+// potential mode a 144-byte one), 1,408 bytes of shared memory a block
+// of 64 threads; the box kernel 32 registers.
 
 #include "glt_common.cuh"
 
 namespace {
 
 using glt::kEntryLanes;
-using glt::kEntryWarps;
 using glt::kFull;
 
+// entries (warps) a block, and blocks an SM: at most 64 registers, so
+// that 32 warps an SM hide the walk's latency (PERF.md section 6)
+constexpr int kEntryWarps = 2;
+constexpr int kBlocksPerSm = 16;
+
 template <bool kPot>
-__global__ void __launch_bounds__(32 * kEntryWarps)
+__global__ void __launch_bounds__(32 * kEntryWarps, kBlocksPerSm)
     shortrange_gravity_entries_kernel(const float* __restrict__ soa,
                                       const int* __restrict__ entry_cell,
                                       const float* __restrict__ tgt,
