@@ -150,7 +150,27 @@ imports nothing of JAX. Phases, each printing its own lines:
    three launches of each timed apart (:func:`device_split`), with their
    launch counts in both runs; on its last state one SPH
    pass under blocks against one under cells, and ``apply_cooling``
-   (beta, Stamatellos) card against CPU.
+   (beta, Stamatellos) card against CPU;
+16. the zoom (:func:`phase_zoom`): ``parameterfiles/cluster.param``'s
+   configuration with ``gravity_mode="zoom"``, pmgrid and hr_pmgrid 128,
+   on 290,816 particles (:func:`zoom_ics`: a jittered 64^3 lattice of
+   type 1 over the central half of a 10 Mpc/h cube, a 32^3 lattice of
+   type 2, 8x heavier, over the rest), ``set_ics`` and 4 sync points
+   (kernel L twice a force pass, no other kernel); finite, no overflow;
+   one force pass with every particle active, its parts timed (the two
+   vacuum meshes, L, both cell lists, pass A, pass B), and the full
+   potential, held to the float64 direct sum on 4,096 seeded HR and
+   4,096 seeded targets by tests/test_zoom.py's bounds; L's gathers of
+   both meshes against its plain version, bit for bit, timed beside it,
+   its bound and ``grid_sample``; the share of pass A's candidates that
+   are HR-HR pairs it masks out;
+17. the switches and the glass (:func:`phase_switches`): 2 sync points of
+   phase 4's box under ``nogravity``, ``adaptive_gravsoft_forgas`` (and
+   its full potential) and ``isotherm_eqs``, card against CPU;
+   ``python -m gadget_leicester_tpu_torch ... --makeglass 64`` in a child
+   process, its glass.dat held to tests/test_features.py::test_make_glass's
+   checks (L once a relaxation step); the Zel'dovich pancake of
+   tests/test_zeldovich.py on the card, by its bounds.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -1809,6 +1829,21 @@ def entries_bytes(name: str, args: tuple) -> int:
                         if torch.is_tensor(a) and i not in skip)
 
 
+def gather_bytes(args: tuple) -> int:
+    """Bytes kernel L must read: the positions, and once each mesh cell
+    that some particle's 8 corners name (a vacuum mesh's particles fill
+    one octant of it, the zoom's fine mesh a part of that)."""
+    import torch
+    field, pos, box, n = args
+    i0 = torch.remainder(torch.floor(pos * (n / box)).long(), n)
+    ids = torch.cat([((i0[:, 0] + dx) % n * n + (i0[:, 1] + dy) % n) * n
+                     + (i0[:, 2] + dz) % n for dx in (0, 1)
+                     for dy in (0, 1) for dz in (0, 1)])
+    cells = torch.unique(ids).numel()
+    return pos.numel() * pos.element_size() \
+        + cells * field.shape[-1] * field.element_size()
+
+
 def deposit_bytes(args: tuple) -> int:
     """The bytes kernel B must read of its pack ``args[0]`` [C, 8, cap]:
     the mass (row 3) of every slot, and x, y, z and the packed flag (rows
@@ -1823,13 +1858,16 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
     ``args`` (into ``out``), by the rule at PEAK_FLOPS; an entries kernel
     counts only the sources its switched-on entries reach
     (:func:`entries_bytes`), kernel B only the rows of its pack that it
-    must read (:func:`deposit_bytes`)."""
+    must read (:func:`deposit_bytes`), kernel L only the mesh cells its
+    particles' corners name (:func:`gather_bytes`)."""
     import torch
     stencil, in_cut = pair_count(name, args)
     if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
         nbytes = entries_bytes(name, args)
     elif name == "pm_deposit":
         nbytes = deposit_bytes(args)
+    elif name == "pm_gather":
+        nbytes = gather_bytes(args)
     else:
         nbytes = sum(a.numel() * a.element_size() for a in args
                      if torch.is_tensor(a))
@@ -2038,11 +2076,11 @@ def report_close(phase: str, what: str, res: dict) -> None:
 
 
 def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
-                potential=True, **opt_overrides):
+                potential=True, phase="slice", card="", **opt_overrides):
     """``steps`` sync points of the small box (options as :func:`setup`
     gives them) on the card against the CPU, and with ``potential`` the
-    full potential after 1 of them. Returns the card's state after 1 sync
-    point."""
+    full potential after 1 of them; the card's ``set_ics`` and sync points
+    timed (synced). Returns the card's state after 1 sync point."""
     from gadget_leicester_tpu_torch.core.state import (CLOSE_FIELDS,
                                                        assert_states_close,
                                                        from_numpy, to_numpy)
@@ -2054,16 +2092,28 @@ def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
     runs = {}
     for dev in (device, "cpu"):
         sim = Simulation(cfg, opts, dev)
+        sync(dev)
+        t0 = time.perf_counter()
         sim.set_ics(pos, vel, mass, ptype, u=u)
+        sync(dev)
+        secs = [time.perf_counter() - t0]
         runs[dev] = [to_numpy(sim.state)]
         for _ in range(steps):
+            t0 = time.perf_counter()
             sim.step()
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
             if dev == device and len(runs[dev]) == 1:
                 after_one = sim.state
             runs[dev].append(to_numpy(sim.state))
+        say(phase, f"2x{n_small}^3, {opts_label(opts)}: set_ics "
+            f"{secs[0]:.3f} s, sync points "
+            + ", ".join(f"{t:.3f}" for t in secs[1:])
+            + f" s on {dev}" + (f" ({card})" if dev == device and card
+                                else ""))
     fields = CLOSE_FIELDS + (("p.pot",) if in_step_potential(opts) else ())
     for i, (g, c) in enumerate(zip(runs[device], runs["cpu"])):
-        report_close("slice", f"sph_backend {opts.sph_backend}"
+        report_close(phase, f"sph_backend {opts.sph_backend}"
                      f"{', sinks' if opts.sinks else ''}, after {i} "
                      f"steps, ti_current {int(g['ti_current'])}",
                      assert_states_close(g, c, fields=fields))
@@ -2073,10 +2123,23 @@ def phase_slice(device="cuda", n_small=N_SIDE_SMALL, steps=SLICE_STEPS,
     one = to_numpy(after_one)
     pots = {dev: to_numpy(compute_potential(from_numpy(one, dev), cfg, opts))
             for dev in (device, "cpu")}
-    report_close("slice", "full potential after 1 step, card vs CPU",
+    report_close(phase, "full potential after 1 step, card vs CPU",
                  assert_states_close(pots[device], pots["cpu"],
                                      fields=("p.pot",)))
     return after_one
+
+
+def opts_label(opts) -> str:
+    """The options that differ from :func:`setup`'s, as text."""
+    import dataclasses
+
+    from gadget_leicester_tpu_torch.core.config import SimOptions
+    ref = SimOptions(periodic=True, pmgrid=opts.pmgrid, gravity_mode="treepm",
+                     sph_backend="blocks")
+    diff = [f"{f.name}={getattr(opts, f.name)!r}"
+            for f in dataclasses.fields(opts)
+            if getattr(opts, f.name) != getattr(ref, f.name)]
+    return ", ".join(diff) or "the main path's options"
 
 
 def make_near_idle(state, frac: float, seed: int):
@@ -2345,12 +2408,12 @@ def phase_timer(device="cuda", timed_fns=TIMED):
     """Within the body, each function of ``timed_fns`` runs with a device
     sync on both sides and adds its seconds, calls and the caching
     allocator's ``cudaMalloc`` calls to the dict this yields (label ->
-    [seconds, calls, mallocs]; nested phases add their syncs to their
-    parents')."""
+    [seconds, calls, mallocs, the seconds of each call]; nested phases add
+    their syncs to their parents')."""
     import importlib
 
     import torch
-    totals = {label: [0.0, 0, 0] for _, _, label in timed_fns}
+    totals = {label: [0.0, 0, 0, []] for _, _, label in timed_fns}
 
     def mallocs():
         if device != "cuda":
@@ -2364,9 +2427,11 @@ def phase_timer(device="cuda", timed_fns=TIMED):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             sync(device)
-            totals[label][0] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            totals[label][0] += dt
             totals[label][1] += 1
             totals[label][2] += mallocs() - m0
+            totals[label][3].append(dt)
             return out
         return run
 
@@ -2386,7 +2451,7 @@ def say_phases(phase: str, totals: dict, steps: int,
                timed_fns=TIMED) -> None:
     """The phases that ran, in ms per step."""
     for _, _, label in timed_fns:
-        s, n, m = totals[label]
+        s, n, m, _ = totals[label]
         if n:
             say(phase, f"  {label:<28s} {1e3 * s / steps:9.3f} ms/step "
                 f"({n} calls{f', {m} cudaMalloc' if m else ''})")
@@ -4352,6 +4417,480 @@ def phase_disc(results: dict, card: str, device="cuda") -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 16: the zoom at full width. parameterfiles/cluster.param's
+# configuration (comoving, vacuum, from a = 0.2; kpc/h, 1e10 Msun/h, km/s)
+# on a cube of ZOOM_BOX: 64^3 type-1 particles on a lattice jittered by a
+# tenth of its spacing over the central cube of side ZOOM_BOX / 2, a 32^3
+# lattice of type-2 particles, 8 times heavier, over the rest; the mean
+# density the critical density of Einstein-de Sitter, as in
+# tests/test_zeldovich.py
+ZOOM_BOX = 10000.0
+ZOOM_HR_SIDE = 64
+ZOOM_LR_SIDE = 32
+ZOOM_MASS_RATIO = 8.0
+ZOOM_JITTER = 0.1
+ZOOM_SEED = 16
+ZOOM_STEPS = 4
+ZOOM_TARGETS = 4096
+ZOOM_OPTS = dict(periodic=False, pmgrid=128, hr_pmgrid=128, hr_types=0b10,
+                 gravity_mode="zoom", sr_capacity=256)
+# tests/test_zoom.py's bounds against the direct sum: rms relative force
+# error over the HR targets and over all, rms relative potential error over
+# the HR targets
+ZOOM_BOUNDS = {"HR force": 0.01, "all force": 0.02, "HR potential": 0.02}
+# the parts of one zoom force pass (models/forces.py :: _zoom_gravity),
+# timed as TIMED's
+ZOOM_TIMED = (
+    (f"{_PKG}.models.forces", "pm_forces_nonperiodic", "coarse PM (vacuum)"),
+    (f"{_PKG}.models.forces", "pm_forces_diff", "fine PM (band-pass)"),
+    (f"{_PKG}.ops.pm", "cic_gather_vec", "  kernel L (each mesh)"),
+    (f"{_PKG}.models.forces", "build_cell_list", "cell lists (coarse, fine)"),
+    (f"{_PKG}.models.forces", "zoom_shortrange", "pair passes (A, then B)"),
+)
+
+
+def zoom_config():
+    """cfg of ``parameterfiles/cluster.param``."""
+    from gadget_leicester_tpu_torch.core.config import parse_parameter_text
+    root = Path(__file__).resolve().parent
+    return parse_parameter_text(
+        (root / "parameterfiles" / "cluster.param").read_text())
+
+
+def zoom_ics(cfg, seed: int = ZOOM_SEED, hr_side: int = ZOOM_HR_SIDE,
+             lr_side: int = ZOOM_LR_SIDE, box: float = ZOOM_BOX):
+    """(pos, vel, mass, ptype) of phase 16's zoom cube, at rest."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def lattice(n, lo, side):
+        g = lo + (np.arange(n) + 0.5) * side / n
+        return np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+            -1, 3)
+
+    hr = lattice(hr_side, box / 4, box / 2)
+    hr += rng.uniform(-ZOOM_JITTER, ZOOM_JITTER, hr.shape) * box / 2 / hr_side
+    lr = lattice(lr_side, 0.0, box)
+    lr = lr[~(np.abs(lr - box / 2) < box / 4).all(1)]
+    h0 = cfg.hubble_internal
+    rho_crit = 3.0 * h0 ** 2 / (8.0 * np.pi * cfg.grav_internal)
+    m_hr = rho_crit * box ** 3 / (len(hr) + ZOOM_MASS_RATIO * len(lr))
+    pos = np.concatenate([hr, lr]).astype(np.float32)
+    mass = np.concatenate([np.full(len(hr), m_hr),
+                           np.full(len(lr), ZOOM_MASS_RATIO * m_hr)])
+    ptype = np.concatenate([np.ones(len(hr)), np.full(len(lr), 2)])
+    return (pos, np.zeros_like(pos), mass.astype(np.float32),
+            ptype.astype(np.int32))
+
+
+def direct_at(pos, mass, soft, alive, targets, block: int = 32):
+    """float64 (acc [T, 3], pot [T]) without G at the particles
+    ``targets`` from every alive particle: the softened pair sum with
+    max(h_i, h_j), no self-pair."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops.softening import grav_fac, grav_pot
+    pos64, s64 = pos.double(), soft.double()
+    m64 = torch.where(alive, mass, torch.zeros_like(mass)).double()
+    accs, pots = [], []
+    for i in range(0, targets.numel(), block):
+        t = targets[i:i + block]
+        dx = pos64[t, None, :] - pos64[None]
+        r = torch.sqrt((dx * dx).sum(-1))
+        h = torch.maximum(s64[t, None], s64[None])
+        accs.append(-((m64[None] * grav_fac(r, h))[..., None] * dx).sum(1))
+        pw = torch.where(r > 0, grav_pot(r, h), torch.zeros_like(r))
+        pots.append((m64[None] * pw).sum(1))
+    return torch.cat(accs), torch.cat(pots)
+
+
+@contextlib.contextmanager
+def kernel_history():
+    """Within the body, every kernel wrapper's (name, arguments) is
+    appended to the list this yields."""
+    from gadget_leicester_tpu_torch import kernels
+    kernels.history = []
+    try:
+        yield kernels.history
+    finally:
+        kernels.history = None
+
+
+def zoom_hr_pairs(state, opts, targets) -> dict:
+    """For the particles ``targets``: their candidates in pass A's cell
+    list (the coarse cube, as ``_zoom_gravity`` fits it), those within
+    rcut_c, and the HR-HR pairs among each, which pass A evaluates and
+    multiplies by 0."""
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import _bounding_cube
+    from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
+                                                          candidate_indices)
+    from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
+    p = state.p
+    origin, extent = _bounding_cube(p.pos, p.alive, 0.01)
+    hr_sel = p.alive & (((opts.hr_types >> p.ptype.clamp(0, 5)) & 1) == 1)
+    origin_h, extent_h = _bounding_cube(p.pos, hr_sel, 0.05)
+    ext, ext_h = float(extent), float(extent_h)
+    asmth = ASMTH * ext / opts.pmgrid
+    # the HR region as the band-pass mesh finds it (ops/pm.py ::
+    # pm_forces_diff)
+    rel = p.pos - origin_h
+    in_hr = ((rel >= 0) & (rel < ext_h)).all(dim=-1) & p.alive
+    n_cells = max(3, int(opts.pmgrid / (RCUT * ASMTH)))
+    cl = build_cell_list(p.pos, p.alive, origin, ext, n_cells=n_cells,
+                         capacity=opts.sr_capacity, periodic=False)
+    out = {"candidates": 0, "within rcut": 0, "HR-HR candidates": 0,
+           "HR-HR within rcut": 0, "stencil slots": 0}
+    for i in range(0, targets.numel(), 256):
+        t = targets[i:i + 256]
+        cand = candidate_indices(cl, p.pos[t])
+        ok = cand >= 0
+        ci = cand.clamp_min(0).long()
+        d = p.pos[t][:, None, :] - p.pos[ci]
+        near = ok & ((d * d).sum(-1) < (RCUT * asmth) ** 2)
+        both = ok & in_hr[t][:, None] & in_hr[ci]
+        out["stencil slots"] += cand.numel()
+        out["candidates"] += int(ok.sum())
+        out["within rcut"] += int(near.sum())
+        out["HR-HR candidates"] += int(both.sum())
+        out["HR-HR within rcut"] += int((both & near).sum())
+    return out
+
+
+def phase_zoom(card: str, device="cuda") -> None:
+    """The zoom at full width (phase 16): ``Simulation(...,
+    gravity_mode="zoom")`` on :func:`zoom_ics`, ``set_ics`` and
+    ``ZOOM_STEPS`` sync points, the launches of that run (kernel L twice a
+    force pass, no other kernel); gates: finite, no overflow; one force
+    pass with every particle active, its parts timed (:data:`ZOOM_TIMED`),
+    and the full potential, held to the float64 direct sum on seeded HR
+    and all-particle targets by tests/test_zoom.py's bounds; kernel L's
+    gathers of both meshes against its plain version, bit for bit and
+    against its float64 plain version, timed beside the plain version, its
+    bound and ``grid_sample``; the share of pass A's candidate pairs that
+    are HR-HR pairs it masks out."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.config import SimOptions
+    from gadget_leicester_tpu_torch.models.forces import (compute_forces,
+                                                          compute_potential,
+                                                          gravity_softening,
+                                                          comoving_factors)
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg = zoom_config()
+    opts = SimOptions(**ZOOM_OPTS)
+    pos, vel, mass, ptype = zoom_ics(cfg)
+    n = len(pos)
+    say("zoom", f"cluster.param, {n} particles ({(ptype == 1).sum()} HR of "
+        f"type 1, {(ptype == 2).sum()} of type 2, 8x heavier) in a cube of "
+        f"{ZOOM_BOX:g} kpc/h, a = {cfg.time_begin:g}; {opts_label(opts)}")
+    sim = Simulation(cfg, opts, device)
+    kernels.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    sim.set_ics(pos, vel, mass, ptype)
+    sync(device)
+    t_init = time.perf_counter() - t0
+    step_s = []
+    for _ in range(ZOOM_STEPS):
+        t0 = time.perf_counter()
+        sim.step()
+        sync(device)
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    st, opts = sim.state, sim.opts    # the capacities after set_ics
+    passes = 1 + len(sim.init_notes) + ZOOM_STEPS
+    say("zoom", f"set_ics {t_init:.3f} s (capacity raises: "
+        f"{sim.init_notes or 'none'}), sync points "
+        + ", ".join(f"{t:.3f}" for t in step_s)
+        + f" s to a = {sim.time:.6f}; kernel L {counts['pm_gather']} launches"
+        f" over {passes} force passes ({card})")
+    check_launches("zoom", counts, ("pm_gather",), "the zoom run")
+    if counts["pm_gather"] != 2 * passes:
+        raise AssertionError(f"zoom: kernel L launched {counts['pm_gather']}"
+                             f" times over {passes} force passes, not 2 each")
+    check_finite("zoom", st)
+
+    # one force pass with every particle active, timed by parts, and the
+    # full potential; then the direct sum at seeded targets
+    p = st.p
+    full = dataclasses.replace(st, p=dataclasses.replace(
+        p, ti_endstep=torch.full_like(p.ti_endstep, int(st.ti_current))))
+    with kernel_history() as calls, phase_timer(device, ZOOM_TIMED) as tot:
+        sync(device)
+        t0 = time.perf_counter()
+        forced = compute_forces(full, cfg, opts, do_sph=False)
+        sync(device)
+        t_pass = time.perf_counter() - t0
+    say("zoom", f"one force pass, every particle active, a device sync "
+        f"around each part: {1e3 * t_pass:.1f} ms ({card})")
+    say_phases("zoom", tot, 1, ZOOM_TIMED)
+    for label, what in (("pair passes (A, then B)", ("pass A", "pass B")),
+                        ("cell lists (coarse, fine)", ("coarse", "fine")),
+                        ("  kernel L (each mesh)", ("coarse", "fine"))):
+        say("zoom", f"  {label.strip()}: " + ", ".join(
+            f"{w} {1e3 * t:.3f} ms" for w, t in zip(what, tot[label][3])))
+    t0 = time.perf_counter()
+    pot_state = compute_potential(st, cfg, opts)
+    sync(device)
+    say("zoom", f"compute_potential {1e3 * (time.perf_counter() - t0):.1f} "
+        f"ms ({card})")
+    check_finite("zoom", forced)
+    check_finite("zoom", pot_state)
+
+    gen = torch.Generator().manual_seed(ZOOM_SEED)
+    alive = p.alive.cpu()
+    hr = torch.nonzero(alive & (p.ptype.cpu() == 1)).flatten()
+    every = torch.nonzero(alive).flatten()
+    t_hr = hr[torch.randperm(hr.numel(), generator=gen)[:ZOOM_TARGETS]]
+    t_all = every[torch.randperm(every.numel(), generator=gen)[:ZOOM_TARGETS]]
+    fac = comoving_factors(cfg, st.ti_current)
+    soft = gravity_softening(st, cfg, opts, fac.atime)
+    g = cfg.grav_internal
+    corr = 0.5 * cfg.omega0 * cfg.hubble_internal ** 2
+    errs = {}
+    t0 = time.perf_counter()
+    for what, t in (("HR", t_hr), ("all", t_all)):
+        t = t.to(p.pos.device)
+        acc_d, pot_d = direct_at(p.pos, p.mass, soft, p.alive, t)
+        # compute_forces adds the comoving vacuum background term to acc
+        got = (forced.p.acc[t] + forced.p.acc_pm[t]).double() \
+            - corr * p.pos[t].double()
+        ref = g * acc_d
+        rel = ((got - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30))
+        errs[f"{what} force"] = float(rel.pow(2).mean().sqrt())
+        if what == "HR":
+            pref = g * pot_d
+            perr = (pot_state.p.pot[t].double() - pref).abs() \
+                / pref.abs().clamp_min(1e-30)
+            errs["HR potential"] = float(perr.pow(2).mean().sqrt())
+    say("zoom", f"against the float64 direct sum at {ZOOM_TARGETS} seeded HR "
+        f"and {ZOOM_TARGETS} seeded targets ({time.perf_counter() - t0:.1f} "
+        "s): " + ", ".join(f"{k} rms {v:.4%} (bound {ZOOM_BOUNDS[k]:.0%})"
+                           for k, v in errs.items()))
+    for k, v in errs.items():
+        if not v < ZOOM_BOUNDS[k]:
+            raise AssertionError(f"zoom: {k} rms error {v:.4%} beyond "
+                                 f"{ZOOM_BOUNDS[k]:.0%}")
+
+    # kernel L on the two meshes of that pass
+    gathers = [args for name, args in calls if name == "pm_gather"]
+    if len(gathers) != 2:
+        raise AssertionError(f"zoom: {len(gathers)} gathers in one force "
+                             "pass, not 2")
+    res: dict = {}
+    for what, args in zip(("coarse", "fine"), gathers):
+        field, posw, box, m = args
+        check_kernels({"pm_gather": args}, f"zoom {what} mesh {m}^3 "
+                      f"K={field.shape[-1]}", res, GATHER, timed=True)
+        times = gather_timings("zoom", field, posw, p.alive, box, m, card)
+        say("zoom", f"kernel L on the {what} mesh ({m}^3, box "
+            f"{box:.2f} kpc/h, K={field.shape[-1]}): {times['ms']:.3f} ms, "
+            f"plain {times['plain_ms']:.3f} ms, grid_sample "
+            f"{times['library_ms']:.3f} ms, bound "
+            f"{res['pm_gather']['bound_ms']:.4f} ms by "
+            f"{res['pm_gather']['bound_by']} ({card})")
+    del calls, gathers, field, posw, res
+
+    share = zoom_hr_pairs(st, opts, t_all.to(p.pos.device))
+    say("zoom", f"pass A at {ZOOM_TARGETS} seeded targets: "
+        f"{share['stencil slots']} stencil slots, {share['candidates']} "
+        f"candidates ({share['HR-HR candidates']} HR-HR, "
+        f"{share['HR-HR candidates'] / share['candidates']:.1%}), "
+        f"{share['within rcut']} within rcut_c ({share['HR-HR within rcut']}"
+        f" HR-HR, {share['HR-HR within rcut'] / share['within rcut']:.1%}): "
+        "pass A evaluates every candidate and multiplies the HR-HR ones by 0")
+
+
+# phase 17: the small switches on phase 4's box, card against CPU; the
+# glass through the CLI; the Zel'dovich pancake
+SWITCH_RUNS = (("nogravity", False), ("adaptive_gravsoft_forgas", True),
+               ("isotherm_eqs", False))
+GLASS_SIDE = 64
+GLASS_RESIDUAL = 0.5     # tests/test_features.py::test_make_glass
+GLASS_CONTRAST = 0.6
+# tests/test_zeldovich.py: a plane wave in an EdS box, 16^3 particles,
+# pmgrid 32, from a = 0.05 to 0.2 (shell crossing at 0.5)
+ZEL_N_SIDE, ZEL_BOX = 16, 100.0
+ZEL_A_I, ZEL_A_CROSS, ZEL_A_F = 0.05, 0.5, 0.2
+ZEL_BOUNDS = {"rms": 0.05, "max": 0.15, "transverse": 0.02}
+
+
+def zeldovich_param_text() -> str:
+    """tests/test_zeldovich.py's parameter text."""
+    soft = ZEL_BOX / ZEL_N_SIDE / 30
+    return f"""
+InitCondFile x
+OutputDir /tmp/zel
+TimeBegin {ZEL_A_I}
+TimeMax   {ZEL_A_F}
+ComovingIntegrationOn 1
+PeriodicBoundariesOn 1
+BoxSize   {ZEL_BOX}
+Omega0    1.0
+OmegaLambda 0.0
+HubbleParam 1.0
+GravityConstantInternal 43007.1
+UnitLength_in_cm         3.085678e21
+UnitMass_in_g            1.989e43
+UnitVelocity_in_cm_per_s 1e5
+MaxSizeTimestep 0.02
+SofteningHalo {soft}
+SofteningHaloMaxPhys {soft}
+"""
+
+
+def pancake_ics(cfg):
+    """The plane wave of tests/test_zeldovich.py at a_i, crossing at
+    ZEL_A_CROSS: (Lagrangian q, pos, vel in the file convention v_pec /
+    sqrt(a), mass at the critical density, psi_i)."""
+    import numpy as np
+    k = 2 * np.pi / ZEL_BOX
+    amp = (ZEL_A_I / ZEL_A_CROSS) / k
+    g = (np.arange(ZEL_N_SIDE) + 0.5) / ZEL_N_SIDE * ZEL_BOX
+    q = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    psi = amp * np.sin(k * q[:, 0])
+    pos = q.copy()
+    pos[:, 0] = np.mod(q[:, 0] + psi, ZEL_BOX)
+    n = len(pos)
+    h0 = cfg.hubble_internal
+    rho_crit = 3.0 * h0 ** 2 / (8.0 * np.pi * cfg.grav_internal)
+    mass = np.full(n, rho_crit * ZEL_BOX ** 3 / n)
+    vel = np.zeros((n, 3))
+    # v_pec = a H(a) f psi with f = 1 (EdS)
+    vel[:, 0] = ZEL_A_I * h0 * ZEL_A_I ** -1.5 * psi / np.sqrt(ZEL_A_I)
+    return q, pos, vel, mass, psi
+
+
+def zeldovich_errors(sim, q, psi_i) -> dict:
+    """The displacement errors of :func:`pancake_ics`'s run ``sim``, as
+    shares of the analytic amplitude at its time."""
+    import numpy as np
+    n = len(q)
+    a_now = sim.time
+    psi_now = psi_i * (a_now / ZEL_A_I)
+    x_exact = np.mod(q[:, 0] + psi_now, ZEL_BOX)
+    p = sim.state.p
+    order = np.argsort(p.pid.cpu().numpy()[:n])
+    pos = p.pos.cpu().numpy()[:n][order]
+    dx = pos[:, 0] - x_exact
+    dx -= ZEL_BOX * np.round(dx / ZEL_BOX)
+    yz = pos[:, 1:] - q[:, 1:]
+    yz -= ZEL_BOX * np.round(yz / ZEL_BOX)
+    amp = np.abs(psi_now).max()
+    return {"rms": float(np.sqrt((dx ** 2).mean()) / amp),
+            "max": float(np.abs(dx).max() / amp),
+            "transverse": float(np.abs(yz).max() / amp)}
+
+
+def phase_glass(card: str, device="cuda", side: int = GLASS_SIDE) -> None:
+    """``python -m gadget_leicester_tpu_torch glass.param 0 --makeglass
+    64`` in a child process (through :data:`CLI_COUNTED`): kernel L once a
+    relaxation step; the glass.dat it writes held to test_make_glass's
+    checks: in the box, the residual force below half the first, the CIC
+    density contrast on 64^3 cells below 0.6 of the Poisson start's."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.io.snapshot import read_snapshot
+    from gadget_leicester_tpu_torch.ops.pm import cic_deposit
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "glass_run"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        param = work / "glass.param"
+        param.write_text(stock_param_text("gassphere", "unused",
+                                          str(work / "out"), 1.0))
+        proc, wall = _cli(root, param, 0, "--makeglass", side, "--device",
+                          device, phase="glass",
+                          counts_file=work / "launches.json")
+        counts = json.loads((work / "launches.json").read_text())
+        ratio = float(proc.stdout.split("residual force ratio ")[1]
+                      .split(")")[0])
+        snap = read_snapshot(str(work / "out" / "glass.dat"))
+        n = side ** 3
+        box = float(snap.header.box_size)
+
+        def contrast(pos):
+            t = torch.as_tensor(pos, dtype=torch.float32, device=device)
+            return float(cic_deposit(t, torch.ones(len(t), device=device),
+                                     box, side).std())
+        poisson = np.random.default_rng(4).uniform(0, box, (n, 3))
+        c_glass, c_poisson = contrast(snap.pos), contrast(poisson)
+        say("glass", f"{n} particles in {wall:.1f} s wall with start-up; "
+            f"kernel L {counts['pm_gather']} launches; residual force ratio "
+            f"{ratio:.3f} (bound {GLASS_RESIDUAL}); CIC density contrast "
+            f"{c_glass:.4f} against the Poisson start's {c_poisson:.4f} "
+            f"({c_glass / c_poisson:.3f}, bound {GLASS_CONTRAST}) ({card})")
+        if device == "cuda":
+            check_launches("glass", counts, ("pm_gather",), "--makeglass")
+        if snap.pos.shape != (n, 3) or list(snap.header.npart) != \
+                [0, n, 0, 0, 0, 0]:
+            raise AssertionError("glass.dat: wrong particle count")
+        if not ((snap.pos >= 0) & (snap.pos < box)).all():
+            raise AssertionError("glass.dat: a position outside the box")
+        if not ratio < GLASS_RESIDUAL:
+            raise AssertionError(f"glass: residual force ratio {ratio}")
+        if not c_glass < GLASS_CONTRAST * c_poisson:
+            raise AssertionError("glass: no more uniform than Poisson")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_zeldovich(card: str, device="cuda") -> None:
+    """The Zel'dovich pancake on the card (tests/test_zeldovich.py):
+    16^3 particles, TreePM with pmgrid 32, a = 0.05 to 0.2 through
+    ``run_until``, its displacements against the growing mode."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.config import (SimOptions,
+                                                        parse_parameter_text)
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg = parse_parameter_text(zeldovich_param_text())
+    opts = SimOptions(periodic=True, pmgrid=2 * ZEL_N_SIDE,
+                      gravity_mode="treepm")
+    q, pos, vel, mass, psi = pancake_ics(cfg)
+    sim = Simulation(cfg, opts, device)
+    kernels.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    sim.set_ics(pos, vel, mass, np.ones(len(pos), np.int32))
+    sim.run_until(ZEL_A_F, max_steps=500)
+    sync(device)
+    wall = time.perf_counter() - t0
+    errs = zeldovich_errors(sim, q, psi)
+    say("zeldovich", f"{len(pos)} particles, {sim.step_count} sync points "
+        f"to a = {sim.time:.6f} in {wall:.2f} s ({card}); launches "
+        f"{_nonzero(kernels.launches)}; displacement errors "
+        + ", ".join(f"{k} {v:.4f} (bound {ZEL_BOUNDS[k]})"
+                    for k, v in errs.items()))
+    check_finite("zeldovich", sim.state)
+    if sim.time < ZEL_A_F * 0.999:
+        raise AssertionError("zeldovich: the run stopped early")
+    for k, v in errs.items():
+        if not v < ZEL_BOUNDS[k]:
+            raise AssertionError(f"zeldovich: {k} error {v} beyond "
+                                 f"{ZEL_BOUNDS[k]}")
+
+
+def phase_switches(card: str, device="cuda") -> None:
+    """Phase 17: 2 sync points of phase 4's small box under each switch,
+    card against CPU (the full potential too with the adaptive gas
+    softening); the glass (:func:`phase_glass`); the Zel'dovich pancake
+    (:func:`phase_zeldovich`)."""
+    for switch, potential in SWITCH_RUNS:
+        phase_slice(device, potential=potential, phase="switches", card=card,
+                    **{switch: True})
+    phase_glass(card, device)
+    phase_zeldovich(card, device)
+
+
 def sync(device) -> None:
     import torch
     if device == "cuda":
@@ -4385,6 +4924,7 @@ def main() -> int:
             say("build", line.strip())
 
     results: dict = {}
+    t_start = time.time()
     phase_kernels(results)
     phase_idle_small(results, phase_slice())
     grid, cap = SMALL_CELL_GRIDS[0]
@@ -4442,6 +4982,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_disc(results, card)
+    say("time", f"phases 1-15 done at {time.time() - t_start:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_zoom(card)
+    say("time", f"phase 16 done at {time.time() - t_start:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_switches(card)
+    say("time", f"phase 17 done at {time.time() - t_start:.0f} s")
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

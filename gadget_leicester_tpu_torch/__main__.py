@@ -6,9 +6,11 @@ Counterpart of ``gadget_leicester_tpu/__main__.py:12-88``. restartflag: 0
 starts from a snapshot named by InitCondFile. ``--device`` (``cuda``, the
 default, or ``cpu``) is the one flag the JAX CLI lacks; asked for CUDA
 where there is none, the run stops with a message and a non-zero exit.
-``--devices`` and ``--makeglass`` are not ported (ROADMAP queue 1 items 14
-and 13) and exit non-zero; ``--isothermal`` reaches ``check_supported``,
-which refuses it. ``--cooling`` and ``--sinks`` run the fork's physics. As
+``--makeglass NSIDE`` writes an NSIDE^3 glass (``models/glass.py``) as
+``glass.dat`` into OutputDir, in SnapFormat, and exits. ``--devices`` is
+not ported (ROADMAP queue 1 item 14) and exits non-zero.
+``--isothermal`` runs the isothermal EOS. ``--cooling`` and ``--sinks``
+run the fork's physics. As
 in the JAX CLI, no sink is registered from the particle types: a run
 through the CLI forms sinks only by ``SinkFormationDensity``, and the star
 of ``parameterfiles/disc.param`` never accretes (the Python API's
@@ -36,8 +38,8 @@ def main(argv=None):
     ap.add_argument("--sinks", action="store_true", default=None)
     ap.add_argument("--isothermal", action="store_true", default=None)
     ap.add_argument("--makeglass", type=int, default=0, metavar="NSIDE",
-                    help="MAKEGLASS mode (not ported: ROADMAP queue 1 "
-                         "item 13)")
+                    help="MAKEGLASS mode: generate an NSIDE^3 glass file "
+                         "into OutputDir and exit [G2: -DMAKEGLASS]")
     ap.add_argument("--devices", type=int, default=None, metavar="K",
                     help="domain decomposition over K devices (not ported: "
                          "ROADMAP queue 1 item 14)")
@@ -46,10 +48,6 @@ def main(argv=None):
                          "or cpu (their plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.makeglass:
-        print("--makeglass is not ported yet (ROADMAP queue 1 item 13)",
-              file=sys.stderr)
-        return 2
     if args.devices:
         print("--devices is not ported yet (ROADMAP queue 1 item 14)",
               file=sys.stderr)
@@ -62,6 +60,8 @@ def main(argv=None):
     except RuntimeError as exc:
         print(f"gadget_leicester_tpu_torch: {exc}", file=sys.stderr)
         return 1
+    if args.makeglass:
+        return write_glass(args.paramfile, args.makeglass, args.device)
     # only explicitly given flags override the config and the sidecar
     overrides = {}
     if args.pmgrid is not None:
@@ -85,6 +85,38 @@ def main(argv=None):
     sim.logs.close()
     print(f"done: {sim.step_count} steps, t={sim.time:g}, "
           f"{sim.snapshot_count} snapshots in {cfg.output_dir}")
+    return 0
+
+
+def write_glass(paramfile: str, n_side: int, device: str) -> int:
+    """``--makeglass``: an n_side^3 glass of unit total mass in a box of
+    BoxSize (1 where it is 0), written as type 1 to OutputDir/glass.dat."""
+    import os
+
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.core.config import read_parameter_file
+    from gadget_leicester_tpu_torch.io.snapshot import (Header, SnapshotData,
+                                                        write_snapshot)
+    from gadget_leicester_tpu_torch.models.glass import make_glass
+    cfg = read_parameter_file(paramfile)
+    box = cfg.box_size or 1.0
+    pos, amax = make_glass(n_side, box=box, device=device)
+    n = len(pos)
+    h = Header()
+    h.npart = np.array([0, n, 0, 0, 0, 0], np.uint32)
+    h.npart_total = h.npart.copy()
+    h.box_size = box
+    h.mass[1] = 1.0 / n
+    snap = SnapshotData(header=h, pos=pos.astype(np.float32),
+                        vel=np.zeros((n, 3), np.float32),
+                        ids=np.arange(1, n + 1, dtype=np.uint32),
+                        mass=np.full(n, 1.0 / n, np.float32))
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    out = os.path.join(cfg.output_dir, "glass.dat")
+    write_snapshot(out, snap, fmt=cfg.snap_format)
+    print(f"glass written: {out} (N={n}, residual force ratio "
+          f"{float(amax[-1] / amax[0]):.3f})")
     return 0
 
 

@@ -22,7 +22,9 @@ takes the plain version and counts nothing).
 While ``recording`` is True, each wrapper keeps the arguments of its last
 call in ``recorded[name]`` (:func:`note_call`), so the inputs the main
 path gave a kernel can be replayed against its plain version at the
-path's own shapes (``chip_smoke.py``).
+path's own shapes (``chip_smoke.py``); while ``history`` is a list, every
+call's (name, arguments) is appended to it as well, for a path that calls
+one wrapper on several inputs (the zoom's two meshes).
 
 Nothing here runs at import: the module is imported on machines without
 ``nvcc`` or a card.
@@ -86,6 +88,7 @@ SIGNATURES = {
 launches = {name: 0 for name in SIGNATURES}
 recording = False
 recorded: dict = {}   # kernel -> argument tuple of its wrapper's last call
+history = None        # a list: (kernel, arguments) of every call
 
 _lib = None
 build_info = {}   # seconds, library path and nvcc's output of the library
@@ -97,9 +100,12 @@ def reset_launches() -> None:
 
 
 def note_call(name: str, args: tuple) -> None:
-    """Keep a wrapper's arguments while ``recording`` is on."""
+    """Keep a wrapper's arguments while ``recording`` is on, and append
+    them to ``history`` while it is a list."""
     if recording:
         recorded[name] = args
+    if history is not None:
+        history.append((name, args))
 
 
 def _nvcc() -> str:

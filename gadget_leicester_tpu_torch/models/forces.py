@@ -1,13 +1,17 @@
 """Force computation at a sync point [G2: accel.c ::
 compute_accelerations(), gravtree.c, hydra.c].
 
-Counterpart of ``gadget_leicester_tpu/models/forces.py:31-468, 590-921``
-(``comoving_factors``, ``softening_table``, ``compute_forces``,
-``_treepm_gravity``, ``compute_potential``, ``_tree_gravity``,
+Counterpart of ``gadget_leicester_tpu/models/forces.py`` (``comoving_factors``,
+``softening_table``, ``compute_forces``, ``_treepm_gravity``,
+``compute_potential``, ``_tree_gravity``, ``_zoom_gravity``,
 ``compute_sph``). Gravity: periodic TreePM, direct summation (small
-vacuum runs), or the Barnes-Hut tree (``ops/tree.py``: vacuum runs above
+vacuum runs), the Barnes-Hut tree (``ops/tree.py``: vacuum runs above
 ``direct_threshold`` particles, and periodic runs without a PM mesh
-through the Ewald correction). SPH: the
+through the Ewald correction), or the two-mesh zoom of vacuum runs
+(``gravity_mode="zoom"``, :func:`_zoom_gravity`); none with
+``nogravity``. With ``adaptive_gravsoft_forgas`` the gas softening
+follows h (:func:`gravity_softening`); with ``isotherm_eqs`` the entropy
+slot holds c_s^2, P = c_s^2 rho and the entropy does not change. SPH: the
 block-packed, the coarse-cell or the all-pairs backend
 (``SimOptions.sph_backend``; ``auto`` takes all-pairs at <= 4096 gas
 slots and blocks above). Order, as in the reference: short-range gravity
@@ -16,14 +20,16 @@ hydro.
 
 Kernels on these paths: A (short-range gravity, ``ops/cells.py``), B (PM
 deposit, ``ops/pm_tiles.py``), L (the PM step's CIC gather, ``ops/pm.py``;
-the JAX package's step keeps a row gather there), C and D (block SPH
+the JAX package's step keeps a row gather there; also the gathers of the
+zoom's two vacuum meshes), C and D (block SPH
 density and hydro, ``ops/sph_blocks.py``; block-relative on a periodic
 box, absolute on the clamped grid of a vacuum run) and at near-idle sync
 points their active-entry twins E, F and G; I/J and K (coarse-cell SPH
 density and hydro, ``ops/sph_cells.py``). The FFTs, direct gravity, the
 tree and the all-pairs SPH sums are PyTorch's own operators, as the JAX
-package leaves them to XLA. The full potential of the diagnostics
-(:func:`compute_potential`, outside the step) runs kernel H on a fresh
+package leaves them to XLA, and so are the zoom's two short-range pair
+passes (``ops/neighbors.py::apply_pairwise``). The full potential of the
+diagnostics (:func:`compute_potential`, outside the step) runs kernel H on a fresh
 cell list and L on the mesh potential, the direct sum, or the tree.
 
 The in-step potential (:func:`in_step_potential`: sinks or Stamatellos
@@ -71,14 +77,19 @@ from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   pack_cells_soa,
                                                   shortrange_gravity_tiles,
                                                   shortrange_potential_tiles)
-from gadget_leicester_tpu_torch.ops.gravity_direct import direct_gravity
-from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
-                                                      merge_rows)
-from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
+from gadget_leicester_tpu_torch.ops.gravity_direct import (
+    direct_gravity, shortrange_trunc, shortrange_trunc_pot)
+from gadget_leicester_tpu_torch.ops.neighbors import (apply_pairwise,
+                                                      build_cell_list,
+                                                      merge_rows,
+                                                      stencil_sum)
+from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT, pm_forces_diff,
+                                               pm_forces_nonperiodic,
                                                pm_forces_periodic,
                                                pm_potential_periodic)
 from gadget_leicester_tpu_torch.ops.pm_tiles import pm_deposit_tiles
-from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
+from gadget_leicester_tpu_torch.ops.softening import (SOFTFAC, grav_fac,
+                                                      grav_pot)
 from gadget_leicester_tpu_torch.ops.tree import tree_gravity
 from gadget_leicester_tpu_torch.ops.sph_blocks import (
     build_block_lists, count_block_entries, density_adaptive_blocks,
@@ -128,6 +139,23 @@ def softening_table(cfg: SimConfig, atime: torch.Tensor) -> torch.Tensor:
     return torch.stack(vals)
 
 
+def gravity_softening(state: SimState, cfg: SimConfig, opts: SimOptions,
+                      atime: torch.Tensor) -> torch.Tensor:
+    """[N] force softening h = 2.8 eps of each particle's type; with
+    ``adaptive_gravsoft_forgas`` gas takes max(h_sph, 2.8 eps_gas) [G2:
+    ADAPTIVE_GRAVSOFT_FORGAS] from the hsml it holds now. It is made
+    afresh at every force pass, and so is every pack that holds it (A, E,
+    H, M): no softening outlives the pass that made it."""
+    p = state.p
+    eps = softening_table(cfg, atime)
+    soft = SOFTFAC * eps[p.ptype.long()]
+    if opts.adaptive_gravsoft_forgas and state.n_gas_max > 1:
+        ng = state.n_gas_max
+        gas_soft = torch.maximum(state.gas.hsml, SOFTFAC * eps[0])
+        soft[:ng] = torch.where(p.ptype[:ng] == 0, gas_soft, soft[:ng])
+    return soft
+
+
 def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
 
@@ -146,26 +174,34 @@ def use_entries(n_active: torch.Tensor, count_entries, k_max: int) -> bool:
 
 def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
                     n_gas_max: int) -> None:
-    """Refuse every configuration outside the ported slice."""
+    """Refuse every configuration outside the ported slice. A vacuum run
+    with a PM mesh resolves to ``treepm``, as ``PMGRID`` does in the JAX
+    package, whose TreePM then takes the periodic mesh over ``BoxSize``
+    (0 in a vacuum parameter file): a fault of the reference, refused
+    here. Vacuum PM runs through the zoom."""
     if opts.dtype != "f32":
         _refuse("dtype f64", "the kernels are float32")
     if opts.cooling not in ("none", "beta", "stamatellos"):
         raise ValueError(f"unknown cooling {opts.cooling!r}")
-    if opts.nogravity or opts.adaptive_gravsoft_forgas:
-        _refuse("nogravity / adaptive gas softening",
-                "ROADMAP queue 1 item 12")
-    if opts.isotherm_eqs:
-        _refuse("isotherm_eqs", "ROADMAP queue 1 item 12")
     if opts.forcetest > 0:
         _refuse("forcetest", "ROADMAP queue 1 item 11")
     if not isinstance(opts.periodic, bool):
         _refuse(f"per-axis periodic {opts.periodic!r} (the slab's grids)",
                 "ROADMAP queue 2 item 3")
     mode = resolve_gravity_mode(opts, n_max)
-    if mode not in ("treepm", "direct", "tree") or \
-            (mode == "treepm" and not opts.periodic):
-        _refuse(f"gravity mode {mode!r} (periodic={opts.periodic})",
-                "ROADMAP queue 1 item 12: vacuum and zoom PM")
+    if mode not in ("treepm", "direct", "tree", "zoom"):
+        raise ValueError(f"unknown gravity mode {mode!r}")
+    if not opts.nogravity and mode == "treepm" and not opts.periodic:
+        raise NotImplementedError(
+            "TreePM with vacuum boundaries (PMGRID without PERIODIC) would "
+            "run the periodic mesh over BoxSize, as the JAX package does: "
+            "a fault of the reference, not a mode to port (ROADMAP queue "
+            "3). Vacuum PM runs as gravity_mode=\"zoom\" with hr_types "
+            "(PLACEHIGHRESREGION); the slab's vacuum TreePM is ROADMAP "
+            "queue 1 item 14")
+    if not opts.nogravity and mode == "zoom" and opts.pmgrid <= 0:
+        raise ValueError("gravity_mode=\"zoom\" needs pmgrid > 0 (the "
+                         "coarse mesh)")
     if n_gas_max > 1:
         backend = resolve_sph_backend(opts, n_gas_max)
         if backend not in ("blocks", "cells", "dense"):
@@ -177,10 +213,11 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
                    stats: dict | None = None) -> SimState:
     """One full force computation at the current sync point: p.acc
     (short-range or direct, active particles only), p.acc_pm (TreePM, only
-    when ``do_pm``, frozen otherwise; zeros under direct gravity), p.pot
+    when ``do_pm``, frozen otherwise; the zoom's two meshes at every
+    pass; zeros under direct gravity), p.pot
     (the PM piece under TreePM, or the full potential of the active
     particles with :func:`in_step_potential`; the whole potential under
-    direct or tree gravity),
+    direct, tree or zoom gravity; all zeros with ``nogravity``),
     and the SPH fields of active gas. ``stats`` (optional dict) receives
     ``density_iters``."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
@@ -188,8 +225,17 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
     fac = comoving_factors(cfg, state.ti_current)
     # the active set: only these particles receive fresh forces
     active = (p.ti_endstep == state.ti_current) & p.alive
-    eps = softening_table(cfg, fac.atime)
-    soft = SOFTFAC * eps[p.ptype.long()]
+    if opts.nogravity:
+        zero3, zero1 = torch.zeros_like(p.acc), torch.zeros_like(p.pot)
+        p = dataclasses.replace(p, acc=zero3, acc_pm=zero3.clone(),
+                                pot=zero1, pot_pm=zero1.clone(),
+                                old_acc=zero1.clone())
+        state = dataclasses.replace(state, p=p)
+        if do_sph and state.n_gas_max > 1:
+            state = compute_sph(state, cfg, opts, fac,
+                                active[:state.n_gas_max], stats)
+        return state
+    soft = gravity_softening(state, cfg, opts, fac.atime)
 
     mode = resolve_gravity_mode(opts, state.n_max)
     if mode == "treepm":
@@ -205,6 +251,13 @@ def compute_forces(state: SimState, cfg: SimConfig, opts: SimOptions,
             # particles keep their last full potential [G2: P.Potential is
             # refreshed when the particle is active]
             pot = torch.where(active, pot, p.pot)
+    elif mode == "zoom":
+        acc, pot, acc_pm, z_ovf = _zoom_gravity(state, cfg, opts, soft)
+        state = dataclasses.replace(
+            state,
+            overflow_flags=state.overflow_flags | z_ovf.to(torch.int32))
+        pot_pm = torch.zeros_like(pot)
+        pot = pot * cfg.grav_internal
     else:
         if mode == "tree":
             acc, pot = _tree_gravity(state, cfg, opts, soft)
@@ -332,13 +385,24 @@ def compute_potential(state: SimState, cfg: SimConfig,
     m / (sqrt(pi) asmth); times G, 0 where not alive. The fresh list's
     overflow sets bit 1 of ``overflow_flags``. Direct and tree gravity:
     the potential of the direct sum or of the tree walk at the current
-    positions."""
+    positions. Zoom: the whole of :func:`_zoom_gravity` (both meshes and
+    both pair passes), its overflow into bit 1. With ``nogravity`` the
+    state comes back as it is."""
     check_supported(cfg, opts, state.n_max, state.n_gas_max)
+    if opts.nogravity:
+        return state
     p = state.p
     fac = comoving_factors(cfg, state.ti_current)
-    soft = SOFTFAC * softening_table(cfg, fac.atime)[p.ptype.long()]
+    soft = gravity_softening(state, cfg, opts, fac.atime)
     box = float(cfg.box_size)
     mode = resolve_gravity_mode(opts, state.n_max)
+    if mode == "zoom":
+        _, pot, _, z_ovf = _zoom_gravity(state, cfg, opts, soft)
+        pot = torch.where(p.alive, pot * cfg.grav_internal,
+                          torch.zeros_like(pot))
+        return dataclasses.replace(
+            state, p=dataclasses.replace(p, pot=pot),
+            overflow_flags=state.overflow_flags | z_ovf.to(torch.int32))
     if mode != "treepm":
         if mode == "tree":
             _, pot = _tree_gravity(state, cfg, opts, soft)
@@ -385,6 +449,140 @@ def _tree_gravity(state: SimState, cfg: SimConfig, opts: SimOptions, soft):
         old_acc=p.old_acc / max(cfg.grav_internal, 1e-37),
         depth=opts.tree_depth, periodic=opts.periodic,
         box=float(cfg.box_size))
+
+
+# target blocks of the zoom's pair passes on the card: about this many
+# (target, candidate) pairs a block, some 20 float32 temporaries of it
+# alive at once (a few GB); the CPU takes the reference's 256 targets
+PAIR_BLOCK_CANDIDATES = 1 << 25
+
+
+def pair_block(device: torch.device, n_candidates: int) -> int:
+    """Targets a block of :func:`zoom_shortrange` (a multiple of 256)."""
+    if device.type != "cuda":
+        return 256
+    return max(256, PAIR_BLOCK_CANDIDATES // n_candidates // 256 * 256)
+
+
+def _bounding_cube(pos, sel, pad_frac: float):
+    """(origin [3], extent 0-d) of the cube around the selected positions,
+    padded by ``pad_frac`` of its longest side plus 1e-6 on each side."""
+    inf = torch.full_like(pos, float("inf"))
+    lo = torch.where(sel[:, None], pos, inf).amin(0)
+    hi = torch.where(sel[:, None], pos, -inf).amax(0)
+    pad = pad_frac * (hi - lo).max() + 1e-6
+    return lo - pad, (hi - lo).max() + 2 * pad
+
+
+def zoom_shortrange(cl, pos, soft, src_mass, in_hr_f, rcut: float,
+                    asmth: float, exclude_hr_pairs: bool, hr_only: bool,
+                    block: int = 256) -> torch.Tensor:
+    """One short-range pass of the zoom [G2: forcetree.c short-range walk
+    with the region's truncation]: for every particle, over the candidates
+    of its 27-cell stencil in ``cl``, the erfc-truncated softened force
+    and potential within ``rcut``, symmetrised softening max(h_i, h_j);
+    ``exclude_hr_pairs`` drops pairs with both ends in the HR region,
+    ``hr_only`` weights the sources by ``in_hr_f``. Returns [N, 4]: acc
+    (no G) and the potential (no G, no self-pair). Plain PyTorch, as the
+    JAX package's pass is plain jnp; each target's sums in a fixed order
+    (:func:`ops.neighbors.stencil_sum`), whatever the block."""
+    cap = cl.cells.shape[1]
+    cols = [pos[:, k].contiguous() for k in range(3)]
+
+    def pair_fn(idx, tp, cand):
+        ci = cand.clamp_min(0).long()
+        sm = torch.where(cand >= 0, src_mass[ci], torch.zeros(
+            (), dtype=pos.dtype, device=pos.device))
+        if hr_only:
+            sm = sm * in_hr_f[ci]
+        dx = [tp[:, k, None] - cols[k][ci] for k in range(3)]
+        r = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2])
+        h = torch.maximum(soft[idx][:, None], soft[ci])
+        zero = torch.zeros_like(r)
+        fac = grav_fac(r, h) * shortrange_trunc(r, asmth)
+        fac = torch.where(r < rcut, fac, zero)
+        pw = grav_pot(r, h) * shortrange_trunc_pot(r, asmth)
+        pw = torch.where((r < rcut) & (r > 0), pw, zero)
+        if exclude_hr_pairs:
+            keep = 1.0 - in_hr_f[idx][:, None] * in_hr_f[ci]
+            fac = fac * keep
+            pw = pw * keep
+        w = sm * fac
+        sums = stencil_sum(torch.stack(
+            [w * dx[0], w * dx[1], w * dx[2], sm * pw], dim=-1), cap)
+        return torch.cat([-sums[:, :3], sums[:, 3:]], dim=1)
+
+    return apply_pairwise(cl, pos, pair_fn, block=block)
+
+
+def _zoom_gravity(state: SimState, cfg: SimConfig, opts: SimOptions, soft):
+    """PLACEHIGHRESREGION two-mesh zoom gravity for vacuum boundaries [G2:
+    pm_nonperiodic.c with PLACEHIGHRESREGION; forcetree.c short-range with
+    the region's truncation]:
+
+      * the COARSE vacuum mesh over the bounding cube of everything alive
+        (1% padding; smoothing a_c = 1.25 coarse cells);
+      * the FINE band-pass mesh (erf(a_h) - erf(a_c)) over the bounding
+        cube of the ``opts.hr_types`` particle types (5% padding);
+      * short-range pass A: every particle, erfc(a_c) cut at rcut_c, on
+        a cell list over the coarse cube, no pair with both ends in the
+        HR region;
+      * pass B: the HR particles, erfc(a_h) cut at rcut_h, on a cell list
+        of the HR particles over the fine cube.
+
+    A pair of HR particles gets B + fine + coarse, any other pair A +
+    coarse. Both regions are re-fitted at every pass; their extents are
+    read to the host once here, for the meshes' launches (kernel L takes
+    n / box as a number). Returns (acc_sr, pot, acc_pm scaled by G,
+    overflow of either cell list); acc_sr and pot without G, pot with the
+    meshes' self-energies taken out [G2: potential.c]."""
+    p = state.p
+    alive = p.alive
+    n_c = opts.pmgrid
+    n_h = opts.hr_pmgrid if opts.hr_pmgrid > 0 else opts.pmgrid
+    origin_c, extent_c = _bounding_cube(p.pos, alive, 0.01)
+    hr_sel = alive & (((opts.hr_types >> p.ptype.clamp(0, 5)) & 1) == 1)
+    origin_h, extent_h = _bounding_cube(p.pos, hr_sel, 0.05)
+    ext_c, ext_h = torch.stack([extent_c, extent_h]).tolist()
+    asmth_c = ASMTH * ext_c / n_c
+    asmth_h = ASMTH * ext_h / n_h
+
+    acc_c, pot_c = pm_forces_nonperiodic(p.pos, p.mass, alive, origin_c,
+                                         ext_c, n_c, with_potential=True)
+    acc_f, pot_f, in_hr = pm_forces_diff(p.pos, p.mass, alive, origin_h,
+                                         ext_h, n_h, asmth_c,
+                                         with_potential=True)
+    acc_pm = (acc_c + acc_f) * cfg.grav_internal
+    pot_pm = pot_c + pot_f
+
+    src_mass = torch.where(alive, p.mass, torch.zeros_like(p.mass))
+    in_hr_f = in_hr.to(p.pos.dtype)
+    passes = []
+    for origin, ext, n_mesh, asmth, mask, hr_pass in (
+            (origin_c, ext_c, n_c, asmth_c, alive, False),
+            (origin_h, ext_h, n_h, asmth_h, alive & in_hr, True)):
+        n_cells = max(3, int(n_mesh / (RCUT * ASMTH)))
+        cap = opts.sr_capacity if opts.sr_capacity > 0 else max(
+            64, -(-4 * p.n_max // n_cells ** 3 // 8) * 8)
+        cl = build_cell_list(p.pos, mask, origin, ext, n_cells=n_cells,
+                             capacity=cap, periodic=False)
+        rows = zoom_shortrange(
+            cl, p.pos, soft, src_mass, in_hr_f, RCUT * asmth, asmth,
+            exclude_hr_pairs=not hr_pass, hr_only=hr_pass,
+            block=pair_block(p.pos.device, 27 * cap))
+        passes.append((rows, cl.overflow))
+    (rows_a, ovf_a), (rows_b, ovf_b) = passes
+    rows_b = torch.where(in_hr[:, None], rows_b, torch.zeros_like(rows_b))
+    acc_sr = rows_a[:, :3] + rows_b[:, :3]
+    # each mesh holds the particle's own smoothed cloud: the coarse one
+    # -m / (sqrt(pi) a_c) for everyone, the band-pass one a further
+    # -m (1/a_h - 1/a_c) / sqrt(pi) inside the HR region [G2: potential.c]
+    self_c = p.mass / (math.sqrt(math.pi) * asmth_c)
+    self_h = p.mass * (1.0 / asmth_h - 1.0 / asmth_c) / math.sqrt(math.pi)
+    pot = pot_pm + rows_a[:, 3] + rows_b[:, 3] + self_c \
+        + torch.where(in_hr, self_h, torch.zeros_like(self_h))
+    acc_pm = torch.where(alive[:, None], acc_pm, torch.zeros_like(acc_pm))
+    return acc_sr, pot, acc_pm, ovf_a | ovf_b
 
 
 def gas_bounding_grid(pos_g, gas_mask):
@@ -541,13 +739,17 @@ def compute_sph(state: SimState, cfg: SimConfig, opts: SimOptions,
     div_vel = torch.where(take, dres.div_vel, gas.div_vel)
     curl_vel = torch.where(take, dres.curl_vel, gas.curl_vel)
     num_ngb = torch.where(take, dres.num_ngb_eff, gas.num_ngb)
-    pressure = torch.where(gas_mask, gas.entropy_pred * rho ** GAMMA,
-                           torch.zeros_like(rho))
+    # the entropy slot holds c_s^2 under the isothermal EOS: P = c_s^2 rho
+    pressure = gas.entropy_pred * (rho if opts.isotherm_eqs
+                                   else rho ** GAMMA)
+    pressure = torch.where(gas_mask, pressure, torch.zeros_like(rho))
 
     hres = hydro(hsml, rho, pressure, dhsml, div_vel, curl_vel)
     hydro_acc = torch.where(take[:, None], hres.acc, gas.hydro_acc)
     dt_entropy = torch.where(take, hres.dt_entropy, gas.dt_entropy)
     msv = torch.where(take, hres.max_signal_vel, gas.max_signal_vel)
+    if opts.isotherm_eqs:
+        dt_entropy = torch.zeros_like(dt_entropy)   # c_s^2 stays fixed
     flags = state.overflow_flags
     if ovf is not None:
         flags = flags | ovf.to(torch.int32) * 2

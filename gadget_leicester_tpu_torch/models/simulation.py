@@ -129,8 +129,9 @@ def init_state(cfg: SimConfig, opts: SimOptions, pos, vel, mass, ptype,
                stats: dict | None = None) -> SimState:
     """IC arrays -> consistent runtime state [G2: init.c :: init()]:
     comoving velocity scaling, initial smoothing lengths by the adaptive
-    density pass, u -> entropy, and a full force computation so the first
-    kick has accelerations."""
+    density pass, u -> entropy (with ``isotherm_eqs``, u -> c_s^2 =
+    (gamma - 1) u), and a full force computation so the first kick has
+    accelerations."""
     n = pos.shape[0]
     if pid is None:
         pid = np.arange(1, n + 1)
@@ -171,11 +172,18 @@ def init_state(cfg: SimConfig, opts: SimOptions, pos, vel, mass, ptype,
     gas = state.gas
     rho_safe = torch.where(gas.density > 0, gas.density,
                            torch.ones_like(gas.density))
-    a3inv = comoving_factors(cfg, state.ti_current).a3inv
-    a_ent = GAMMA_MINUS1 * gas.entropy / (rho_safe * a3inv) ** GAMMA_MINUS1
+    if opts.isotherm_eqs:
+        # the isothermal EOS keeps c_s^2 = (gamma - 1) u in the entropy slot
+        a_ent = GAMMA_MINUS1 * gas.entropy
+    else:
+        a3inv = comoving_factors(cfg, state.ti_current).a3inv
+        a_ent = GAMMA_MINUS1 * gas.entropy \
+            / (rho_safe * a3inv) ** GAMMA_MINUS1
     a_ent = torch.where(gas_mask, a_ent, torch.zeros_like(a_ent))
+    pressure = a_ent * (gas.density if opts.isotherm_eqs
+                        else gas.density ** GAMMA)
     gas = dataclasses.replace(gas, entropy=a_ent, entropy_pred=a_ent,
-                              pressure=a_ent * gas.density ** GAMMA)
+                              pressure=pressure)
     state = dataclasses.replace(state, gas=gas)
     # hydro forces again with the entropy-based pressure
     return compute_forces(state, cfg, opts, do_sph=True, stats=stats)

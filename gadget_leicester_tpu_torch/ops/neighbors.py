@@ -1,7 +1,9 @@
 """Uniform-grid cell lists with fixed per-cell capacity.
 
-Counterpart of ``gadget_leicester_tpu/ops/neighbors.py:33-147``
-(``CellList``, ``merge_rows``, ``build_cell_list``). Particles are binned
+Counterpart of ``gadget_leicester_tpu/ops/neighbors.py`` (``CellList``,
+``merge_rows``, ``build_cell_list``, and the stencil and pair driver
+``_stencil_cids``, ``candidate_indices``, ``apply_pairwise``, plain
+PyTorch as the reference is plain ``jnp``). Particles are binned
 into a uniform grid, sorted by cell id with a STABLE sort (so slot ranks
 equal those of the JAX package's ``argsort``), and placed into a
 ``[cells, capacity]`` table; excess particles of a full cell are dropped
@@ -10,6 +12,9 @@ capacity). A periodic grid wraps cell coordinates; a vacuum grid (the gas
 bounding box of a run without a box) clamps them to its edge cells. ``gslot`` is the inverse map used to merge kernel outputs back
 to particles with one row gather; :func:`scatter_rows` merges the
 active-entry kernels' outputs with one drop-mode row scatter.
+:func:`apply_pairwise` evaluates a pair function over blocks of targets
+and the candidates of their 27-cell stencils (the zoom's short-range
+passes, ``models/forces.py``).
 """
 
 from __future__ import annotations
@@ -119,3 +124,84 @@ def build_cell_list(pos: torch.Tensor, mask: torch.Tensor, origin, extent,
         counts=counts[:total], overflow=overflow, origin=origin_t,
         inv_cell=inv_cell, gslot=gslot, n_cells=n_cells,
         periodic=periodic)
+
+
+_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+
+
+def _stencil_cids(coords: torch.Tensor, n_cells: int,
+                  periodic: bool) -> torch.Tensor:
+    """[..., 27] flat cell ids of the 3^3 stencil around the integer cell
+    coordinates ``coords`` [..., 3], in the reference's order (dz fastest);
+    off a clamped grid's edge -1."""
+    offs = torch.tensor(_OFFSETS, dtype=coords.dtype, device=coords.device)
+    c = coords[..., None, :] + offs
+    if periodic:
+        c = torch.remainder(c, n_cells)
+        valid = torch.ones(c.shape[:-1], dtype=torch.bool, device=c.device)
+    else:
+        valid = ((c >= 0) & (c < n_cells)).all(dim=-1)
+        c = c.clamp(0, n_cells - 1)
+    cid = (c[..., 0] * n_cells + c[..., 1]) * n_cells + c[..., 2]
+    return torch.where(valid, cid, torch.full_like(cid, -1))
+
+
+def candidate_indices(cl: CellList, target_pos: torch.Tensor) -> torch.Tensor:
+    """[T, 27 capacity] int32 candidate particle indices of each target
+    position (-1: none), stencil cell by stencil cell."""
+    coords = torch.floor((target_pos - cl.origin) * cl.inv_cell).to(
+        torch.int32)
+    coords = torch.remainder(coords, cl.n_cells) if cl.periodic else \
+        coords.clamp(0, cl.n_cells - 1)
+    cids = _stencil_cids(coords, cl.n_cells, cl.periodic)
+    cand = cl.cells[cids.clamp_min(0).long()]
+    cand = torch.where(cids[..., None] >= 0, cand, torch.full_like(cand, -1))
+    return cand.reshape(target_pos.shape[0], -1)
+
+
+def apply_pairwise(cl: CellList, target_pos: torch.Tensor, pair_fn,
+                   block: int = 256, n_targets: int | None = None):
+    """Blocked pair evaluation [G2: gravtree.c BunchSizeForce]: for each
+    block of ``block`` targets, ``pair_fn(tgt_idx [B], tgt_pos [B, 3],
+    cand [B, 27 cap])`` returns a tensor, or a tuple of tensors, of
+    per-target rows; the blocks are concatenated. The last block is
+    shorter: a pair function whose per-target sums do not depend on the
+    other rows of its block (:func:`stencil_sum`) gives each target the
+    same result at any ``block``. ``n_targets`` restricts the targets to
+    the first rows of ``target_pos``."""
+    if n_targets is not None:
+        target_pos = target_pos[:n_targets]
+    t = target_pos.shape[0]
+    dev = target_pos.device
+    outs = []
+    for start in range(0, t, block):
+        idx = torch.arange(start, min(start + block, t), device=dev)
+        tp = target_pos[start:start + block]
+        outs.append(pair_fn(idx, tp, candidate_indices(cl, tp)))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def stencil_sum(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """Sum over the candidate axis of ``x`` [B, 27 cap, ...] in a fixed
+    order of element-wise adds: a halving tree over each stencil cell's
+    ``cap`` slots (padded with zeros to a power of two), then the 27 cells
+    in stencil order. Each row's sum depends on its own elements alone,
+    not on the rows beside it: a library reduction may split a row's sum
+    by the shape of the whole tensor, and so by the block."""
+    b = x.shape[0]
+    x = x.reshape(b, 27, cap, *x.shape[2:])
+    width = 1 << max(cap - 1, 0).bit_length()
+    if width != cap:
+        pad = x.new_zeros(b, 27, width - cap, *x.shape[3:])
+        x = torch.cat([x, pad], dim=2)
+    while width > 1:
+        width //= 2
+        x = x[:, :, :width] + x[:, :, width:]
+    x = x[:, :, 0]
+    out = x[:, 0]
+    for k in range(1, 27):
+        out = out + x[:, k]
+    return out

@@ -3,7 +3,8 @@ cannot be imported: ``python -m gadget_leicester_tpu_torch param.txt
 [0|1] --device cpu`` on an lcdm_gas 2x17^3 IC file (5,120 gas slots, so
 sph_backend "auto" resolves to blocks with no flag), then a resume from
 its restart dump; without ``--device`` it asks for the card and stops
-here; the flags that are not ported stop with their ROADMAP items."""
+here; ``--devices``, not ported, stops with its ROADMAP item
+(``--makeglass`` runs: tests/test_torch_glass.py)."""
 
 import os
 import pathlib
@@ -93,8 +94,7 @@ def test_cli_defaults_to_the_card(runs):
     assert "CUDA" in proc.stderr and "--device cpu" in proc.stderr
 
 
-@pytest.mark.parametrize("flag,item", [(("--devices", "4"), "item 14"),
-                                       (("--makeglass", "8"), "item 13")])
+@pytest.mark.parametrize("flag,item", [(("--devices", "4"), "item 14")])
 def test_cli_refuses_what_is_not_ported(runs, flag, item):
     proc = cli(runs["param"], 0, "--device", "cpu", *flag)
     assert proc.returncode != 0
