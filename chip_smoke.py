@@ -170,7 +170,20 @@ imports nothing of JAX. Phases, each printing its own lines:
    ``python -m gadget_leicester_tpu_torch ... --makeglass 64`` in a child
    process, its glass.dat held to tests/test_features.py::test_make_glass's
    checks (L once a relaxation step); the Zel'dovich pancake of
-   tests/test_zeldovich.py on the card, by its bounds.
+   tests/test_zeldovich.py on the card, by its bounds;
+18. the slab step (:func:`phase_slab`): phase 5's configuration through
+   ``Simulation(cfg, opts, device="cuda", mesh=1)``, a ring of one rank on
+   NCCL (``parallel/``): ``set_ics`` and ``SLAB_STEPS`` sync points with
+   the launch counts read for each, held by pid to the single-device run
+   of the same ICs over the same sync points by tests/test_spmd_step.py's
+   bounds; kernel A's slab mode and C's and D's anisotropic mode replayed
+   on the path's arguments against their float64 plain versions and
+   timed, L's launches on the slab PM and its gather bit for bit; a sync
+   point by parts beside the single-device one's; ``python -m
+   gadget_leicester_tpu_torch ... --devices 1`` against the same CLI run
+   without it (energy.txt and the snapshot, by the same bounds); and
+   ``--devices 2`` on a machine with fewer cards exits non-zero, counting
+   them.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -233,7 +246,8 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "pm_gather": 1e-5, "shortrange_gravity_cells": 1e-4,
        "shortrange_potential_entries": 1e-4, "sph_density_abs": 1e-4,
        "sph_hydro_abs": 1e-4, "sph_density_entries_abs": 1e-4,
-       "sph_hydro_entries_abs": 1e-4}
+       "sph_hydro_entries_abs": 1e-4, "shortrange_gravity_slab": 1e-4,
+       "sph_density_aniso": 1e-4, "sph_hydro_aniso": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -255,6 +269,9 @@ GRAVITY_CELLS = ("shortrange_gravity_cells",)
 ABS_DENSE = ("sph_density_abs", "sph_hydro_abs")
 ABS_ENTRIES = ("sph_density_entries_abs", "sph_hydro_entries_abs")
 ABS = ABS_DENSE + ABS_ENTRIES
+# the slab step's modes (phase 18): A's slab mode on M's kernel, C and D
+# on anisotropic block grids
+SLAB = ("shortrange_gravity_slab", "sph_density_aniso", "sph_hydro_aniso")
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -307,6 +324,16 @@ KERNELS = {
     "sph_hydro_entries_abs": (
         "gadget_leicester_tpu_torch/csrc/sph_hydro_entries.cu",
         "gadget_leicester_tpu/ops/sph_blocks.py:1175"),
+    # the slab step's modes: A's with a tuple n_cells, periodic (False,
+    # True, True), absolute, cl= (parallel/spmd.py:889-898), on M's kernel;
+    # C and D with per-axis blocks and fine_edge (spmd.py:1054, :1087)
+    "shortrange_gravity_slab": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:669"),
+    "sph_density_aniso": ("gadget_leicester_tpu_torch/csrc/sph_density.cu",
+                          "gadget_leicester_tpu/ops/sph_blocks.py:397"),
+    "sph_hydro_aniso": ("gadget_leicester_tpu_torch/csrc/sph_hydro.cu",
+                        "gadget_leicester_tpu/ops/sph_blocks.py:630"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
@@ -315,9 +342,12 @@ FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "sph_hydro_entries": 4, "shortrange_potential": 1,
              "sph_cells_density": 2, "shortrange_potential_entries": 1,
              "sph_density_abs": 3, "sph_hydro_abs": 5,
-             "sph_density_entries_abs": 3, "sph_hydro_entries_abs": 4}
+             "sph_density_entries_abs": 3, "sph_hydro_entries_abs": 4,
+             "shortrange_gravity_slab": 1, "sph_density_aniso": 3,
+             "sph_hydro_aniso": 5}
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
-PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6}
+PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6,
+              "sph_hydro_aniso": 6}
 # The bound of each kernel (the least time the card could take): the
 # larger of its float32 operations over PEAK_FLOPS and its bytes (each
 # input tensor read once, the output written once) over PEAK_BYTES; the
@@ -339,6 +369,9 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6}
 # multiply, a round and an FMA) and 2 for the exact r < rcut test, less 22
 # where the truncation polynomial is off (asmth = 0). The absolute modes of
 # C, D, F, G pay 3 operations less on every pair: dx = t - s, no shift.
+# A's slab mode pays M's, with the minimum image on its two periodic axes
+# only (MIN_IMAGE_OPS / 3 an axis); C's and D's anisotropic mode their
+# relative mode's.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
@@ -349,6 +382,8 @@ OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
                 "sph_cells_hydro": 86}
 OPS_PER_PAIR.update({n: OPS_PER_PAIR[n.removesuffix("_abs")] - 3
                      for n in ABS})
+OPS_PER_PAIR.update(sph_density_aniso=OPS_PER_PAIR["sph_density"],
+                    sph_hydro_aniso=OPS_PER_PAIR["sph_hydro"])
 OPS_PER_DEPOSIT = 44
 MIN_IMAGE_OPS = 12
 TRUNC_OPS = 22
@@ -811,6 +846,13 @@ def kernel_pairs() -> dict:
                                      sb.density_sums_blocks_entries_plain)),
             ("sph_hydro_entries", (sb.hydro_sums_blocks_entries,
                                    sb.hydro_sums_blocks_entries_plain)))},
+        # the slab step's modes
+        "shortrange_gravity_slab": (
+            cells.shortrange_gravity_slab,
+            gravity_short.shortrange_gravity_slab_plain),
+        "sph_density_aniso": (sb.density_sums_blocks,
+                              sb.density_sums_blocks_plain),
+        "sph_hydro_aniso": (sb.hydro_sums_blocks, sb.hydro_sums_blocks_plain),
         # E's potential mode: the same wrapper and plain version
         "shortrange_potential_entries": (
             functools.partial(cells.shortrange_gravity_entries,
@@ -913,7 +955,7 @@ def _targets(name: str, args: tuple):
     particle indices [K, L] for hydro or None) of the tiles or entries that
     ``args`` switch on."""
     import torch
-    name = name.removesuffix("_abs")
+    name = name.removesuffix("_abs").removesuffix("_aniso")
     if name in ("shortrange_gravity", "shortrange_potential"):
         soa, flags = args[:2]
         k = torch.nonzero(flags > 0).flatten()
@@ -975,15 +1017,22 @@ def cells_pair_count(name: str, args: tuple) -> tuple:
     return stencil, in_cut
 
 
-def gravity_cells_pair_count(args: tuple) -> tuple:
+def gravity_cells_pair_count(args: tuple, flags=None) -> tuple:
     """:func:`pair_count` of kernel M: the live pairs of the 27-cell
     stencil on the absolute pack (cells beyond a clamped grid's edge left
-    out), and those with 0 < r < rcut after the per-pair minimum image."""
+    out), and those with 0 < r < rcut after the per-pair minimum image;
+    with ``flags``, A's slab mode (per-axis cells and periodicity, the
+    cells ``flags`` switches on)."""
     import torch
 
     from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    from gadget_leicester_tpu_torch.ops.neighbors import per3
     soa, n, box, periodic, _, rcut = args
-    cells = torch.nonzero((soa[:, 5] > 0).any(-1)).flatten()
+    pv = per3(periodic)
+    live = (soa[:, 5] > 0).any(-1)
+    if flags is not None:
+        live = live & (flags > 0)
+    cells = torch.nonzero(live).flatten()
     stencil = in_cut = 0
     for k0 in range(0, cells.numel(), 64):
         k = cells[k0:k0 + 64]
@@ -992,7 +1041,7 @@ def gravity_cells_pair_count(args: tuple) -> tuple:
         d2 = 0.0
         for a in range(3):
             d = t[:, a, :, None] - s[:, :, a].flatten(1)[:, None, :]
-            if periodic:
+            if pv[a]:
                 d = d - box * torch.round(d * (1.0 / box))
             d2 = d2 + d * d
         sl = ((s[:, :, 5] > 0) & inside[:, :, None]).flatten(1)
@@ -1021,9 +1070,14 @@ def pair_count(name: str, args: tuple) -> tuple:
         return n, n
     if name == "shortrange_gravity_cells":
         return gravity_cells_pair_count(args)
+    if name == "shortrange_gravity_slab":
+        soa, flags, n, box, periodic, asmth, rcut = args
+        return gravity_cells_pair_count((soa, n, box, periodic, asmth, rcut),
+                                        flags)
     t_all, live_all, where_all, h_all, tid_all = _targets(name, args)
     absolute = name.endswith("_abs")
-    name = name.removesuffix("_abs")
+    grid_per = args[-1] if name.endswith("_aniso") else None
+    name = name.removesuffix("_abs").removesuffix("_aniso")
     gravity = name.startswith("shortrange")
     if gravity:
         soa, n = args[0], args[3 if name.endswith("entries") else 2]
@@ -1055,7 +1109,11 @@ def pair_count(name: str, args: tuple) -> tuple:
             ok = (d2 < rcut * rcut) & (d2 > 0.0)
             sl = s_live[ids].flatten(1)
         else:
-            ids, units = sb.odd_sources(nb, where, not absolute)
+            if grid_per is None:
+                ids, units = sb.odd_sources(nb, where, not absolute)
+            else:
+                ids, units = sb.odd_sources(nb, where, grid_per,
+                                            relative=True)
             rows, shift = sb._gather_sources(src, ids, units, lf, (0, 1, 2, 7))
             _, _, _, r, _ = sb._pair_geometry(t, rows, shift)
             h = h_all[k0:k0 + step][:, :, None]
@@ -1700,8 +1758,9 @@ EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "shortrange_potential": "shortrange_gravity_kernelILb1E",
-              "sph_density": "sph_density_kernelILb0E",
-              "sph_density_abs": "sph_density_kernelILb1E",
+              "sph_density": "sph_density_kernelILb0ELb0E",
+              "sph_density_abs": "sph_density_kernelILb1ELb0E",
+              "sph_density_aniso": "sph_density_kernelILb0ELb1E",
               "sph_cells_density": "sph_cells_density_kernel",
               "sph_cells_hydro": "sph_cells_hydro_kernel",
               "sph_density_entries": "sph_density_entries_kernelILb0E",
@@ -1716,7 +1775,8 @@ PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
                   "shortrange_gravity_entries_kernelILb0E",
               "shortrange_potential_entries":
                   "shortrange_gravity_entries_kernelILb1E",
-              "shortrange_gravity_cells": "shortrange_gravity_cells_kernel"}
+              "shortrange_gravity_cells": "shortrange_gravity_cells_kernel",
+              "shortrange_gravity_slab": "shortrange_gravity_cells_kernelILi6E"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -1880,6 +1940,11 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
         periodic, asmth = args[3], args[4]
         ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2
                         + (MIN_IMAGE_OPS if periodic else 0)
+                        - (0 if asmth > 0 else TRUNC_OPS))
+    elif name == "shortrange_gravity_slab":
+        periodic, asmth = args[4], args[5]
+        ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2
+                        + MIN_IMAGE_OPS // 3 * sum(periodic)
                         - (0 if asmth > 0 else TRUNC_OPS))
     else:
         ops = in_cut * OPS_PER_PAIR[name]
@@ -4891,6 +4956,320 @@ def phase_switches(card: str, device="cuda") -> None:
     phase_zeldovich(card, device)
 
 
+# phase 18: the slab step on a ring of one (parallel/), held to the
+# single-device run by tests/test_spmd_step.py's bounds: position as a
+# share of the mean spacing, velocity and acc (and, for the CLI,
+# energy.txt's columns) of their largest value
+SLAB_STEPS = 8
+SLAB_BOUND = 5e-4
+# particles whose timestep bins (ti_begstep, ti_endstep) differ between the
+# two runs: a step quantised on the other side of a power of two by a
+# float32 difference of the sums, after which the kicks differ; they are
+# counted, held to this share of the particles, and left out of the bound
+SLAB_FLIP_SHARE = 1e-2
+# the slab modes are held to their float64 plain versions on every 8th
+# tile or block (the float32 plain version of A's slab mode alone takes 26
+# s on an H100 at 2x128^3); the timings keep them all
+SLAB_EVERY = 8
+SLAB_CLI_STEPS = 2
+SLAB_CLI_CADENCE = """
+TimeBetStatistics 0.00001
+TimeOfFirstSnapshot 0.0
+TimeBetSnapshot 100.0
+CpuTimeBetRestartFile 1e9
+"""
+# the parts of the slab PM (parallel/pm_sharded.py :: pm_local_forces),
+# each timed as in TIMED; its reduce-scatter and all-gather are timed on
+# the ring itself
+SLAB_PM_TIMED = (
+    (f"{_PKG}.parallel.pm_sharded", "cic_deposit", "deposit (point CIC)"),
+    (f"{_PKG}.parallel.pm_sharded", "_pencil_rfft3",
+     "forward FFT (with all_to_all)"),
+    (f"{_PKG}.parallel.pm_sharded", "_pencil_irfft3",
+     "inverse FFTs (with all_to_all)"),
+    (f"{_PKG}.parallel.pm_sharded", "cic_gather_vec", "gather (kernel L)"),
+)
+
+
+def hold_slab(phase: str, what: str, got: dict, want: dict, box: float,
+              spacing: float, rcut: float = 0.0) -> None:
+    """Two runs by pid (``parallel/launch.py :: _by_pid`` dicts) within
+    SLAB_BOUND: position over the mean spacing (periodic), velocity and
+    acc of their largest value, on the particles whose timestep bins
+    agree; those whose bins differ (or, without bins, whose velocity is
+    beyond the bound) counted, at most SLAB_FLIP_SHARE of all, with the
+    share of them within ``rcut`` of the slab's faces x = 0 and x = box."""
+    import numpy as np
+    if not np.array_equal(got["pid"], want["pid"]):
+        raise AssertionError(f"{phase}: {what}: the particles differ")
+    dpos = got["pos"] - want["pos"]
+    dpos -= box * np.round(dpos / box)
+    if "ti_endstep" in got:
+        same = (got["ti_begstep"] == want["ti_begstep"]) \
+            & (got["ti_endstep"] == want["ti_endstep"])
+    else:
+        same = np.abs(got["vel"] - want["vel"]).max(1) \
+            < SLAB_BOUND * np.abs(want["vel"]).max()
+    errs = {"pos": float(np.abs(dpos[same]).max()) / spacing}
+    for f in ("vel", "acc"):
+        if f in got:
+            errs[f] = float(np.abs(got[f][same] - want[f][same]).max()
+                            / max(np.abs(want[f]).max(), 1e-30))
+    n_flip = int((~same).sum())
+    x = np.mod(want["pos"][~same, 0], box)
+    near = float(((x < rcut) | (x > box - rcut)).mean()) if n_flip else 0.0
+    if "acc" in got:
+        bad = same & (np.abs(got["acc"] - want["acc"]).max(1)
+                      > SLAB_BOUND * np.abs(want["acc"]).max())
+        xb = np.mod(want["pos"][bad, 0], box)
+        say(phase, f"{what}: {int(bad.sum())} particles with acc beyond the "
+            f"bound, {int(((xb < rcut) | (xb > box - rcut)).sum())} of them "
+            "within rcut of x = 0 or the box")
+    say(phase, f"{what}: " + ", ".join(f"{k} {v:.2e}"
+                                       for k, v in errs.items())
+        + f" (bound {SLAB_BOUND:g}) on {int(same.sum())} particles; "
+        f"{n_flip} ({n_flip / len(same):.2e}) in other timestep bins (or "
+        f"velocities), {100 * near:.1f}% of them within rcut of x = 0 or "
+        f"the box (the whole: {200 * rcut / box:.1f}%)")
+    if not all(v < SLAB_BOUND for v in errs.values()) \
+            or n_flip > SLAB_FLIP_SHARE * len(same):
+        raise AssertionError(f"{phase}: {what} beyond {SLAB_BOUND}")
+
+
+@contextlib.contextmanager
+def slab_pm_passes():
+    """Within the body, the slab step's PM passes (its calls of
+    ``pm_local_forces``) are counted in the dict this yields; each
+    gathers once through kernel L."""
+    from gadget_leicester_tpu_torch.parallel import spmd
+    calls = {"pm_local_forces": 0}
+    real = spmd.pm_local_forces
+
+    def spy(*args, **kw):
+        calls["pm_local_forces"] += 1
+        return real(*args, **kw)
+
+    spmd.pm_local_forces = spy
+    try:
+        yield calls
+    finally:
+        spmd.pm_local_forces = real
+
+
+@contextlib.contextmanager
+def ring_timer(ring, device="cuda"):
+    """Within the body, the ring's reduce-scatter and all-gather run with a
+    device sync on both sides; the dict this yields gets their seconds."""
+    totals = {"reduce_scatter": 0.0, "all_gather": 0.0}
+
+    def timed(name, fn):
+        def run(*args):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(device)
+            totals[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    for name in totals:
+        setattr(ring, name, timed(name, getattr(ring, name)))
+    try:
+        yield totals
+    finally:
+        for name in totals:
+            delattr(ring, name)
+
+
+def phase_slab(results: dict, card: str, device="cuda",
+               n_side=N_SIDE_MAIN, steps=SLAB_STEPS) -> None:
+    """The slab step at full width (phase 18): phase 5's configuration on
+    a ring of one, ``Simulation(..., mesh=1)``; see the module docstring."""
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.ops import pm
+    from gadget_leicester_tpu_torch.parallel.launch import _by_pid
+    from gadget_leicester_tpu_torch.parallel.pm_sharded import \
+        pm_local_forces
+    cfg, opts, ics = setup(n_side)
+    pos, vel, mass, ptype, u = ics
+    box, spacing = float(cfg.box_size), float(cfg.box_size) / n_side
+
+    def run_steps(sim, first):
+        secs = []
+        for i in range(steps):
+            t0 = time.time()
+            sim.step()
+            sync(device)
+            secs.append(time.time() - t0)
+            if i == 0:
+                # every particle active at the first sync point
+                first.append(_by_pid(sim.canonical_state()))
+        return secs
+
+    firsts = []
+    one = Simulation(cfg, opts, device)
+    one.set_ics(pos, vel, mass, ptype, u=u)
+    one_s = run_steps(one, firsts)
+    want = _by_pid(one.state)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ring = Simulation(cfg, opts, device, mesh=1)
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        t0 = time.time()
+        ring.set_ics(pos, vel, mass, ptype, u=u)
+        sync(device)
+        init_s = time.time() - t0
+        init_counts = _nonzero(kernels.launches)
+        kernels.reset_launches()
+        with slab_pm_passes() as passes:
+            ring_s = run_steps(ring, firsts)
+        counts = dict(kernels.launches)
+    n_pm = passes["pm_local_forces"]
+    recorded = dict(rec)
+    st = ring.state
+    say("slab", f"ring of {ring.mesh.size} rank (NCCL), slab edges "
+        f"{ring.spmd_edges.tolist()}, chunk (gas, other) {ring.spmd_caps}; "
+        f"set_ics {init_s:.3f} s, its launches {init_counts}")
+    say("slab", f"per-step seconds, ring of one: "
+        + ", ".join(f"{x:.3f}" for x in ring_s) + "; one device: "
+        + ", ".join(f"{x:.3f}" for x in one_s)
+        + f"; phase 5: {', '.join(f'{x:.3f}' for x in STEP_SECONDS.get('main', []))}"
+        + f" ({card})")
+    say("slab", f"launches over {steps} sync points ({n_pm} PM steps): "
+        f"{_nonzero(counts)}; ti_current {int(st.ti_current)}, overflow "
+        f"{int(st.overflow_flags)}")
+    check_launches("slab", counts, SLAB + GATHER, "the slab steps")
+    if counts["pm_gather"] != n_pm:
+        raise AssertionError(f"slab: kernel L launched {counts['pm_gather']}"
+                             f" times over {n_pm} slab PM passes")
+    for name in SLAB:
+        results.setdefault(name, {})["launches"] = counts[name]
+    cst = ring.canonical_state()
+    check_finite("slab", cst)
+    check_kernels(recorded, f"slab 2x{n_side}^3", results, SLAB, timed=True,
+                  every=SLAB_EVERY)
+    rcut = ring._spmd_step.rcut
+    hold_slab("slab", "ring of one against one device after the first sync "
+              "point", firsts[1], firsts[0], box, spacing, rcut)
+    hold_slab("slab", f"ring of one against one device after {steps} sync "
+              "points", _by_pid(cst), want, box, spacing, rcut)
+    del cst, want, firsts
+
+    say("kernels", "registers: A's slab mode, C's and D's anisotropic mode "
+        + str([n for name in ("shortrange_gravity_slab", "sph_density_aniso")
+               for _, n in ptxas_registers(PTXAS_NAME[name])]
+              + [n for _, n in ptxas_registers("sph_hydro_kernelILb0ELb1E")]))
+    args = recorded["pm_gather"]
+    check_gather_equal("slab", "L on the slab PM's all-gathered mesh "
+                       f"{tuple(args[0].shape)}", pm.cic_gather_vec(*args),
+                       pm.cic_gather_vec_plain(*args))
+    l_ms, _ = time_ms(lambda: pm.cic_gather_vec(*args), reps=20)
+    say("slab", f"L on the slab PM: {l_ms:.3f} ms, {counts['pm_gather']} "
+        f"launches ({card})")
+    del recorded, rec, args
+    kernels.recorded.clear()
+
+    # a sync point by parts, and one slab PM pass by parts
+    step = ring._spmd_step
+    step.times = {}
+    ring.step()
+    sync(device)
+    parts, step.times = step.times, None
+    say("slab", "a sync point by parts (ms): " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in parts.items()) + f" ({card})")
+    p = ring.state.p
+    with phase_timer(device, SLAB_PM_TIMED) as totals, \
+            ring_timer(ring.mesh, device) as coll:
+        sync(device)
+        t0 = time.perf_counter()
+        pm_local_forces(ring.mesh, p.pos, p.mass, p.alive, box, opts.pmgrid)
+        sync(device)
+        pm_s = time.perf_counter() - t0
+    say("slab", f"a slab PM pass {1e3 * pm_s:.3f} ms: " + ", ".join(
+        f"{label} {1e3 * totals[label][0]:.3f}"
+        for _, _, label in SLAB_PM_TIMED) + ", " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in coll.items()) + f" ({card})")
+    del ring, st, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_slab_cli(card, device, n_side)
+
+
+def phase_slab_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
+    """Phase 18's command line: the 2x128^3 run for SLAB_CLI_STEPS sync
+    points with ``--devices 1`` and without, in child processes, held to
+    each other (energy.txt and the last snapshot); ``--devices 2`` on a
+    machine with fewer cards stops, counting them."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.io.snapshot import read_snapshot
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "slab_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        n = write_ics(str(work / "ics.dat"), n_side)
+        runs = {}
+        for label, extra in (("one device", ()), ("--devices 1",
+                                                  ("--devices", 1))):
+            out = out_dir = work / f"out{len(runs)}"
+            param = work / f"run{len(runs)}.param"
+            param.write_text(run_param_text(n_side, str(work / "ics.dat"),
+                                            str(out), SLAB_CLI_CADENCE))
+            _, wall = _cli(root, param, 0, "--max-steps", SLAB_CLI_STEPS,
+                           "--device", device, *extra, phase="slab")
+            rows = np.loadtxt(out / "energy.txt", ndmin=2)
+            snaps = sorted(out.glob("snapshot_*"))
+            snap = read_snapshot(str(snaps[-1]))
+            order = np.argsort(snap.ids)
+            runs[label] = (rows, snap, order, len(snaps))
+            say("slab", f"CLI {label}: {wall:.1f} s, {len(rows)} energy rows,"
+                f" {len(snaps)} snapshots, {int(snap.header.npart.sum())} "
+                "particles")
+        (r1, s1, o1, k1), (r2, s2, o2, k2) = runs.values()
+        if r1.shape != r2.shape or k1 != k2 or \
+                int(s2.header.npart.sum()) != n:
+            raise AssertionError("slab CLI: the two runs wrote different "
+                                 "outputs")
+        e_err = float(np.abs(r2 - r1).max() / np.abs(r1).max())
+        say("slab", f"CLI energy.txt, --devices 1 against one device: "
+            f"{e_err:.2e} of the largest value (bound {SLAB_BOUND:g})")
+        if not e_err < SLAB_BOUND:
+            raise AssertionError("slab CLI: energy.txt beyond the bound")
+        hold_slab("slab", "CLI last snapshot, --devices 1 against one "
+                  "device", {"pid": s2.ids[o2], "pos": s2.pos[o2],
+                             "vel": s2.vel[o2]},
+                  {"pid": s1.ids[o1], "pos": s1.pos[o1], "vel": s1.vel[o1]},
+                  float(s1.header.box_size), float(s1.header.box_size)
+                  / n_side)
+        for line in (out_dir / "info.txt").read_text().splitlines():
+            if "slab lists" in line or "overflow" in line:
+                say("slab", f"CLI --devices 1 info.txt: {line.strip()}")
+        if device == "cuda" and torch.cuda.device_count() < 2:
+            import os
+            env = dict(os.environ, PYTHONPATH=str(root))
+            proc = subprocess.run(
+                [sys.executable, "-m", "gadget_leicester_tpu_torch",
+                 str(work / "run0.param"), "--devices", "2"], cwd=root,
+                env=env, capture_output=True, text=True, timeout=300)
+            msg = proc.stderr.strip().splitlines()[-1:] or [""]
+            say("slab", f"--devices 2 on {torch.cuda.device_count()} card: "
+                f"exit {proc.returncode}, {msg[0]!r}")
+            if proc.returncode == 0 or \
+                    f"{torch.cuda.device_count()} visible" not in proc.stderr:
+                raise AssertionError("slab CLI: --devices 2 did not stop "
+                                     "counting the cards")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def sync(device) -> None:
     import torch
     if device == "cuda":
@@ -4991,6 +5370,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_switches(card)
     say("time", f"phase 17 done at {time.time() - t_start:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_slab(results, card)
+    say("time", f"phase 18 done at {time.time() - t_start:.0f} s")
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

@@ -2,8 +2,8 @@
 gadget_leicester_tpu.
 
 The JAX package beside it is the reference; this package mirrors its
-layout (``core/``, ``ops/``, ``models/``) and names each module's JAX
-counterpart in its docstring. The first slice ported is the lcdm_gas
+layout (``core/``, ``ops/``, ``models/``, ``parallel/``) and names each
+module's JAX counterpart in its docstring. The first slice ported is the lcdm_gas
 sync-point step: periodic TreePM gravity and block-packed SPH, driven by
 ``models.simulation.Simulation``. Its four hand-written CUDA kernels live
 in ``csrc/`` and are built and bound by ``kernels.py``; every kernel has a

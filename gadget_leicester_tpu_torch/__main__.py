@@ -7,8 +7,14 @@ starts from a snapshot named by InitCondFile. ``--device`` (``cuda``, the
 default, or ``cpu``) is the one flag the JAX CLI lacks; asked for CUDA
 where there is none, the run stops with a message and a non-zero exit.
 ``--makeglass NSIDE`` writes an NSIDE^3 glass (``models/glass.py``) as
-``glass.dat`` into OutputDir, in SnapFormat, and exits. ``--devices`` is
-not ported (ROADMAP queue 1 item 14) and exits non-zero.
+``glass.dat`` into OutputDir, in SnapFormat, and exits. ``--devices K``
+runs the periodic slab step on a ring of K ranks, one process and one
+card each (``parallel/``; with ``--device cpu``, K gloo processes): K = 1
+runs in this process on a ring of one, a larger K starts its ranks with
+``parallel/launch.py``; it stops with a message counting the cards where
+fewer than K are visible. A run the slab step does not take yet (vacuum
+boundaries, the zoom included, sinks, Stamatellos cooling) stops with a
+message naming ROADMAP queue 1 item 14.
 ``--isothermal`` runs the isothermal EOS. ``--cooling`` and ``--sinks``
 run the fork's physics. As
 in the JAX CLI, no sink is registered from the particle types: a run
@@ -21,7 +27,7 @@ import argparse
 import sys
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gadget_leicester_tpu_torch",
         description="GADGET on one NVIDIA GPU: TreePM N-body + SPH "
@@ -41,20 +47,19 @@ def main(argv=None):
                     help="MAKEGLASS mode: generate an NSIDE^3 glass file "
                          "into OutputDir and exit [G2: -DMAKEGLASS]")
     ap.add_argument("--devices", type=int, default=None, metavar="K",
-                    help="domain decomposition over K devices (not ported: "
-                         "ROADMAP queue 1 item 14)")
+                    help="the periodic slab step over K ranks, one card "
+                         "each (gloo processes with --device cpu)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the run goes: cuda (default, the kernels) "
                          "or cpu (their plain PyTorch versions)")
-    args = ap.parse_args(argv)
+    return ap
 
-    if args.devices:
-        print("--devices is not ported yet (ROADMAP queue 1 item 14)",
-              file=sys.stderr)
-        return 2
 
-    from gadget_leicester_tpu_torch.models.simulation import (Simulation,
-                                                              resolve_device)
+def main(argv=None):
+    if argv is None:
+        argv = sys.argv[1:]
+    args = _parser().parse_args(argv)
+    from gadget_leicester_tpu_torch.models.simulation import resolve_device
     try:
         resolve_device(args.device)
     except RuntimeError as exc:
@@ -62,7 +67,32 @@ def main(argv=None):
         return 1
     if args.makeglass:
         return write_glass(args.paramfile, args.makeglass, args.device)
-    # only explicitly given flags override the config and the sidecar
+    k = args.devices
+    if k is None:
+        return run_main(argv)
+    if k < 1:
+        print(f"--devices {k}: a ring needs at least one rank",
+              file=sys.stderr)
+        return 2
+    refusal = slab_refusal(args)
+    if refusal:
+        print(f"gadget_leicester_tpu_torch: {refusal}", file=sys.stderr)
+        return 2
+    if args.device == "cuda":
+        import torch
+        n = torch.cuda.device_count()
+        if n < k:
+            print(f"gadget_leicester_tpu_torch: --devices {k} needs {k} "
+                  f"CUDA devices, one a rank; {n} visible", file=sys.stderr)
+            return 2
+    if k == 1:
+        return run_main(argv, mesh=1)
+    from gadget_leicester_tpu_torch.parallel.launch import cli_rank, spawn
+    return spawn(cli_rank, k, (argv,), device=args.device, timeout=None)[0]
+
+
+def _overrides(args) -> dict:
+    """Only explicitly given flags override the config and the sidecar."""
     overrides = {}
     if args.pmgrid is not None:
         overrides["pmgrid"] = args.pmgrid
@@ -73,18 +103,60 @@ def main(argv=None):
         overrides["sinks"] = args.sinks
     if args.isothermal is not None:
         overrides["isotherm_eqs"] = args.isothermal
+    return overrides
+
+
+def slab_refusal(args) -> str:
+    """Why the slab step would refuse this run ('' where it takes it),
+    from the options the run would resolve (a periodic box takes its
+    automatic PM mesh, as from_param_file gives it)."""
+    import os
+
+    from gadget_leicester_tpu_torch.core.config import (
+        options_from_config, options_sidecar_path, parse_makefile_options,
+        read_parameter_file)
+    from gadget_leicester_tpu_torch.parallel.spmd import check_slab_supported
+    cfg = read_parameter_file(args.paramfile)
+    side_kw = {}
+    sidecar = options_sidecar_path(args.paramfile)
+    if os.path.exists(sidecar):
+        with open(sidecar) as fh:
+            side_kw = parse_makefile_options(fh.read())
+    side_kw.update(_overrides(args))
+    try:
+        check_slab_supported(options_from_config(cfg, n_particles=1,
+                                                 **side_kw))
+    except NotImplementedError as exc:
+        return str(exc)
+    return ""
+
+
+def run_main(argv=None, mesh=None, rank: int = 0) -> int:
+    """The run of the command line: from the parameter file to TimeMax
+    (or ``--max-steps``), on a ring ``mesh`` when given (this process its
+    rank ``rank``; only rank 0 prints)."""
+    args = _parser().parse_args(argv)
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
     sim = Simulation.from_param_file(args.paramfile, None,
                                      restart_flag=args.restartflag,
-                                     opt_overrides=overrides,
-                                     device=args.device)
+                                     opt_overrides=_overrides(args),
+                                     device=args.device, mesh=mesh)
     cfg, opts = sim.cfg, sim.opts
-    print(f"N={int(sim.state.p.alive.sum())} particles on {sim.device}; "
-          f"t={sim.time:g} -> {cfg.time_max:g}; "
-          f"gravity={opts.gravity_mode}, pmgrid={opts.pmgrid}")
+    where = f"{sim.device}" if mesh is None else \
+        f"{sim.device} x {sim.mesh.size} ranks"
+    n = sim.state.p.alive.sum()
+    n = int(n if sim.mesh is None else sim.mesh.psum(n))
+    if rank == 0:
+        print(f"N={n} particles on {where}; "
+              f"t={sim.time:g} -> {cfg.time_max:g}; "
+              f"gravity={opts.gravity_mode}, pmgrid={opts.pmgrid}",
+              flush=True)
     sim.run(max_steps=args.max_steps)
     sim.logs.close()
-    print(f"done: {sim.step_count} steps, t={sim.time:g}, "
-          f"{sim.snapshot_count} snapshots in {cfg.output_dir}")
+    if rank == 0:
+        print(f"done: {sim.step_count} steps, t={sim.time:g}, "
+              f"{sim.snapshot_count} snapshots in {cfg.output_dir}",
+              flush=True)
     return 0
 
 

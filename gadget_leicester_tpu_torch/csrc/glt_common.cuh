@@ -536,6 +536,35 @@ __device__ __forceinline__ OddBlocks odd_blocks(int b, int nb, float lf) {
   return {b / (nb * nb), (b / nb) % nb, b % nb, nb, lf};
 }
 
+// The even block grid of kernels C and D, per axis: n[a] even blocks, bit a
+// of `per` set where axis a wraps. A wrapped axis's odd grid has n[a]
+// blocks and its source ids wrap mod n[a]; a clamped axis's odd grid has
+// n[a] + 1 and needs no wrap. A cubic periodic grid is n = (nb, nb, nb),
+// per = 7; the absolute mode's clamped grid per = 0; the slab's grid
+// (clamped x, periodic y and z) per = 6.
+struct BlockGrid {
+  int n[3];
+  int per;
+  __device__ __forceinline__ int odd(int a) const {
+    return (per >> a) & 1 ? n[a] : n[a] + 1;
+  }
+  __device__ __forceinline__ int coord(int a, int i) const {
+    return (per >> a) & 1 ? wrap(i, n[a]) : i;
+  }
+  // odd source block b + g of even block (bx, by, bz)
+  __device__ __forceinline__ int source(int bx, int by, int bz, int g) const {
+    return (coord(0, bx + (g >> 2)) * odd(1) + coord(1, by + ((g >> 1) & 1))) *
+               odd(2) +
+           coord(2, bz + (g & 1));
+  }
+};
+
+inline int odd_blocks_of(const int (&n)[3], int per) {
+  int c = 1;
+  for (int a = 0; a < 3; ++a) c *= (per >> a) & 1 ? n[a] : n[a] + 1;
+  return c;
+}
+
 // The items (odd block g, chunk c), u = g * chunks + c, that an entry's
 // need words name, in ascending order: each lane holds the need word of
 // one group of a round of 32 groups. All lanes call next(); it returns

@@ -5,6 +5,38 @@
 // shortrange_gravity_pallas (kernel body _make_kernel). Plain PyTorch twin:
 // ops/gravity_short.py :: shortrange_gravity_cells_plain.
 //
+// The same source hosts kernel A's slab mode (C entry
+// glt_shortrange_gravity_slab): gadget_leicester_tpu/ops/pallas_cells.py ::
+// shortrange_gravity_pallas_dma9 with a tuple n_cells = (nx, nyz, nyz),
+// periodic = (False, True, True), absolute coordinates and a prebuilt cell
+// list, as parallel/spmd.py :: _gravity calls it. Plain PyTorch twin:
+// ops/gravity_short.py :: shortrange_gravity_slab_plain. Why M's kernel and
+// not A's: A works on the cell-relative pack of a cubic periodic grid, where
+// a stencil cell's offset is one shift per tile; the slab's pack is
+// absolute (its ghosts' x is already mapped into the slab's frame, and y, z
+// wrap), which is M's pack and M's per-pair minimum image. The mode is M's
+// kernel with three generalisations, each a no-op on M's own calls:
+// - per-axis cell counts (nx, ny, nz); M passes (n, n, n);
+// - a per-axis image mask kPer (bit a set: axis a periodic), a template
+//   argument: the minimum image, the wrap of the stencil and the box test's
+//   nearest multiple of the box are taken on the axes of the mask only, so
+//   the slab's clamped x takes no image (a ghost's x was mapped onto the
+//   slab's face, and an image of it along x would be a second copy), and a
+//   stencil cell beyond a clamped face adds nothing (the TPU kernel's inb
+//   mask, which keeps a clamped DMA from counting the edge column twice);
+//   M instantiates 7 and 0, the slab 6;
+// - tile flags: a cell whose flag is 0 writes zeros and does nothing else,
+//   as A's dense tier gates its tiles by the step's activity (the TPU slab
+//   call passes active=None and masks afterwards; the results agree, as
+//   the step keeps an inactive particle's acc). M passes no flags.
+// Where the slab differs from a cube: nx may be 1 or 2 (a clamped axis
+// never meets a cell twice), nx != nyz, a target on the slab's face at
+// float32 x == x1 is a pair like any other (the grid clamps it into the
+// last cell, no image is taken), and a ghost's x lies outside [x0, x1) by
+// construction. The TPU kernel's test is r2 < rcut^2, this one's M's r <
+// rcut (exact after the rsqrt); a pair at rcut to the last ulp may differ,
+// where the truncated force is 1.5e-3 of its untruncated value.
+//
 // What it computes. soa is the [C, 8, cap] ABSOLUTE pack of ops/cells.py ::
 // pack_cells_abs (rows x, y, z as the particles hold them, m, soft, 1,
 // 1/soft, 0; parked slots with m = 0). For every packed target slot it
@@ -83,7 +115,8 @@
 // and M took 21.08 ms against the earlier design's 25.58-25.76, in turns
 // on an H100 (PERF.md section 6); what is left is the pair arithmetic of
 // the evaluated pairs, dearer than A's by the minimum image and the exact
-// r < rcut test. -Xptxas=-v for sm_90a: 56 registers either grid, 7,392
+// r < rcut test. -Xptxas=-v for sm_90a: 56 registers in each instance (7,
+// 6, 0), 7,392
 // bytes of shared memory a block of 128 threads, no spills.
 
 #include <cfloat>
@@ -98,8 +131,8 @@ using glt::kFull;
 
 // The earlier design's pair arithmetic, unchanged: the pull of source (q,
 // hq) = (x, y, z, m), (soft, 1/soft) on target (tx, ty, tz) with (th,
-// thinv), per-pair minimum image where kPeriodic.
-template <bool kPeriodic>
+// thinv), per-pair minimum image on the axes of kPer.
+template <int kPer>
 __device__ __forceinline__ void cells_pair(float tx, float ty, float tz,
                                            float th, float thinv,
                                            const float4& q, const float2& hq,
@@ -110,11 +143,9 @@ __device__ __forceinline__ void cells_pair(float tx, float ty, float tz,
   float dx = tx - q.x;
   float dy = ty - q.y;
   float dz = tz - q.z;
-  if constexpr (kPeriodic) {
-    dx = dx - box * rintf(dx * inv_box);
-    dy = dy - box * rintf(dy * inv_box);
-    dz = dz - box * rintf(dz * inv_box);
-  }
+  if constexpr ((kPer & 1) != 0) dx = dx - box * rintf(dx * inv_box);
+  if constexpr ((kPer & 2) != 0) dy = dy - box * rintf(dy * inv_box);
+  if constexpr ((kPer & 4) != 0) dz = dz - box * rintf(dz * inv_box);
   const float r2 = dx * dx + dy * dy + dz * dz;
   if (!(r2 < rcut2_up && r2 > 0.f)) return;
   const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
@@ -149,12 +180,14 @@ __device__ __forceinline__ float image_gap(float l, float u, float box,
   }
 }
 
-template <bool kPeriodic>
+template <int kPer>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     shortrange_gravity_cells_kernel(const float* __restrict__ soa,
-                                    float* __restrict__ out, int n, int cap,
-                                    float box, float half_inv_asmth,
-                                    float rcut, float rcut2_up, float cull2) {
+                                    const int* __restrict__ flags,
+                                    float* __restrict__ out, int nx, int ny,
+                                    int nz, int cap, float box,
+                                    float half_inv_asmth, float rcut,
+                                    float rcut2_up, float cull2) {
   __shared__ float4 s_pos[2][kThreads];   // x, y, z; m
   __shared__ float2 s_soft[2][kThreads];  // soft, 1/soft
   __shared__ unsigned s_key[kThreads];
@@ -165,26 +198,32 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
   const int c = blockIdx.x;
   float* o = out + static_cast<size_t>(c) * 3 * cap;
+  if (flags != nullptr && flags[c] == 0) {   // a gated tile: zeros
+    for (int t = threadIdx.x; t < cap; t += blockDim.x)
+      o[t] = o[cap + t] = o[2 * cap + t] = 0.f;
+    return;
+  }
   const int nt = blockDim.x;
   const int lane = threadIdx.x & 31;
-  const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
+  const int cx = c / (ny * nz), cy = (c / nz) % ny, cz = c % nz;
   const float* tile = soa + static_cast<size_t>(c) * 8 * cap;
-  const float inv_box = kPeriodic ? 1.0f / box : 0.f;
+  const float inv_box = kPer != 0 ? 1.0f / box : 0.f;
 
-  // the stencil's cells on the grid, in order j = 0..26
+  // the stencil's cells on the grid, in order j = 0..26: wrapped along the
+  // axes of kPer, those beyond a clamped face left out
   if (threadIdx.x < 32) {
     const int j = lane;
-    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    int sx = cx + j / 9 - 1, sy = cy + (j / 3) % 3 - 1, sz = cz + j % 3 - 1;
     bool on = j < 27;
-    if constexpr (kPeriodic) {
-      nx = glt::wrap(nx, n);
-      ny = glt::wrap(ny, n);
-      nz = glt::wrap(nz, n);
-    } else {
-      on = on && nx >= 0 && nx < n && ny >= 0 && ny < n && nz >= 0 && nz < n;
-    }
+    if constexpr ((kPer & 1) != 0) sx = glt::wrap(sx, nx);
+    else on = on && sx >= 0 && sx < nx;
+    if constexpr ((kPer & 2) != 0) sy = glt::wrap(sy, ny);
+    else on = on && sy >= 0 && sy < ny;
+    if constexpr ((kPer & 4) != 0) sz = glt::wrap(sz, nz);
+    else on = on && sz >= 0 && sz < nz;
     const unsigned mask = __ballot_sync(kFull, on);
-    if (on) s_src[__popc(mask & ((1u << lane) - 1u))] = (nx * n + ny) * n + nz;
+    if (on)
+      s_src[__popc(mask & ((1u << lane) - 1u))] = (sx * ny + sy) * nz + sz;
     if (lane == 0) s_nsrc = __popc(mask);
   }
   __syncthreads();
@@ -240,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
     __syncthreads();
     auto pair = [&](const float4& q, const float2& hq) {
-      cells_pair<kPeriodic>(tx, ty, tz, th, thinv, q, hq, box, inv_box,
+      cells_pair<kPer>(tx, ty, tz, th, thinv, q, hq, box, inv_box,
                             half_inv_asmth, rcut, rcut2_up, ax, ay, az);
     };
     for (int step = 0; any_live && step < steps; ++step) {
@@ -254,15 +293,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
           bool near = false;
           if (k < len) {
             const float4 q = s_pos[b][k];
-            const float ex = image_gap<kPeriodic>(wb.lo[0] - q.x,
-                                                  wb.hi[0] - q.x, box,
-                                                  inv_box);
-            const float ey = image_gap<kPeriodic>(wb.lo[1] - q.y,
-                                                  wb.hi[1] - q.y, box,
-                                                  inv_box);
-            const float ez = image_gap<kPeriodic>(wb.lo[2] - q.z,
-                                                  wb.hi[2] - q.z, box,
-                                                  inv_box);
+            const float ex = image_gap<(kPer & 1) != 0>(
+                wb.lo[0] - q.x, wb.hi[0] - q.x, box, inv_box);
+            const float ey = image_gap<(kPer & 2) != 0>(
+                wb.lo[1] - q.y, wb.hi[1] - q.y, box, inv_box);
+            const float ez = image_gap<(kPer & 4) != 0>(
+                wb.lo[2] - q.z, wb.hi[2] - q.z, box, inv_box);
             near = q.w != 0.f && ex * ex + ey * ey + ez * ez < cull2;
           }
           // the near sources in slot order, two at a time where there are
@@ -302,25 +338,56 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-}  // namespace
-
-extern "C" int glt_shortrange_gravity_cells(const float* soa, float* out,
-                                            int n_cells, int cap, float box,
-                                            int periodic, float half_inv_asmth,
-                                            float rcut, void* stream) {
-  const int c = n_cells * n_cells * n_cells;
+int launch(const float* soa, const int* flags, float* out, int nx, int ny,
+           int nz, int per, int cap, float box, float half_inv_asmth,
+           float rcut, cudaStream_t st) {
+  const int c = nx * ny * nz;
   const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
   const double up = static_cast<double>(rcut) * rcut * (1.0 + 1e-6);
   const float rcut2_up = up < FLT_MAX ? static_cast<float>(up) : FLT_MAX;
   // a source is culled only beyond rcut (1 + 2e-5 on the square) of its
   // warp's box; inf where rcut2_up is the largest float: nothing is culled
   const float cull2 = rcut2_up * glt::kCullMargin2;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (periodic)
-    shortrange_gravity_cells_kernel<true><<<c, threads, 0, st>>>(
-        soa, out, n_cells, cap, box, half_inv_asmth, rcut, rcut2_up, cull2);
-  else
-    shortrange_gravity_cells_kernel<false><<<c, threads, 0, st>>>(
-        soa, out, n_cells, cap, box, half_inv_asmth, rcut, rcut2_up, cull2);
+  switch (per) {
+    case 7:
+      shortrange_gravity_cells_kernel<7><<<c, threads, 0, st>>>(
+          soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
+          rcut2_up, cull2);
+      break;
+    case 6:
+      shortrange_gravity_cells_kernel<6><<<c, threads, 0, st>>>(
+          soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
+          rcut2_up, cull2);
+      break;
+    case 0:
+      shortrange_gravity_cells_kernel<0><<<c, threads, 0, st>>>(
+          soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
+          rcut2_up, cull2);
+      break;
+    default:   // no other image mask is instantiated
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int glt_shortrange_gravity_cells(const float* soa, float* out,
+                                            int n_cells, int cap, float box,
+                                            int periodic, float half_inv_asmth,
+                                            float rcut, void* stream) {
+  return launch(soa, nullptr, out, n_cells, n_cells, n_cells,
+                periodic ? 7 : 0, cap, box, half_inv_asmth, rcut,
+                static_cast<cudaStream_t>(stream));
+}
+
+// kernel A's slab mode: per-axis cell counts, the image mask per (bit a
+// set: axis a periodic; the slab's 6) and tile flags
+extern "C" int glt_shortrange_gravity_slab(const float* soa, const int* flags,
+                                           float* out, int nx, int ny, int nz,
+                                           int per, int cap, float box,
+                                           float half_inv_asmth, float rcut,
+                                           void* stream) {
+  return launch(soa, flags, out, nx, ny, nz, per, cap, box, half_inv_asmth,
+                rcut, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,10 @@
 // (kernel body _make_density_block_kernel) in both its modes: block-
 // relative on a periodic grid (C entry glt_sph_density) and absolute on a
 // clamped (vacuum) grid (relative=False there; C entry
-// glt_sph_density_abs). Plain PyTorch twin: ops/sph_blocks.py ::
+// glt_sph_density_abs), and the relative mode on the anisotropic block grid
+// of a slab (per-axis block counts and periodicity, fine_edge given:
+// gadget_leicester_tpu/parallel/spmd.py :: _sph_blocks; C entry
+// glt_sph_density_aniso). Plain PyTorch twin: ops/sph_blocks.py ::
 // density_sums_blocks_plain.
 //
 // What it computes. soa_e / soa_o are the even [B, 8, lanes] and odd
@@ -18,7 +21,10 @@
 // Relative mode: x, y, z relative to the block centre, Bo = B = nb^3, the
 // source blocks wrap mod nb and dx = (t - s) + (1 - 2g) * Lf per axis;
 // every target lane is summed, the parked ones too (-7 fine cells from
-// their block centre, with whatever h the caller passes them). Absolute
+// their block centre, with whatever h the caller passes them). On a slab's
+// grid, (nbx, nb, nb) blocks clamped along x, the ids wrap along y and z
+// only, the odd grid has nbx + 1 blocks along x and dx is the same
+// expression (glt::BlockGrid; kernel D's note). Absolute
 // mode: absolute x, y, z, Bo = (nb+1)^3 with no wrap, dx = t - s; a parked
 // slot's position (-7 fine cells) may lie inside the cloud, so a source is
 // skipped by its mass, never by its distance, and a target that is parked
@@ -76,7 +82,8 @@
 //   may differ in their last bits. No compaction of inside pairs.
 // - The boxes go to a workspace of Bo x 64 floats that the caller
 //   allocates.
-// nvcc 12.8 -Xptxas=-v for sm_90a: 60 registers relative, 58 absolute,
+// nvcc 12.8 -Xptxas=-v for sm_90a: 61 registers relative on a cube, 63 on
+// an anisotropic grid (glt::BlockGrid), 58 absolute,
 // 14,560 bytes of shared memory a block of 256 threads; the subcell boxes
 // 32 registers.
 
@@ -88,14 +95,15 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 7;   // soa_o rows x, y, z, m, vx, vy, vz
 
-template <bool kAbs>
+template <bool kAbs, bool kAniso>
 __global__ void __launch_bounds__(kThreads)
     sph_density_kernel(const float* __restrict__ soa_e,
                        const float* __restrict__ soa_o,
                        const float* __restrict__ h,
                        const int* __restrict__ flags,
                        const float* __restrict__ boxes,
-                       float* __restrict__ out, int nb, int lanes, float lf) {
+                       float* __restrict__ out, glt::BlockGrid grid,
+                       int lanes, float lf) {
   constexpr glt::Shift kShift = kAbs ? glt::Shift::kNone : glt::Shift::kPair;
   const int b = blockIdx.x;
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
@@ -112,8 +120,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int subcap = lanes >> 3;
   const int chunks = (subcap + 31) >> 5;   // chunks of 32 lanes a subcell
-  const int bx = b / (nb * nb), by = (b / nb) % nb, bz = b % nb;
-  const int nbo = kAbs ? nb + 1 : nb;
+  // a cube (both modes) decodes and wraps as before the per-axis grid,
+  // so its instances compile as they did; an anisotropic grid reads the
+  // per-axis counts
+  const int nb = grid.n[0];
+  const int bx = kAniso ? b / (grid.n[1] * grid.n[2]) : b / (nb * nb);
+  const int by = kAniso ? (b / grid.n[2]) % grid.n[1] : (b / nb) % nb;
+  const int bz = kAniso ? b % grid.n[2] : b % nb;
   const float* tile = soa_e + static_cast<size_t>(b) * 8 * lanes;
 
   float tx = 0.f, ty = 0.f, tz = 0.f, tvx = 0.f, tvy = 0.f, tvz = 0.f;
@@ -151,9 +164,15 @@ __global__ void __launch_bounds__(kThreads)
 
   auto src_block = [&](int g) {
     const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
-                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
-                      glt::wrap(bz + gz, nb);
+    if constexpr (kAniso) {
+      return grid.source(bx, by, bz, g);
+    } else if constexpr (kAbs) {
+      const int nbo = nb + 1;
+      return ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz);
+    } else {
+      return (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+             glt::wrap(bz + gz, nb);
+    }
   };
   auto shifts = [&](int g, float (&sh)[3]) {
     sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
@@ -269,32 +288,51 @@ int threads_for(int lanes) {
   return lanes < kThreads ? ((lanes + 31) / 32) * 32 : kThreads;
 }
 
+int launch(bool abs, const float* soa_e, const float* soa_o, const float* h,
+           const int* flags, float* boxes, float* out, const int (&n)[3],
+           int per, int lanes, float lf, cudaStream_t st) {
+  const int threads = threads_for(lanes);
+  const dim3 grid(n[0] * n[1] * n[2], (lanes + threads - 1) / threads);
+  const glt::BlockGrid g{{n[0], n[1], n[2]}, per};
+  glt::launch_boxes<8, 3, -1>(soa_o, boxes, glt::odd_blocks_of(n, per), lanes,
+                              lanes / 8, st);
+  if (abs)   // the clamped cube of a vacuum grid
+    sph_density_kernel<true, false><<<grid, threads, 0, st>>>(
+        soa_e, soa_o, h, flags, boxes, out, g, lanes, 0.f);
+  else if (per == 7 && n[0] == n[1] && n[1] == n[2])   // a periodic cube
+    sph_density_kernel<false, false><<<grid, threads, 0, st>>>(
+        soa_e, soa_o, h, flags, boxes, out, g, lanes, lf);
+  else   // an anisotropic grid (the slab's)
+    sph_density_kernel<false, true><<<grid, threads, 0, st>>>(
+        soa_e, soa_o, h, flags, boxes, out, g, lanes, lf);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int glt_sph_density(const float* soa_e, const float* soa_o,
                                const float* h, const int* flags, float* boxes,
                                float* out, int nb, int lanes, float lf,
                                void* stream) {
-  const int threads = threads_for(lanes);
-  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::launch_boxes<8, 3, -1>(soa_o, boxes, nb * nb * nb, lanes, lanes / 8,
-                              st);
-  sph_density_kernel<false><<<grid, threads, 0, st>>>(
-      soa_e, soa_o, h, flags, boxes, out, nb, lanes, lf);
-  return static_cast<int>(cudaGetLastError());
+  return launch(false, soa_e, soa_o, h, flags, boxes, out, {nb, nb, nb}, 7,
+                lanes, lf, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int glt_sph_density_abs(const float* soa_e, const float* soa_o,
                                    const float* h, const int* flags,
                                    float* boxes, float* out, int nb,
                                    int lanes, void* stream) {
-  const int threads = threads_for(lanes);
-  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::launch_boxes<8, 3, -1>(soa_o, boxes, (nb + 1) * (nb + 1) * (nb + 1),
-                              lanes, lanes / 8, st);
-  sph_density_kernel<true><<<grid, threads, 0, st>>>(
-      soa_e, soa_o, h, flags, boxes, out, nb, lanes, 0.f);
-  return static_cast<int>(cudaGetLastError());
+  return launch(true, soa_e, soa_o, h, flags, boxes, out, {nb, nb, nb}, 0,
+                lanes, 0.f, static_cast<cudaStream_t>(stream));
+}
+
+// relative mode on per-axis block counts; bit a of per set where axis a
+// wraps (the slab's grid: 6)
+extern "C" int glt_sph_density_aniso(const float* soa_e, const float* soa_o,
+                                     const float* h, const int* flags,
+                                     float* boxes, float* out, int nbx,
+                                     int nby, int nbz, int per, int lanes,
+                                     float lf, void* stream) {
+  return launch(false, soa_e, soa_o, h, flags, boxes, out, {nbx, nby, nbz},
+                per, lanes, lf, static_cast<cudaStream_t>(stream));
 }

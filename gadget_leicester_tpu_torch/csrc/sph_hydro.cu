@@ -3,8 +3,11 @@
 // Replaces gadget_leicester_tpu/ops/sph_blocks.py :: hydro_sums_blocks
 // (kernel body _make_hydro_block_kernel) in both its modes: block-relative
 // on a periodic grid (C entry glt_sph_hydro) and absolute on a clamped
-// (vacuum) grid (relative=False there; C entry glt_sph_hydro_abs). Plain
-// PyTorch twin: ops/sph_blocks.py :: hydro_sums_blocks_plain.
+// (vacuum) grid (relative=False there; C entry glt_sph_hydro_abs), and the
+// relative mode on the anisotropic block grid of a slab (per-axis block
+// counts and periodicity, fine_edge given: gadget_leicester_tpu/parallel/
+// spmd.py :: _sph_blocks; C entry glt_sph_hydro_aniso). Plain PyTorch twin:
+// ops/sph_blocks.py :: hydro_sums_blocks_plain.
 //
 // What it computes. Targets come from the even block's [B, 8, lanes]
 // soa_a (x, y, z, m, vx, vy, vz, h) and [B, 8, lanes] soa_b (rho,
@@ -18,7 +21,11 @@
 // rho^(gamma-1)) factor.
 //
 // Relative mode: x, y, z relative to the block centre, Bo = B, the source
-// blocks wrap mod nb, dx = (t - s) + (1 - 2g) * Lf. The self-pair is
+// blocks wrap mod nb, dx = (t - s) + (1 - 2g) * Lf. On a slab's grid
+// (nbx, nb, nb) blocks, clamped along x: the ids wrap along y and z only,
+// the odd grid has nbx + 1 blocks along x, and dx is the same expression
+// (an even block's centre lies (1 - 2g) Lf from its odd source's along
+// every axis, clamped or not); glt::BlockGrid holds the per-axis counts. The self-pair is
 // excluded by comparing int32 particle indices (idx_e, idx_o): its
 // separation is zero only up to rounding, and the float32 ids of the JAX
 // package are exact only below 2^24 particles. Absolute mode: absolute
@@ -115,7 +122,7 @@ using glt::kFull;
 using glt::near_boxes;
 using glt::warp_box;
 
-template <bool kAbs>
+template <bool kAbs, bool kAniso>
 __global__ void __launch_bounds__(kThreads)
     sph_hydro_kernel(const float* __restrict__ soa_a,
                      const float* __restrict__ soa_b,
@@ -125,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ flags,
                      const float* __restrict__ params,
                      const float* __restrict__ boxes,
-                     float* __restrict__ out, int nb, int lanes, float lf,
-                     float half_visc) {
+                     float* __restrict__ out, glt::BlockGrid grid, int lanes,
+                     float lf, float half_visc) {
   constexpr glt::Shift kShift = kAbs ? glt::Shift::kNone : glt::Shift::kPair;
   const int b = blockIdx.x;
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
@@ -143,8 +150,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int subcap = lanes >> 3;
   const int chunks = (subcap + 31) >> 5;   // chunks of 32 lanes a subcell
-  const int bx = b / (nb * nb), by = (b / nb) % nb, bz = b % nb;
-  const int nbo = kAbs ? nb + 1 : nb;
+  // a cube (both modes) decodes and wraps as before the per-axis grid,
+  // so its instances compile as they did; an anisotropic grid reads the
+  // per-axis counts
+  const int nb = grid.n[0];
+  const int bx = kAniso ? b / (grid.n[1] * grid.n[2]) : b / (nb * nb);
+  const int by = kAniso ? (b / grid.n[2]) % grid.n[1] : (b / nb) % nb;
+  const int bz = kAniso ? b % grid.n[2] : b % nb;
   const float* ta = soa_a + static_cast<size_t>(b) * 8 * lanes;
   const float* tb = soa_b + static_cast<size_t>(b) * 8 * lanes;
 
@@ -184,9 +196,15 @@ __global__ void __launch_bounds__(kThreads)
 
   auto src_block = [&](int g) {
     const int gx = g >> 2, gy = (g >> 1) & 1, gz = g & 1;
-    return kAbs ? ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz)
-                : (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
-                      glt::wrap(bz + gz, nb);
+    if constexpr (kAniso) {
+      return grid.source(bx, by, bz, g);
+    } else if constexpr (kAbs) {
+      const int nbo = nb + 1;
+      return ((bx + gx) * nbo + (by + gy)) * nbo + (bz + gz);
+    } else {
+      return (glt::wrap(bx + gx, nb) * nb + glt::wrap(by + gy, nb)) * nb +
+             glt::wrap(bz + gz, nb);
+    }
   };
   auto shifts = [&](int g, float (&sh)[3]) {
     sh[0] = kAbs ? 0.f : static_cast<float>(1 - 2 * (g >> 2)) * lf;
@@ -335,6 +353,31 @@ int threads_for(int lanes) {
   return lanes < kThreads ? ((lanes + 31) / 32) * 32 : kThreads;
 }
 
+int launch(bool abs, const float* soa_a, const float* soa_b,
+           const float* src16, const int* idx_e, const int* idx_o,
+           const int* flags, const float* params, float* boxes, float* out,
+           const int (&n)[3], int per, int lanes, float lf, float half_visc,
+           cudaStream_t st) {
+  const int threads = threads_for(lanes);
+  const dim3 grid(n[0] * n[1] * n[2], (lanes + threads - 1) / threads);
+  const glt::BlockGrid g{{n[0], n[1], n[2]}, per};
+  glt::launch_boxes<16, 12, 7>(src16, boxes, glt::odd_blocks_of(n, per),
+                               lanes, lanes / 8, st);
+  if (abs)   // the clamped cube of a vacuum grid
+    sph_hydro_kernel<true, false><<<grid, threads, 0, st>>>(
+        soa_a, soa_b, src16, nullptr, nullptr, flags, params, boxes, out, g,
+        lanes, 0.f, half_visc);
+  else if (per == 7 && n[0] == n[1] && n[1] == n[2])   // a periodic cube
+    sph_hydro_kernel<false, false><<<grid, threads, 0, st>>>(
+        soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, g,
+        lanes, lf, half_visc);
+  else   // an anisotropic grid (the slab's)
+    sph_hydro_kernel<false, true><<<grid, threads, 0, st>>>(
+        soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, g,
+        lanes, lf, half_visc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
@@ -343,15 +386,9 @@ extern "C" int glt_sph_hydro(const float* soa_a, const float* soa_b,
                              const float* params, float* boxes, float* out,
                              int nb, int lanes, float lf, float half_visc,
                              void* stream) {
-  const int threads = threads_for(lanes);
-  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::launch_boxes<16, 12, 7>(src16, boxes, nb * nb * nb, lanes, lanes / 8,
-                               st);
-  sph_hydro_kernel<false><<<grid, threads, 0, st>>>(
-      soa_a, soa_b, src16, idx_e, idx_o, flags, params, boxes, out, nb, lanes,
-      lf, half_visc);
-  return static_cast<int>(cudaGetLastError());
+  return launch(false, soa_a, soa_b, src16, idx_e, idx_o, flags, params,
+                boxes, out, {nb, nb, nb}, 7, lanes, lf, half_visc,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int glt_sph_hydro_abs(const float* soa_a, const float* soa_b,
@@ -359,13 +396,21 @@ extern "C" int glt_sph_hydro_abs(const float* soa_a, const float* soa_b,
                                  const float* params, float* boxes,
                                  float* out, int nb, int lanes,
                                  float half_visc, void* stream) {
-  const int threads = threads_for(lanes);
-  const dim3 grid(nb * nb * nb, (lanes + threads - 1) / threads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  glt::launch_boxes<16, 12, 7>(src16, boxes, (nb + 1) * (nb + 1) * (nb + 1),
-                               lanes, lanes / 8, st);
-  sph_hydro_kernel<true><<<grid, threads, 0, st>>>(
-      soa_a, soa_b, src16, nullptr, nullptr, flags, params, boxes, out, nb,
-      lanes, 0.f, half_visc);
-  return static_cast<int>(cudaGetLastError());
+  return launch(true, soa_a, soa_b, src16, nullptr, nullptr, flags, params,
+                boxes, out, {nb, nb, nb}, 0, lanes, 0.f, half_visc,
+                static_cast<cudaStream_t>(stream));
+}
+
+// relative mode on per-axis block counts; bit a of per set where axis a
+// wraps (the slab's grid: 6)
+extern "C" int glt_sph_hydro_aniso(const float* soa_a, const float* soa_b,
+                                   const float* src16, const int* idx_e,
+                                   const int* idx_o, const int* flags,
+                                   const float* params, float* boxes,
+                                   float* out, int nbx, int nby, int nbz,
+                                   int per, int lanes, float lf,
+                                   float half_visc, void* stream) {
+  return launch(false, soa_a, soa_b, src16, idx_e, idx_o, flags, params,
+                boxes, out, {nbx, nby, nbz}, per, lanes, lf, half_visc,
+                static_cast<cudaStream_t>(stream));
 }

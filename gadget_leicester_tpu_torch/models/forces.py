@@ -186,8 +186,11 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
     if opts.forcetest > 0:
         _refuse("forcetest", "ROADMAP queue 1 item 11")
     if not isinstance(opts.periodic, bool):
-        _refuse(f"per-axis periodic {opts.periodic!r} (the slab's grids)",
-                "ROADMAP queue 2 item 3")
+        raise NotImplementedError(
+            f"per-axis periodic {opts.periodic!r}: the option is a bool, as "
+            "in the JAX package; the slab step (Simulation(mesh=K), "
+            "--devices K) builds its own per-axis grids (ROADMAP queue 2 "
+            "item 3)")
     mode = resolve_gravity_mode(opts, n_max)
     if mode not in ("treepm", "direct", "tree", "zoom"):
         raise ValueError(f"unknown gravity mode {mode!r}")

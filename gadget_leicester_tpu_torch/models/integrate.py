@@ -171,13 +171,15 @@ def advance_and_find_timesteps(state: SimState, cfg: SimConfig,
 
 
 def pm_step_update(state: SimState, cfg: SimConfig, opts: SimOptions,
-                   is_pm_step: bool) -> SimState:
+                   is_pm_step: bool, ring=None) -> SimState:
     """PM-step kick and new PM interval [G2: timestep.c PM part]. At a PM
     step every particle gets the long-range kick closing the old PM
     half-step and opening the new one; the new global PM step is bounded
     by MaxRMSDisplacementFac * (Box/PMGRID) / v_rms and MaxSizeTimestep.
     ``is_pm_step`` is a host boolean (the JAX package masks with a traced
-    one)."""
+    one). ``ring`` (the slab step's :class:`parallel.mesh.Ring`, the
+    reference's ``axis_name``): the sums of m v^2 and m run over every
+    rank's particles."""
     if not is_pm_step:
         return state
     p = state.p
@@ -185,7 +187,11 @@ def pm_step_update(state: SimState, cfg: SimConfig, opts: SimOptions,
     fac = comoving_factors(cfg, ti_now)
     m = torch.where(p.alive, p.mass, torch.zeros_like(p.mass))
     v2 = (p.vel * p.vel).sum(-1)
-    vrms = torch.sqrt((m * v2).sum() / m.sum().clamp_min(1e-37))
+    if ring is None:
+        vrms = torch.sqrt((m * v2).sum() / m.sum().clamp_min(1e-37))
+    else:
+        sums = ring.psum(torch.stack([(m * v2).sum(), m.sum()]))
+        vrms = torch.sqrt(sums[0] / sums[1].clamp_min(1e-37))
     vrms = vrms.clamp_min(1e-30)
     dsp = cfg.max_rms_displacement_fac * cfg.box_size / max(opts.pmgrid, 1)
     if cfg.comoving_integration_on:

@@ -19,10 +19,20 @@ reads one host boolean: whether this sync point is a PM step, whether a
 cached grid must be rebuilt (``models/grids.py``), and whether the Newton
 loop of the density solve is done (``ops/sph_dense.py``).
 
-Left out, each an item of ROADMAP: the SPMD branches of ``run()``
-(``mesh``, ``_decompose``, ``maybe_rebalance``; queue 1 item 14), the
-``GLT_PROFILE_DIR`` profiler hook and the ``GLT_CPU_DETAIL`` probes
-(tracing), and ``forcetest``, which ``check_supported`` refuses.
+``mesh`` (``Simulation(..., mesh=K)``, the reference's :289-311, and its
+branches of ``from_param_file``, ``_decompose``, ``maybe_rebalance``,
+``canonical_state``, ``step`` and ``run()``) routes the steps through the
+periodic slab step of ``parallel/spmd.py``: this process is one rank of a
+ring (``parallel/mesh.py``), its state the chunk of its slab between
+steps. Every rank builds the same slab layout from the same global state
+and keeps its own chunk; outputs gather the chunks and take the canonical
+layout (``spmd_to_canonical``), and rank 0 alone writes energy.txt,
+cpu.txt, info.txt, snapshots and restart dumps.
+
+Left out, each an item of ROADMAP: the vacuum, sink and Stamatellos
+branches of the slab step (queue 1 item 14), the ``GLT_PROFILE_DIR``
+profiler hook and the ``GLT_CPU_DETAIL`` probes (tracing), and
+``forcetest``, which ``check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -231,16 +241,26 @@ def _capacity_note(ovf: int, opts: SimOptions) -> str:
             f"sr={opts.sr_capacity} ghost={opts.spmd_ghost_frac}")
 
 
+class _NoLogs:
+    """The log files of a rank other than 0: it writes none."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class Simulation:
     """begrun()/run(): owns config, options, device, state and the host
     loop.
 
     ``device`` defaults to ``"cuda"``, where the kernels run; ``"cpu"``
     runs their plain versions. Asked for CUDA where there is none, it
-    raises."""
+    raises. ``mesh`` (None, an int world size or a process group) runs
+    the slab step on a ring of ranks (``parallel/mesh.py :: join``):
+    ``mesh=1`` outside any group starts a group of one; a larger ring is
+    started by the CLI (``--devices``) or ``parallel/launch.py``."""
 
     def __init__(self, cfg: SimConfig, opts: Optional[SimOptions] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.opts = opts if opts is not None else options_from_config(cfg)
         self.device = resolve_device(device)
@@ -258,12 +278,28 @@ class Simulation:
         # float32 stays float32: no TF32 in any matmul or convolution
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.mesh = None            # the slab ring (parallel.mesh.Ring)
+        self.spmd_edges = None      # the slab boundaries [d+1]
+        self.spmd_caps = None       # (cap_g, cap_r) of a rank's chunk
+        self._spmd_step = None      # parallel.spmd.SpmdStep
+        if mesh is not None:
+            from gadget_leicester_tpu_torch.parallel.mesh import join
+            from gadget_leicester_tpu_torch.parallel.spmd import \
+                check_slab_supported
+            check_slab_supported(self.opts)
+            self.mesh = join(mesh, self.device)
+
+    @property
+    def is_root(self) -> bool:
+        """Rank 0 of the ring, or a run without one: the process that
+        writes the outputs."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @classmethod
     def from_param_file(cls, path: str, opts: Optional[SimOptions] = None,
                         restart_flag: int = 0,
                         opt_overrides: Optional[dict] = None,
-                        device="cuda") -> "Simulation":
+                        device="cuda", mesh=None) -> "Simulation":
         """``Gadget2 param.txt [restartflag]`` [G2: main.c]: restart_flag
         0 starts from InitCondFile, 1 resumes from the restart dump in
         OutputDir, 2 starts from a snapshot named by InitCondFile.
@@ -271,7 +307,8 @@ class Simulation:
         When ``opts`` is None the static flags come from, in order: the
         config (periodic; TreePM with an automatic pmgrid from the particle
         count), the ``<paramfile>.opts`` Makefile-style sidecar, then
-        ``opt_overrides`` (the CLI's explicit flags)."""
+        ``opt_overrides`` (the CLI's explicit flags). ``mesh``: as for
+        the constructor; a resumed dump is re-decomposed."""
         dev = resolve_device(device)
         cfg = read_parameter_file(path)
         sidecar = options_sidecar_path(path)
@@ -288,18 +325,21 @@ class Simulation:
             if opts is None:
                 opts = options_from_config(
                     cfg, n_particles=int(state.p.alive.sum()), **side_kw)
-            sim = cls(cfg, opts, dev)
+            sim = cls(cfg, opts, dev, mesh=mesh)
             # dumps hold no grid cache (derived data): start an empty one
             sim.state = dataclasses.replace(state, grids=make_grid_cache(dev))
             sim.step_count = meta.get("step_count", 0)
             sim.snapshot_count = meta.get("snapshot_count", 0)
+            if sim.mesh is not None:
+                # dumps are in the canonical layout: re-decompose
+                sim._decompose()
         else:
             snap = read_snapshot(cfg.init_cond_file)
             pos, vel, mass, ptype, u = ic_arrays_from_snapshot(snap, cfg)
             if opts is None:
                 opts = options_from_config(cfg, n_particles=len(pos),
                                            **side_kw)
-            sim = cls(cfg, opts, dev)
+            sim = cls(cfg, opts, dev, mesh=mesh)
             sim.set_ics(pos, vel, mass, ptype, pid=snap.ids.astype(np.int64),
                         u=u)
         return sim
@@ -324,13 +364,79 @@ class Simulation:
             self.opts = raised_capacities(self.opts, ovf,
                                           self.state.n_gas_max)
             self.init_notes.append(_capacity_note(ovf, self.opts))
+        if self.mesh is not None:
+            self._decompose()
         return self.state
+
+    # ------------------------------------------------------------------
+    # The slab decomposition [G2: domain.c :: domain_Decomposition()]
+    # ------------------------------------------------------------------
+    def _decompose(self) -> None:
+        """(Re-)lay the state onto the ring with cost-balanced slab edges
+        and a fresh slab step: every rank builds the same layout from the
+        same canonical state (gathered first where the state is already a
+        chunk) and keeps its own chunk, with an empty grid cache. While
+        the slab's fresh lists would overflow (:meth:`SpmdStep.probe`),
+        the capacities are raised (``raised_slab_capacities``), at most
+        ``MAX_INIT_BUMPS`` times, as :meth:`set_ics` raises them for the
+        initialisation: the slab grid keeps its mean fill at 0.8 of its
+        capacity, and a near-uniform box overflows its fullest cells at
+        the first sync point (2x128^3 on one rank)."""
+        from gadget_leicester_tpu_torch.parallel.spmd import (
+            SpmdStep, local_chunk, make_spmd_grid_cache,
+            raised_slab_capacities, spmd_min_width, to_spmd)
+        state = self.canonical_state()
+        mw = spmd_min_width(self.cfg, self.opts, state.n_gas_max)
+        full, caps, edges = to_spmd(state, self.mesh.size, self.cfg,
+                                    min_width=mw)
+        local = local_chunk(full, self.mesh.rank, caps)
+        del full
+        for n_bumps in range(MAX_INIT_BUMPS + 1):
+            step = SpmdStep(self.cfg, self.opts, self.mesh, edges)
+            lists, buffers = step.probe(local)
+            ovf = lists | buffers
+            if not ovf or n_bumps == MAX_INIT_BUMPS:
+                break
+            self.opts = raised_slab_capacities(
+                self.opts, lists, step.geometry(local), buffers)
+            note = f"slab lists: {_capacity_note(ovf, self.opts)}"
+            self.init_notes.append(note)
+            if self.logs is not None:
+                self.logs.log_info(self.step_count, self.time, 0.0,
+                                   note=note)
+        self.state = dataclasses.replace(
+            local, grids=make_spmd_grid_cache(self.device))
+        self.spmd_caps = caps
+        self.spmd_edges = edges
+        self._spmd_step = step
+
+    def maybe_rebalance(self, threshold: float = 1.3) -> bool:
+        """Re-decompose when the per-slab particle counts have drifted from
+        balance (the reference's TreeDomainUpdateFrequency analog): the
+        ring's largest count above ``threshold`` times the mean. Returns
+        True when it re-decomposed."""
+        if self.mesh is None:
+            return False
+        n_local = self.state.p.alive.sum().to(torch.int32)
+        total = int(self.mesh.psum(n_local))
+        largest = int(-self.mesh.pmin(-n_local))
+        if largest > threshold * max(1.0, total / self.mesh.size):
+            self._decompose()
+            return True
+        return False
 
     def canonical_state(self) -> SimState:
         """The state in canonical (gas-first) layout, what every I/O and
-        diagnostics consumer expects: the state itself, as the port has no
-        SPMD layout."""
-        return self.state
+        diagnostics consumer expects: the state itself without a ring;
+        with one, every rank's chunk gathered and re-laid
+        (``spmd_to_canonical``), on every rank (a collective: all ranks
+        call it together)."""
+        if self.mesh is None or self.spmd_caps is None:
+            return self.state
+        from gadget_leicester_tpu_torch.parallel.spmd import (
+            gather_chunks, spmd_to_canonical)
+        return spmd_to_canonical(gather_chunks(self.mesh, self.state),
+                                 *self.spmd_caps)
 
     @property
     def time(self) -> float:
@@ -338,8 +444,11 @@ class Simulation:
 
     def step(self, n: int = 1) -> SimState:
         for _ in range(n):
-            self.state = sync_point_step(self.state, self.cfg, self.opts,
-                                         stats=self.stats)
+            if self._spmd_step is not None:
+                self.state = self._spmd_step(self.state)
+            else:
+                self.state = sync_point_step(self.state, self.cfg, self.opts,
+                                             stats=self.stats)
         self.step_count += n
         return self.state
 
@@ -363,31 +472,57 @@ class Simulation:
                 callback(self)
         return self.state
 
+    def _empty_grids(self):
+        if self.mesh is None:
+            return make_grid_cache(self.device)
+        from gadget_leicester_tpu_torch.parallel.spmd import \
+            make_spmd_grid_cache
+        return make_spmd_grid_cache(self.device)
+
+    def _agree(self, flag: bool) -> bool:
+        """A host decision every rank takes alike (True where any rank's
+        is): the wall-clock tests of a ring."""
+        return flag if self.mesh is None else self.mesh.any(flag)
+
     def write_restart(self) -> None:
-        """Dump the state to OutputDir/RestartFile.npz, then empty the grid
-        cache: the run goes on from exactly what the dump holds, as a run
-        resumed from it does, so the two continue bit for bit."""
+        """Dump the state to OutputDir/RestartFile.npz (rank 0, in the
+        canonical layout), then empty the grid cache: the run goes on from
+        exactly what the dump holds, as a run resumed from it does, so
+        without a ring the two continue bit for bit."""
         cfg = self.cfg
-        save_restart(os.path.join(cfg.output_dir,
-                                  cfg.restart_file or "restart"),
-                     self.canonical_state(), step_count=self.step_count,
-                     extra_meta={"snapshot_count": self.snapshot_count})
-        self.state = dataclasses.replace(
-            self.state, grids=make_grid_cache(self.device))
+        cst = self.canonical_state()
+        if self.is_root:
+            save_restart(os.path.join(cfg.output_dir,
+                                      cfg.restart_file or "restart"),
+                         cst, step_count=self.step_count,
+                         extra_meta={"snapshot_count": self.snapshot_count})
+        self.state = dataclasses.replace(self.state,
+                                         grids=self._empty_grids())
 
     def _bump_capacities(self, ovf: int, t_now: float) -> None:
         """The sticky overflow bits say some cell dropped particles since
         the last reading [G2: gravtree.c realloc on overflow]: raise the
-        capacities (:func:`raised_capacities`), clear the bits, rebuild
-        the grid cache and note it in info.txt."""
-        new_opts = raised_capacities(self.opts, ovf, self.state.n_gas_max)
+        capacities (:func:`raised_capacities`; on a ring
+        ``parallel/spmd.py :: raised_slab_capacities``, which also doubles
+        the ghost and migration buffers), clear the bits, rebuild the grid
+        cache and note it in info.txt; a ring re-decomposes."""
+        if self.mesh is None:
+            new_opts = raised_capacities(self.opts, ovf,
+                                         self.state.n_gas_max)
+        else:
+            from gadget_leicester_tpu_torch.parallel.spmd import \
+                raised_slab_capacities
+            new_opts = raised_slab_capacities(
+                self.opts, ovf, self._spmd_step.geometry(self.state))
         self.logs.log_info(self.step_count, t_now, 0.0,
                            note=_capacity_note(ovf, new_opts))
         self.opts = new_opts
         self.state = dataclasses.replace(
             self.state, overflow_flags=torch.zeros_like(
                 self.state.overflow_flags),
-            grids=make_grid_cache(self.device))
+            grids=self._empty_grids())
+        if self.mesh is not None:
+            self._decompose()   # a new slab step with the new capacities
 
     def run(self, max_steps: int = 1000000,
             wall_limit_s: Optional[float] = None) -> SimState:
@@ -395,7 +530,7 @@ class Simulation:
         and the log files [G2: run.c :: run()]."""
         cfg = self.cfg
         if self.logs is None:
-            self.logs = RunLogs(cfg)
+            self.logs = RunLogs(cfg) if self.is_root else _NoLogs()
             for note in self.init_notes:
                 self.logs.log_info(self.step_count, self.time, 0.0,
                                    note=f"set_ics: {note}")
@@ -414,11 +549,11 @@ class Simulation:
         for _ in range(max_steps):
             if int(self.state.ti_current) >= TIMEBASE:
                 break
-            if _time.time() - wall0 > limit:
+            if self._agree(_time.time() - wall0 > limit):
                 # a planned stop before the queue's limit [G2: run.c
                 # TimeLimitCPU, ResubmitOn/ResubmitCommand]
                 self.write_restart()
-                if cfg.resubmit_on and cfg.resubmit_command:
+                if cfg.resubmit_on and cfg.resubmit_command and self.is_root:
                     subprocess.Popen(cfg.resubmit_command, shell=True)
                 break
             t_before = self.time
@@ -431,9 +566,11 @@ class Simulation:
             was_pm = int(self.state.pm_ti_begstep) != pm_beg_before
             t_now = self.time
             self.logs.log_info(self.step_count, t_now, t_now - t_before)
-            n_active = int(timeline.active_mask(
+            n_active = timeline.active_mask(
                 self.state.p.ti_begstep, self.state.ti_current,
-                self.state.p.alive).sum())
+                self.state.p.alive).sum()
+            n_active = int(n_active if self.mesh is None
+                           else self.mesh.psum(n_active))
             self.logs.log_timings(self.step_count, n_active, dt_wall,
                                   pm=was_pm)
 
@@ -442,19 +579,27 @@ class Simulation:
                 if ovf:
                     self._bump_capacities(ovf, t_now)
                 # the full potential [G2: potential.c]: the step's p.pot
-                # holds only the PM piece
+                # holds only the PM piece. On a ring, rank 0 takes it on the
+                # gathered canonical state, and the chunks keep theirs
                 tp0 = _time.time()
-                self.state = potential_pass(self.canonical_state(), cfg,
-                                            self.opts)
-                st = energy_statistics(self.state, cfg, self.opts)
-                _sync(self.device)
+                cst = self.canonical_state()
+                if self.is_root:
+                    cst = potential_pass(cst, cfg, self.opts)
+                    if self.mesh is None:
+                        self.state = cst
+                    st = energy_statistics(cst, cfg, self.opts)
+                    _sync(self.device)
+                    self.logs.log_energy(t_now, st)
+                    if cfg.comoving_integration_on:
+                        if self.li_tracker is None:
+                            self.li_tracker = LayzerIrvineTracker()
+                        self.li_drift = self.li_tracker.update(t_now, st)
                 phases["potential"] = _time.time() - tp0
-                self.logs.log_energy(t_now, st)
-                if cfg.comoving_integration_on:
-                    if self.li_tracker is None:
-                        self.li_tracker = LayzerIrvineTracker()
-                    self.li_drift = self.li_tracker.update(t_now, st)
                 self.next_stats_time += cfg.time_bet_statistics
+                # work balance on the same cadence [G2: domain.c]
+                td0 = _time.time()
+                if self.maybe_rebalance():
+                    phases["domain"] = _time.time() - td0
             if output_times is not None:
                 due = (self.snapshot_count < len(output_times)
                        and t_now >= output_times[self.snapshot_count])
@@ -463,17 +608,21 @@ class Simulation:
                        and cfg.time_bet_snapshot > 0)
             if due:
                 ts0 = _time.time()
-                if self.opts.output_potential:
-                    self.state = potential_pass(self.canonical_state(), cfg,
-                                                self.opts)
-                snap = snapshot_from_state(
-                    self.canonical_state(), cfg, self.opts,
-                    with_potential=self.opts.output_potential)
-                base = os.path.join(
-                    cfg.output_dir,
-                    f"{cfg.snapshot_file_base}_{self.snapshot_count:03d}")
-                write_snapshot_set(base, snap, cfg.num_files_per_snapshot,
-                                   fmt=cfg.snap_format)
+                cst = self.canonical_state()
+                if self.is_root:
+                    if self.opts.output_potential:
+                        cst = potential_pass(cst, cfg, self.opts)
+                        if self.mesh is None:
+                            self.state = cst
+                    snap = snapshot_from_state(
+                        cst, cfg, self.opts,
+                        with_potential=self.opts.output_potential)
+                    base = os.path.join(
+                        cfg.output_dir,
+                        f"{cfg.snapshot_file_base}_{self.snapshot_count:03d}")
+                    write_snapshot_set(base, snap,
+                                       cfg.num_files_per_snapshot,
+                                       fmt=cfg.snap_format)
                 self.snapshot_count += 1
                 phases["snapshot"] = _time.time() - ts0
                 if output_times is None:
@@ -483,8 +632,8 @@ class Simulation:
                             t_now * 1.0000001)
                     else:
                         self.next_snapshot_time += cfg.time_bet_snapshot
-            if (_time.time() - self.last_restart_wall
-                    > cfg.cpu_time_bet_restart_file):
+            if self._agree(_time.time() - self.last_restart_wall
+                           > cfg.cpu_time_bet_restart_file):
                 tr0 = _time.time()
                 self.write_restart()
                 self.last_restart_wall = _time.time()

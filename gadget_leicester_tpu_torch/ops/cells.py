@@ -34,7 +34,11 @@ potential that sinks and Stamatellos cooling read: A's own
 (``csrc/shortrange_gravity_cells.cu``) sums the same pair force on the
 absolute pack with a per-pair minimum image, on a periodic or a clamped
 grid, with A's warp-box culling under a box test that allows for the
-image. Their plain versions are in ``ops/gravity_short.py``.
+image. Kernel A's slab mode, :func:`shortrange_gravity_slab` (the
+reference's ``shortrange_gravity_pallas_dma9`` on the slab step's grid:
+per-axis cell counts, clamped x, absolute coordinates), runs on M's
+kernel with per-axis counts, an image on the periodic axes only and A's
+tile flags. Their plain versions are in ``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ import torch
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.gravity_short import (
     shortrange_gravity_cells_plain, shortrange_gravity_entries_plain,
-    shortrange_gravity_tiles_plain, shortrange_potential_tiles_plain)
-from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
+    shortrange_gravity_slab_plain, shortrange_gravity_tiles_plain,
+    shortrange_potential_tiles_plain)
+from gadget_leicester_tpu_torch.ops.neighbors import (CellList, dims3, per3,
                                                       scatter_rows)
 
 # Target lanes per active entry: at the measured ~2 active particles per
@@ -114,7 +119,7 @@ def cell_activity_flags(cl: CellList, active) -> torch.Tensor:
 def grav_tile_flags(cl: CellList, active) -> torch.Tensor:
     """[C] int32 tile flags by an O(N) scatter over ``cell_of`` (valid for
     a stale cached list: it agrees with the cells the kernel walks)."""
-    c = cl.n_cells ** 3
+    c = cl.cells.shape[0]
     co = torch.where(cl.cell_of >= 0, cl.cell_of,
                      torch.full_like(cl.cell_of, c)).long()
     out = torch.zeros(c + 1, dtype=torch.int32, device=co.device)
@@ -191,6 +196,43 @@ def shortrange_gravity_cells(soa: torch.Tensor, n_cells: int, box: float,
     out = torch.empty(c, 3, cap, dtype=soa.dtype, device=soa.device)
     kernels.launch("shortrange_gravity_cells", soa.data_ptr(), out.data_ptr(),
                    n_cells, cap, box, int(bool(periodic)),
+                   0.5 / asmth if asmth > 0.0 else 0.0, rcut)
+    return out
+
+
+def shortrange_gravity_slab(soa: torch.Tensor, flags: torch.Tensor,
+                           n_cells: tuple, box: float, periodic: tuple,
+                           asmth: float, rcut: float) -> torch.Tensor:
+    """Kernel A's slab mode: accelerations [C, 3, cap] (no G) of the slots
+    of the absolute pack ``soa`` of a grid of per-axis ``n_cells`` (nx,
+    ny, nz), from the 27 cells around each: pairs with 0 < r < rcut, each
+    pair's separation reduced to its minimum image along the axes
+    ``periodic`` holds True (the slab's (False, True, True)), stencil
+    cells beyond a clamped face left out; zeros where ``flags`` [C] int32
+    is 0. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (M's, ``csrc/shortrange_gravity_cells.cu``)."""
+    ncv, pv = dims3(n_cells), per3(periodic)
+    c, rows, cap = soa.shape
+    if c != ncv[0] * ncv[1] * ncv[2] or rows != 8:
+        raise ValueError(f"soa shape {tuple(soa.shape)} does not match "
+                         f"{ncv} cells of 8 rows")
+    if any(p and n < 3 for n, p in zip(ncv, pv)):
+        raise ValueError("a periodic axis needs 3 cells or more: below it "
+                         "the stencil meets a cell twice")
+    mask = pv[0] | (pv[1] << 1) | (pv[2] << 2)
+    if mask not in (0, 6, 7):
+        raise ValueError(f"periodicity {pv} is not instantiated (all, "
+                         "none, or y and z)")
+    kernels.check(soa, "soa", torch.float32)
+    kernels.check(flags, "flags", torch.int32, (c,), soa.device)
+    kernels.note_call("shortrange_gravity_slab",
+                      (soa, flags, ncv, box, pv, asmth, rcut))
+    if not kernels.on_cuda(soa, flags):
+        return shortrange_gravity_slab_plain(soa, flags, ncv, box, pv, asmth,
+                                             rcut)
+    out = torch.empty(c, 3, cap, dtype=soa.dtype, device=soa.device)
+    kernels.launch("shortrange_gravity_slab", soa.data_ptr(),
+                   flags.data_ptr(), out.data_ptr(), *ncv, mask, cap, box,
                    0.5 / asmth if asmth > 0.0 else 0.0, rcut)
     return out
 

@@ -21,6 +21,12 @@ a separate backend.
 pack, kernel M (``ops/cells.py :: shortrange_gravity_cells``; kernel body
 ``_make_kernel``, :227) with the per-pair minimum image, periodic or on a
 clamped grid; :func:`shortrange_gravity_cells_plain` is M's plain version.
+:func:`shortrange_gravity_slab_plain` is the plain version of kernel A's
+slab mode (``ops/cells.py :: shortrange_gravity_slab``; the reference's
+``shortrange_gravity_pallas_dma9`` on per-axis cell counts with
+``periodic=(False, True, True)``, absolute coordinates): M's arithmetic on
+per-axis counts and an image on the periodic axes only, gated by tile
+flags.
 """
 
 from __future__ import annotations
@@ -146,41 +152,47 @@ def shortrange_gravity_entries_plain(soa, entry_cell, tgt, n_cells: int,
     return out
 
 
-def stencil_cells(n_cells: int, cells: torch.Tensor, periodic: bool):
+def stencil_cells(n_cells, cells: torch.Tensor, periodic):
     """For target cells ``cells`` [K]: the flat ids [K, 27] of the 27
-    cells around each, wrapped on a periodic grid and clamped otherwise,
-    and which of them are cells of the grid [K, 27] (all, when
-    periodic)."""
+    cells around each, wrapped along the periodic axes and clamped along
+    the others, and which of them are cells of the grid [K, 27] (all, when
+    every axis is periodic). ``n_cells`` and ``periodic``: one for all
+    axes, or per-axis tuples."""
+    from gadget_leicester_tpu_torch.ops.neighbors import dims3, per3
+    (nx, ny, nz), pv = dims3(n_cells), per3(periodic)
     j = torch.arange(27, device=cells.device)
     offs = torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], -1)
-    cxyz = torch.stack([cells // (n_cells * n_cells),
-                        (cells // n_cells) % n_cells, cells % n_cells], -1)
+    cxyz = torch.stack([cells // (ny * nz), (cells // nz) % ny, cells % nz],
+                       -1)
     nb = cxyz[:, None, :] + offs[None]
-    if periodic:
-        inside = torch.ones(nb.shape[:2], dtype=torch.bool, device=nb.device)
-        nb = torch.remainder(nb, n_cells)
-    else:
-        inside = ((nb >= 0) & (nb < n_cells)).all(-1)
-        nb = nb.clamp(0, n_cells - 1)
-    return (nb[..., 0] * n_cells + nb[..., 1]) * n_cells + nb[..., 2], inside
+    inside = torch.ones(nb.shape[:2], dtype=torch.bool, device=nb.device)
+    axes = []
+    for a, n in enumerate((nx, ny, nz)):
+        if pv[a]:
+            axes.append(torch.remainder(nb[..., a], n))
+        else:
+            inside = inside & (nb[..., a] >= 0) & (nb[..., a] < n)
+            axes.append(nb[..., a].clamp(0, n - 1))
+    return (axes[0] * ny + axes[1]) * nz + axes[2], inside
 
 
-def _stencil_sums_abs(t, soa, cells, n_cells: int, box: float, periodic: bool,
+def _stencil_sums_abs(t, soa, cells, n_cells, box: float, periodic,
                       asmth: float, rcut: float) -> torch.Tensor:
     """Accelerations [K, 3, L] of the targets ``t`` [K, 8, L] (rows of the
     absolute pack) of cells ``cells`` [K] from the 27 cells around each:
     kernel M's arithmetic. Each pair's separation is reduced to its minimum
-    image on a periodic grid; stencil cells beyond a clamped grid's edge
-    add nothing. A target meets its own pack slot at r == 0 exactly, so
-    the self-pair adds nothing."""
+    image along the periodic axes (``periodic`` one for all or per axis);
+    stencil cells beyond a clamped face add nothing. A target meets its
+    own pack slot at r == 0 exactly, so the self-pair adds nothing."""
+    from gadget_leicester_tpu_torch.ops.neighbors import per3
     ids, inside = stencil_cells(n_cells, cells, periodic)
     s = soa[ids]                                       # [K, 27, 8, cap]
     sx, sy, sz, sm, sh, shinv = (s[:, :, r].flatten(1)
                                  for r in (0, 1, 2, 3, 4, 6))
     src_ok = ((s[:, :, 5] > 0) & inside[:, :, None]).flatten(1)
     d = [t[:, a, :, None] - sa[:, None, :] for a, sa in enumerate((sx, sy, sz))]
-    if periodic:
-        d = [x - box * torch.round(x * (1.0 / box)) for x in d]
+    d = [x - box * torch.round(x * (1.0 / box)) if p else x
+         for x, p in zip(d, per3(periodic))]
     dx, dy, dz = d
     r2 = dx * dx + dy * dy + dz * dz
     rinv = torch.rsqrt(r2.clamp_min(1e-37))
@@ -206,6 +218,27 @@ def shortrange_gravity_cells_plain(soa, n_cells: int, box: float,
     chunk = _chunk(cap, cap)
     out = torch.zeros(c, 3, cap, dtype=soa.dtype, device=soa.device)
     todo = torch.nonzero((soa[:, 5] > 0).any(-1)).flatten()
+    for k0 in range(0, todo.numel(), chunk):
+        tc = todo[k0:k0 + chunk]
+        t = soa[tc]
+        acc = _stencil_sums_abs(t, soa, tc, n_cells, box, periodic, asmth,
+                                rcut)
+        out[tc] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
+    return out
+
+
+def shortrange_gravity_slab_plain(soa, flags, n_cells: tuple, box: float,
+                                  periodic: tuple, asmth: float,
+                                  rcut: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel A's slab mode: out [C, 3, cap] (no
+    G) on the absolute pack ``soa`` of a grid of per-axis ``n_cells``,
+    each pair reduced to its minimum image along the axes ``periodic``
+    holds True, stencil cells beyond a clamped face left out; zeros where
+    ``flags`` is 0 and at parked slots."""
+    c, _, cap = soa.shape
+    chunk = _chunk(cap, cap)
+    out = torch.zeros(c, 3, cap, dtype=soa.dtype, device=soa.device)
+    todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
         t = soa[tc]

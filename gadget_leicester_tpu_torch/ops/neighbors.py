@@ -9,7 +9,10 @@ equal those of the JAX package's ``argsort``), and placed into a
 ``[cells, capacity]`` table; excess particles of a full cell are dropped
 and reported through ``overflow`` (the caller re-runs with a bigger
 capacity). A periodic grid wraps cell coordinates; a vacuum grid (the gas
-bounding box of a run without a box) clamps them to its edge cells. ``gslot`` is the inverse map used to merge kernel outputs back
+bounding box of a run without a box) clamps them to its edge cells. The
+cell counts and the periodicity may be per-axis tuples, as the reference
+takes them: the slab step's grid is clamped along x and periodic along y
+and z (``parallel/spmd.py``). ``gslot`` is the inverse map used to merge kernel outputs back
 to particles with one row gather; :func:`scatter_rows` merges the
 active-entry kernels' outputs with one drop-mode row scatter.
 :func:`apply_pairwise` evaluates a pair function over blocks of targets
@@ -33,8 +36,21 @@ class CellList:
     origin: torch.Tensor    # [3]
     inv_cell: torch.Tensor  # [3] 1/cell_size
     gslot: torch.Tensor     # [N] int32 flat slot in cells (-1 dead/dropped)
-    n_cells: int            # per axis
-    periodic: bool = True   # wrapped cell coordinates (False: clamped)
+    n_cells: int            # per axis: an int (cube) or (nx, ny, nz)
+    periodic: bool = True   # wrapped cell coordinates (False: clamped), or
+                            # per axis (px, py, pz)
+
+
+def dims3(n) -> tuple:
+    """An int or a 3-tuple of per-axis counts as a 3-tuple."""
+    return tuple(int(v) for v in n) if isinstance(n, (tuple, list)) \
+        else (int(n),) * 3
+
+
+def per3(periodic) -> tuple:
+    """A bool or a 3-tuple of per-axis periodicity as a 3-tuple."""
+    return tuple(bool(v) for v in periodic) \
+        if isinstance(periodic, (tuple, list)) else (bool(periodic),) * 3
 
 
 def merge_rows(out: torch.Tensor, cl: CellList, n_rows: int,
@@ -81,25 +97,36 @@ def _axes3(v, like: torch.Tensor) -> torch.Tensor:
         3).clone()
 
 
+def _wrap_or_clamp(coords: torch.Tensor, ncv: tuple, pv: tuple):
+    """Integer cell coordinates [..., 3] wrapped on the periodic axes and
+    clamped to the edge cells on the others."""
+    if pv[0] == pv[1] == pv[2] and ncv[0] == ncv[1] == ncv[2]:
+        n = ncv[0]
+        return torch.remainder(coords, n) if pv[0] else coords.clamp(0, n - 1)
+    return torch.stack([torch.remainder(coords[..., a], ncv[a]) if pv[a]
+                        else coords[..., a].clamp(0, ncv[a] - 1)
+                        for a in range(3)], -1)
+
+
 def build_cell_list(pos: torch.Tensor, mask: torch.Tensor, origin, extent,
-                    n_cells: int, capacity: int,
-                    periodic: bool = True) -> CellList:
+                    n_cells, capacity: int, periodic=True) -> CellList:
     """Bin ``pos`` into an n_cells^3 grid over [origin, origin + extent)
-    (``origin``, ``extent``: a float or a tensor, per axis or one for all).
-    Cell coordinates wrap on a periodic grid and are clamped to the edge
+    (``origin``, ``extent``: a float or a tensor, per axis or one for all;
+    ``n_cells`` and ``periodic`` one for all axes or per-axis tuples).
+    Cell coordinates wrap on a periodic axis and are clamped to the edge
     cells otherwise. Masked particles land in no cell; a full cell drops
     its excess."""
     n = pos.shape[0]
     dev = pos.device
+    ncv, pv = dims3(n_cells), per3(periodic)
     origin_t = _axes3(origin, pos)
     extent_t = _axes3(extent, pos)
-    inv_cell = torch.full_like(extent_t, n_cells) / extent_t
+    inv_cell = torch.tensor(ncv, dtype=pos.dtype, device=dev) / extent_t
     coords = torch.floor((pos - origin_t) * inv_cell).to(torch.int32)
-    coords = torch.remainder(coords, n_cells) if periodic else \
-        coords.clamp(0, n_cells - 1)
-    cid_real = (coords[:, 0] * n_cells + coords[:, 1]) * n_cells \
+    coords = _wrap_or_clamp(coords, ncv, pv)
+    cid_real = (coords[:, 0] * ncv[1] + coords[:, 1]) * ncv[2] \
         + coords[:, 2]
-    total = n_cells ** 3
+    total = ncv[0] * ncv[1] * ncv[2]
     cid = torch.where(mask, cid_real, torch.full_like(cid_real, total))
 
     cid_sorted, order = torch.sort(cid, stable=True)   # dead sort last

@@ -37,7 +37,14 @@ Two modes, as in the JAX package (``relative`` there):
   target slot that is parked, or that the Newton loop marks done (h = 0),
   gets zeros: a tile of a thin disc holds few live slots among thousands.
 
-Anisotropic (slab) grids are not ported.
+An anisotropic grid (the slab step's, ``parallel/spmd.py``): per-axis
+block counts and periodicity, clamped along x and periodic along y and z,
+in the relative mode with the fine edge given (``fine_edge``, uniform
+across the axes). A clamped axis gains an odd block and its ids do not
+wrap; the shift (1 - 2g) Lf is the same on every axis. Kernels C and D
+take it through their ``_aniso`` entries (counters ``sph_density_aniso``,
+``sph_hydro_aniso``); the wrappers take ``nb`` as a 3-tuple and the
+per-axis ``periodic``.
 """
 
 from __future__ import annotations
@@ -49,8 +56,8 @@ from gadget_leicester_tpu_torch.ops.cells import (ENTRY_LANES,
                                                   cell_activity_flags,
                                                   entry_particles)
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList, _axes3,
-                                                      merge_rows,
-                                                      scatter_rows,
+                                                      dims3, merge_rows,
+                                                      per3, scatter_rows,
                                                       segment_ranks)
 from gadget_leicester_tpu_torch.ops.sph_dense import (
     DENSITY_FILL, DensityResult, HydroResult, density_adaptive_generic,
@@ -59,17 +66,28 @@ from gadget_leicester_tpu_torch.ops.sph_kernels import (kernel_dw_dr,
                                                         kernel_w_and_dwdh)
 
 
-def build_block_lists(pos, mask, origin, extent, n_blocks: int,
-                      subcap: int, periodic: bool = True):
+def odd_dims(nb, periodic) -> tuple:
+    """Per-axis odd-grid block counts: a clamped axis gains a block."""
+    return tuple(n if p else n + 1 for n, p in zip(dims3(nb), per3(periodic)))
+
+
+def build_block_lists(pos, mask, origin, extent, n_blocks,
+                      subcap: int, periodic=True):
     """(even, odd) CellLists whose ``cells`` are [B, 8 subcap] tiles, lane =
     subcell * subcap + rank, subcell order z-slowest (sz*4 + sy*2 + sx),
     over [origin, origin + extent) (a float or a tensor, per axis or one
-    for all). A periodic grid wraps fine coordinates and its odd grid has
-    nb^3 blocks; a clamped one clamps them to the edge cells and its odd
-    grid has (nb+1)^3. One stable sort serves both packings; overflow
+    for all). A periodic axis wraps fine coordinates and its odd grid has
+    nb blocks; a clamped one clamps them to the edge cells and its odd
+    grid has nb + 1. ``n_blocks`` and ``periodic`` are one for all axes or
+    per-axis tuples (the lists then carry tuples); the fine edge should be
+    the same on every axis. One stable sort serves both packings; overflow
     means a fine cell holds more than ``subcap`` particles."""
     n = pos.shape[0]
     dev = pos.device
+    if isinstance(n_blocks, (tuple, list)) or \
+            isinstance(periodic, (tuple, list)):
+        return _build_block_lists3(pos, mask, origin, extent,
+                                   dims3(n_blocks), subcap, per3(periodic))
     m = 2 * n_blocks
     origin_t = _axes3(origin, pos)
     extent_t = _axes3(extent, pos)
@@ -118,14 +136,73 @@ def build_block_lists(pos, mask, origin, extent, n_blocks: int,
     return mk(c_sorted, n_blocks), mk(c_sorted + 1, n_blocks + 1)
 
 
-def block_centers(nb: int, parity: str, fine_edge: float,
+def _build_block_lists3(pos, mask, origin, extent, nb3: tuple, subcap: int,
+                        pv: tuple):
+    """:func:`build_block_lists` on per-axis block counts ``nb3`` and
+    periodicity ``pv`` (the reference's ``_nb3``/``_per3`` path)."""
+    n = pos.shape[0]
+    dev = pos.device
+    m3 = tuple(2 * q for q in nb3)
+    origin_t = _axes3(origin, pos)
+    extent_t = _axes3(extent, pos)
+    inv_cell = torch.tensor(m3, dtype=pos.dtype, device=dev) / extent_t
+    coords = torch.floor((pos - origin_t) * inv_cell).to(torch.int32)
+    coords = torch.stack([torch.remainder(coords[:, a], m3[a]) if pv[a]
+                          else coords[:, a].clamp(0, m3[a] - 1)
+                          for a in range(3)], -1)
+    cid_f = (coords[:, 0] * m3[1] + coords[:, 1]) * m3[2] + coords[:, 2]
+    total_f = m3[0] * m3[1] * m3[2]
+    cid_sort = torch.where(mask, cid_f, torch.full_like(cid_f, total_f))
+    cid_sorted, order = torch.sort(cid_sort, stable=True)
+    order = order.to(torch.int32)
+    rank = segment_ranks(cid_sorted)
+    ok = (rank < subcap) & (cid_sorted < total_f)
+    c_sorted = coords[order.long()]
+    lanes = 8 * subcap
+
+    counts = torch.zeros(total_f + 1, dtype=torch.int32, device=dev)
+    counts.index_add_(0, cid_sorted.long(), torch.ones_like(cid_sorted))
+    overflow = (counts[:total_f] > subcap).any()
+
+    def mk(c, dims):
+        b = c >> 1
+        s = c & 1
+        bid = (b[:, 0] * dims[1] + b[:, 1]) * dims[2] + b[:, 2]
+        lane = ((s[:, 2] * 2 + s[:, 1]) * 2 + s[:, 0]) * subcap + rank
+        nbl = dims[0] * dims[1] * dims[2]
+        cells = torch.full((nbl + 1, lanes), -1, dtype=torch.int32,
+                           device=dev)
+        cells[torch.where(ok, bid, torch.full_like(bid, nbl)).long(),
+              torch.where(ok, lane, torch.zeros_like(lane)).long()] = \
+            torch.where(ok, order, torch.full_like(order, -1))
+        gslot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        gslot[order.long()] = torch.where(ok, bid * lanes + lane,
+                                          torch.full_like(bid, -1))
+        return CellList(cells=cells[:nbl].contiguous(), cell_of=cid_f,
+                        counts=counts[:total_f], overflow=overflow,
+                        origin=origin_t, inv_cell=inv_cell, gslot=gslot,
+                        n_cells=dims, periodic=pv)
+
+    # odd packing: fine coords shifted by +1; periodic axes wrap, clamped
+    # axes gain a block
+    c_o = torch.stack([torch.remainder(c_sorted[:, a] + 1, m3[a]) if pv[a]
+                       else c_sorted[:, a] + 1 for a in range(3)], -1)
+    return mk(c_sorted, nb3), mk(c_o, odd_dims(nb3, pv))
+
+
+def block_centers(nb, parity: str, fine_edge: float,
                   origin: torch.Tensor) -> torch.Tensor:
-    """[nb^3, 3] centres: even block w spans fine cells {2w, 2w+1}
-    (centre (2w+1) Lf), odd block w spans {2w-1, 2w} (centre 2w Lf)."""
-    c_arr = torch.arange(nb ** 3, dtype=torch.int32, device=origin.device)
+    """[prod(nb), 3] centres: even block w spans fine cells {2w, 2w+1}
+    (centre (2w+1) Lf), odd block w spans {2w-1, 2w} (centre 2w Lf).
+    ``nb``: one count for all axes or per axis (the grid's own: pass the
+    odd grid's counts for the odd blocks)."""
+    nx, ny, nz = dims3(nb)
+    c_arr = torch.arange(nx * ny * nz, dtype=torch.int32,
+                         device=origin.device)
     f = origin.dtype
-    xyz = torch.stack([(c_arr // (nb * nb)).to(f), ((c_arr // nb) % nb).to(f),
-                       (c_arr % nb).to(f)], -1) * 2.0
+    xyz = torch.stack([(c_arr // (ny * nz)).to(f),
+                       ((c_arr // nz) % ny).to(f),
+                       (c_arr % nz).to(f)], -1) * 2.0
     if parity == "even":
         xyz = xyz + 1.0
     return xyz * fine_edge + origin
@@ -167,26 +244,46 @@ def pack_sph_soa(cl: CellList, pos, vel, mass, hsml, gas_mask,
     return rows.transpose(1, 2).contiguous()
 
 
-def odd_sources(nb: int, blocks: torch.Tensor, periodic: bool = True):
+def odd_sources(nb, blocks: torch.Tensor, periodic=True, relative=None):
     """For even blocks ``blocks`` [K]: the 8 odd source blocks [K, 8],
-    b + {0,1}^3, and their shifts in units of Lf [8, 3]; on a periodic
-    grid the ids wrap mod nb, on a clamped one they index the (nb+1)^3
-    odd grid and the shifts are None."""
+    b + {0,1}^3, and their shifts in units of Lf [8, 3]; along a periodic
+    axis the ids wrap mod nb, along a clamped one they index the odd grid
+    of nb + 1 blocks. ``nb`` and ``periodic``: one for all axes or per-axis
+    tuples. The shifts come with the relative mode, None in the absolute
+    one; ``relative`` defaults to every axis periodic (a cubic grid's mode
+    follows its periodicity)."""
+    (nx, ny, nz), pv = dims3(nb), per3(periodic)
+    if relative is None:
+        relative = all(pv)
     g = torch.arange(8, device=blocks.device)
     gxyz = torch.stack([g >> 2, (g >> 1) & 1, g & 1], -1)
-    bxyz = torch.stack([blocks // (nb * nb), (blocks // nb) % nb,
-                        blocks % nb], -1)
+    bxyz = torch.stack([blocks // (ny * nz), (blocks // nz) % ny,
+                        blocks % nz], -1)
     o = bxyz[:, None, :] + gxyz[None]
-    if not periodic:
-        nbo = nb + 1
-        return (o[..., 0] * nbo + o[..., 1]) * nbo + o[..., 2], None
-    o = torch.remainder(o, nb)
-    return (o[..., 0] * nb + o[..., 1]) * nb + o[..., 2], 1 - 2 * gxyz
+    no = odd_dims((nx, ny, nz), pv)
+    o = [torch.remainder(o[..., a], n) if pv[a] else o[..., a]
+         for a, n in enumerate((nx, ny, nz))]
+    return (o[0] * no[1] + o[1]) * no[2] + o[2], \
+        (1 - 2 * gxyz) if relative else None
 
 
-def _odd_blocks(nb: int, lf) -> int:
-    """Odd blocks of a periodic grid (``lf`` given) or a clamped one."""
-    return nb ** 3 if lf is not None else (nb + 1) ** 3
+def _grid_per(nb, lf, periodic):
+    """The per-axis periodicity of a kernel call: as given for an
+    anisotropic grid (``nb`` a tuple), else periodic in the relative mode
+    (``lf`` given) and clamped in the absolute one."""
+    if isinstance(nb, (tuple, list)):
+        if periodic is None or lf is None:
+            raise ValueError("an anisotropic block grid needs its per-axis "
+                             "periodic and the relative mode's fine edge")
+        return per3(periodic)
+    return (lf is not None,) * 3
+
+
+def _odd_blocks(nb, lf, periodic=None) -> int:
+    """Odd blocks of a periodic grid (``lf`` given), a clamped one, or an
+    anisotropic one (``nb`` and ``periodic`` per axis)."""
+    no = odd_dims(nb, _grid_per(nb, lf, periodic))
+    return no[0] * no[1] * no[2]
 
 
 def _pieces(todo: torch.Tensor, targets: int, sources: int,
@@ -238,12 +335,15 @@ def _gather_sources(soa_o, src_ids, shift_units, lf, rows, live_row=None):
     return out, [sh[:, a] for a in range(3)]
 
 
-def _density_sums(t, ht, soa_o, blocks, nb: int, lf) -> torch.Tensor:
+def _density_sums(t, ht, soa_o, blocks, nb, lf,
+                  periodic=None) -> torch.Tensor:
     """[K, 6, L] = rho, drho/dh, raw div v, raw rot v of the targets ``t``
     [K, 8, L] (rows as in the even pack) with smoothing lengths ``ht``
     [K, L], of even blocks ``blocks`` [K], over their 8 odd source
-    blocks (``lf`` None: absolute rows on a clamped grid)."""
-    src_ids, units = odd_sources(nb, blocks, lf is not None)
+    blocks (``lf`` None: absolute rows on a clamped grid; ``nb`` and
+    ``periodic`` per axis on an anisotropic one)."""
+    src_ids, units = odd_sources(nb, blocks, _grid_per(nb, lf, periodic),
+                                 relative=lf is not None)
     s, shift = _gather_sources(soa_o, src_ids, units, lf,
                                (0, 1, 2, 3, 4, 5, 6),
                                live_row=3 if lf is None else None)
@@ -264,11 +364,13 @@ def _density_sums(t, ht, soa_o, blocks, nb: int, lf) -> torch.Tensor:
                         (fac * (dvx * dy - dvy * dx)).sum(-1)], 1)
 
 
-def density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb: int, lf):
+def density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb, lf,
+                              periodic=None):
     """Plain PyTorch version of kernel C: out [B, 6, lanes] = rho,
     drho/dh, raw div v, raw rot v (x, y, z); zeros where flags is 0, and
     in absolute mode (``lf`` None) at parked targets (m = 0) and at
-    targets with h = 0."""
+    targets with h = 0. ``nb`` a 3-tuple and ``periodic`` per axis: the
+    relative mode on an anisotropic grid."""
     b, _, lanes = soa_e.shape
     out = torch.zeros(b, 6, lanes, dtype=soa_e.dtype, device=soa_e.device)
     todo = torch.nonzero(flags > 0).flatten()
@@ -280,7 +382,8 @@ def density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb: int, lf):
                                         bc, nb, lf),
                 (t[:, 3] > 0) & (ht > 0), 6)
         else:
-            out[bc, :, sl] = _density_sums(t, ht, soa_o, bc, nb, lf)
+            out[bc, :, sl] = _density_sums(t, ht, soa_o, bc, nb, lf,
+                                           periodic)
     return out
 
 
@@ -301,40 +404,62 @@ def _live_targets(sums_of, live: torch.Tensor, n_out: int) -> torch.Tensor:
     return out.scatter_(2, keep[:, None, :].expand(-1, n_out, -1), sums)
 
 
-def _kernel_name(name: str, lf) -> str:
-    """A kernel's counter and C entry: ``<name>_abs`` in absolute mode."""
+def _kernel_name(name: str, lf, nb=None) -> str:
+    """A kernel's counter and C entry: ``<name>_abs`` in absolute mode,
+    ``<name>_aniso`` on an anisotropic grid (``nb`` a tuple)."""
+    if isinstance(nb, (tuple, list)):
+        return f"{name}_aniso"
     return name if lf is not None else f"{name}_abs"
 
 
+def _grid_args(nb, lf, periodic) -> tuple:
+    """The block-grid arguments of an ``_aniso`` C entry: the per-axis
+    counts and the mask of the periodic axes (bit a for axis a)."""
+    pv = _grid_per(nb, lf, periodic)
+    return (*dims3(nb), pv[0] | (pv[1] << 1) | (pv[2] << 2))
+
+
+def _check_blocks(b: int, rows: int, nb, what: str, shape) -> None:
+    nx, ny, nz = dims3(nb)
+    if b != nx * ny * nz or rows != 8:
+        raise ValueError(f"{what} shape {tuple(shape)} does not match "
+                         f"{nb} blocks of 8 rows")
+
+
 def density_sums_blocks(soa_e: torch.Tensor, soa_o: torch.Tensor,
-                        h_slots: torch.Tensor, flags: torch.Tensor, nb: int,
-                        lf) -> torch.Tensor:
+                        h_slots: torch.Tensor, flags: torch.Tensor, nb,
+                        lf, periodic=None) -> torch.Tensor:
     """Kernel C: density sums [B, 6, lanes] of the even-block targets over
     their 8 odd source blocks; ``lf`` the fine edge of a periodic grid, or
     None for the absolute mode of a clamped one (``soa_o`` then has
-    (nb+1)^3 blocks; parked and h = 0 targets get zeros). CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    (nb+1)^3 blocks; parked and h = 0 targets get zeros). With ``nb`` a
+    3-tuple and ``periodic`` per axis, the relative mode on an anisotropic
+    grid (the slab's; ``soa_o`` has one block more along a clamped axis).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     b, rows, lanes = soa_e.shape
-    if b != nb ** 3 or rows != 8:
-        raise ValueError(f"soa_e shape {tuple(soa_e.shape)} does not match "
-                         f"{nb}^3 blocks of 8 rows")
+    _check_blocks(b, rows, nb, "soa_e", soa_e.shape)
     dev = soa_e.device
     kernels.check(soa_e, "soa_e", torch.float32)
     kernels.check(soa_o, "soa_o", torch.float32,
-                  (_odd_blocks(nb, lf), 8, lanes), dev)
+                  (_odd_blocks(nb, lf, periodic), 8, lanes), dev)
     kernels.check(h_slots, "h_slots", torch.float32, (b, lanes), dev)
     kernels.check(flags, "flags", torch.int32, (b,), dev)
-    name = _kernel_name("sph_density", lf)
-    kernels.note_call(name, (soa_e, soa_o, h_slots, flags, nb, lf))
+    name = _kernel_name("sph_density", lf, nb)
+    aniso = name.endswith("_aniso")
+    kernels.note_call(name, (soa_e, soa_o, h_slots, flags, nb, lf)
+                      + ((per3(periodic),) if aniso else ()))
     if not kernels.on_cuda(soa_e, soa_o, h_slots, flags):
-        return density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb, lf)
+        return density_sums_blocks_plain(soa_e, soa_o, h_slots, flags, nb, lf,
+                                         periodic)
     out = torch.empty(b, 6, lanes, dtype=soa_e.dtype, device=dev)
     # the kernel's workspace: the box of each source subcell's sources
     boxes = torch.empty(soa_o.shape[0] * 64, dtype=torch.float32, device=dev)
     ptrs = (soa_e.data_ptr(), soa_o.data_ptr(), h_slots.data_ptr(),
-            flags.data_ptr(), boxes.data_ptr(), out.data_ptr(), nb, lanes)
-    if lf is not None:
-        ptrs += (lf,)
+            flags.data_ptr(), boxes.data_ptr(), out.data_ptr())
+    if aniso:
+        ptrs += (*_grid_args(nb, lf, periodic), lanes, lf)
+    else:
+        ptrs += (nb, lanes) + ((lf,) if lf is not None else ())
     kernels.launch(name, *ptrs)
     return out
 
@@ -402,15 +527,16 @@ def density_sums_blocks_entries(soa_o: torch.Tensor, tgt: torch.Tensor,
     return out
 
 
-def _hydro_sums(ta, tb, tid, src16, idx_o, blocks, params, nb: int,
-                lf, visc_const: float) -> torch.Tensor:
+def _hydro_sums(ta, tb, tid, src16, idx_o, blocks, params, nb,
+                lf, visc_const: float, periodic=None) -> torch.Tensor:
     """[K, 5, L] = ax, ay, az, raw dA/dt, max signal velocity of the
     targets (rows ``ta``, ``tb`` [K, 8, L] as kernel D's soa_a, soa_b;
     particle indices ``tid`` [K, L]) of even blocks ``blocks`` [K] over
     their 8 odd source blocks. The self-pair is excluded by index in
     relative mode, by r > 0 in absolute mode (``lf`` None)."""
     hubble_a2_flow, fac_mu = params[0], params[1]
-    src_ids, units = odd_sources(nb, blocks, lf is not None)
+    src_ids, units = odd_sources(nb, blocks, _grid_per(nb, lf, periodic),
+                                 relative=lf is not None)
     s, shift = _gather_sources(src16, src_ids, units, lf, range(13),
                                live_row=12 if lf is None else None)
     dx, dy, dz, r, rinv = _pair_geometry(ta, s, shift)
@@ -450,10 +576,13 @@ def _hydro_sums(ta, tb, tid, src16, idx_o, blocks, params, nb: int,
 
 
 def hydro_sums_blocks_plain(soa_a, soa_b, src16, idx_e, idx_o, flags,
-                            params, nb: int, lf, visc_const: float):
+                            params, nb, lf, visc_const: float,
+                            periodic=None):
     """Plain PyTorch version of kernel D: out [B, 5, lanes] = ax, ay, az,
     raw dA/dt, max signal velocity; zeros where flags is 0, and in
-    absolute mode (``lf`` None) at invalid targets (soa_b row 4 = 0)."""
+    absolute mode (``lf`` None) at invalid targets (soa_b row 4 = 0).
+    ``nb`` a 3-tuple and ``periodic`` per axis: the relative mode on an
+    anisotropic grid."""
     b, _, lanes = soa_a.shape
     out = torch.zeros(b, 5, lanes, dtype=soa_a.dtype, device=soa_a.device)
     todo = torch.nonzero(flags > 0).flatten()
@@ -467,27 +596,28 @@ def hydro_sums_blocks_plain(soa_a, soa_b, src16, idx_e, idx_o, flags,
                 tb[:, 4] > 0, 5)
         else:
             out[bc, :, sl] = _hydro_sums(ta, tb, tid, src16, idx_o, bc,
-                                         params, nb, lf, visc_const)
+                                         params, nb, lf, visc_const,
+                                         periodic)
     return out
 
 
 def hydro_sums_blocks(soa_a: torch.Tensor, soa_b: torch.Tensor,
                       src16: torch.Tensor, idx_e: torch.Tensor,
                       idx_o: torch.Tensor, flags: torch.Tensor,
-                      params: torch.Tensor, nb: int, lf,
-                      visc_const: float) -> torch.Tensor:
+                      params: torch.Tensor, nb, lf,
+                      visc_const: float, periodic=None) -> torch.Tensor:
     """Kernel D: hydro sums [B, 5, lanes]. ``idx_e``/``idx_o`` [B, lanes]
     int32 particle indices (-1 for empty slots) exclude the self-pair in
     relative mode; ``lf`` None is the absolute mode of a clamped grid
     (``src16`` with (nb+1)^3 blocks, the self-pair dropped by r > 0,
-    invalid targets zero). ``params`` [2] = (hubble_a2_flow, fac_mu). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    invalid targets zero). ``params`` [2] = (hubble_a2_flow, fac_mu).
+    With ``nb`` a 3-tuple and ``periodic`` per axis, the relative mode on
+    an anisotropic grid (the slab's). CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     b, rows, lanes = soa_a.shape
-    if b != nb ** 3 or rows != 8:
-        raise ValueError(f"soa_a shape {tuple(soa_a.shape)} does not match "
-                         f"{nb}^3 blocks of 8 rows")
+    _check_blocks(b, rows, nb, "soa_a", soa_a.shape)
     dev = soa_a.device
-    bo = _odd_blocks(nb, lf)
+    bo = _odd_blocks(nb, lf, periodic)
     kernels.check(soa_a, "soa_a", torch.float32)
     kernels.check(soa_b, "soa_b", torch.float32, (b, 8, lanes), dev)
     kernels.check(src16, "src16", torch.float32, (bo, 16, lanes), dev)
@@ -495,12 +625,15 @@ def hydro_sums_blocks(soa_a: torch.Tensor, soa_b: torch.Tensor,
     kernels.check(idx_o, "idx_o", torch.int32, (bo, lanes), dev)
     kernels.check(flags, "flags", torch.int32, (b,), dev)
     kernels.check(params, "params", torch.float32, (2,), dev)
-    name = _kernel_name("sph_hydro", lf)
+    name = _kernel_name("sph_hydro", lf, nb)
+    aniso = name.endswith("_aniso")
     kernels.note_call(name, (soa_a, soa_b, src16, idx_e, idx_o, flags,
-                             params, nb, lf, visc_const))
+                             params, nb, lf, visc_const)
+                      + ((per3(periodic),) if aniso else ()))
     if not kernels.on_cuda(soa_a, soa_b, src16, idx_e, idx_o, flags, params):
         return hydro_sums_blocks_plain(soa_a, soa_b, src16, idx_e, idx_o,
-                                       flags, params, nb, lf, visc_const)
+                                       flags, params, nb, lf, visc_const,
+                                       periodic)
     out = torch.empty(b, 5, lanes, dtype=soa_a.dtype, device=dev)
     # the kernel's workspace: a box and the largest h of each source subcell
     boxes = torch.empty(bo * 64, dtype=torch.float32, device=dev)
@@ -509,6 +642,12 @@ def hydro_sums_blocks(soa_a: torch.Tensor, soa_b: torch.Tensor,
                        src16.data_ptr(), flags.data_ptr(), params.data_ptr(),
                        boxes.data_ptr(), out.data_ptr(), nb, lanes,
                        0.5 * visc_const)
+    elif aniso:
+        kernels.launch(name, soa_a.data_ptr(), soa_b.data_ptr(),
+                       src16.data_ptr(), idx_e.data_ptr(), idx_o.data_ptr(),
+                       flags.data_ptr(), params.data_ptr(), boxes.data_ptr(),
+                       out.data_ptr(), *_grid_args(nb, lf, periodic), lanes,
+                       lf, 0.5 * visc_const)
     else:
         kernels.launch(name, soa_a.data_ptr(), soa_b.data_ptr(),
                        src16.data_ptr(), idx_e.data_ptr(), idx_o.data_ptr(),
@@ -587,24 +726,39 @@ def _block_flags(cl_e: CellList, active, gas_mask):
     return cell_activity_flags(cl_e, active & gas_mask)
 
 
-def _fine_edge(cl_e: CellList, box: float):
-    """``lf`` of the kernel wrappers: the fine edge of a periodic list,
-    None on a clamped grid (absolute mode)."""
+def _fine_edge(cl_e: CellList, box: float, fine_edge=None):
+    """``lf`` of the kernel wrappers: ``fine_edge`` where the caller gives
+    it (an anisotropic grid's relative mode), the fine edge of a periodic
+    cubic list, None on a clamped grid (absolute mode)."""
+    if fine_edge is not None:
+        return fine_edge
+    if isinstance(cl_e.n_cells, tuple):
+        raise ValueError("an anisotropic block grid runs in the relative "
+                         "mode only: give its fine_edge")
     return box / (2 * cl_e.n_cells) if cl_e.periodic else None
+
+
+def _grid_periodic(cl_e: CellList):
+    """The per-axis periodicity an anisotropic list passes its kernels
+    (None for a cubic one, whose mode says it)."""
+    return cl_e.periodic if isinstance(cl_e.n_cells, tuple) else None
 
 
 def density_adaptive_blocks(pos, vel, mass, hsml0, gas_mask,
                             des_num_ngb: float, max_dev: float, box: float,
                             cls, max_hsml, min_hsml: float = 0.0,
-                            active=None):
+                            active=None, fine_edge=None):
     """Adaptive-h density on kernel C over the cached (even, odd) lists
-    ``cls`` (periodic, or clamped: absolute mode, ``box`` unused).
-    ``active`` (None = all): only active targets are solved and tiles
-    without one are skipped. Returns (DensityResult, cls)."""
+    ``cls`` (periodic, or clamped: absolute mode, ``box`` unused; or an
+    anisotropic pair in the relative mode with ``fine_edge`` given, the
+    minimum image of the packs mod ``box``). ``active`` (None = all): only
+    active targets are solved and tiles without one are skipped. Returns
+    (DensityResult, cls)."""
     cl_e, cl_o = cls
     nb = cl_e.n_cells
     b, lanes = cl_e.cells.shape
-    lf = _fine_edge(cl_e, box)
+    lf = _fine_edge(cl_e, box, fine_edge)
+    per = _grid_periodic(cl_e)
     flags = _block_flags(cl_e, active, gas_mask)
     ones = torch.ones_like(mass)
     soa_e = pack_sph_soa(cl_e, pos, vel, mass, ones, gas_mask,
@@ -630,7 +784,7 @@ def density_adaptive_blocks(pos, vel, mass, hsml0, gas_mask,
             live = mask_slots if undone is None else undone
             h_slots = torch.where(live, h_slots, torch.zeros_like(h_slots))
         out = density_sums_blocks(soa_e, soa_o, h_slots.reshape(b, lanes),
-                                  fl, nb, lf)
+                                  fl, nb, lf, per)
         rot = out[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
         return (out[:, 0].reshape(-1), out[:, 1].reshape(-1),
                 out[:, 2].reshape(-1), rot)
@@ -746,13 +900,13 @@ def _pack16(cl: CellList, table16, gas_mask, centers, box: float):
 
 def pack_hydro_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                       dhsml_factor, div_vel, curl_vel, gas_mask, box: float,
-                      hubble_a2_flow, fac_mu, active=None):
+                      hubble_a2_flow, fac_mu, active=None, fine_edge=None):
     """Kernel D's inputs: (soa_a, soa_b, src16, idx_e, idx_o, flags,
     params) from the particle fields, as one [N, 16]-row gather per list
     (rows of :func:`hydro_table`, soa_a = rows 0-7, soa_b = rows
     8-15)."""
     cl_e, cl_o = cls
-    lf = _fine_edge(cl_e, box)
+    lf = _fine_edge(cl_e, box, fine_edge)
     fac_mu = torch.as_tensor(fac_mu, dtype=pos.dtype, device=pos.device)
     table16 = hydro_table(pos, vel, mass, hsml, rho, pressure, dhsml_factor,
                            div_vel, curl_vel, fac_mu)
@@ -768,17 +922,21 @@ def pack_hydro_blocks(cls, pos, vel, mass, hsml, rho, pressure,
 def hydro_force_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                        dhsml_factor, div_vel, curl_vel, gas_mask,
                        visc_const: float, box: float, hubble_a2_flow,
-                       hubble_a2_norm, fac_mu, active=None) -> HydroResult:
+                       hubble_a2_norm, fac_mu, active=None,
+                       fine_edge=None) -> HydroResult:
     """Entropy-form hydro force on kernel D [G2: hydra.c ::
     hydro_evaluate()]; ``cls`` = (even, odd) lists from the density
-    pass (periodic, or clamped: absolute mode, ``box`` unused). The
-    comoving factors are 0-d tensors (or floats)."""
+    pass (periodic, or clamped: absolute mode, ``box`` unused; or an
+    anisotropic pair with ``fine_edge``, as for
+    :func:`density_adaptive_blocks`). The comoving factors are 0-d
+    tensors (or floats)."""
     cl_e = cls[0]
     packs = pack_hydro_blocks(cls, pos, vel, mass, hsml, rho, pressure,
                               dhsml_factor, div_vel, curl_vel, gas_mask, box,
-                              hubble_a2_flow, fac_mu, active)
-    out = hydro_sums_blocks(*packs, cl_e.n_cells, _fine_edge(cl_e, box),
-                            visc_const)
+                              hubble_a2_flow, fac_mu, active, fine_edge)
+    out = hydro_sums_blocks(*packs, cl_e.n_cells,
+                            _fine_edge(cl_e, box, fine_edge), visc_const,
+                            _grid_periodic(cl_e))
     return hydro_result(merge_rows(out, cl_e, 5), rho, gas_mask,
                          hubble_a2_norm)
 

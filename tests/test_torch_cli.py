@@ -3,8 +3,10 @@ cannot be imported: ``python -m gadget_leicester_tpu_torch param.txt
 [0|1] --device cpu`` on an lcdm_gas 2x17^3 IC file (5,120 gas slots, so
 sph_backend "auto" resolves to blocks with no flag), then a resume from
 its restart dump; without ``--device`` it asks for the card and stops
-here; ``--devices``, not ported, stops with its ROADMAP item
-(``--makeglass`` runs: tests/test_torch_glass.py)."""
+here; ``--devices 2`` runs the slab step on two gloo processes and
+matches the single-device run's energy.txt; a run the slab step does not
+take yet stops with its ROADMAP item (``--makeglass`` runs:
+tests/test_torch_glass.py)."""
 
 import os
 import pathlib
@@ -53,8 +55,24 @@ def runs(tmp_path_factory):
     rows_first = np.loadtxt(out / "energy.txt", ndmin=2) \
         if (out / "energy.txt").exists() else None
     resumed = cli(param, 1, "--device", "cpu", "--max-steps", 1)
+    # the same run on a ring of two gloo ranks, into its own OutputDir
+    out2 = tmp / "out_ring"
+    param2 = tmp / "ring.param"
+    param2.write_text(chip_smoke.run_param_text(N_SIDE, str(ics), str(out2),
+                                                CADENCE))
+    # two processes of one thread each, slower than the runs above on a
+    # loaded machine: a longer limit
+    ring = cli(param2, 0, "--device", "cpu", "--devices", 2, "--max-steps",
+               1, timeout=600)
+    # a vacuum run, which the slab step does not take yet
+    vac_ics = tmp / "sphere.dat"
+    chip_smoke.write_gassphere_ics(str(vac_ics))
+    vacuum = tmp / "sphere.param"
+    vacuum.write_text(chip_smoke.gassphere_param_text(
+        str(vac_ics), str(tmp / "out_sphere"), 0.1))
     return dict(n=n, param=param, out=out, first=first,
-                rows_first=rows_first, resumed=resumed)
+                rows_first=rows_first, resumed=resumed, ring=ring,
+                out_ring=out2, vacuum=vacuum)
 
 
 def test_cli_runs_on_cpu_without_jax(runs):
@@ -94,8 +112,35 @@ def test_cli_defaults_to_the_card(runs):
     assert "CUDA" in proc.stderr and "--device cpu" in proc.stderr
 
 
-@pytest.mark.parametrize("flag,item", [(("--devices", "4"), "item 14")])
+@pytest.mark.parametrize("flag,item", [(("--devices", "2"), "item 14")])
 def test_cli_refuses_what_is_not_ported(runs, flag, item):
-    proc = cli(runs["param"], 0, "--device", "cpu", *flag)
+    """A vacuum run on slabs (the gassphere) stops, naming its item,
+    before any rank starts."""
+    proc = cli(runs["vacuum"], 0, "--device", "cpu", *flag)
     assert proc.returncode != 0
     assert f"ROADMAP queue 1 {item}" in proc.stderr
+    assert "vacuum" in proc.stderr
+
+
+# the slab run against the single-device one: each column of energy.txt's
+# row within 5e-4 of the row's largest |value| (test_spmd_step.py's bound)
+RING_ENERGY_TOL = 5e-4
+
+
+def test_cli_devices_2_matches_one_device(runs):
+    """``--device cpu --devices 2``: exit 0, the ring named in the
+    "particles" line, one sync point, and its energy.txt row held to the
+    single-device run's."""
+    proc = runs["ring"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"N={runs['n']} particles on cpu x 2 ranks" in proc.stdout
+    assert "done: 1 steps" in proc.stdout
+    got = np.loadtxt(runs["out_ring"] / "energy.txt", ndmin=2)
+    want = runs["rows_first"]
+    assert got.shape == want.shape == (1, 28)
+    assert got[0, 0] == want[0, 0]
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=RING_ENERGY_TOL * scale,
+                               rtol=0)
+    for name in ("info.txt", "cpu.txt", "restart.npz"):
+        assert (runs["out_ring"] / name).exists(), name

@@ -24,7 +24,12 @@ reach across the periodic wrap, all-parked chunks, switched-off entries,
 the Leicester disc's subcells); and B where its slab is tight (slots
 beyond their cells by the grid cache's margin and by more than a mesh
 cell, the mesh wrap, a slab that takes the whole axis, a mesh side that
-is not a multiple of 4, cells too large for any slab)."""
+is not a multiple of 4, cells too large for any slab). The slab step's
+modes (A's slab mode, C's and D's anisotropic mode) get the arguments of
+two slab sync points of a 2x16^3 box on a ring of one, a slab frame with
+heavy sources at rcut (1 -+ 1e-5) across the y and z seams and beyond the
+clamped x faces (3 and 40 cells along x by 34 x 34), and an anisotropic
+block grid with empty trailing x blocks."""
 
 import pytest
 import torch
@@ -1529,3 +1534,154 @@ def test_deposit_kernel_matches_plain_on_card(n_cells, n_pm, n, stale):
     assert used <= 1.0
     total = float(np.where(alive, mass.astype(np.float32), 0.0).sum())
     assert abs(float(got.double().sum()) - total) <= 1e-5 * total
+
+
+# --------------------------------------------------------------------------
+# the slab step's modes: A's slab mode, C's and D's anisotropic mode
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def recorded_slab():
+    """The wrappers' arguments in two slab sync points of the 2x16^3 box on
+    a ring of one (``Simulation(..., mesh=1)``, NCCL)."""
+    _need_card()
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg, opts, (pos, vel, mass, ptype, u) = chip_smoke.setup(16)
+    sim = Simulation(cfg, opts, "cuda", mesh=1)
+    sim.set_ics(pos, vel, mass, ptype, u=u)
+    with chip_smoke.recorded_inputs() as rec:
+        sim.step(2)
+    assert int(sim.state.overflow_flags) == 0
+    return dict(rec)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("name", chip_smoke.SLAB)
+def test_slab_modes_on_the_path_on_card(recorded_slab, name, case):
+    """Each mode on the arguments the slab step gave it, all tiles and
+    every other tile gated off (an inactive tile writes zeros)."""
+    _check(recorded_slab, name, case)
+
+
+SLAB_BOX, SLAB_NYZ, SLAB_RCUT = 34.0, 34, 0.95
+
+
+def _slab_gravity_case(nx: int, sign: int):
+    """A slab frame of ``nx`` clamped cells of edge 1 along x (the slab
+    [rcut, nx - rcut), its ghost strips one cell wide where nx = 3) by
+    34 x 34 periodic cells of a box of 34: a light background reaching
+    0.2 beyond the clamped faces, and heavy sources at rcut (1 + sign
+    1e-5) of a target across the y seam, across the z seam and beyond
+    each clamped face; about a fifth of the tiles gated off. Returns the
+    wrapper's arguments, the cell list and the targets' rows."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops.cells import (grav_tile_flags,
+                                                      pack_cells_abs)
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    rng = np.random.default_rng(nx * 2 + (sign > 0))
+    box, rc = SLAB_BOX, SLAB_RCUT
+    ext = float(nx)
+    r = rc * (1.0 + sign * 1e-5)
+    n_bg = 4000 if nx > 3 else 1500
+    pts = np.stack([rng.uniform(-0.2, ext + 0.2, n_bg),
+                    rng.uniform(0, box, n_bg), rng.uniform(0, box, n_bg)], 1)
+    mass = list(np.ones(n_bg))
+    targets, planted = [], []
+    for t, s in (((1.5, 0.3, 7.0), (1.5, 0.3 - r + box, 7.0)),
+                 ((1.5, 9.0, box - 0.2), (1.5, 9.0, r - 0.2)),
+                 ((0.5 * rc, 15.0, 15.0), (0.5 * rc - r, 15.0, 15.0)),
+                 ((ext - 0.5 * rc, 21.0, 21.0),
+                  (ext - 0.5 * rc + r, 21.0, 21.0))):
+        targets.append(len(mass) + len(planted))
+        planted += [t, s]
+    pts = np.concatenate([pts, np.asarray(planted)]).astype(np.float32)
+    mass = np.asarray(mass + [1.0, 1e3] * 4, np.float32)
+    dev = "cuda"
+    pos = torch.from_numpy(pts).to(dev)
+    m = torch.from_numpy(mass).to(dev)
+    soft = torch.full_like(m, 0.05)
+    alive = torch.ones_like(m, dtype=torch.bool)
+    per = (False, True, True)
+    n3 = (nx, SLAB_NYZ, SLAB_NYZ)
+    cl = build_cell_list(pos, alive, torch.tensor([0.0, 0.0, 0.0], device=dev),
+                         torch.tensor([ext, box, box], device=dev),
+                         n_cells=n3, capacity=128, periodic=per)
+    assert not bool(cl.overflow)
+    soa = pack_cells_abs(cl, pos, m, soft, alive)
+    active = torch.from_numpy(rng.uniform(size=len(m)) < 0.8).to(dev)
+    active[targets] = True
+    flags = grav_tile_flags(cl, active)
+    args = (soa, flags, n3, box, per, rc / 4.5, rc)
+    return args, cl, targets
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("nx", [3, 40])
+def test_slab_gravity_kernel_edges_on_card(nx, sign):
+    """A's slab mode where its culling and its stencil are tight: heavy
+    sources at rcut (1 - 1e-5) of a target across the y and z seams and
+    beyond each clamped face pull it, at rcut (1 + 1e-5) add nothing;
+    within the bound of its float64 plain version, gated tiles zero."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
+    args, cl, targets = _slab_gravity_case(nx, sign)
+    got = cells.shortrange_gravity_slab(*args)
+    want = gravity_short.shortrange_gravity_slab_plain(*args)
+    exact = gravity_short.shortrange_gravity_slab_plain(
+        *chip_smoke.as_float64(args))
+    torch.cuda.synchronize()
+    *_, used = chip_smoke.compare("shortrange_gravity_slab", got, want,
+                                  exact)
+    assert used <= 1.0
+    assert not bool(got[args[1] == 0].any())
+    acc = merge_rows(got, cl, 3)[targets].abs().amax(1)
+    # a heavy pull at rcut is ~20 (G = 1); the background's is below 1
+    assert bool(((acc > 5.0) == (sign < 0)).all()), acc
+
+
+@pytest.fixture(scope="module")
+def recorded_aniso():
+    """C's and D's arguments on an anisotropic grid on the card: gas in x
+    over [0.2, 0.8] of a grid clamped over [0.1, 3.1] (3 blocks of 2 fine
+    cells of 0.5: the trailing blocks empty), periodic over a box of 2 in
+    y and z, as tests/test_sph_blocks_aniso.py lays it out."""
+    _need_card()
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_blocks as sb
+    rng = np.random.default_rng(41)
+    n, box, fine = 2500, 2.0, 0.5
+    pos = np.stack([rng.uniform(0.2, 0.8, n), rng.uniform(0, box, n),
+                    rng.uniform(0, box, n)], -1).astype(np.float32)
+    t = [torch.from_numpy(a).cuda() for a in (
+        pos, rng.normal(size=(n, 3)).astype(np.float32),
+        np.full(n, 1.0 / n, np.float32))]
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    mask[-5:] = False
+    active = torch.from_numpy(rng.uniform(size=n) < 0.7).cuda()
+    cls = sb.build_block_lists(t[0], mask, torch.tensor([0.1, 0.0, 0.0]).cuda(),
+                               torch.tensor([3.0, box, box]).cuda(),
+                               n_blocks=(3, 2, 2), subcap=256,
+                               periodic=(False, True, True))
+    cap = 0.9 * fine
+    with chip_smoke.recorded_inputs() as rec:
+        # every gas particle solved, so that the hydro pass's inactive
+        # ones have a density too (a step keeps their last one)
+        dres, _ = sb.density_adaptive_blocks(
+            *t, torch.full((n,), 0.2, device="cuda"), mask, 33.0, 2.0, box,
+            cls, cap, fine_edge=fine)
+        rho = torch.where(mask, dres.rho, torch.ones_like(dres.rho))
+        sb.hydro_force_blocks(cls, *t, dres.hsml, rho, 0.8 * rho ** (5 / 3),
+                              dres.dhsml_factor, dres.div_vel, dres.curl_vel,
+                              mask, 0.8, box, 0.1, 1.0, 1.0, active=active,
+                              fine_edge=fine)
+    return dict(rec)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("name", ["sph_density_aniso", "sph_hydro_aniso"])
+def test_aniso_sph_kernels_edges_on_card(recorded_aniso, name, case):
+    """C and D on an anisotropic grid with empty trailing x blocks, gas
+    across the y and z seams and inactive tiles, within their bound."""
+    _check(recorded_aniso, name, case)
