@@ -154,7 +154,7 @@ def test_gravity_slab_flags_gate_tiles():
     t = [torch.from_numpy(a) for a in (pos, mass, soft, alive)]
     cl = build_cell_list(t[0], t[3], torch.from_numpy(lo),
                          torch.from_numpy(ext), n_cells=(3, 5, 5),
-                         capacity=128, periodic=(False, True, True))
+                         capacity=32, periodic=(False, True, True))
     soa = tc.pack_cells_abs(cl, *t)
     active = torch.from_numpy(np.random.default_rng(5).uniform(
         size=len(pos)) < 0.3) & t[3]
@@ -298,7 +298,7 @@ def test_block_sums_on_a_cube_unchanged():
     mass = torch.full((n,), 1.0 / n)
     mask = torch.ones(n, dtype=torch.bool)
     cl_e, cl_o = sb.build_block_lists(pos, mask, 0.0, box, n_blocks=nb,
-                                      subcap=64, periodic=True)
+                                      subcap=32, periodic=True)
     lf = box / (2 * nb)
     ones = torch.ones(n)
     soa_e = sb.pack_sph_soa(cl_e, pos, vel, mass, ones, mask,
