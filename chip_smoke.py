@@ -10,7 +10,8 @@ imports nothing of JAX. Phases, each printing its own lines:
 2. build: compile the eleven kernel sources of
    ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once; A's source holds A and H, E's its two modes, C's, D's, F's and
-   G's their relative and absolute modes);
+   G's their relative and absolute modes, M's A's slab mode with and
+   without the potential);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -183,7 +184,23 @@ imports nothing of JAX. Phases, each printing its own lines:
    gadget_leicester_tpu_torch ... --devices 1`` against the same CLI run
    without it (energy.txt and the snapshot, by the same bounds); and
    ``--devices 2`` on a machine with fewer cards exits non-zero, counting
-   them.
+   them;
+19. the slab step's fork physics and vacuum geometry
+   (:func:`phase_slab_fork`), on a ring of one on NCCL: (a) phase 14's
+   configuration with sinks through ``Simulation(mesh=1)`` for
+   ``SLAB_SINK_STEPS`` sync points, held by pid to the single-device run of
+   the same ICs (:func:`hold_slab`), its registry (PIDs, acc_mass,
+   n_accreted) equal, alive mass and momentum across the sinks, the
+   in-step potential after the first sync point; (b) A's slab mode with
+   the potential row replayed on (a)'s arguments against its float64
+   plain version and timed, its rows 0-2 equal to the force-only mode's
+   bit for bit; (d) Stamatellos cooling with the sinks, one sync point on
+   (a)'s states, ring against one device; (c) the 2x128^3 ICs in vacuum
+   (``PeriodicBoundariesOn 0``, comoving) for ``SLAB_VACUUM_STEPS`` sync
+   points, the first one's gravity against the dense split of the same
+   TreePM on seeded targets, A's slab mode at image mask 0 and C's and
+   D's anisotropic mode on clamped grids replayed and timed (rows of
+   their own in the kernels line); (e) a sync point of each by parts.
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -247,7 +264,8 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "shortrange_potential_entries": 1e-4, "sph_density_abs": 1e-4,
        "sph_hydro_abs": 1e-4, "sph_density_entries_abs": 1e-4,
        "sph_hydro_entries_abs": 1e-4, "shortrange_gravity_slab": 1e-4,
-       "sph_density_aniso": 1e-4, "sph_hydro_aniso": 1e-4}
+       "sph_density_aniso": 1e-4, "sph_hydro_aniso": 1e-4,
+       "shortrange_gravity_slab_pot": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -269,9 +287,18 @@ GRAVITY_CELLS = ("shortrange_gravity_cells",)
 ABS_DENSE = ("sph_density_abs", "sph_hydro_abs")
 ABS_ENTRIES = ("sph_density_entries_abs", "sph_hydro_entries_abs")
 ABS = ABS_DENSE + ABS_ENTRIES
-# the slab step's modes (phase 18): A's slab mode on M's kernel, C and D
-# on anisotropic block grids
-SLAB = ("shortrange_gravity_slab", "sph_density_aniso", "sph_hydro_aniso")
+# the slab step's modes: A's slab mode on M's kernel, C and D on
+# anisotropic block grids (phase 18), A's slab mode with the potential row
+# (phase 19: sinks, Stamatellos cooling)
+SLAB_FORCE = ("shortrange_gravity_slab", "sph_density_aniso",
+              "sph_hydro_aniso")
+SLAB_POT = ("shortrange_gravity_slab_pot",)
+SLAB = SLAB_FORCE + SLAB_POT
+# the vacuum slab step's modes (phase 19): the same wrappers on grids
+# clamped on every axis (A's image mask 0, C's and D's (F, F, F)), with
+# rows of their own in the kernels line
+VACUUM = "_vacuum"
+SLAB_VACUUM = tuple(n + VACUUM for n in SLAB_FORCE)
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -334,6 +361,21 @@ KERNELS = {
                           "gadget_leicester_tpu/ops/sph_blocks.py:397"),
     "sph_hydro_aniso": ("gadget_leicester_tpu_torch/csrc/sph_hydro.cu",
                         "gadget_leicester_tpu/ops/sph_blocks.py:630"),
+    # A's slab mode with the potential row: with_potential=True on the
+    # same call (parallel/spmd.py:888-898), kPot in M's source
+    "shortrange_gravity_slab_pot": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:669"),
+    # the vacuum slab step's modes: periodic=(False, False, False)
+    "shortrange_gravity_slab_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:669"),
+    "sph_density_aniso_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/sph_density.cu",
+        "gadget_leicester_tpu/ops/sph_blocks.py:397"),
+    "sph_hydro_aniso_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/sph_hydro.cu",
+        "gadget_leicester_tpu/ops/sph_blocks.py:630"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
@@ -344,10 +386,15 @@ FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "sph_density_abs": 3, "sph_hydro_abs": 5,
              "sph_density_entries_abs": 3, "sph_hydro_entries_abs": 4,
              "shortrange_gravity_slab": 1, "sph_density_aniso": 3,
-             "sph_hydro_aniso": 5}
+             "sph_hydro_aniso": 5, "shortrange_gravity_slab_pot": 1}
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
 PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6,
               "sph_hydro_aniso": 6}
+for _n in SLAB_FORCE:
+    TOL[_n + VACUUM] = TOL[_n]
+    FLAGS_ARG[_n + VACUUM] = FLAGS_ARG[_n]
+    if _n in PARAMS_ARG:
+        PARAMS_ARG[_n + VACUUM] = PARAMS_ARG[_n]
 # The bound of each kernel (the least time the card could take): the
 # larger of its float32 operations over PEAK_FLOPS and its bytes (each
 # input tensor read once, the output written once) over PEAK_BYTES; the
@@ -369,9 +416,11 @@ PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6,
 # multiply, a round and an FMA) and 2 for the exact r < rcut test, less 22
 # where the truncation polynomial is off (asmth = 0). The absolute modes of
 # C, D, F, G pay 3 operations less on every pair: dx = t - s, no shift.
-# A's slab mode pays M's, with the minimum image on its two periodic axes
-# only (MIN_IMAGE_OPS / 3 an axis); C's and D's anisotropic mode their
-# relative mode's.
+# A's slab mode pays M's, with the minimum image on its periodic axes
+# only (MIN_IMAGE_OPS / 3 an axis: two on a periodic slab, none in
+# vacuum), and with the potential row H's potential on top (OPS_PER_PAIR
+# of H less A's: the softened potential, its erfc and the sum); C's and
+# D's anisotropic mode their relative mode's, in vacuum too.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
@@ -813,7 +862,7 @@ def kernel_pairs() -> dict:
                                                 pm_tiles)
     from gadget_leicester_tpu_torch.ops import sph_blocks as sb
     from gadget_leicester_tpu_torch.ops import sph_cells as sc
-    return {
+    pairs = {
         "sph_cells_density": (sc.density_sums_cells,
                               sc.density_sums_cells_plain),
         "sph_cells_hydro": (sc.hydro_sums_cells, sc.hydro_sums_cells_plain),
@@ -859,7 +908,16 @@ def kernel_pairs() -> dict:
                               with_potential=True),
             functools.partial(gravity_short.shortrange_gravity_entries_plain,
                               with_potential=True)),
+        # A's slab mode with the potential row
+        "shortrange_gravity_slab_pot": (
+            functools.partial(cells.shortrange_gravity_slab,
+                              with_potential=True),
+            functools.partial(gravity_short.shortrange_gravity_slab_plain,
+                              with_potential=True)),
     }
+    # the vacuum slab step's modes: the same wrappers and plain versions
+    pairs.update({n + VACUUM: pairs[n] for n in SLAB_FORCE})
+    return pairs
 
 
 def cases(name: str, recorded: dict) -> list:
@@ -1070,7 +1128,8 @@ def pair_count(name: str, args: tuple) -> tuple:
         return n, n
     if name == "shortrange_gravity_cells":
         return gravity_cells_pair_count(args)
-    if name == "shortrange_gravity_slab":
+    name = name.removesuffix(VACUUM)
+    if name in ("shortrange_gravity_slab", "shortrange_gravity_slab_pot"):
         soa, flags, n, box, periodic, asmth, rcut = args
         return gravity_cells_pair_count((soa, n, box, periodic, asmth, rcut),
                                         flags)
@@ -1776,7 +1835,14 @@ PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "shortrange_potential_entries":
                   "shortrange_gravity_entries_kernelILb1E",
               "shortrange_gravity_cells": "shortrange_gravity_cells_kernel",
-              "shortrange_gravity_slab": "shortrange_gravity_cells_kernelILi6E"}
+              "shortrange_gravity_slab":
+                  "shortrange_gravity_cells_kernelILi6ELb0E",
+              "shortrange_gravity_slab_pot":
+                  "shortrange_gravity_cells_kernelILi6ELb1E",
+              "shortrange_gravity_slab_vacuum":
+                  "shortrange_gravity_cells_kernelILi0ELb0E",
+              "shortrange_gravity_slab_pot_vacuum":
+                  "shortrange_gravity_cells_kernelILi0ELb1E"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -1941,13 +2007,17 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
         ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2
                         + (MIN_IMAGE_OPS if periodic else 0)
                         - (0 if asmth > 0 else TRUNC_OPS))
-    elif name == "shortrange_gravity_slab":
+    elif name.removesuffix(VACUUM) in ("shortrange_gravity_slab",
+                                       "shortrange_gravity_slab_pot"):
         periodic, asmth = args[4], args[5]
-        ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2
+        pot = (OPS_PER_PAIR["shortrange_potential"]
+               - OPS_PER_PAIR["shortrange_gravity"]
+               if name == "shortrange_gravity_slab_pot" else 0)
+        ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2 + pot
                         + MIN_IMAGE_OPS // 3 * sum(periodic)
                         - (0 if asmth > 0 else TRUNC_OPS))
     else:
-        ops = in_cut * OPS_PER_PAIR[name]
+        ops = in_cut * OPS_PER_PAIR[name.removesuffix(VACUUM)]
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return {"pairs": stencil, "in_cut": in_cut, "ops": ops, "bytes": nbytes,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -1965,14 +2035,16 @@ def thinned(name: str, args: tuple, every: int) -> tuple:
 
 
 def check_kernels(recorded: dict, where: str, results: dict, names,
-                  timed: bool = False, every: int = 1) -> None:
+                  timed: bool = False, every: int = 1,
+                  n_cases: int | None = None) -> None:
     """Each kernel of ``names`` against its plain version on the arguments
     the path gave its wrapper (``recorded``), in every case of
     :func:`cases`, by :func:`compare`; with ``timed``, each one's time
     beside its plain version's in the first case (all tiles or entries).
     With ``every`` > 1 the comparisons switch on only every ``every``-th
     tile or entry of each case (the timing keeps them all), where the
-    float64 plain version of the whole would take minutes."""
+    float64 plain version of the whole would take minutes. ``n_cases``:
+    the first cases of :func:`cases` only."""
     pairs = kernel_pairs()
     for name in names:
         if name not in recorded:
@@ -1980,7 +2052,7 @@ def check_kernels(recorded: dict, where: str, results: dict, names,
         kern, plain = pairs[name]
         r = results.setdefault(name, {})
         r.setdefault("max_abs_err", 0.0)
-        for n, (case, args) in enumerate(cases(name, recorded)):
+        for n, (case, args) in enumerate(cases(name, recorded)[:n_cases]):
             if timed and n == 0:
                 r["ms"], got = time_ms(lambda: kern(*args), reps=5)
                 # a plain version of seconds a call needs no warm-up
@@ -5144,16 +5216,16 @@ def phase_slab(results: dict, card: str, device="cuda",
     say("slab", f"launches over {steps} sync points ({n_pm} PM steps): "
         f"{_nonzero(counts)}; ti_current {int(st.ti_current)}, overflow "
         f"{int(st.overflow_flags)}")
-    check_launches("slab", counts, SLAB + GATHER, "the slab steps")
+    check_launches("slab", counts, SLAB_FORCE + GATHER, "the slab steps")
     if counts["pm_gather"] != n_pm:
         raise AssertionError(f"slab: kernel L launched {counts['pm_gather']}"
                              f" times over {n_pm} slab PM passes")
-    for name in SLAB:
+    for name in SLAB_FORCE:
         results.setdefault(name, {})["launches"] = counts[name]
     cst = ring.canonical_state()
     check_finite("slab", cst)
-    check_kernels(recorded, f"slab 2x{n_side}^3", results, SLAB, timed=True,
-                  every=SLAB_EVERY)
+    check_kernels(recorded, f"slab 2x{n_side}^3", results, SLAB_FORCE,
+                  timed=True, every=SLAB_EVERY)
     rcut = ring._spmd_step.rcut
     hold_slab("slab", "ring of one against one device after the first sync "
               "point", firsts[1], firsts[0], box, spacing, rcut)
@@ -5270,6 +5342,446 @@ def phase_slab_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 19: the slab step's fork physics and vacuum geometry on a ring of
+# one (parallel/): (a) phase 14's configuration with sinks through
+# Simulation(mesh=1) for SLAB_SINK_STEPS sync points, held by pid to the
+# single-device run of the same ICs (hold_slab), the registry, the
+# conservation across the sinks and the in-step potential (SINK_INSTEP_TOL
+# of max |pot|, on the particles active at the first sync point, all of
+# them); (b) A's slab mode with the potential on (a)'s arguments; (c) the
+# lcdm ICs in vacuum (PeriodicBoundariesOn 0, comoving) for
+# SLAB_VACUUM_STEPS sync points, the first sync point's gravity against the
+# dense split of the same TreePM on SLAB_VACUUM_TARGETS seeded targets
+# (SLAB_VACUUM_TOL of the largest value, test_spmd_vacuum.py's bound), A's,
+# C's and D's vacuum modes; (d) Stamatellos cooling with the sinks, one
+# sync point on (a)'s states; (e) a sync point of each by parts
+SLAB_SINK_STEPS = 8
+# phase 19 holds A's slab mode with the potential to its float64 plain
+# version on every SLAB_EVERY-th tile and the vacuum modes on every 32nd,
+# each with every tile on (phase 18 also gates every other tile off, on the
+# same kernel code): the plain versions' timings at full width take some
+# 140 s of the phase, and the whole script keeps to the run's time limit
+SLAB_FORK_EVERY = 32
+SLAB_VACUUM_STEPS = 4
+SLAB_VACUUM_TARGETS = 4096
+SLAB_VACUUM_TOL = 2e-3
+SLAB_VACUUM_SEED = 19
+SLAB_POT_PATH = SLAB_POT + SLAB_FORCE[1:] + GATHER
+
+
+@contextlib.contextmanager
+def ring_fork_bookkeeping(step):
+    """Within the body, each call of the slab step's ``sinks`` appends the
+    alive mass and momentum of the ring before and after it (a ring of
+    one: the rank's), as :func:`fork_bookkeeping` does for one device."""
+    import torch
+    real = step.sinks
+    log = []
+
+    def totals(state):
+        p = state.p
+        m = torch.where(p.alive, p.mass, torch.zeros_like(p.mass)).double()
+        mv = m[:, None] * p.vel.double()
+        return torch.cat([m.sum()[None], mv.sum(0), mv.abs().sum()[None]])
+
+    def spy(state):
+        before = totals(state)
+        state = real(state)
+        log.append((before, totals(state)))
+        return state
+
+    step.sinks = spy
+    try:
+        yield log
+    finally:
+        del step.sinks
+
+
+def registry_by_slot(state) -> list:
+    """[(slot, pid of its sink, acc_mass, n_accreted)] of the used slots of
+    a canonical state."""
+    import numpy as np
+    slot = state.sinks.slot.cpu().numpy()
+    pid = state.p.pid.cpu().numpy()
+    return [(int(k), int(pid[slot[k]]), float(state.sinks.acc_mass[k]),
+             int(state.sinks.n_accreted[k]))
+            for k in np.flatnonzero(slot >= 0)]
+
+
+def vacuum_dense_split(st, cfg, domain, pmgrid: int, targets,
+                       block: int = 8):
+    """The vacuum TreePM of a state by one device, densely, at the alive
+    particles ``targets``: the free-space mesh over ``domain``
+    (``ops/pm.py :: pm_forces_nonperiodic``) plus the erfc-truncated
+    softened pair sum of every source within rcut, in float64, plus the
+    comoving background term; times G (test_spmd_vacuum.py's oracle)."""
+    import math
+
+    import torch
+
+    from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                          softening_table)
+    from gadget_leicester_tpu_torch.ops.gravity_direct import \
+        shortrange_trunc
+    from gadget_leicester_tpu_torch.ops.pm import (ASMTH, RCUT,
+                                                   pm_forces_nonperiodic)
+    from gadget_leicester_tpu_torch.ops.softening import SOFTFAC, grav_fac
+    p = st.p
+    origin, extent = domain[:2]
+    asmth = ASMTH * float(extent) / pmgrid
+    rcut = RCUT * asmth
+    acc_pm = pm_forces_nonperiodic(p.pos, p.mass, p.alive,
+                                   torch.as_tensor(origin, device=p.pos.device),
+                                   float(extent), pmgrid)[targets].double()
+    fac = comoving_factors(cfg, st.ti_current)
+    soft = (SOFTFAC * softening_table(cfg, fac.atime)[p.ptype.long()]).double()
+    src = torch.nonzero(p.alive).flatten()
+    spos, smass, ssoft = p.pos[src].double(), p.mass[src].double(), soft[src]
+    out = []
+    for b0 in range(0, targets.numel(), block):
+        t = targets[b0:b0 + block]
+        dx = p.pos[t].double()[:, None, :] - spos[None, :, :]
+        r = torch.sqrt((dx * dx).sum(-1))
+        h = torch.maximum(soft[t][:, None], ssoft[None, :])
+        f = grav_fac(r, h) * shortrange_trunc(r, asmth)
+        f = torch.where((r < rcut) & (r > 0), f, torch.zeros_like(f))
+        out.append(-(f[:, :, None] * dx * smass[None, :, None]).sum(1))
+    acc = (torch.cat(out) + acc_pm) * cfg.grav_internal
+    if cfg.comoving_integration_on:
+        acc = acc + 0.5 * cfg.omega0 * cfg.hubble_internal ** 2 \
+            * p.pos[targets].double()
+    return acc
+
+
+def step_through_overflow(sim, phase: str) -> int:
+    """One sync point of ``sim``; where it sets an overflow bit, the
+    capacities raised as the run loop raises them
+    (``Simulation._bump_capacities``: ``raised_capacities`` on one
+    device, ``raised_slab_capacities`` and a new decomposition on a ring,
+    which also refits a vacuum domain after bit 4) and the sync point
+    taken again from the state before it. Returns the number of raises."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch.models.grids import make_grid_cache
+    from gadget_leicester_tpu_torch.models.simulation import (
+        MAX_INIT_BUMPS, raised_capacities)
+    from gadget_leicester_tpu_torch.parallel.spmd import \
+        raised_slab_capacities
+    before = sim.state
+    for n in range(MAX_INIT_BUMPS):
+        sim.step()
+        ovf = int(sim.state.overflow_flags)
+        if not ovf:
+            return n
+        clear = dataclasses.replace(before, overflow_flags=torch.zeros_like(
+            before.overflow_flags))
+        sim.step_count -= 1
+        if sim.mesh is None:
+            sim.opts = raised_capacities(sim.opts, ovf, before.n_gas_max)
+            sim.state = dataclasses.replace(
+                clear, grids=make_grid_cache(sim.device))
+        else:
+            sim.opts = raised_slab_capacities(
+                sim.opts, ovf, sim._spmd_step.geometry(before))
+            sim.state = clear
+            sim._decompose()
+        where = "on one device" if sim.mesh is None else "on the ring"
+        say(phase, f"overflow {ovf} {where} at step {sim.step_count + 1}: "
+            f"capacities raised (sr {sim.opts.sr_capacity}, sph "
+            f"{sim.opts.sph_capacity}, ghost {sim.opts.spmd_ghost_frac})"
+            + (f", domain refitted to {sim.spmd_domain[1]:.6g}"
+               if sim.spmd_domain is not None else "")
+            + ", the sync point taken again")
+    sim.step()
+    return MAX_INIT_BUMPS
+
+
+def phase_slab_fork(results: dict, card: str, device="cuda",
+                    n_side=N_SIDE_MAIN) -> None:
+    """Phase 19 (see the module docstring): sinks, the in-step potential,
+    Stamatellos cooling and vacuum TreePM on a ring of one at full
+    width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.config import parse_parameter_text
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.ops import cells
+    from gadget_leicester_tpu_torch.parallel.launch import _by_pid
+
+    # (a) sinks on slabs, against one device
+    cfg, opts, (pos, vel, mass, ptype, u) = setup(
+        n_side, param_extra=sink_param_lines(n_side), sinks=True)
+    box, spacing = float(cfg.box_size), float(cfg.box_size) / n_side
+    one = Simulation(cfg, opts, device)
+    one.set_ics(pos, vel, mass, ptype, u=u)
+    ng = one.state.n_gas_max
+    gas = one.state.p.alive[:ng] & (one.state.p.ptype[:ng] == 0)
+    thr = float(np.percentile(one.state.gas.density[gas].cpu().numpy(),
+                              SINK_DENSITY_PERCENTILE))
+    one.cfg = cfg = cfg.replace(sink_formation_density=thr)
+    firsts, formed = [], {"one": [], "ring": []}
+    for i in range(SLAB_SINK_STEPS):
+        one.step()
+        if i == 0:
+            firsts.append(_by_pid(one.state))
+            first_one = one.state
+        formed["one"].append(int((one.state.sinks.slot >= 0).sum()))
+    sync(device)
+    want = _by_pid(one.state)
+    want_reg = registry_by_slot(one.state)
+    ring = Simulation(cfg, opts, device, mesh=1)
+    ring.set_ics(pos, vel, mass, ptype, u=u)
+    step = ring._spmd_step
+    ring_s = []
+    with recorded_inputs() as rec, ring_fork_bookkeeping(step) as book:
+        kernels.reset_launches()
+        for i in range(SLAB_SINK_STEPS):
+            t0 = time.time()
+            ring.step()
+            sync(device)
+            ring_s.append(time.time() - t0)
+            if i == 0:
+                first_ring = ring.canonical_state()
+                firsts.append(_by_pid(first_ring))
+            formed["ring"].append(int((ring.state.sinks.slot >= 0).sum()))
+        counts = dict(kernels.launches)
+    recorded = dict(rec)
+    cst = ring.canonical_state()
+    got_reg = registry_by_slot(cst)
+    say("slab fork", f"2x{n_side}^3 with sinks on a ring of one (NCCL): "
+        f"SinkFormationDensity {thr:.6g}, per-step seconds "
+        + ", ".join(f"{x:.3f}" for x in ring_s) + f" ({card}); used slots "
+        f"after each sync point: ring {formed['ring']}, one device "
+        f"{formed['one']}; launches {_nonzero(counts)}")
+    check_launches("slab fork", counts, SLAB_POT_PATH, "the slab steps with "
+                   "sinks (A's slab mode with the potential, not without)")
+    results.setdefault("shortrange_gravity_slab_pot", {})["launches"] = \
+        counts["shortrange_gravity_slab_pot"]
+    check_finite("slab fork", cst)
+    check_fork_bookkeeping("slab fork", book)
+    say("slab fork", f"registry (slot, pid, acc_mass, n_accreted): ring "
+        f"{got_reg}; one device {want_reg}")
+    if [r[1] for r in got_reg] != [r[1] for r in want_reg]:
+        dens = {}
+        for label, res in (("ring", _by_pid(cst)), ("one device", want)):
+            by = dict(zip(res["gas.pid"], res["gas.density"]))
+            dens[label] = {q: float(by.get(q, float("nan")))
+                           for q in {r[1] for r in got_reg + want_reg}}
+        say("slab fork", f"FINDING: the sinks formed on other particles; "
+            f"the candidates' densities {dens}")
+        raise AssertionError("slab fork: sinks formed on other particles in "
+                             "the two runs")
+    for (_, q, m1, n1), (_, _, m2, n2) in zip(got_reg, want_reg):
+        if n1 != n2 or abs(m1 - m2) > SINK_MASS_TOL * max(abs(m2), 1e-30):
+            raise AssertionError(f"slab fork: sink {q} tallies ({m1}, {n1}) "
+                                 f"against ({m2}, {n2})")
+    if formed["ring"][-1] < 1:
+        raise AssertionError("slab fork: no sink formed at 2x128^3")
+    rcut = step.rcut
+    hold_slab("slab fork", "sinks, ring of one against one device after "
+              "the first sync point", firsts[1], firsts[0], box, spacing,
+              rcut)
+    hold_slab("slab fork", f"sinks, ring of one against one device after "
+              f"{SLAB_SINK_STEPS} sync points", _by_pid(cst), want, box,
+              spacing, rcut)
+    # the in-step potential after the first sync point (every particle
+    # active) against the full potential with its mesh piece in float64, as
+    # phase 14 holds it: one device's mesh piece (kernel B's deposit) and
+    # the slab's (the point deposit) are two float32 meshes, ~1e-4 of max
+    # |pot| from the float64 one each, and apart by about twice that
+    from gadget_leicester_tpu_torch.ops.pm import pm_potential_periodic
+
+    def pid_order(st):
+        rows = torch.nonzero(st.p.alive).flatten()
+        return rows[torch.argsort(st.p.pid[rows])]
+    o1, o2 = pid_order(first_one), pid_order(first_ring)
+    if not torch.equal(first_one.p.pid[o1], first_ring.p.pid[o2]):
+        raise AssertionError("slab fork: the particles differ after the "
+                             "first sync point")
+    p1, p2 = first_one.p, first_ring.p
+    pm64 = pm_potential_periodic(p1.pos.double(), p1.mass.double(),
+                                 p1.alive, box, opts.pmgrid) \
+        * cfg.grav_internal
+    exact = (p1.pot.double() - p1.pot_pm.double() + pm64)[o1]
+    scale = float(exact.abs().max())
+    err = float((p2.pot[o2].double() - exact).abs().max()) / scale
+    err_one = float((p1.pot[o1].double() - exact).abs().max()) / scale
+    err_pair = float((p2.pot[o2] - p1.pot[o1]).abs().max()) / scale
+    err_sr = float(((p2.pot - p2.pot_pm)[o2] - (p1.pot - p1.pot_pm)[o1])
+                   .abs().max()) / scale
+    say("slab fork", f"the in-step potential after the first sync point "
+        f"(every particle active) against the full potential with its mesh "
+        f"piece in float64: ring {err:.2e} of max |pot| {scale:.6g} (bound "
+        f"{SINK_INSTEP_TOL:g}), one device {err_one:.2e}; ring against one "
+        f"device {err_pair:.2e}, their short-range and self parts "
+        f"{err_sr:.2e}")
+    if not err <= SINK_INSTEP_TOL:
+        raise AssertionError("slab fork: the in-step potential differs")
+    del firsts, first_one, first_ring, p1, p2, pm64, exact, o1, o2
+
+    # (b) A's slab mode with the potential on (a)'s arguments
+    check_kernels(recorded, f"slab 2x{n_side}^3 with sinks", results,
+                  SLAB_POT, timed=True, every=SLAB_EVERY, n_cases=1)
+    args = recorded["shortrange_gravity_slab_pot"]
+    pot4 = cells.shortrange_gravity_slab(*args, with_potential=True)
+    force = cells.shortrange_gravity_slab(*args)
+    same = bool(torch.equal(pot4[:, :3], force))
+    f_ms, _ = time_ms(lambda: cells.shortrange_gravity_slab(*args), reps=5)
+    r = results["shortrange_gravity_slab_pot"]
+    say("kernels", f"shortrange_gravity_slab_pot: rows 0-2 equal to the "
+        f"force-only mode's bit for bit: {same}; {r['ms']:.3f} ms beside "
+        f"the force-only mode's {f_ms:.3f} ms on the same arguments; "
+        f"registers {ptxas_registers(PTXAS_NAME['shortrange_gravity_slab_pot'])}"
+        f" ({card})")
+    if not same:
+        raise AssertionError("A's slab mode with the potential: rows 0-2 "
+                             "differ from the force-only mode's")
+    del recorded, rec, args, pot4, force
+    kernels.recorded.clear()
+
+    # (d) Stamatellos cooling with the sinks. The cooling term alone on
+    # (a)'s ring state: the slab step's (the point-mass term over the
+    # ring's sinks, gathered by PID) against the single-device function on
+    # the same state gathered (rows in its registry), within COOLING_TOL of
+    # the largest; then one sync point of each run, held by pid
+    # (hold_slab), a capacity raise answered as the run loop answers it
+    from gadget_leicester_tpu_torch.models.cooling import apply_cooling
+    cool = dataclasses.replace(opts, cooling="stamatellos")
+    local = ring.state
+    step.opts = cool
+    ring_dcool = step.cool(local).gas.dt_entropy - local.gas.dt_entropy
+    cst = ring.canonical_state()
+    one_dcool = apply_cooling(cst, cfg, cool).gas.dt_entropy \
+        - cst.gas.dt_entropy
+    gmask = cst.p.alive[:cst.n_gas_max] & (cst.p.ptype[:cst.n_gas_max] == 0)
+    cool_err = float((ring_dcool - one_dcool)[gmask].abs().max()
+                     / one_dcool[gmask].abs().max())
+    say("slab fork", f"the Stamatellos term on the ring ({int(gmask.sum())} "
+        f"gas, {formed['ring'][-1]} sinks) against the single-device "
+        f"function on the same state: {cool_err:.2e} of the largest |dA/dt| "
+        f"(bound {COOLING_TOL:g})")
+    cooling_ok = cool_err <= COOLING_TOL
+    one.opts = dataclasses.replace(one.opts, cooling="stamatellos")
+    ring.opts = step.opts = dataclasses.replace(ring.opts,
+                                                cooling="stamatellos")
+    step_through_overflow(one, "slab fork")
+    step_through_overflow(ring, "slab fork")
+    step = ring._spmd_step
+    sync(device)
+    w, g = _by_pid(one.state), _by_pid(ring.canonical_state())
+    hold_slab("slab fork", "Stamatellos with sinks, ring of one against one "
+              "device after one more sync point", g, w, box, spacing, rcut)
+    ti = int(one.state.ti_current)
+    # the gas both runs kicked at this sync point (cooling adds to the
+    # dt_entropy of every gas particle, the hydro term only to the active)
+    act = np.isin(w["gas.pid"], np.intersect1d(
+        w["pid"][w["ti_begstep"] == ti], g["pid"][g["ti_begstep"] == ti])) \
+        & np.isin(w["gas.pid"], g["gas.pid"])
+    gi = np.searchsorted(g["gas.pid"], w["gas.pid"][act])
+    err = float(np.abs(g["gas.dt_entropy"][gi] - w["gas.dt_entropy"][act])
+                .max() / np.abs(w["gas.dt_entropy"][act]).max())
+    say("slab fork", f"Stamatellos with sinks, one sync point, ring against "
+        f"one device on the {int(act.sum())} gas active in both: dt_entropy "
+        f"{err:.2e} of the largest (the two mesh potentials, from two "
+        "float32 deposits, differ by ~3e-4 of max |pot|, and the rate "
+        "scales as 1/|psi| where |psi| is smallest)")
+    check_finite("slab fork", ring.canonical_state())
+    check_finite("slab fork", one.state)
+    del local, ring_dcool, one_dcool, gmask
+
+    # (e) a sync point with sinks by parts
+    step.times = {}
+    ring.step()
+    sync(device)
+    parts, step.times = step.times, None
+    say("slab fork", "a slab sync point with sinks and Stamatellos by parts "
+        "(ms): " + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in parts.items())
+        + f" ({card})")
+    del one, ring, step, cst, want, w, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) vacuum TreePM on slabs: the lcdm ICs, PeriodicBoundariesOn 0
+    vcfg = parse_parameter_text(param_text(n_side).replace(
+        "PeriodicBoundariesOn 1", "PeriodicBoundariesOn 0"))
+    vopts = dataclasses.replace(opts, periodic=False, sinks=False,
+                                cooling="none")
+    vac = Simulation(vcfg, vopts, device, mesh=1)
+    t0 = time.time()
+    vac.set_ics(pos, vel, mass, ptype, u=u)
+    sync(device)
+    init_s = time.time() - t0
+    vac_s, raises = [], 0
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        for i in range(SLAB_VACUUM_STEPS):
+            t0 = time.time()
+            raises += step_through_overflow(vac, "slab vacuum")
+            sync(device)
+            vac_s.append(time.time() - t0)
+            if i == 0:
+                first = vac.canonical_state()
+                dom = vac.spmd_domain
+        counts = dict(kernels.launches)
+    step = vac._spmd_step
+    recorded = {n + VACUUM: a for n, a in rec.items()}
+    say("slab vacuum", f"2x{n_side}^3 lcdm ICs in vacuum (comoving) on a "
+        f"ring of one: domain origin {np.asarray(dom[0]).tolist()}, extent "
+        f"{dom[1]:.6g}, occupied share {dom[2]:.3f}, pmgrid "
+        f"{vac.opts.pmgrid}; set_ics {init_s:.3f} s, "
+        "per-step seconds " + ", ".join(f"{x:.3f}" for x in vac_s)
+        + f" ({card}); capacity raises {raises}; launches "
+        f"{_nonzero(counts)}")
+    check_launches("slab vacuum", counts, SLAB_FORCE + GATHER,
+                   "the vacuum slab steps")
+    for n in SLAB_FORCE:
+        results.setdefault(n + VACUUM, {})["launches"] = counts[n]
+    check_finite("slab vacuum", vac.canonical_state())
+    gen = torch.Generator(device="cpu").manual_seed(SLAB_VACUUM_SEED)
+    alive_rows = torch.nonzero(first.p.alive).flatten().cpu()
+    pick = alive_rows[torch.randperm(alive_rows.numel(), generator=gen)[
+        :SLAB_VACUUM_TARGETS]].to(first.p.pos.device)
+    t0 = time.time()
+    oracle = vacuum_dense_split(first, vcfg, dom, vac.opts.pmgrid, pick)
+    got = (first.p.acc + first.p.acc_pm)[pick].double()
+    err = float((got - oracle).abs().max() / oracle.abs().max())
+    say("slab vacuum", f"first sync point's gravity against the dense split "
+        f"on {pick.numel()} seeded targets: {err:.2e} of the largest value "
+        f"(bound {SLAB_VACUUM_TOL:g}; the oracle took "
+        f"{time.time() - t0:.1f} s)")
+    if not err < SLAB_VACUUM_TOL:
+        raise AssertionError("slab vacuum: gravity differs from the dense "
+                             "split")
+    del first, oracle, got
+    check_kernels(recorded, f"vacuum slab 2x{n_side}^3", results,
+                  SLAB_VACUUM, timed=True, every=SLAB_FORK_EVERY, n_cases=1)
+    say("kernels", "registers: A's slab mode in vacuum, with the potential "
+        "in vacuum " + str(
+            [ptxas_registers(PTXAS_NAME[n]) for n in (
+                "shortrange_gravity_slab_vacuum",
+                "shortrange_gravity_slab_pot_vacuum")]))
+    del recorded, rec
+    kernels.recorded.clear()
+    step.times = {}
+    vac.step()
+    sync(device)
+    parts, step.times = step.times, None
+    say("slab vacuum", "a vacuum slab sync point by parts (ms): " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in parts.items()) + f" ({card})")
+    del vac, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cooling_ok:
+        raise AssertionError("slab fork: Stamatellos cooling on the ring "
+                             "differs from one device")
+
+
 def sync(device) -> None:
     import torch
     if device == "cuda":
@@ -5374,6 +5886,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_slab(results, card)
     say("time", f"phase 18 done at {time.time() - t_start:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_slab_fork(results, card)
+    say("time", f"phase 19 done at {time.time() - t_start:.0f} s")
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

@@ -8,13 +8,16 @@ default, or ``cpu``) is the one flag the JAX CLI lacks; asked for CUDA
 where there is none, the run stops with a message and a non-zero exit.
 ``--makeglass NSIDE`` writes an NSIDE^3 glass (``models/glass.py``) as
 ``glass.dat`` into OutputDir, in SnapFormat, and exits. ``--devices K``
-runs the periodic slab step on a ring of K ranks, one process and one
-card each (``parallel/``; with ``--device cpu``, K gloo processes): K = 1
-runs in this process on a ring of one, a larger K starts its ranks with
+runs the slab step on a ring of K ranks, one process and one card each
+(``parallel/``; with ``--device cpu``, K gloo processes): K = 1 runs in
+this process on a ring of one, a larger K starts its ranks with
 ``parallel/launch.py``; it stops with a message counting the cards where
-fewer than K are visible. A run the slab step does not take yet (vacuum
-boundaries, the zoom included, sinks, Stamatellos cooling) stops with a
-message naming ROADMAP queue 1 item 14.
+fewer than K are visible. The slab step runs TreePM in a periodic box or
+in vacuum (``PeriodicBoundariesOn 0``: on a mesh of ``auto_pmgrid`` cells
+where ``--pmgrid`` is not given), with ``--sinks`` and ``--cooling
+stamatellos``; a run it does not take (the zoom, ``nogravity``, adaptive
+gas softening, ``--cooling beta``, a periodic box without a mesh) stops
+with a message naming ROADMAP queue 1 item 14.
 ``--isothermal`` runs the isothermal EOS. ``--cooling`` and ``--sinks``
 run the fork's physics. As
 in the JAX CLI, no sink is registered from the particle types: a run
@@ -47,8 +50,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="MAKEGLASS mode: generate an NSIDE^3 glass file "
                          "into OutputDir and exit [G2: -DMAKEGLASS]")
     ap.add_argument("--devices", type=int, default=None, metavar="K",
-                    help="the periodic slab step over K ranks, one card "
-                         "each (gloo processes with --device cpu)")
+                    help="the slab step over K ranks, one card each (gloo "
+                         "processes with --device cpu)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the run goes: cuda (default, the kernels) "
                          "or cpu (their plain PyTorch versions)")
@@ -87,8 +90,12 @@ def main(argv=None):
             return 2
     if k == 1:
         return run_main(argv, mesh=1)
+    import torch
+
     from gadget_leicester_tpu_torch.parallel.launch import cli_rank, spawn
-    return spawn(cli_rank, k, (argv,), device=args.device, timeout=None)[0]
+    # the intra-op threads of this process, shared among the ranks
+    return spawn(cli_rank, k, (argv,), device=args.device, timeout=None,
+                 threads=max(1, torch.get_num_threads() // k))[0]
 
 
 def _overrides(args) -> dict:

@@ -29,6 +29,20 @@
 //   as A's dense tier gates its tiles by the step's activity (the TPU slab
 //   call passes active=None and masks afterwards; the results agree, as
 //   the step keeps an inactive particle's acc). M passes no flags.
+// - the potential (kPot, C entry glt_shortrange_gravity_slab_pot): the
+//   reference's with_potential=True on the same call (parallel/spmd.py
+//   :888-898), for the in-step potential that sinks and Stamatellos cooling
+//   read on slabs. A fourth output row holds, for each target slot, the
+//   erfc-truncated softened potential m_j grav_pot(r, max(h_i, h_j))
+//   erfc(r / (2 asmth)), summed over the same pairs and in the same order as
+//   its force rows, with H's arithmetic (glt::gravity_potential_pair) in
+//   explicitly rounded operations apart from the force's (pot_pair); the
+//   self-pair (r2 == 0 on the same slot) adds nothing, as in H. The force's
+//   instructions are the force-only mode's, so rows 0-2 equal it bit for
+//   bit.
+//   Instantiated for the slab's masks 6 (periodic) and 0 (vacuum), with
+//   at most 64 registers (8 blocks an SM: the fourth accumulator and the
+//   erfc polynomial) where the force-only mode keeps 56.
 // Where the slab differs from a cube: nx may be 1 or 2 (a clamped axis
 // never meets a cell twice), nx != nyz, a target on the slab's face at
 // float32 x == x1 is a pair like any other (the grid clamps it into the
@@ -127,7 +141,48 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBlocksPerSm = 9;   // at most 56 registers, as kernel A
+// the potential mode's fourth accumulator and its polynomial: 8 blocks an
+// SM (at most 64 registers), so that nothing spills
+constexpr int kBlocksPerSmPot = 8;
 using glt::kFull;
+
+// The potential factor of a pair for kPot: glt::grav_pot_nodiv times
+// glt::erfc_p10 (H's arithmetic), in explicitly rounded operations
+// (__fmul_rn, __fmaf_rn) that the compiler fuses with nothing.
+__device__ __forceinline__ float pot_factor_rn(float r, float rinv, float h,
+                                               float hinv,
+                                               float half_inv_asmth) {
+  const float u = __fmul_rn(r, hinv);
+  const float u2 = __fmul_rn(u, u);
+  float phi;
+  if (u < 0.5f) {
+    float t = __fmaf_rn(6.4f, u, -9.6f);
+    t = __fmaf_rn(u2, t, 5.333333333333f);
+    phi = __fmul_rn(hinv, __fmaf_rn(u2, t, -2.8f));
+  } else if (u < 1.0f) {
+    float t = __fmaf_rn(-2.133333333333f, u, 9.6f);
+    t = __fmaf_rn(u, t, -16.0f);
+    t = __fmaf_rn(u, t, 10.666666666667f);
+    const float lin = __fmaf_rn(0.066666666667f, __fmul_rn(h, rinv), -3.2f);
+    phi = __fmul_rn(hinv, __fmaf_rn(u2, t, lin));
+  } else {
+    phi = -rinv;
+  }
+  if (!(half_inv_asmth > 0.f)) return phi;
+  const float x = fminf(__fmul_rn(r, half_inv_asmth), 2.25f);
+  float p = -0.000708430614f;
+  p = __fmaf_rn(p, x, 0.0086528472f);
+  p = __fmaf_rn(p, x, -0.0418223107f);
+  p = __fmaf_rn(p, x, 0.0932881235f);
+  p = __fmaf_rn(p, x, -0.0643211737f);
+  p = __fmaf_rn(p, x, -0.0737919465f);
+  p = __fmaf_rn(p, x, -0.0145173017f);
+  p = __fmaf_rn(p, x, 0.379212313f);
+  p = __fmaf_rn(p, x, -0.000326738866f);
+  p = __fmaf_rn(p, x, -1.1283663f);
+  p = __fmaf_rn(p, x, 0.999999923f);
+  return __fmul_rn(phi, p);
+}
 
 // The earlier design's pair arithmetic, unchanged: the pull of source (q,
 // hq) = (x, y, z, m), (soft, 1/soft) on target (tx, ty, tz) with (th,
@@ -162,6 +217,41 @@ __device__ __forceinline__ void cells_pair(float tx, float ty, float tz,
   az -= w * dz;
 }
 
+// The potential of the same pair for kPot (A's slab mode with the
+// potential): its separation, the cut and the factor again, from the loaded
+// target and source, in explicitly rounded operations, and added to pot.
+// It shares no intermediate value with cells_pair: with the potential
+// folded into cells_pair (reusing its r, 1/r and softenings, with plain or
+// rounded operations, branchy or branch-free), the force rows differed from
+// the force-only mode's in the last bits on an H100 (nvcc 12), at pairs
+// inside the softening: the compiler laid out the softened branch
+// differently. Apart, the force compiles as in the force-only mode and its
+// rows are equal bit for bit.
+template <int kPer>
+__device__ __forceinline__ void pot_pair(float tx, float ty, float tz,
+                                         float th, float thinv,
+                                         const float4& q, const float2& hq,
+                                         float box, float inv_box,
+                                         float half_inv_asmth, float rcut,
+                                         float rcut2_up, float& pot) {
+  float dx = __fsub_rn(tx, q.x);
+  float dy = __fsub_rn(ty, q.y);
+  float dz = __fsub_rn(tz, q.z);
+  if constexpr ((kPer & 1) != 0)
+    dx = __fmaf_rn(-box, rintf(__fmul_rn(dx, inv_box)), dx);
+  if constexpr ((kPer & 2) != 0)
+    dy = __fmaf_rn(-box, rintf(__fmul_rn(dy, inv_box)), dy);
+  if constexpr ((kPer & 4) != 0)
+    dz = __fmaf_rn(-box, rintf(__fmul_rn(dz, inv_box)), dz);
+  const float r2 = __fmaf_rn(dx, dx, __fmaf_rn(dy, dy, __fmul_rn(dz, dz)));
+  const float rinv = rsqrtf(fmaxf(r2, 1e-37f));
+  const float r = __fmul_rn(r2, rinv);
+  const bool ok = r2 < rcut2_up && r2 > 0.f && r < rcut && r > 0.f;
+  const float f = pot_factor_rn(r, rinv, fmaxf(th, hq.x), fminf(thinv, hq.y),
+                                half_inv_asmth);
+  pot = ok ? __fmaf_rn(q.w, f, pot) : pot;
+}
+
 // The distance of the interval [l, u] of dx on one axis from the nearest
 // multiple of the box (kPeriodic), or from 0.
 template <bool kPeriodic>
@@ -180,8 +270,9 @@ __device__ __forceinline__ float image_gap(float l, float u, float box,
   }
 }
 
-template <int kPer>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <int kPer, bool kPot>
+__global__ void __launch_bounds__(kThreads,
+                                  kPot ? kBlocksPerSmPot : kBlocksPerSm)
     shortrange_gravity_cells_kernel(const float* __restrict__ soa,
                                     const int* __restrict__ flags,
                                     float* __restrict__ out, int nx, int ny,
@@ -196,11 +287,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   __shared__ int s_src[27];
   __shared__ int s_nsrc;
 
+  constexpr int kRowsOut = kPot ? 4 : 3;
   const int c = blockIdx.x;
-  float* o = out + static_cast<size_t>(c) * 3 * cap;
+  float* o = out + static_cast<size_t>(c) * kRowsOut * cap;
   if (flags != nullptr && flags[c] == 0) {   // a gated tile: zeros
-    for (int t = threadIdx.x; t < cap; t += blockDim.x)
-      o[t] = o[cap + t] = o[2 * cap + t] = 0.f;
+    for (int t = threadIdx.x; t < cap; t += blockDim.x) {
+#pragma unroll
+      for (int r = 0; r < kRowsOut; ++r) o[r * cap + t] = 0.f;
+    }
     return;
   }
   const int nt = blockDim.x;
@@ -268,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     // 3. the stream of the stencil's sources in chunks of nt,
     // double-buffered (none for a pass of parked slots: uniform in the
     // block)
-    float ax = 0.f, ay = 0.f, az = 0.f;
+    float ax = 0.f, ay = 0.f, az = 0.f, pot = 0.f;
     float4 p;
     float2 h;
     const bool any_live = __syncthreads_or(live) != 0;
@@ -280,7 +374,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     __syncthreads();
     auto pair = [&](const float4& q, const float2& hq) {
       cells_pair<kPer>(tx, ty, tz, th, thinv, q, hq, box, inv_box,
-                            half_inv_asmth, rcut, rcut2_up, ax, ay, az);
+                       half_inv_asmth, rcut, rcut2_up, ax, ay, az);
+      if constexpr (kPot)
+        pot_pair<kPer>(tx, ty, tz, th, thinv, q, hq, box, inv_box,
+                       half_inv_asmth, rcut, rcut2_up, pot);
     };
     for (int step = 0; any_live && step < steps; ++step) {
       const int b = step & 1;
@@ -334,10 +431,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       o[ts] = ax;
       o[cap + ts] = ay;
       o[2 * cap + ts] = az;
+      if constexpr (kPot) o[3 * cap + ts] = pot;
     }
   }
 }
 
+template <bool kPot>
 int launch(const float* soa, const int* flags, float* out, int nx, int ny,
            int nz, int per, int cap, float box, float half_inv_asmth,
            float rcut, cudaStream_t st) {
@@ -349,18 +448,22 @@ int launch(const float* soa, const int* flags, float* out, int nx, int ny,
   // warp's box; inf where rcut2_up is the largest float: nothing is culled
   const float cull2 = rcut2_up * glt::kCullMargin2;
   switch (per) {
-    case 7:
-      shortrange_gravity_cells_kernel<7><<<c, threads, 0, st>>>(
-          soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
-          rcut2_up, cull2);
+    case 7:   // M's periodic cube; the potential mode is the slab's only
+      if constexpr (kPot) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        shortrange_gravity_cells_kernel<7, false><<<c, threads, 0, st>>>(
+            soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
+            rcut2_up, cull2);
+      }
       break;
     case 6:
-      shortrange_gravity_cells_kernel<6><<<c, threads, 0, st>>>(
+      shortrange_gravity_cells_kernel<6, kPot><<<c, threads, 0, st>>>(
           soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
           rcut2_up, cull2);
       break;
     case 0:
-      shortrange_gravity_cells_kernel<0><<<c, threads, 0, st>>>(
+      shortrange_gravity_cells_kernel<0, kPot><<<c, threads, 0, st>>>(
           soa, flags, out, nx, ny, nz, cap, box, half_inv_asmth, rcut,
           rcut2_up, cull2);
       break;
@@ -376,7 +479,7 @@ extern "C" int glt_shortrange_gravity_cells(const float* soa, float* out,
                                             int n_cells, int cap, float box,
                                             int periodic, float half_inv_asmth,
                                             float rcut, void* stream) {
-  return launch(soa, nullptr, out, n_cells, n_cells, n_cells,
+  return launch<false>(soa, nullptr, out, n_cells, n_cells, n_cells,
                 periodic ? 7 : 0, cap, box, half_inv_asmth, rcut,
                 static_cast<cudaStream_t>(stream));
 }
@@ -388,6 +491,20 @@ extern "C" int glt_shortrange_gravity_slab(const float* soa, const int* flags,
                                            int per, int cap, float box,
                                            float half_inv_asmth, float rcut,
                                            void* stream) {
-  return launch(soa, flags, out, nx, ny, nz, per, cap, box, half_inv_asmth,
-                rcut, static_cast<cudaStream_t>(stream));
+  return launch<false>(soa, flags, out, nx, ny, nz, per, cap, box,
+                       half_inv_asmth, rcut,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// kernel A's slab mode with the potential: the slab mode's arguments, out
+// [C, 4, cap] (the potential as row 3); the slab's masks 6 and 0 only
+extern "C" int glt_shortrange_gravity_slab_pot(const float* soa,
+                                               const int* flags, float* out,
+                                               int nx, int ny, int nz,
+                                               int per, int cap, float box,
+                                               float half_inv_asmth,
+                                               float rcut, void* stream) {
+  return launch<true>(soa, flags, out, nx, ny, nz, per, cap, box,
+                      half_inv_asmth, rcut,
+                      static_cast<cudaStream_t>(stream));
 }

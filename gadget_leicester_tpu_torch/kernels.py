@@ -8,8 +8,8 @@ each in two, block-relative on a periodic grid and absolute on a clamped
 one (the ``_abs`` entries), the coarse-cell SPH density I/J and hydro K,
 L the CIC gather of the PM mesh, and M short-range gravity in absolute
 coordinates with the per-pair minimum image; the slab step's modes are A's
-slab mode, in M's source, and C's and D's relative mode on per-axis block
-grids, the ``_aniso`` entries) are compiled on first use
+slab mode, in M's source, with and without the potential row, and C's and
+D's relative mode on per-axis block grids, the ``_aniso`` entries) are compiled on first use
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
@@ -89,6 +89,9 @@ SIGNATURES = {
     # mask, tile flags), C's and D's relative mode on per-axis blocks
     "shortrange_gravity_slab": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                                 _P),
+    # A's slab mode with the potential row (the in-step potential on slabs)
+    "shortrange_gravity_slab_pot": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                    _F, _P),
     "sph_density_aniso": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P),
     "sph_hydro_aniso": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

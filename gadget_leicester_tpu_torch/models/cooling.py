@@ -79,24 +79,35 @@ def bell_lin_opacity(rho_cgs: torch.Tensor, temp_k: torch.Tensor):
 
 
 def sink_potential_correction(state: SimState, cfg: SimConfig,
-                              opts: SimOptions, ng: int) -> torch.Tensor:
+                              opts: SimOptions, ng: int,
+                              sink_points=None) -> torch.Tensor:
     """[ng]: -G sum_s M_s / |x - x_s| over the registered sinks, the
     point-mass part of the potential, to be taken out of psi so that the
-    column estimate sees the gas cloud's own gravity [Stamatellos 2007]."""
+    column estimate sees the gas cloud's own gravity [Stamatellos 2007].
+    ``sink_points`` (pos [U, 3], mass [U]), the used slots' sinks in slot
+    order, where they are not rows of ``state`` (the slab step, whose
+    registry holds PIDs: ``parallel/spmd.py :: SpmdStep.ring_sinks``);
+    None: the registry's rows."""
     p = state.p
-    idx = used_slots(state.sinks.slot)
     out = torch.zeros(ng, dtype=p.pos.dtype, device=p.pos.device)
-    if idx.numel() == 0:
-        return out
-    dx = min_image(p.pos[None, :ng, :] - p.pos[idx][:, None, :], cfg, opts)
+    if sink_points is None:
+        idx = used_slots(state.sinks.slot)
+        if idx.numel() == 0:
+            return out
+        s_pos, s_mass = p.pos[idx], p.mass[idx]
+    else:
+        s_pos, s_mass = sink_points
+    dx = min_image(p.pos[None, :ng, :] - s_pos[:, None, :], cfg, opts)
     r = torch.clamp(torch.sqrt(dot3(dx, dx)), min=1e-20)
-    return out - cfg.grav_internal * (p.mass[idx][:, None] / r).sum(0)
+    return out - cfg.grav_internal * (s_mass[:, None] / r).sum(0)
 
 
-def apply_cooling(state: SimState, cfg: SimConfig,
-                  opts: SimOptions) -> SimState:
+def apply_cooling(state: SimState, cfg: SimConfig, opts: SimOptions,
+                  sink_points=None) -> SimState:
     """Add the cooling rate of ``opts.cooling`` to the gas's dt_entropy
-    (0 where not gas)."""
+    (0 where not gas). ``sink_points``: the registered sinks as
+    :func:`sink_potential_correction` takes them (the slab step's, for
+    Stamatellos; beta cooling reads the registry's rows)."""
     gas, p = state.gas, state.p
     ng = gas.n_gas_max
     gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
@@ -124,7 +135,8 @@ def apply_cooling(state: SimState, cfg: SimConfig,
                            / BOLTZMANN_CGS * u_cgs, min=1.0)
         rho_cgs = rho * cfg.unit_density_in_cgs
         # the gas's own potential: the registered sinks' term taken out
-        psi = p.pot[:ng] - sink_potential_correction(state, cfg, opts, ng)
+        psi = p.pot[:ng] - sink_potential_correction(state, cfg, opts, ng,
+                                                     sink_points)
         psi_mag = torch.clamp(-psi, min=0.0)
         sigma2_int = (cfg.cooling_column_fac * rho * psi_mag
                       / (4.0 * math.pi * cfg.grav_internal))

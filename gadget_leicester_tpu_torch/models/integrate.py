@@ -171,7 +171,8 @@ def advance_and_find_timesteps(state: SimState, cfg: SimConfig,
 
 
 def pm_step_update(state: SimState, cfg: SimConfig, opts: SimOptions,
-                   is_pm_step: bool, ring=None) -> SimState:
+                   is_pm_step: bool, ring=None,
+                   pm_box: float | None = None) -> SimState:
     """PM-step kick and new PM interval [G2: timestep.c PM part]. At a PM
     step every particle gets the long-range kick closing the old PM
     half-step and opening the new one; the new global PM step is bounded
@@ -179,7 +180,8 @@ def pm_step_update(state: SimState, cfg: SimConfig, opts: SimOptions,
     ``is_pm_step`` is a host boolean (the JAX package masks with a traced
     one). ``ring`` (the slab step's :class:`parallel.mesh.Ring`, the
     reference's ``axis_name``): the sums of m v^2 and m run over every
-    rank's particles."""
+    rank's particles. ``pm_box``: the mesh's span where it is not the
+    box (the vacuum slab step's domain extent)."""
     if not is_pm_step:
         return state
     p = state.p
@@ -193,7 +195,8 @@ def pm_step_update(state: SimState, cfg: SimConfig, opts: SimOptions,
         sums = ring.psum(torch.stack([(m * v2).sum(), m.sum()]))
         vrms = torch.sqrt(sums[0] / sums[1].clamp_min(1e-37))
     vrms = vrms.clamp_min(1e-30)
-    dsp = cfg.max_rms_displacement_fac * cfg.box_size / max(opts.pmgrid, 1)
+    span = cfg.box_size if pm_box is None else pm_box
+    dsp = cfg.max_rms_displacement_fac * span / max(opts.pmgrid, 1)
     if cfg.comoving_integration_on:
         dt = dsp * fac.atime ** 2 * fac.hubble_a / vrms
     else:

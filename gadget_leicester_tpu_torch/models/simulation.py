@@ -22,17 +22,20 @@ loop of the density solve is done (``ops/sph_dense.py``).
 ``mesh`` (``Simulation(..., mesh=K)``, the reference's :289-311, and its
 branches of ``from_param_file``, ``_decompose``, ``maybe_rebalance``,
 ``canonical_state``, ``step`` and ``run()``) routes the steps through the
-periodic slab step of ``parallel/spmd.py``: this process is one rank of a
-ring (``parallel/mesh.py``), its state the chunk of its slab between
-steps. Every rank builds the same slab layout from the same global state
-and keeps its own chunk; outputs gather the chunks and take the canonical
+slab step of ``parallel/spmd.py``, periodic or vacuum (a domain cube
+fitted at each decomposition, ``auto_pmgrid`` where pmgrid is 0), with
+sinks and Stamatellos cooling: this process is one rank of a ring
+(``parallel/mesh.py``), its state the chunk of its slab between steps.
+Every rank builds the same slab layout from the same global state and
+keeps its own chunk; outputs gather the chunks and take the canonical
 layout (``spmd_to_canonical``), and rank 0 alone writes energy.txt,
 cpu.txt, info.txt, snapshots and restart dumps.
 
-Left out, each an item of ROADMAP: the vacuum, sink and Stamatellos
-branches of the slab step (queue 1 item 14), the ``GLT_PROFILE_DIR``
-profiler hook and the ``GLT_CPU_DETAIL`` probes (tracing), and
-``forcetest``, which ``check_supported`` refuses.
+Left out, each an item of ROADMAP: on slabs the zoom, ``nogravity``,
+adaptive gas softening and beta cooling, and the coarse-cell SPH branch
+(queue 1 item 14), the ``GLT_PROFILE_DIR`` profiler hook and the
+``GLT_CPU_DETAIL`` probes (tracing), and ``forcetest``, which
+``check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -281,6 +284,7 @@ class Simulation:
         self.mesh = None            # the slab ring (parallel.mesh.Ring)
         self.spmd_edges = None      # the slab boundaries [d+1]
         self.spmd_caps = None       # (cap_g, cap_r) of a rank's chunk
+        self.spmd_domain = None     # a vacuum ring's (origin, extent)
         self._spmd_step = None      # parallel.spmd.SpmdStep
         if mesh is not None:
             from gadget_leicester_tpu_torch.parallel.mesh import join
@@ -355,8 +359,8 @@ class Simulation:
         ``MAX_INIT_BUMPS`` times, and it starts over; the notes go to
         info.txt when :meth:`run` opens it."""
         for _ in range(MAX_INIT_BUMPS + 1):
-            self.state = init_state(self.cfg, self.opts, pos, vel, mass,
-                                    ptype, self.device, pid=pid, u=u,
+            self.state = init_state(self.cfg, self._init_opts(), pos, vel,
+                                    mass, ptype, self.device, pid=pid, u=u,
                                     stats=self.stats)
             ovf = int(self.state.overflow_flags)
             if not ovf or len(self.init_notes) == MAX_INIT_BUMPS:
@@ -368,31 +372,57 @@ class Simulation:
             self._decompose()
         return self.state
 
+    def _init_opts(self) -> SimOptions:
+        """The options of :func:`init_state`: the run's, save that a vacuum
+        ring initialises without gravity. The first sync point of a fresh
+        state is a PM step at which every particle is active (ti_current =
+        ti_endstep = pm_ti_endstep = 0), so the slab step computes all of
+        the gravity there; the single device has no vacuum TreePM to give
+        it, and a tree walk of the whole box would be thrown away."""
+        if self.mesh is None or self.opts.periodic:
+            return self.opts
+        return dataclasses.replace(self.opts, nogravity=True)
+
     # ------------------------------------------------------------------
     # The slab decomposition [G2: domain.c :: domain_Decomposition()]
     # ------------------------------------------------------------------
-    def _decompose(self) -> None:
+    def _decompose(self, edges=None) -> None:
         """(Re-)lay the state onto the ring with cost-balanced slab edges
-        and a fresh slab step: every rank builds the same layout from the
-        same canonical state (gathered first where the state is already a
-        chunk) and keeps its own chunk, with an empty grid cache. While
-        the slab's fresh lists would overflow (:meth:`SpmdStep.probe`),
-        the capacities are raised (``raised_slab_capacities``), at most
+        (``edges`` [d+1] where given) and a fresh slab step: every rank
+        builds the same layout from the same canonical state (gathered
+        first where the state is already a chunk) and keeps its own chunk,
+        with an empty grid cache. A vacuum run refits its domain, the cube
+        1.3 times the extent of the alive particles
+        (``parallel/spmd.py :: fit_domain``), and takes ``auto_pmgrid`` of
+        the alive count where pmgrid is 0, as the JAX package's
+        ``_decompose`` does (``models/simulation.py:389-407``). While the
+        slab's fresh lists would overflow (:meth:`SpmdStep.probe`), the
+        capacities are raised (``raised_slab_capacities``), at most
         ``MAX_INIT_BUMPS`` times, as :meth:`set_ics` raises them for the
         initialisation: the slab grid keeps its mean fill at 0.8 of its
         capacity, and a near-uniform box overflows its fullest cells at
         the first sync point (2x128^3 on one rank)."""
+        from gadget_leicester_tpu_torch.core.config import auto_pmgrid
         from gadget_leicester_tpu_torch.parallel.spmd import (
-            SpmdStep, local_chunk, make_spmd_grid_cache,
+            SpmdStep, fit_domain, local_chunk, make_spmd_grid_cache,
             raised_slab_capacities, spmd_min_width, to_spmd)
         state = self.canonical_state()
-        mw = spmd_min_width(self.cfg, self.opts, state.n_gas_max)
+        domain = None
+        if not self.opts.periodic:
+            alive = state.p.alive.cpu().numpy()
+            domain = fit_domain(state.p.pos.cpu().numpy(), alive)
+            if self.opts.pmgrid <= 0:
+                self.opts = dataclasses.replace(
+                    self.opts, pmgrid=auto_pmgrid(int(alive.sum())))
+        mw = spmd_min_width(self.cfg, self.opts, state.n_gas_max,
+                            extent=None if domain is None else domain[1])
         full, caps, edges = to_spmd(state, self.mesh.size, self.cfg,
-                                    min_width=mw)
+                                    min_width=mw, edges=edges, domain=domain)
         local = local_chunk(full, self.mesh.rank, caps)
         del full
         for n_bumps in range(MAX_INIT_BUMPS + 1):
-            step = SpmdStep(self.cfg, self.opts, self.mesh, edges)
+            step = SpmdStep(self.cfg, self.opts, self.mesh, edges,
+                            domain=domain)
             lists, buffers = step.probe(local)
             ovf = lists | buffers
             if not ovf or n_bumps == MAX_INIT_BUMPS:
@@ -408,13 +438,17 @@ class Simulation:
             local, grids=make_spmd_grid_cache(self.device))
         self.spmd_caps = caps
         self.spmd_edges = edges
+        self.spmd_domain = domain
         self._spmd_step = step
 
     def maybe_rebalance(self, threshold: float = 1.3) -> bool:
         """Re-decompose when the per-slab particle counts have drifted from
         balance (the reference's TreeDomainUpdateFrequency analog): the
         ring's largest count above ``threshold`` times the mean. Returns
-        True when it re-decomposed."""
+        True when it re-decomposed. Each rank holds its slab's particles,
+        so the counts are the ranks' own, in either frame (the JAX
+        package counts by the edges, in the domain's frame in vacuum,
+        ``models/simulation.py:430-455``)."""
         if self.mesh is None:
             return False
         n_local = self.state.p.alive.sum().to(torch.int32)
@@ -471,6 +505,16 @@ class Simulation:
             if callback is not None:
                 callback(self)
         return self.state
+
+    @property
+    def potential_opts(self) -> SimOptions:
+        """The options of the full potential of the diagnostics: the run's,
+        save that a vacuum ring's potential is the direct sum or the tree
+        walk on the gathered state (the single device has no vacuum
+        TreePM: ``models/forces.py :: check_supported``)."""
+        if self.mesh is None or self.opts.periodic:
+            return self.opts
+        return dataclasses.replace(self.opts, pmgrid=0, gravity_mode="auto")
 
     def _empty_grids(self):
         if self.mesh is None:
@@ -584,7 +628,7 @@ class Simulation:
                 tp0 = _time.time()
                 cst = self.canonical_state()
                 if self.is_root:
-                    cst = potential_pass(cst, cfg, self.opts)
+                    cst = potential_pass(cst, cfg, self.potential_opts)
                     if self.mesh is None:
                         self.state = cst
                     st = energy_statistics(cst, cfg, self.opts)
@@ -611,7 +655,7 @@ class Simulation:
                 cst = self.canonical_state()
                 if self.is_root:
                     if self.opts.output_potential:
-                        cst = potential_pass(cst, cfg, self.opts)
+                        cst = potential_pass(cst, cfg, self.potential_opts)
                         if self.mesh is None:
                             self.state = cst
                     snap = snapshot_from_state(

@@ -38,7 +38,7 @@ image. Kernel A's slab mode, :func:`shortrange_gravity_slab` (the
 reference's ``shortrange_gravity_pallas_dma9`` on the slab step's grid:
 per-axis cell counts, clamped x, absolute coordinates), runs on M's
 kernel with per-axis counts, an image on the periodic axes only and A's
-tile flags. Their plain versions are in ``ops/gravity_short.py``.
+tile flags; its ``with_potential`` mode adds H's potential row. Their plain versions are in ``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -202,15 +202,20 @@ def shortrange_gravity_cells(soa: torch.Tensor, n_cells: int, box: float,
 
 def shortrange_gravity_slab(soa: torch.Tensor, flags: torch.Tensor,
                            n_cells: tuple, box: float, periodic: tuple,
-                           asmth: float, rcut: float) -> torch.Tensor:
+                           asmth: float, rcut: float,
+                           with_potential: bool = False) -> torch.Tensor:
     """Kernel A's slab mode: accelerations [C, 3, cap] (no G) of the slots
     of the absolute pack ``soa`` of a grid of per-axis ``n_cells`` (nx,
     ny, nz), from the 27 cells around each: pairs with 0 < r < rcut, each
     pair's separation reduced to its minimum image along the axes
     ``periodic`` holds True (the slab's (False, True, True)), stencil
     cells beyond a clamped face left out; zeros where ``flags`` [C] int32
-    is 0. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (M's, ``csrc/shortrange_gravity_cells.cu``)."""
+    is 0. With ``with_potential``, the mode with the potential (C entry
+    ``glt_shortrange_gravity_slab_pot``, counted as
+    ``shortrange_gravity_slab_pot``; the slab's periodicities only):
+    [C, 4, cap], the erfc-truncated softened potential as row 3 and rows
+    0-2 those of the force-only mode. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (M's, ``csrc/shortrange_gravity_cells.cu``)."""
     ncv, pv = dims3(n_cells), per3(periodic)
     c, rows, cap = soa.shape
     if c != ncv[0] * ncv[1] * ncv[2] or rows != 8:
@@ -220,19 +225,22 @@ def shortrange_gravity_slab(soa: torch.Tensor, flags: torch.Tensor,
         raise ValueError("a periodic axis needs 3 cells or more: below it "
                          "the stencil meets a cell twice")
     mask = pv[0] | (pv[1] << 1) | (pv[2] << 2)
-    if mask not in (0, 6, 7):
-        raise ValueError(f"periodicity {pv} is not instantiated (all, "
-                         "none, or y and z)")
+    if mask not in ((0, 6) if with_potential else (0, 6, 7)):
+        raise ValueError(f"periodicity {pv} is not instantiated (none, or "
+                         "y and z" + ("" if with_potential else "; or all")
+                         + ")")
     kernels.check(soa, "soa", torch.float32)
     kernels.check(flags, "flags", torch.int32, (c,), soa.device)
-    kernels.note_call("shortrange_gravity_slab",
-                      (soa, flags, ncv, box, pv, asmth, rcut))
+    name = ("shortrange_gravity_slab_pot" if with_potential
+            else "shortrange_gravity_slab")
+    kernels.note_call(name, (soa, flags, ncv, box, pv, asmth, rcut))
     if not kernels.on_cuda(soa, flags):
         return shortrange_gravity_slab_plain(soa, flags, ncv, box, pv, asmth,
-                                             rcut)
-    out = torch.empty(c, 3, cap, dtype=soa.dtype, device=soa.device)
-    kernels.launch("shortrange_gravity_slab", soa.data_ptr(),
-                   flags.data_ptr(), out.data_ptr(), *ncv, mask, cap, box,
+                                             rcut, with_potential)
+    out = torch.empty(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
+                      device=soa.device)
+    kernels.launch(name, soa.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                   *ncv, mask, cap, box,
                    0.5 / asmth if asmth > 0.0 else 0.0, rcut)
     return out
 

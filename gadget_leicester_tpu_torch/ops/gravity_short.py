@@ -26,7 +26,8 @@ slab mode (``ops/cells.py :: shortrange_gravity_slab``; the reference's
 ``shortrange_gravity_pallas_dma9`` on per-axis cell counts with
 ``periodic=(False, True, True)``, absolute coordinates): M's arithmetic on
 per-axis counts and an image on the periodic axes only, gated by tile
-flags.
+flags; with ``with_potential`` it adds the potential row of the reference's
+``with_potential=True`` (the in-step potential of the slab step).
 """
 
 from __future__ import annotations
@@ -177,13 +178,16 @@ def stencil_cells(n_cells, cells: torch.Tensor, periodic):
 
 
 def _stencil_sums_abs(t, soa, cells, n_cells, box: float, periodic,
-                      asmth: float, rcut: float) -> torch.Tensor:
+                      asmth: float, rcut: float,
+                      with_potential: bool = False) -> torch.Tensor:
     """Accelerations [K, 3, L] of the targets ``t`` [K, 8, L] (rows of the
     absolute pack) of cells ``cells`` [K] from the 27 cells around each:
     kernel M's arithmetic. Each pair's separation is reduced to its minimum
     image along the periodic axes (``periodic`` one for all or per axis);
     stencil cells beyond a clamped face add nothing. A target meets its
-    own pack slot at r == 0 exactly, so the self-pair adds nothing."""
+    own pack slot at r == 0 exactly, so the self-pair adds nothing. With
+    ``with_potential``, [K, 4, L] with the erfc-truncated softened
+    potential as row 3 (A's slab mode with the potential)."""
     from gadget_leicester_tpu_torch.ops.neighbors import per3
     ids, inside = stencil_cells(n_cells, cells, periodic)
     s = soa[ids]                                       # [K, 27, 8, cap]
@@ -204,8 +208,14 @@ def _stencil_sums_abs(t, soa, cells, n_cells, box: float, periodic,
         fac = fac * _trunc_p10(torch.clamp(r * (0.5 / asmth), max=2.25))
     ok = (r < rcut) & (r > 0.0) & src_ok[:, None, :]
     w = torch.where(ok, sm[:, None, :] * fac, torch.zeros_like(fac))
-    return torch.stack([-(w * dx).sum(-1), -(w * dy).sum(-1),
-                        -(w * dz).sum(-1)], 1)
+    rows = [-(w * dx).sum(-1), -(w * dy).sum(-1), -(w * dz).sum(-1)]
+    if with_potential:
+        pfac = grav_pot_nodiv(r, rinv, hh, hhinv)
+        if asmth > 0.0:
+            pfac = pfac * erfc_trunc(r, asmth)
+        rows.append(torch.where(ok, sm[:, None, :] * pfac,
+                                torch.zeros_like(pfac)).sum(-1))
+    return torch.stack(rows, 1)
 
 
 def shortrange_gravity_cells_plain(soa, n_cells: int, box: float,
@@ -229,21 +239,26 @@ def shortrange_gravity_cells_plain(soa, n_cells: int, box: float,
 
 def shortrange_gravity_slab_plain(soa, flags, n_cells: tuple, box: float,
                                   periodic: tuple, asmth: float,
-                                  rcut: float) -> torch.Tensor:
+                                  rcut: float,
+                                  with_potential: bool = False
+                                  ) -> torch.Tensor:
     """Plain PyTorch version of kernel A's slab mode: out [C, 3, cap] (no
     G) on the absolute pack ``soa`` of a grid of per-axis ``n_cells``,
     each pair reduced to its minimum image along the axes ``periodic``
     holds True, stencil cells beyond a clamped face left out; zeros where
-    ``flags`` is 0 and at parked slots."""
+    ``flags`` is 0 and at parked slots. With ``with_potential``, the mode
+    with the potential: [C, 4, cap], the erfc-truncated softened potential
+    as row 3, rows 0-2 as without it."""
     c, _, cap = soa.shape
     chunk = _chunk(cap, cap)
-    out = torch.zeros(c, 3, cap, dtype=soa.dtype, device=soa.device)
+    out = torch.zeros(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
+                      device=soa.device)
     todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
         t = soa[tc]
         acc = _stencil_sums_abs(t, soa, tc, n_cells, box, periodic, asmth,
-                                rcut)
+                                rcut, with_potential)
         out[tc] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
     return out
 

@@ -4,7 +4,7 @@
 Counterpart of ``gadget_leicester_tpu/parallel/mesh.py`` (``AXIS``,
 ``make_mesh`` :14) and of the collectives the JAX package's slab step
 calls inside ``shard_map`` (``parallel/spmd.py``: ``lax.pmin``,
-``lax.psum``, the OR of the overflow bits, and ``_ring`` :431, a
+``lax.pmax``, ``lax.psum``, the OR of the overflow bits, and ``_ring`` :431, a
 ``ppermute`` one hop around the slab ring). The reference's single
 controller over a device mesh becomes K processes, each owning one slab;
 :class:`Ring` is the handle they pass around.
@@ -90,6 +90,11 @@ class Ring:
     def pmin(self, t: torch.Tensor) -> torch.Tensor:
         t = t.clone()
         dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return t
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
     def any(self, flag) -> bool:

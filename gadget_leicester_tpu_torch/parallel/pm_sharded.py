@@ -1,9 +1,10 @@
 """Particle-mesh gravity across the slab ring [G2: pm_periodic.c ::
-pmforce_periodic(), slabs_per_task].
+pmforce_periodic(), slabs_per_task; pm_nonperiodic.c under MPI].
 
 Counterpart of ``gadget_leicester_tpu/parallel/pm_sharded.py`` (``_kvec``
-:39, ``_pencil_rfft3`` :44, ``_pencil_irfft3`` :69, ``pm_local_forces`` :78
-and ``make_pm_sharded`` :171). Each rank:
+:39, ``_pencil_rfft3`` :44, ``_pencil_irfft3`` :69, ``pm_local_forces`` :78,
+``pm_local_forces_vacuum`` :137 and ``make_pm_sharded`` :171). The
+periodic mesh, :func:`pm_local_forces`; each rank:
 
 * deposits its own particles onto a full local mesh by point CIC
   (``ops/pm.py :: cic_deposit``, as the reference does: not kernel B);
@@ -17,6 +18,14 @@ and ``make_pm_sharded`` :171). Each rank:
 * ``all_gather_into_tensor`` of the force slab [n/size, n, n, 3 (+1)],
   and the CIC gather at its particles through ``ops/pm.py ::
   cic_gather_vec``, which is kernel L on the card.
+
+The vacuum mesh of the slab step, :func:`pm_local_forces_vacuum`: each
+rank deposits its own particles into the first octant of the zero-padded
+mesh of 2n cells a side over the domain cube; one ``all_reduce`` sums the
+(n+1)^3 octant, the only part a particle reaches; then every rank runs the
+free-space solve of ``ops/pm.py :: vacuum_field`` whole (replicated: no
+further collective) and gathers force and potential at its own particles
+through kernel L.
 """
 
 from __future__ import annotations
@@ -25,8 +34,9 @@ import math
 
 import torch
 
-from gadget_leicester_tpu_torch.ops.pm import (ASMTH, _sinc, cic_deposit,
-                                               cic_gather_vec)
+from gadget_leicester_tpu_torch.ops.pm import (ASMTH, _region_positions,
+                                               _sinc, _vacuum_stack,
+                                               cic_deposit, cic_gather_vec)
 
 
 def _kvec(n: int, box: float, device) -> torch.Tensor:
@@ -103,3 +113,28 @@ def pm_local_forces(ring, pos, mass, alive, box: float, n: int,
     if with_potential:
         return acc, torch.where(alive, out[:, 3], torch.zeros_like(out[:, 3]))
     return acc
+
+
+def pm_local_forces_vacuum(ring, pos, mass, alive, origin, extent: float,
+                           n: int, asmth_grid: float = ASMTH,
+                           with_potential: bool = False):
+    """Vacuum-boundary PM accelerations [N, 3] (no G) of this rank's
+    particles over the domain cube [origin, origin + extent), every rank
+    calling it with its own; with ``with_potential``, (acc, pot [N]). The
+    ring's sum of the deposited octant replaces the single device's
+    deposit of all particles (``ops/pm.py :: pm_forces_nonperiodic``);
+    the rest is that function's, run on every rank."""
+    cell = extent / n
+    m = 2 * n
+    rel, _ = _region_positions(pos, origin, extent)
+    msrc = torch.where(alive, mass, torch.zeros_like(mass))
+    grid = cic_deposit(rel, msrc, 2.0 * extent, m)
+    octant = ring.psum(grid[:n + 1, :n + 1, :n + 1].contiguous())
+    grid = torch.zeros_like(grid)
+    grid[:n + 1, :n + 1, :n + 1] = octant
+    stack = _vacuum_stack(grid, n, cell, asmth_grid * cell, with_potential)
+    rows = cic_gather_vec(stack.contiguous(), rel, 2.0 * extent, m)
+    rows = torch.where(alive[:, None], rows, torch.zeros_like(rows))
+    if with_potential:
+        return rows[:, :3], rows[:, 3]
+    return rows[:, :3]

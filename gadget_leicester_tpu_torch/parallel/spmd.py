@@ -1,6 +1,7 @@
 """The owner-computes slab step [G2: domain.c :: domain_Decomposition(),
 domain_exchangeParticles(); gravtree.c, density.c, hydra.c export and
-import loops], periodic geometry.
+import loops], periodic and vacuum geometry, with sinks and Stamatellos
+cooling.
 
 Counterpart of ``gadget_leicester_tpu/parallel/spmd.py``: the host layout
 (``balance_edges`` :64, ``spmd_min_width`` :90, ``SLAB_FILL`` :108,
@@ -10,12 +11,12 @@ static slab-grid geometry and its cache (``slab_grid_geom`` :290,
 ``_ghost_exchange`` :438, ``_select_rows`` :455, ``_ghost_rows_select``
 :466, ``_ghost_exchange_rows`` :474, ``_wrap_to_slab`` :501, ``_ghost_x``
 :506, ``_ghost_cap`` :520, ``_insert_into_dead`` :530) and
-``make_spmd_step`` (:555) on a periodic box: ``_migrate`` (:673),
-``_gravity`` (:763, without ``with_potential``), ``_sph`` -> ``_sph_blocks``
-(:941-1127) and ``local_step`` (:1479).
+``make_spmd_step`` (:555): ``_migrate`` (:673), ``_gravity`` (:763, with
+the in-step potential), ``_sph`` -> ``_sph_blocks`` (:941-1127),
+``_sinks`` (:1316) and ``local_step`` (:1479).
 
-Ownership: periodic x-slabs, one a rank; each rank holds a fixed-capacity
-chunk [cap_g gas slots | cap_r other slots] of every particle array, so its
+Ownership: x-slabs, one a rank; each rank holds a fixed-capacity chunk
+[cap_g gas slots | cap_r other slots] of every particle array, so its
 local state is a smaller valid ``SimState``. After the drift, particles
 that crossed a face move one hop to the neighbour's dead slots; a jump over
 more than one slab, or full migration buffers, set overflow bit 4. Ghosts,
@@ -24,40 +25,72 @@ point: within rcut (and the grid's staleness margin) for short-range
 gravity, within the SPH fine-cell edge twice, positions and velocities
 before the density pass and the density fields before hydro; full ghost
 buffers set bit 1 (gravity) or bit 2 (SPH). Each rank builds an
-anisotropic grid over [x0 - reach, x1 + reach) x [0, box)^2, clamped in x
-and periodic in y and z, and runs kernel A's slab mode (``ops/cells.py ::
+anisotropic grid over [x0 - reach, x1 + reach) x [0, box)^2, clamped in x,
+and runs kernel A's slab mode (``ops/cells.py ::
 shortrange_gravity_slab``) and kernels C and D on anisotropic blocks
 (``ops/sph_blocks.py``, ``fine_edge``) with its own particles as targets and
 the ghosts as sources. The PM runs across the ring
 (``parallel/pm_sharded.py``). The next sync point is the ``pmin`` of the
 ranks' next ticks; the PM step's v_rms sums over the ring.
 
+Two geometries. Periodic TreePM: slabs over [0, BoxSize), y and z
+periodic, ghost x wrapped onto the receiving faces, the pencil-FFT PM.
+Vacuum TreePM (``PeriodicBoundariesOn 0`` with a PM mesh; the caller picks
+``auto_pmgrid`` where it is 0): ``domain`` = (origin [3], extent), a cube
+that encloses the particles with room to spare, fitted by the caller
+(``Simulation._decompose``); slabs partition its x, every grid is clamped
+on all three axes in the domain's frame (positions less the origin), a
+ghost is kept only where it lies in the half-strip it arrived for (so the
+ring's arrivals across an outer face, and a ring of one's own, drop out),
+the PM is the free-space mesh with one ``all_reduce`` of its octant, a
+comoving run adds the background term, and a particle that leaves the
+cube sets bit 4, on which the caller refits the cube and decomposes anew.
+
+With sinks or Stamatellos cooling the step carries the full potential in
+p.pot, as the single-device step does: the PM potential (gathered with the
+force on PM steps, the stored piece between them), kernel A's slab mode
+with the potential row on the step's pack and tile flags, and the PM
+self-term. Cooling then runs as on one device, with the registered sinks
+of the whole ring (gathered by PID) in the Stamatellos point-mass term:
+the JAX package reads the registry's PIDs as rows of each rank's chunk
+there (ROADMAP queue 3). Sinks (:meth:`SpmdStep.sinks`): the registry
+``SinkState.slot`` holds PIDs in the slab layout (rows move under
+migration; :func:`to_spmd` and :func:`spmd_to_canonical` translate) and
+is the same on every rank; formation elects the ring's densest candidate,
+accretion ships each rank's sinks to both neighbours and the claims on
+ghost sinks back to their owners.
+
 The reference traces each branch around a collective with a ``psum``ed
 predicate; here each such branch reads one host boolean that every rank
 reduces first (:meth:`parallel.mesh.Ring.any`): the migration's any-hop
-test, the gravity grid's rebuild, the SPH lists' rebuild. The grid cache
-(:func:`make_spmd_grid_cache`) holds each rank's cell lists and ghost-row
-selections between rebuilds, as ``models/grids.py`` does for one device;
-an empty slot means "build". Not ported (ROADMAP queue 1 item 14): vacuum
-slabs (``pm_local_forces_vacuum`` and the vacuum branches), sinks on slabs
-(``_sinks``), the in-step potential (A's slab mode ``with_potential``), the
-coarse-cell branch of ``_sph`` with kernels I and K's ghost rows, and the
-GSPMD placement of ``parallel/step.py`` and ``mesh.py``.
+test, the gravity grid's rebuild, the SPH lists' rebuild, the formation of
+a sink. The grid cache (:func:`make_spmd_grid_cache`) holds each rank's
+cell lists and ghost-row selections between rebuilds, as
+``models/grids.py`` does for one device; an empty slot means "build". Not
+ported (ROADMAP queue 1 item 14): the coarse-cell branch of ``_sph`` with
+kernels I and K's ghost rows, and the GSPMD placement of
+``parallel/step.py`` and ``mesh.py``; refused (:func:`check_slab_supported`):
+the zoom, ``nogravity``, adaptive gas softening and beta cooling on
+slabs, and float64.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from gadget_leicester_tpu_torch.core import timeline
-from gadget_leicester_tpu_torch.core.config import GAMMA, SimConfig, SimOptions
+from gadget_leicester_tpu_torch.core.config import (GAMMA, GAMMA_MINUS1,
+                                                    SimConfig, SimOptions)
 from gadget_leicester_tpu_torch.core.state import (GasState, ParticleState,
                                                    SimState)
 from gadget_leicester_tpu_torch.models import integrate
+from gadget_leicester_tpu_torch.models.cooling import apply_cooling
 from gadget_leicester_tpu_torch.models.forces import (comoving_factors,
+                                                      in_step_potential,
                                                       softening_table)
 from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
                                                      SOFT_RCUT_FRAC,
@@ -66,43 +99,40 @@ from gadget_leicester_tpu_torch.models.grids import (KAPPA_SPH,
 from gadget_leicester_tpu_torch.ops.cells import (grav_tile_flags,
                                                   pack_cells_abs,
                                                   shortrange_gravity_slab)
+from gadget_leicester_tpu_torch.models.sinks import (dot3, first_argmax,
+                                                     min_image)
 from gadget_leicester_tpu_torch.ops.neighbors import (build_cell_list,
                                                       merge_rows)
 from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
 from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
 from gadget_leicester_tpu_torch.ops.sph_blocks import (
     build_block_lists, density_adaptive_blocks, hydro_force_blocks)
-from gadget_leicester_tpu_torch.parallel.pm_sharded import pm_local_forces
+from gadget_leicester_tpu_torch.parallel.pm_sharded import (
+    pm_local_forces, pm_local_forces_vacuum)
 
 _P_FIELDS = ["pos", "vel", "mass", "ptype", "pid", "acc", "acc_pm",
              "pot", "pot_pm", "old_acc", "ti_begstep", "ti_endstep"]
 _G_FIELDS = [f.name for f in dataclasses.fields(GasState)]
-# the per-axis periodicity of every slab grid: clamped x, periodic y and z
-SLAB_PERIODIC = (False, True, True)
 
 
 def check_slab_supported(opts: SimOptions) -> None:
-    """Refuse what the slab step does not run yet."""
+    """Refuse what the slab step does not run."""
     item = "ROADMAP queue 1 item 14"
-    if not (opts.periodic is True and opts.pmgrid > 0):
-        raise NotImplementedError(
-            "the slab step runs a periodic TreePM box (PERIODIC with "
-            "PMGRID); vacuum slabs, the zoom included, are not ported yet "
-            f"({item})")
     if opts.gravity_mode not in ("auto", "treepm"):
-        raise NotImplementedError(f"gravity_mode={opts.gravity_mode!r} on "
-                                  f"slabs is not ported ({item})")
-    if opts.sinks:
-        raise NotImplementedError(f"sinks on slabs are not ported yet "
-                                  f"({item})")
-    if opts.cooling == "stamatellos":
-        raise NotImplementedError("Stamatellos cooling on slabs (the in-step "
-                                  f"potential) is not ported yet ({item})")
+        raise NotImplementedError(
+            f"gravity_mode={opts.gravity_mode!r} on slabs is not ported "
+            f"({item}); the slab step runs TreePM, periodic or vacuum, the "
+            "zoom not")
+    if opts.periodic is True and opts.pmgrid <= 0:
+        raise NotImplementedError(
+            "the slab step runs a periodic box as TreePM (PERIODIC with "
+            f"PMGRID); a periodic tree run is not ported to slabs ({item})")
     if opts.cooling == "beta":
         raise NotImplementedError(
             "beta cooling on slabs: the JAX slab step takes each slab's own "
-            "non-gas mass as the central mass (ROADMAP queue 3); not "
-            f"ported ({item})")
+            "non-gas mass as the central mass, and reads the registry's "
+            "first sink slot, a PID there, as a row of the slab's chunk "
+            f"(ROADMAP queue 3); not ported ({item})")
     if opts.nogravity or opts.adaptive_gravsoft_forgas:
         raise NotImplementedError("nogravity and adaptive gas softening on "
                                   f"slabs are not ported ({item})")
@@ -114,11 +144,16 @@ def check_slab_supported(opts: SimOptions) -> None:
 # Host-side layout
 # ---------------------------------------------------------------------------
 def balance_edges(pos_x, alive, box: float, d: int,
-                  min_width: float = 0.0) -> np.ndarray:
+                  min_width: float = 0.0, origin: float = 0.0,
+                  periodic: bool = True) -> np.ndarray:
     """Cost-balanced slab boundaries [G2: domain.c :: domain_decompose()]:
     the x-quantiles of the alive particles, blended toward uniform just
-    enough that every slab is at least ``min_width`` wide."""
-    x = np.sort(np.mod(np.asarray(pos_x)[np.asarray(alive)], box))
+    enough that every slab is at least ``min_width`` wide. A vacuum run
+    (``periodic`` False) works in the domain's frame: x less ``origin``,
+    clamped into [0, box], ``box`` the domain's extent."""
+    x_raw = np.asarray(pos_x)[np.asarray(alive)]
+    x = np.sort(np.mod(x_raw, box) if periodic
+                else np.clip(x_raw - origin, 0.0, box))
     if len(x) == 0:
         return np.linspace(0.0, box, d + 1)
     q = np.quantile(x, np.linspace(0.0, 1.0, d + 1))
@@ -131,15 +166,35 @@ def balance_edges(pos_x, alive, box: float, d: int,
     return uniform
 
 
-def spmd_min_width(cfg: SimConfig, opts: SimOptions, n_gas: int) -> float:
+def spmd_min_width(cfg: SimConfig, opts: SimOptions, n_gas: int,
+                   extent: float | None = None) -> float:
     """The slab-width floor: rcut (gravity ghosts) and the SPH cell edge
-    (density and hydro ghosts), with 2% to spare."""
-    box = float(cfg.box_size)
+    (density and hydro ghosts), with 2% to spare; ``extent`` (the vacuum
+    domain's edge) in place of the box where given."""
+    box = float(cfg.box_size) if extent is None else float(extent)
     rcut = RCUT * ASMTH * box / max(opts.pmgrid, 1)
     spacing_cells = (n_gas ** (1.0 / 3.0)) / (
         1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1.0 / 3.0))
     cell_sph = box / max(3, int(spacing_cells))
     return max(rcut, cell_sph) * 1.02
+
+
+# the least share of a vacuum domain the slab grids take as occupied: a
+# flat cloud would otherwise ask for grids too fine to hold in memory
+MIN_FILL = 0.1
+
+
+def fit_domain(pos: np.ndarray, alive: np.ndarray):
+    """The vacuum slab step's domain, (origin [3] float32, extent, fill):
+    the cube 1.3 times the largest extent of the alive particles, centred
+    on their bounding box (``models/simulation.py:396-401`` of the JAX
+    package), and the share of it that box occupies (at least
+    ``MIN_FILL``), for :func:`slab_grid_geom`."""
+    pts = np.asarray(pos, np.float32)[np.asarray(alive)]
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    ext = float((hi - lo).max()) * 1.3 + 1e-6
+    fill = float(np.prod((hi - lo).astype(np.float64) / ext))
+    return 0.5 * (lo + hi) - 0.5 * ext, ext, max(MIN_FILL, min(1.0, fill))
 
 
 # slot head-room of the slab layout: a chunk holds ceil(max slab count /
@@ -154,14 +209,21 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def to_spmd(state: SimState, d: int, cfg: SimConfig,
             fill_frac: float = SLAB_FILL, edges=None,
-            min_width: float = 0.0):
+            min_width: float = 0.0, domain=None):
     """The canonical ``state`` re-laid into the slab layout of ``d``
     ranks: rank r's chunk is rows [r stride, (r+1) stride) of each particle
     array, [cap_g gas | cap_r other] with stride = cap_g + cap_r, and rows
     [r cap_g, (r+1) cap_g) of each gas array. ``edges`` [d+1] (None:
-    :func:`balance_edges`). Returns (state, (cap_g, cap_r), edges), the
-    state on the input's device, without a grid cache."""
-    box = float(cfg.box_size)
+    :func:`balance_edges`). ``domain`` (origin [3], extent, fill;
+    :func:`fit_domain`): a vacuum run,
+    whose edges and slab membership are in the domain's frame. The sink
+    registry's slots, rows of the canonical layout, become the PIDs of
+    those rows (rows move under migration). Returns (state, (cap_g,
+    cap_r), edges), the state on the input's device, without a grid
+    cache."""
+    per = domain is None
+    box = float(cfg.box_size) if per else float(domain[1])
+    orig_x = 0.0 if per else float(np.asarray(domain[0]).reshape(3)[0])
     p = state.p
     dev = p.pos.device
     ng = state.n_gas_max
@@ -172,10 +234,12 @@ def to_spmd(state: SimState, d: int, cfg: SimConfig,
     is_gas[:ng] = (ptype[:ng] == 0) & alive[:ng]
     is_rest = alive & ~is_gas
     if edges is None:
-        edges = balance_edges(pos[:, 0], alive, box, d, min_width)
+        edges = balance_edges(pos[:, 0], alive, box, d, min_width,
+                              origin=orig_x, periodic=per)
     edges = np.asarray(edges, np.float64)
-    slab = np.clip(np.searchsorted(edges, np.mod(pos[:, 0], box),
-                                   side="right") - 1, 0, d - 1)
+    xw = np.mod(pos[:, 0], box) if per else np.clip(
+        pos[:, 0] - orig_x, 0.0, np.nextafter(box, 0.0))
+    slab = np.clip(np.searchsorted(edges, xw, side="right") - 1, 0, d - 1)
 
     def cap_for(sel):
         counts = np.bincount(slab[sel], minlength=d)
@@ -213,7 +277,15 @@ def to_spmd(state: SimState, d: int, cfg: SimConfig,
                                          newg.dhsml_density_factor,
                                          torch.ones_like(newg.hsml)),
         hsml=newg.hsml.clamp_min(1e-30))
-    return (dataclasses.replace(state, p=newp, gas=newg, grids=None),
+    sinks = state.sinks
+    slot = _np(sinks.slot)
+    if np.any(slot >= 0):
+        pid = _np(p.pid)
+        slot = np.where(slot >= 0, pid[np.maximum(slot, 0)], -1)
+        sinks = dataclasses.replace(sinks, slot=torch.from_numpy(
+            slot.astype(np.int32)).to(sinks.slot.device))
+    return (dataclasses.replace(state, p=newp, gas=newg, sinks=sinks,
+                                grids=None),
             (cap_g, cap_r), edges)
 
 
@@ -232,7 +304,8 @@ def local_chunk(state: SimState, rank: int, caps) -> SimState:
 
 def gather_chunks(ring, local: SimState) -> SimState:
     """The slab-layout state of the whole ring, on every rank: each
-    particle and gas array all-gathered along dim 0 (bool as uint8)."""
+    particle and gas array all-gathered along dim 0 (bool as uint8); the
+    sink registry, the same on every rank, as it is."""
     def ag(t):
         if t.dtype == torch.bool:
             return ring.all_gather(t.to(torch.uint8)).to(torch.bool)
@@ -256,8 +329,9 @@ def from_spmd(state: SimState, cap_g: int, cap_r: int):
 def spmd_to_canonical(state: SimState, cap_g: int, cap_r: int) -> SimState:
     """The lossless slab -> canonical layout: particle rows permuted so
     every rank's gas block comes first (the gas arrays are in that order
-    already). Snapshots, energy, restart dumps and re-decomposition all
-    go through it."""
+    already), and the sink registry's PIDs turned back into the rows that
+    hold them alive (-1 where none does). Snapshots, energy, restart dumps
+    and re-decomposition all go through it."""
     stride = cap_g + cap_r
     d = state.p.n_max // stride
     gas_rows = (np.arange(d)[:, None] * stride
@@ -268,7 +342,17 @@ def spmd_to_canonical(state: SimState, cap_g: int, cap_r: int) -> SimState:
         state.p.pos.device)
     newp = ParticleState(**{f: getattr(state.p, f)[order]
                             for f in _P_FIELDS + ["alive"]})
-    return dataclasses.replace(state, p=newp, grids=None)
+    sinks = state.sinks
+    slot = _np(sinks.slot)
+    if np.any(slot >= 0):
+        pid, alive = _np(newp.pid), _np(newp.alive)
+        row_of = {int(q): r for r, q in zip(np.flatnonzero(alive),
+                                            pid[alive])}
+        slot = np.asarray([row_of.get(int(q), -1) if q >= 0 else -1
+                           for q in slot], np.int32)
+        sinks = dataclasses.replace(sinks, slot=torch.from_numpy(slot).to(
+            sinks.slot.device))
+    return dataclasses.replace(state, p=newp, sinks=sinks, grids=None)
 
 
 # ---------------------------------------------------------------------------
@@ -308,19 +392,25 @@ def _occ_cap_static(n_cat, n_cells_est, base):
 
 def slab_grid_geom(cfg: SimConfig, opts: SimOptions, d: int, box: float,
                    w_min: float, w_max: float, n_loc: int,
-                   ng_loc: int) -> dict:
+                   ng_loc: int, fill: float = 1.0) -> dict:
     """All static geometry of a rank's slab grids, as the reference's
     kernel branch (``use_pallas``) takes it: rcut and nyz; the gravity
     grid's ghost capacity gcap_g, lane capacity cap_sr, cells (nx, nyz_g)
     and staleness margin margin_g; the SPH blocks' nb_g, subcap, fine edge
     subcell, x blocks nbx, ghost capacity gcap_s, margin margin_s and h
-    cap max_hsml."""
+    cap max_hsml. ``fill``: the share of the grids' volume the particles
+    occupy (1 on a periodic box; a vacuum domain's, :func:`fit_domain`):
+    the occupancy estimates count the particles over that share, where the
+    reference counts them over the whole domain cube and so sizes cells
+    and capacities for a mean fill that the occupied cells exceed by
+    1 / fill (the lcdm box in vacuum: 2.2x), which no capacity raise
+    reaches, since each raise also coarsens the grid (ROADMAP queue 3)."""
     asmth_len = ASMTH * box / opts.pmgrid
     rcut = RCUT * asmth_len
     nyz = max(3, int(box / rcut))
     out = dict(rcut=rcut, nyz=nyz)
     gcap_g = _ghost_cap(n_loc, rcut, w_min, opts.spmd_ghost_frac)
-    n_est = int(SLAB_FILL * n_loc * (1.0 + 3.0 * rcut / w_min))
+    n_est = int(SLAB_FILL * n_loc * (1.0 + 3.0 * rcut / w_min) / fill)
     nx0 = max(1, int((w_min + 2.0 * rcut) / (box / nyz)))
     cap_sr = _occ_cap_static(n_est, nx0 * nyz * nyz, opts.sr_capacity)
     nx, nyz_g = _occ_grid_static(n_est, w_min + 2.0 * rcut, cap_sr, nyz, box)
@@ -330,7 +420,7 @@ def slab_grid_geom(cfg: SimConfig, opts: SimOptions, d: int, box: float,
     out.update(gcap_g=gcap_g, cap_sr=cap_sr, nx=nx, nyz_g=nyz_g,
                margin_g=margin_g)
 
-    n_glob = max(1, int(SLAB_FILL * ng_loc * d))
+    n_glob = max(1, int(SLAB_FILL * ng_loc * d / fill))
     nb_g, subcap = sph_blocks_geometry(cfg, opts, n_glob)
     nb_g = max(nb_g, int(np.ceil(1.02 * box / (2.0 * w_min))))
     subcell = box / (2 * nb_g)
@@ -495,19 +585,35 @@ def _insert_into_dead(fields, alive, recv, valid_in):
 # The slab step
 # ---------------------------------------------------------------------------
 class SpmdStep:
-    """``make_spmd_step`` (periodic): one owner-computes sync point of
-    this rank's chunk, ``step(state) -> state``. ``edges`` [d+1] are the
-    slab boundaries of :func:`to_spmd`. ``last_rebuilt`` says which cached
-    structures the last sync point rebuilt; ``times``, when a dict, gets
-    the seconds of each part (with a device sync on both sides)."""
+    """``make_spmd_step``: one owner-computes sync point of this rank's
+    chunk, ``step(state) -> state``. ``edges`` [d+1] are the slab
+    boundaries of :func:`to_spmd`; ``domain`` (origin [3], extent, fill)
+    the vacuum run's cube (:func:`fit_domain`; None on a periodic box). ``last_rebuilt`` says
+    which cached structures the last sync point rebuilt; ``times``, when a
+    dict, gets the seconds of each part (with a device sync on both
+    sides)."""
 
     def __init__(self, cfg: SimConfig, opts: SimOptions, ring, edges,
-                 migrate_frac: float = 0.15):
+                 migrate_frac: float = 0.15, domain=None):
         check_slab_supported(opts)
         self.cfg, self.opts, self.ring = cfg, opts, ring
         self.d = ring.size
         self.me = ring.rank
-        self.box = float(cfg.box_size)
+        self.per = bool(opts.periodic)
+        if self.per:
+            self.box = float(cfg.box_size)
+            dom0 = np.zeros(3)
+        else:
+            if domain is None or opts.pmgrid <= 0:
+                raise ValueError("a vacuum slab step needs a PM mesh (pmgrid "
+                                 "> 0) and a domain (origin, extent, fill)")
+            self.box = float(domain[1])
+            dom0 = np.asarray(domain[0], np.float32).reshape(3)
+        # the occupied share of the grids' volume (slab_grid_geom)
+        self.fill = 1.0 if self.per else float(domain[2])
+        # every grid's per-axis periodicity: x clamped; y and z periodic on
+        # a periodic box, clamped in vacuum
+        self.periodic3 = (False, self.per, self.per)
         self.edges = np.asarray(edges, np.float64)
         if len(self.edges) != self.d + 1:
             raise ValueError(f"{len(self.edges)} edges for {self.d} slabs")
@@ -520,15 +626,17 @@ class SpmdStep:
             raise ValueError(f"min slab width {self.w_min:.1f} < rcut "
                              f"{self.rcut:.1f}: fewer ranks or a finer PM "
                              "mesh")
-        if opts.pmgrid % self.d:
+        if self.per and opts.pmgrid % self.d:
             raise ValueError(f"pmgrid {opts.pmgrid} must divide the "
                              f"{self.d}-rank ring")
         dev = ring.device
+        self.dom0 = torch.tensor(dom0, dtype=torch.float32, device=dev)
         self.edges_t = torch.tensor(self.edges, dtype=torch.float32,
                                     device=dev)
         self.x0 = self.edges_t[self.me]
         self.x1 = self.edges_t[self.me + 1]
         self.xc = 0.5 * (self.x0 + self.x1)
+        self.want_pot = in_step_potential(opts)
         self.last_rebuilt = {}
         self.times = None
 
@@ -550,14 +658,43 @@ class SpmdStep:
 
     def geometry(self, st: SimState) -> dict:
         return slab_grid_geom(self.cfg, self.opts, self.d, self.box,
-                              self.w_min, self.w_max, st.n_max, st.n_gas_max)
+                              self.w_min, self.w_max, st.n_max, st.n_gas_max,
+                              self.fill)
 
-    def _fix_ghost_x(self, gx, margin: float, gcap: int):
-        return _ghost_x(gx, self.x0, self.x1, margin, self.box, gcap)
+    def _wx(self, x):
+        """Absolute x in the domain's frame, [0, box) (the box's x on a
+        periodic one, x less the origin in vacuum)."""
+        if self.per:
+            return torch.remainder(x, self.box)
+        return x - self.dom0[0]
 
-    def _local_x(self, x):
-        """Local x in the slab's frame."""
-        return _wrap_to_slab(torch.remainder(x, self.box), self.xc, self.box)
+    def _dompos(self, q):
+        """Absolute positions in the frame of the grids: as they are on a
+        periodic box, less the domain's origin in vacuum."""
+        return q if self.per else q - self.dom0[None, :]
+
+    def _fix_ghost_x(self, gx, margin: float, gvalid, gcap: int):
+        """The ghosts' x and validity on the receiving slab. Periodic:
+        wrapped onto its faces (:func:`_ghost_x`). Vacuum: as they are, a
+        ghost kept only where it lies in the half-strip it arrived for,
+        [x0 - margin, x0) from the left, [x1, x1 + margin) from the right:
+        across an outer face there is no neighbour."""
+        if self.per:
+            return _ghost_x(gx, self.x0, self.x1, margin, self.box,
+                            gcap), gvalid
+        ok = torch.cat([(gx[:gcap] >= self.x0 - margin) & (gx[:gcap] < self.x0),
+                        (gx[gcap:] >= self.x1)
+                        & (gx[gcap:] < self.x1 + margin)])
+        return gx, gvalid & ok
+
+    def _local_pos(self, pos):
+        """This rank's positions in the frame of its grids: on a periodic
+        box x taken to the slab's own frame around its centre."""
+        lpos = self._dompos(pos).clone()
+        if self.per:
+            lpos[:, 0] = _wrap_to_slab(torch.remainder(pos[:, 0], self.box),
+                                       self.xc, self.box)
+        return lpos
 
     def _need(self, cached, disp, count, count_now, margin: float) -> bool:
         """The rebuild decision, the same on every rank: a rank whose
@@ -573,7 +710,7 @@ class SpmdStep:
         d, me = self.d, self.me
         cap_g = st.n_gas_max
         mcap = max(8, int(self.migrate_frac * p.n_max))
-        xw = torch.remainder(p.pos[:, 0], self.box)
+        xw = self._wx(p.pos[:, 0])
         slab_of = (torch.searchsorted(self.edges_t, xw, right=True)
                    - 1).clamp(0, d - 1).to(torch.int32)
         stay = slab_of == me
@@ -582,6 +719,11 @@ class SpmdStep:
         # a particle goes one way only
         go_r = p.alive & (slab_of == (me + 1) % d) & ~stay & ~go_l
         lost = p.alive & ~stay & ~go_l & ~go_r
+        if not self.per:
+            # a particle that left the domain on any axis: the caller refits
+            # the cube (bit 4, as a jump over a slab)
+            rel = self._dompos(p.pos)
+            lost = lost | (p.alive & ((rel < 0.0) | (rel >= self.box)).any(1))
         flags = st.overflow_flags | (lost.any().to(torch.int32) * 4)
         if d == 1:
             return dataclasses.replace(st, overflow_flags=flags)
@@ -627,6 +769,20 @@ class SpmdStep:
                                    overflow_flags=flags)
 
     # -- gravity -------------------------------------------------------------
+    def _pm(self, p):
+        """The PM pass across the ring: (acc [N, 3] times G, the mesh
+        potential [N] without G: zeros without the in-step potential)."""
+        cfg, box, g = self.cfg, self.box, self.opts.pmgrid
+        if self.per:
+            res = pm_local_forces(self.ring, p.pos, p.mass, p.alive, box, g,
+                                  with_potential=self.want_pot)
+        else:
+            res = pm_local_forces_vacuum(self.ring, p.pos, p.mass, p.alive,
+                                         self.dom0, box, g,
+                                         with_potential=self.want_pot)
+        acc, pot = res if self.want_pot else (res, torch.zeros_like(p.mass))
+        return acc * cfg.grav_internal, pot
+
     def gravity(self, st: SimState, is_pm_step: bool):
         cfg, box = self.cfg, self.box
         p = st.p
@@ -635,10 +791,7 @@ class SpmdStep:
         eps = softening_table(cfg, fac.atime)
         soft = SOFTFAC * eps[p.ptype.long()]
         if is_pm_step:
-            acc_pm = self._timed("PM", pm_local_forces, self.ring, p.pos,
-                                 p.mass, p.alive, box, self.opts.pmgrid) \
-                * cfg.grav_internal
-            pot = torch.zeros_like(p.mass)
+            acc_pm, pot = self._timed("PM", self._pm, p)
         else:
             acc_pm = p.acc_pm
             pot = p.pot_pm / max(cfg.grav_internal, 1e-37)
@@ -664,30 +817,45 @@ class SpmdStep:
         # the step's activity as A's tile flags: ghosts are sources only
         flags = grav_tile_flags(cl, torch.cat(
             [active, torch.zeros_like(gvalid)]))
-        out = self._timed("kernel A (slab mode)", shortrange_gravity_slab,
-                          soa, flags, n_cells, box, SLAB_PERIODIC,
-                          self.asmth_len, self.rcut)
-        rows_sr = merge_rows(out, cl, 3)
-        acc_sr = torch.where(cat_alive[:, None], rows_sr,
-                             torch.zeros_like(rows_sr))[:p.n_max]
+        label = "kernel A (slab mode" + (", potential)" if self.want_pot
+                                         else ")")
+        out = self._timed(label, shortrange_gravity_slab, soa, flags,
+                          n_cells, box, self.periodic3, self.asmth_len,
+                          self.rcut, self.want_pot)
+        n_rows = 4 if self.want_pot else 3
+        rows_sr = merge_rows(out, cl, n_rows)
+        rows_sr = torch.where(cat_alive[:, None], rows_sr,
+                              torch.zeros_like(rows_sr))[:p.n_max]
         oflags = st.overflow_flags | ((cl.overflow | ovf).to(torch.int32))
 
-        acc = acc_sr * cfg.grav_internal
+        acc = rows_sr[:, :3] * cfg.grav_internal
+        if not self.per and cfg.comoving_integration_on:
+            # a comoving vacuum run: the homogeneous background's term, as
+            # on one device [G2: gravtree.c comoving correction]
+            acc = acc + (0.5 * cfg.omega0 * cfg.hubble_internal ** 2) * p.pos
         acc = torch.where(active[:, None], acc, p.acc)
         zero3 = torch.zeros_like(acc)
         acc = torch.where(p.alive[:, None], acc, zero3)
         acc_pm = torch.where(p.alive[:, None], acc_pm, zero3)
         pot_pm_g = pot * cfg.grav_internal
+        if self.want_pot:
+            # the full potential: the mesh's, the short-range sum and the
+            # PM self-term m / (sqrt(pi) asmth) taken out [JAX spmd.py:926]
+            pot_full = (pot + rows_sr[:, 3] + p.mass
+                        / (math.sqrt(math.pi) * self.asmth_len)) \
+                * cfg.grav_internal
+        else:
+            pot_full = pot_pm_g
         total = acc + acc_pm
         p = dataclasses.replace(
-            p, acc=acc, acc_pm=acc_pm, pot=pot_pm_g, pot_pm=pot_pm_g.clone(),
+            p, acc=acc, acc_pm=acc_pm, pot=pot_full, pot_pm=pot_pm_g.clone(),
             old_acc=torch.sqrt((total * total).sum(-1)))
         return dataclasses.replace(st, p=p, overflow_flags=oflags), active
 
     def _grav_lists(self, st: SimState, soft, geo: dict, cached, need: bool):
         """The gravity grid of a sync point: the ghost rows (fresh where
         ``need``, else the cached ones), their exchange, the [locals |
-        ghosts] arrays in the slab's frame, and the cell list (fresh or
+        ghosts] arrays in the grids' frame, and the cell list (fresh or
         cached). Returns (cell list, ghost rows, ghost overflow, (pos,
         mass, soft, alive) of the concatenation, cells per axis)."""
         p, box = st.p, self.box
@@ -696,8 +864,8 @@ class SpmdStep:
         n_cells = (geo["nx"], geo["nyz_g"], geo["nyz_g"])
         if need:
             rows, ovf = _ghost_rows_select(
-                torch.remainder(p.pos[:, 0], box), p.alive, self.x0,
-                self.x1, reach_w, gcap)
+                self._wx(p.pos[:, 0]), p.alive, self.x0, self.x1, reach_w,
+                gcap)
         else:
             rows, ovf = cached[1], torch.zeros((), dtype=torch.bool,
                                                device=p.pos.device)
@@ -705,10 +873,10 @@ class SpmdStep:
             "ghosts (gravity)", _ghost_exchange_rows, self.ring,
             [p.pos, p.mass, soft], p.alive, rows, gcap)
         gpos, gmass, gsoft = ghosts
-        gpos = gpos.clone()
-        gpos[:, 0] = self._fix_ghost_x(gpos[:, 0], reach_w + margin_g, gcap)
-        lpos = p.pos.clone()
-        lpos[:, 0] = self._local_x(p.pos[:, 0])
+        gpos = self._dompos(gpos).clone()
+        gpos[:, 0], gvalid = self._fix_ghost_x(gpos[:, 0], reach_w + margin_g,
+                                               gvalid, gcap)
+        lpos = self._local_pos(p.pos)
         cat_pos = torch.cat([lpos, gpos])
         cat_mass = torch.cat([p.mass, gmass])
         cat_soft = torch.cat([soft, gsoft])
@@ -721,7 +889,7 @@ class SpmdStep:
                                   zero + box, zero + box])
             cl = build_cell_list(cat_pos, cat_alive, origin, extent,
                                  n_cells=n_cells, capacity=geo["cap_sr"],
-                                 periodic=SLAB_PERIODIC)
+                                 periodic=self.periodic3)
         else:
             cl = cached[0]
         return cl, rows, ovf, (cat_pos, cat_mass, cat_soft, cat_alive), \
@@ -829,7 +997,7 @@ class SpmdStep:
         """The SPH blocks of a sync point: the ghost rows (fresh where
         ``need``, else the cached ones), the first ghost round (positions,
         velocities, masses), the [locals | ghosts] arrays in the slab's
-        frame and the (even, odd) block lists on the anisotropic grid
+        grids' frame and the (even, odd) block lists on the anisotropic grid
         (fresh or cached). Returns (lists, ghost rows, ghost overflow,
         (pos, vel, mass, mask) of the concatenation)."""
         p, gas, box = st.p, st.gas, self.box
@@ -842,8 +1010,8 @@ class SpmdStep:
         gcap = geo["gcap_s"]
         if need:
             rows, ovf = _ghost_rows_select(
-                torch.remainder(p.pos[:ng, 0], box), gas_mask, self.x0,
-                self.x1, reach, gcap)
+                self._wx(p.pos[:ng, 0]), gas_mask, self.x0, self.x1, reach,
+                gcap)
         else:
             rows, ovf = cached[2], torch.zeros((), dtype=torch.bool,
                                                device=p.pos.device)
@@ -852,11 +1020,10 @@ class SpmdStep:
             "ghosts (SPH 1)", _ghost_exchange_rows, self.ring,
             [p.pos[:ng], gas.vel_pred, p.mass[:ng]], gas_mask, rows, gcap)
         gpos, gvel, gmass = ghosts
-        gpos = gpos.clone()
-        gpos[:, 0] = self._fix_ghost_x(gpos[:, 0], reach + geo["margin_s"],
-                                       gcap)
-        lpos = p.pos[:ng].clone()
-        lpos[:, 0] = self._local_x(p.pos[:ng, 0])
+        gpos = self._dompos(gpos).clone()
+        gpos[:, 0], gv = self._fix_ghost_x(gpos[:, 0], reach + geo["margin_s"],
+                                           gv, gcap)
+        lpos = self._local_pos(p.pos[:ng])
         cat_pos = torch.cat([lpos, gpos])
         cat_mask = torch.cat([gas_mask, gv])
         if need:
@@ -867,11 +1034,202 @@ class SpmdStep:
                                    dtype=f32, device=lpos.device)
             cls = build_block_lists(cat_pos, cat_mask, origin3, extent3,
                                     n_blocks=nb3, subcap=geo["subcap"],
-                                    periodic=SLAB_PERIODIC)
+                                    periodic=self.periodic3)
         else:
             cls = cached[:2]
         return cls, rows, ovf, (cat_pos, torch.cat([gas.vel_pred, gvel]),
                                 torch.cat([p.mass[:ng], gmass]), cat_mask)
+
+    # -- the fork's physics ---------------------------------------------
+    def ring_sinks(self, st: SimState):
+        """(pos [U, 3], mass [U]) of the registered sinks of the whole
+        ring, in the registry's order of its used slots: each gathered by
+        its PID from the rank that holds it (one sum over the ring of a
+        [U, 4] block, float64, in which every slot has one term); None
+        where no slot is used."""
+        p, slot = st.p, st.sinks.slot
+        used = slot[slot >= 0]
+        if used.numel() == 0:
+            return None
+        hit = (p.pid[None, :] == used[:, None].to(p.pid.dtype)) \
+            & p.alive[None, :]                           # [U, N]
+        mine = hit.any(1)
+        idx = torch.where(mine, hit.to(torch.int32).argmax(1),
+                          torch.zeros_like(used, dtype=torch.int64))
+        block = torch.cat([p.pos[idx], p.mass[idx, None]], 1).double()
+        block = torch.where(mine[:, None], block, torch.zeros_like(block))
+        block = self.ring.psum(block)
+        return block[:, :3].to(p.pos.dtype), block[:, 3].to(p.mass.dtype)
+
+    def cool(self, st: SimState) -> SimState:
+        """``models/cooling.py :: apply_cooling`` on this rank's gas, the
+        Stamatellos point-mass term over the ring's registered sinks
+        (:meth:`ring_sinks`)."""
+        return apply_cooling(st, self.cfg, self.opts,
+                             sink_points=self.ring_sinks(st))
+
+    def sinks(self, st: SimState) -> SimState:
+        """Sink formation and accretion across the ring (``_sinks`` of the
+        reference): see the module docstring."""
+        if self.cfg.sink_formation_density > 0:
+            st = self._form_sink(st)
+        if self.cfg.sink_accretion_radius > 0:
+            st = self._accrete(st)
+        return st
+
+    def _u_gas(self, gas):
+        rho_safe = torch.clamp(gas.density, min=1e-30)
+        return gas.entropy_pred * rho_safe ** GAMMA_MINUS1 / GAMMA_MINUS1
+
+    def _form_sink(self, st: SimState) -> SimState:
+        """The ring's densest candidate (the greatest density over the
+        ring, its lowest rank on ties, the first row there) becomes a sink
+        where no gas within SinkAccretionRadius of it lies deeper in the
+        potential and a registry slot is free (``models/sinks.py ::
+        create_sinks``'s tests)."""
+        cfg, opts, ring = self.cfg, self.opts, self.ring
+        p, gas, sinks = st.p, st.gas, st.sinks
+        ng = gas.n_gas_max
+        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+        pot = p.pot[:ng]
+        psi_mag = torch.clamp(-pot, min=1e-30)
+        cand = (gas_mask & (gas.density > cfg.sink_formation_density)
+                & (gas.div_vel < 0.0) & (self._u_gas(gas) <= 0.5 * psi_mag))
+        rho_c = torch.where(cand, gas.density,
+                            torch.full_like(gas.density, -1.0))
+        best = first_argmax(rho_c)
+        rho_l = rho_c[best]
+        rho_g = ring.pmax(rho_l)
+        if not bool(rho_g > 0.0):          # the ring's value: all agree
+            return st
+        owner = ring.pmin(torch.where(
+            rho_l == rho_g, torch.tensor(self.me, device=rho_l.device),
+            torch.tensor(self.d, device=rho_l.device)))
+        is_owner = bool(owner == self.me)
+        # the candidate's position, potential and PID, from its owner
+        mine = torch.cat([p.pos[best].double(), pot[best, None].double(),
+                          p.pid[best, None].double()]) if is_owner \
+            else torch.zeros(5, dtype=torch.float64, device=p.pos.device)
+        won = ring.psum(mine)
+        bpos = won[:3].to(p.pos.dtype)
+        bpot = won[3].to(pot.dtype)
+        new_pid = won[4].round().to(p.pid.dtype)
+        r_acc = max(cfg.sink_accretion_radius, 0.0)
+        dxb = min_image(p.pos[:ng] - bpos[None, :], cfg, opts)
+        near = gas_mask & (dot3(dxb, dxb) < r_acc * r_acc)
+        if is_owner:
+            near[best] = False
+        deeper = ring.psum((near & (pot < bpot)).sum().to(torch.int32))
+        free = sinks.slot < 0
+        if bool(deeper > 0) or not bool(free.any()):
+            return st
+        free_slot = first_argmax(free.to(torch.int32))
+        slot = sinks.slot.clone()
+        slot[free_slot] = new_pid.to(slot.dtype)
+        ptype = p.ptype
+        if is_owner:
+            ptype = ptype.clone()
+            ptype[best] = 5
+        return dataclasses.replace(
+            st, p=dataclasses.replace(p, ptype=ptype),
+            sinks=dataclasses.replace(sinks, slot=slot))
+
+    def _accrete(self, st: SimState) -> SimState:
+        """Accretion by export, evaluate and return: each rank's
+        registered sinks (compacted to the registry's used slots U) go to
+        both neighbours; every rank tests its own gas against [its own |
+        from the left | from the right] sinks by ``models/sinks.py ::
+        accrete_onto_sinks``'s criteria, each gas particle going to the
+        nearest claiming sink, the first on ties (its own rows first, so
+        the copies a ring of one or two sends itself claim nothing); the
+        claims on the neighbours' sinks go back to their owners. The
+        registry's tallies are sums over the ring (one owner a sink)."""
+        cfg, opts, ring = self.cfg, self.opts, self.ring
+        p, gas, sinks = st.p, st.gas, st.sinks
+        slot = sinks.slot
+        u = int((slot >= 0).sum())
+        if u == 0:                          # the registry is the ring's
+            return st
+        ng = gas.n_gas_max
+        dev = p.pos.device
+        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+        reg = slot[slot >= 0]
+        in_reg = (p.pid[:, None] == reg[None, :].to(p.pid.dtype)).any(1)
+        sink_mask = p.alive & (p.ptype == 5) & in_reg
+        idx_s, ovf_s = _select_rows(sink_mask, u)
+        valid_s = idx_s >= 0
+        i_s = idx_s.clamp_min(0).long()
+        zero = torch.zeros((), dtype=p.pos.dtype, device=dev)
+        spos = torch.where(valid_s[:, None], p.pos[i_s], zero)
+        svel = torch.where(valid_s[:, None], p.vel[i_s], zero)
+        smass = torch.where(valid_s, p.mass[i_s], zero)
+        spid = torch.where(valid_s, p.pid[i_s], torch.full_like(p.pid[i_s],
+                                                                -1))
+        bufs = [spos, svel, smass, valid_s.to(torch.int32)]
+        from_l = ring.ring(bufs, +1)
+        from_r = ring.ring(bufs, -1)
+        cpos = torch.cat([spos, from_l[0], from_r[0]])
+        cvel = torch.cat([svel, from_l[1], from_r[1]])
+        cmass = torch.cat([smass, from_l[2], from_r[2]])
+        cvalid = torch.cat([valid_s, from_l[3] > 0, from_r[3] > 0])
+
+        dx = min_image(cpos[:, None, :] - p.pos[None, :ng, :], cfg, opts)
+        r2 = dot3(dx, dx)                                  # [3U, Ng]
+        dv = cvel[:, None, :] - p.vel[None, :ng, :]
+        inside = r2 < cfg.sink_accretion_radius ** 2
+        approaching = dot3(dv, dx) < 0
+        v2 = dot3(dv, dv)
+        eps = cfg.softenings[5]
+        r_soft = torch.sqrt(r2 + eps * eps)
+        bound = 0.5 * v2 + self._u_gas(gas)[None, :] \
+            < cfg.grav_internal * cmass[:, None] / r_soft
+        take = inside & approaching & bound & gas_mask[None, :] \
+            & cvalid[:, None]
+        r2m = torch.where(take, r2, torch.full_like(r2, 1e30))
+        rank = torch.arange(3 * u, device=dev)[:, None]
+        winner = torch.where(r2m == r2m.min(0).values, rank,
+                             3 * u).min(0).values
+        any_take = take.any(0)
+        claim = (rank == winner[None, :]) & any_take[None, :]
+        m_g = torch.where(gas_mask, p.mass[:ng], torch.zeros_like(p.mass[:ng]))
+        w = torch.where(claim, m_g[None, :], torch.zeros_like(r2))
+        dm = w.sum(1)                                      # [3U]
+        dp = (w[:, :, None] * p.vel[None, :ng, :]).sum(1)  # [3U, 3]
+        n_acc = claim.sum(1).to(torch.int32)
+
+        # the claims on the neighbours' sinks go back to their owners
+        ret_r = ring.ring([dm[u:2 * u], dp[u:2 * u], n_acc[u:2 * u]], -1)
+        ret_l = ring.ring([dm[2 * u:], dp[2 * u:], n_acc[2 * u:]], +1)
+        dm_t = dm[:u] + ret_r[0] + ret_l[0]
+        dp_t = dp[:u] + ret_r[1] + ret_l[1]
+        n_t = n_acc[:u] + ret_r[2] + ret_l[2]
+
+        new_mass = smass + dm_t
+        new_vel = (smass[:, None] * svel + dp_t) \
+            / torch.clamp(new_mass, min=1e-30)[:, None]
+        rows = i_s[valid_s]
+        mass = p.mass.clone()
+        vel = p.vel.clone()
+        mass[rows] = new_mass[valid_s]
+        vel[rows] = new_vel[valid_s]
+        alive = p.alive.clone()
+        alive[:ng] = p.alive[:ng] & ~any_take
+        # the registry's tallies: each slot's sink has one owner, so the
+        # ring's sum of [U, 2] blocks (float64: one term a slot) is exact
+        match = (slot[:, None].to(p.pid.dtype) == spid[None, :]) \
+            & valid_s[None, :] & (slot[:, None] >= 0)     # [S, U]
+        mt = match.to(torch.float64)
+        tallies = ring.psum(torch.stack([mt @ dm_t.double(),
+                                         mt @ n_t.double()], 1))
+        sinks = dataclasses.replace(
+            sinks, acc_mass=sinks.acc_mass + tallies[:, 0].to(
+                sinks.acc_mass.dtype),
+            n_accreted=sinks.n_accreted + tallies[:, 1].round().to(
+                sinks.n_accreted.dtype))
+        flags = st.overflow_flags | (ovf_s.to(torch.int32) * 8)
+        return dataclasses.replace(
+            st, p=dataclasses.replace(p, mass=mass, vel=vel, alive=alive),
+            sinks=sinks, overflow_flags=flags)
 
     # -- the sync point ------------------------------------------------------
     def __call__(self, st: SimState) -> SimState:
@@ -881,7 +1239,7 @@ class SpmdStep:
         x_prev = st.p.pos[:, 0]
         st = self._timed("drift", integrate.drift_all, st, cfg, opts,
                          ti_next)
-        if self.d == 1 and st.grids is not None and bool(
+        if self.per and self.d == 1 and st.grids is not None and bool(
                 (((st.p.pos[:, 0] - x_prev).abs() > 0.5 * self.box)
                  & st.p.alive).any()):
             # a ring of one: a particle that crossed x = 0 / box stays on
@@ -896,10 +1254,14 @@ class SpmdStep:
         st, active = self._timed("gravity", self.gravity, st, is_pm_step)
         if st.n_gas_max > 1:
             st = self._timed("SPH", self.sph, st, active)
+        if opts.cooling != "none":
+            st = self._timed("cooling", self.cool, st)
+        if opts.sinks:
+            st = self._timed("sinks", self.sinks, st)
         st = self._timed("kick", integrate.advance_and_find_timesteps, st,
                          cfg, opts)
         st = integrate.pm_step_update(st, cfg, opts, is_pm_step,
-                                      ring=self.ring)
+                                      ring=self.ring, pm_box=self.box)
         # the overflow bits are the rank's own: OR them over the ring so
         # every rank sees every rank's trouble
         return dataclasses.replace(

@@ -1542,7 +1542,8 @@ def test_deposit_kernel_matches_plain_on_card(n_cells, n_pm, n, stale):
 @pytest.fixture(scope="module")
 def recorded_slab():
     """The wrappers' arguments in two slab sync points of the 2x16^3 box on
-    a ring of one (``Simulation(..., mesh=1)``, NCCL)."""
+    a ring of one (``Simulation(..., mesh=1)``, NCCL), and A's slab mode
+    with the potential in two more with sinks (the in-step potential)."""
     _need_card()
     from gadget_leicester_tpu_torch.models.simulation import Simulation
     cfg, opts, (pos, vel, mass, ptype, u) = chip_smoke.setup(16)
@@ -1551,7 +1552,13 @@ def recorded_slab():
     with chip_smoke.recorded_inputs() as rec:
         sim.step(2)
     assert int(sim.state.overflow_flags) == 0
-    return dict(rec)
+    out = dict(rec)
+    sim.opts = sim._spmd_step.opts = opts.replace(sinks=True)
+    sim._spmd_step.want_pot = True
+    with chip_smoke.recorded_inputs() as rec:
+        sim.step(2)
+    out.update(rec)
+    return out
 
 
 @pytest.mark.parametrize("case", [0, 1])
@@ -1638,6 +1645,33 @@ def test_slab_gravity_kernel_edges_on_card(nx, sign):
     acc = merge_rows(got, cl, 3)[targets].abs().amax(1)
     # a heavy pull at rcut is ~20 (G = 1); the background's is below 1
     assert bool(((acc > 5.0) == (sign < 0)).all()), acc
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("nx", [3, 40])
+@pytest.mark.parametrize("per", [(False, True, True), (False, False, False)])
+def test_slab_potential_kernel_edges_on_card(nx, sign, per):
+    """A's slab mode with the potential on the edge cases of
+    test_slab_gravity_kernel_edges_on_card (periodic in y and z, and
+    clamped on every axis): within the bound of its float64 plain
+    version, rows 0-2 equal to the force-only mode's bit for bit, gated
+    tiles zero."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import cells, gravity_short
+    args, _, _ = _slab_gravity_case(nx, sign)
+    args = args[:4] + (per,) + args[5:]
+    got = cells.shortrange_gravity_slab(*args, with_potential=True)
+    force = cells.shortrange_gravity_slab(*args)
+    want = gravity_short.shortrange_gravity_slab_plain(*args,
+                                                       with_potential=True)
+    exact = gravity_short.shortrange_gravity_slab_plain(
+        *chip_smoke.as_float64(args), with_potential=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :3], force)
+    *_, used = chip_smoke.compare("shortrange_gravity_slab_pot", got, want,
+                                  exact)
+    assert used <= 1.0
+    assert not bool(got[args[1] == 0].any())
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,13 @@
 """The slab step's kernel modes, through their plain versions, against the
 JAX package: kernel A's slab mode (``ops/cells.py ::
 shortrange_gravity_slab``; the reference's ``shortrange_gravity_pallas_dma9``
-on a tuple ``n_cells`` with ``periodic=(False, True, True)``, run in
-interpret mode) and kernels C and D on anisotropic block grids
-(``ops/sph_blocks.py`` with a tuple ``n_blocks`` and ``fine_edge``); the
-per-axis cell and block lists equal to the JAX package's; and every cubic
-call unchanged by the per-axis generalisation."""
+on a tuple ``n_cells`` with ``periodic=(False, True, True)`` and, in
+vacuum, ``(False, False, False)``, run in interpret mode), with and
+without the potential row, and kernels C and D on anisotropic block grids
+(``ops/sph_blocks.py`` with a tuple ``n_blocks`` and ``fine_edge``), on
+the slab's grid and clamped on all axes; the per-axis cell and block
+lists equal to the JAX package's; and every cubic call unchanged by the
+per-axis generalisation."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -120,31 +122,92 @@ def _slab_gravity_inputs(seed, ncv):
     return pos, mass, soft, alive, lo, ext
 
 
-@pytest.mark.parametrize("ncv", [(3, 5, 5), (1, 5, 5), (2, 4, 4)])
-def test_gravity_slab_plain_equals_jax(ncv):
-    pos, mass, soft, alive, lo, ext = _slab_gravity_inputs(3, ncv)
-    per = (False, True, True)
+SLAB_GRIDS = [(3, 5, 5), (1, 5, 5), (2, 4, 4)]
+SLAB_PER = (False, True, True)
+VACUUM_PER = (False, False, False)
+
+
+def _slab_gravity_jax(pos, mass, soft, alive, lo, ext, ncv, per,
+                      with_potential):
+    """The JAX package's kernel A on the slab grid (interpret mode): acc,
+    and with ``with_potential`` the potential too."""
     box, asmth, rcut = 1.0, 0.05, 0.19
     jcl = jn.build_cell_list(jnp.asarray(pos), jnp.asarray(alive),
                              jnp.asarray(lo), jnp.asarray(ext), n_cells=ncv,
                              capacity=128, periodic=per)
-    want, ovf = jpc.shortrange_gravity_pallas_dma9(
+    res = jpc.shortrange_gravity_pallas_dma9(
         jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(soft),
         jnp.asarray(alive), box=box, n_cells=ncv, capacity=128, asmth=asmth,
-        rcut=rcut, periodic=per, cl=jcl, interpret=True)
-    assert not bool(ovf)
+        rcut=rcut, periodic=per, cl=jcl, interpret=True,
+        with_potential=with_potential)
+    assert not bool(res[-1])
+    return [np.asarray(r) for r in res[:-1]]
+
+
+def _slab_gravity_port(pos, mass, soft, alive, lo, ext, ncv, per,
+                       with_potential):
+    """The port's A slab mode (the plain version on the CPU): the wrapper's
+    tiles and the rows merged to particles."""
     t = [torch.from_numpy(a) for a in (pos, mass, soft, alive)]
     cl = build_cell_list(t[0], t[3], torch.from_numpy(lo),
                          torch.from_numpy(ext), n_cells=ncv, capacity=128,
                          periodic=per)
     soa = tc.pack_cells_abs(cl, *t)
     flags = torch.ones(soa.shape[0], dtype=torch.int32)
-    out = tc.shortrange_gravity_slab(soa, flags, ncv, box, per, asmth, rcut)
-    got = merge_rows(out, cl, 3).numpy()
-    want = np.asarray(want)
+    out = tc.shortrange_gravity_slab(soa, flags, ncv, 1.0, per, 0.05, 0.19,
+                                     with_potential=with_potential)
+    return out, merge_rows(out, cl, 4 if with_potential else 3).numpy()
+
+
+@pytest.mark.parametrize(
+    "ncv,per", [(g, SLAB_PER) for g in SLAB_GRIDS]
+    + [(g, VACUUM_PER) for g in SLAB_GRIDS],
+    ids=["ncv0", "ncv1", "ncv2", "ncv0-vacuum", "ncv1-vacuum",
+         "ncv2-vacuum"])
+def test_gravity_slab_plain_equals_jax(ncv, per):
+    """A's slab mode against the JAX package's on the slab grid, periodic
+    in y and z and, in vacuum, clamped on all three axes."""
+    pos, mass, soft, alive, lo, ext = _slab_gravity_inputs(3, ncv)
+    (want,) = _slab_gravity_jax(pos, mass, soft, alive, lo, ext, ncv, per,
+                                False)
+    _, got = _slab_gravity_port(pos, mass, soft, alive, lo, ext, ncv, per,
+                                False)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=TOL_GRAV * scale, rtol=0)
     assert np.all(got[~alive] == 0)
+
+
+@pytest.mark.parametrize("per", [SLAB_PER, VACUUM_PER],
+                         ids=["slab", "vacuum"])
+@pytest.mark.parametrize("ncv", SLAB_GRIDS)
+def test_gravity_slab_potential_plain_equals_jax(ncv, per):
+    """A's slab mode with the potential against the JAX package's
+    ``with_potential=True`` (interpret mode), force and potential within
+    TOL_GRAV of their largest values; its rows 0-2 equal the force-only
+    mode's bit for bit."""
+    pos, mass, soft, alive, lo, ext = _slab_gravity_inputs(3, ncv)
+    want_acc, want_pot = _slab_gravity_jax(pos, mass, soft, alive, lo, ext,
+                                           ncv, per, True)
+    out4, got = _slab_gravity_port(pos, mass, soft, alive, lo, ext, ncv,
+                                   per, True)
+    out3, _ = _slab_gravity_port(pos, mass, soft, alive, lo, ext, ncv, per,
+                                 False)
+    assert torch.equal(out4[:, :3], out3)
+    for g, w in ((got[:, :3], want_acc), (got[:, 3], want_pot)):
+        np.testing.assert_allclose(g, w, atol=TOL_GRAV * np.abs(w).max(),
+                                   rtol=0)
+    assert np.all(got[~alive] == 0)
+    assert np.all(want_pot[alive] < 0)
+
+
+def test_gravity_slab_potential_refuses_the_cube():
+    """The potential mode is instantiated for the slab's periodicities
+    only: a periodic cube raises before anything runs."""
+    soa = torch.zeros(27, 8, 32)
+    flags = torch.ones(27, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not instantiated"):
+        tc.shortrange_gravity_slab(soa, flags, (3, 3, 3), 1.0, True, 0.05,
+                                   0.19, with_potential=True)
 
 
 def test_gravity_slab_flags_gate_tiles():
@@ -202,13 +265,24 @@ EXTENT = (2 * 1 * FINE, BOX, BOX)
 SUBCAP = 96
 
 
-def _sph_setup(seed, n=1000):
+def _sph_setup(seed, n=1000, grid="slab"):
     """test_sph_blocks_aniso.py::_setup's geometry at 1,000 of its 2,500
     particles (h about 0.27, under the cap of 0.45): x in [0.2, 0.8] of a
-    grid clamped over [0.1, 1.1], y and z periodic over the box."""
+    grid clamped over [0.1, 1.1], y and z periodic over the box. In vacuum
+    (``grid`` "vacuum", every axis clamped) a ball of radius 0.45 about
+    (0.6, 1, 1) instead, so that no particle sits in a corner of the grid
+    with an eighth of its neighbours (its h would reach the cap)."""
     rng = np.random.default_rng(seed)
-    pos = np.stack([rng.uniform(0.2, 0.8, n), rng.uniform(0.0, BOX, n),
-                    rng.uniform(0.0, BOX, n)], axis=-1).astype(np.float32)
+    if grid == "slab":
+        pos = np.stack([rng.uniform(0.2, 0.8, n), rng.uniform(0.0, BOX, n),
+                        rng.uniform(0.0, BOX, n)], axis=-1)
+    else:
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        r = rng.uniform(size=n) ** (1.0 / 3.0)
+        pos = np.array([0.6, 1.0, 1.0]) \
+            + np.array([0.45, 0.9, 0.9]) * r[:, None] * d
+    pos = pos.astype(np.float32)
     vel = rng.normal(size=(n, 3)).astype(np.float32)
     mass = np.full(n, 1.0 / n, np.float32)
     h = np.full(n, 0.27, np.float32)
@@ -217,30 +291,37 @@ def _sph_setup(seed, n=1000):
     return pos, vel, mass, h, mask
 
 
-@pytest.fixture(scope="module")
-def sph_case():
+_SPH = {}
+
+
+def sph_case(grid: str = "slab"):
     """The port's density (relative mode on the anisotropic grid) and the
     JAX package's in both its modes on the same inputs, then each one's
-    hydro force on the JAX package's relative-mode density fields."""
-    pos, vel, mass, h, mask = _sph_setup(21)
+    hydro force on the JAX package's relative-mode density fields; on the
+    slab's grid (``grid`` "slab": clamped x, periodic y and z) or clamped
+    on all three axes ("vacuum"). Computed once a grid."""
+    if grid in _SPH:
+        return _SPH[grid]
+    per = PER if grid == "slab" else VACUUM_PER
+    pos, vel, mass, h, mask = _sph_setup(21, grid=grid)
     max_hsml = (1.0 - 0.1) * FINE
     t = [torch.from_numpy(a) for a in (pos, vel, mass, h, mask)]
     cls = sb.build_block_lists(t[0], t[4], torch.tensor(ORIGIN),
                                torch.tensor(EXTENT), n_blocks=NB,
-                               subcap=SUBCAP, periodic=PER)
+                               subcap=SUBCAP, periodic=per)
     got, _ = sb.density_adaptive_blocks(
         t[0], t[1], t[2], torch.clamp(t[3], max=max_hsml), t[4],
         des_num_ngb=33.0, max_dev=2.0, box=BOX, cls=cls, max_hsml=max_hsml,
         fine_edge=FINE)
     j = [jnp.asarray(a) for a in (pos, vel, mass, h, mask)]
     jcls = jsb.build_block_lists(j[0], j[4], ORIGIN, EXTENT, n_blocks=NB,
-                                 subcap=SUBCAP, periodic=PER)
+                                 subcap=SUBCAP, periodic=per)
     want = {}
     for relative in (True, False):
         want[relative], _ = jsb.density_adaptive_blocks(
             j[0], j[1], j[2], jnp.minimum(j[3], max_hsml), j[4],
             des_num_ngb=33.0, max_dev=2.0, box=BOX, subcap=SUBCAP,
-            max_hsml=max_hsml, periodic=PER, cls=jcls, interpret=True,
+            max_hsml=max_hsml, periodic=per, cls=jcls, interpret=True,
             fine_edge=FINE if relative else None)
     # the hydro inputs: the JAX package's density fields, so the hydro
     # sums alone are compared
@@ -259,12 +340,19 @@ def sph_case():
         jcls, j[0], j[1], j[2], *(jnp.asarray(a) for a in fields), j[4],
         visc_const=0.8, box=BOX, interpret=True,
         fine_edge=FINE if relative else None) for relative in (True, False)}
-    return mask, got, want, hgot, hwant
+    _SPH[grid] = (mask, got, want, hgot, hwant)
+    return _SPH[grid]
 
 
-@pytest.mark.parametrize("relative", [True, False])
-def test_density_aniso_plain_equals_jax(sph_case, relative):
-    mask, got, want, _, _ = sph_case
+SPH_CASES = dict(argnames="grid,relative",
+                 argvalues=[("slab", True), ("slab", False),
+                            ("vacuum", True), ("vacuum", False)],
+                 ids=["True", "False", "vacuum-True", "vacuum-False"])
+
+
+@pytest.mark.parametrize(**SPH_CASES)
+def test_density_aniso_plain_equals_jax(grid, relative):
+    mask, got, want, _, _ = sph_case(grid)
     want = want[relative]
     for f in ("rho", "hsml"):
         np.testing.assert_allclose(getattr(got, f).numpy()[mask],
@@ -276,9 +364,9 @@ def test_density_aniso_plain_equals_jax(sph_case, relative):
                                    atol=TOL_DIV * np.abs(w).max(), rtol=0)
 
 
-@pytest.mark.parametrize("relative", [True, False])
-def test_hydro_aniso_plain_equals_jax(sph_case, relative):
-    mask, _, _, got, want = sph_case
+@pytest.mark.parametrize(**SPH_CASES)
+def test_hydro_aniso_plain_equals_jax(grid, relative):
+    mask, _, _, got, want = sph_case(grid)
     want = want[relative]
     for f in ("acc", "dt_entropy", "max_signal_vel"):
         w = np.asarray(getattr(want, f))[mask]
