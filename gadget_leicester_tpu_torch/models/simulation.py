@@ -284,7 +284,7 @@ class Simulation:
         self.mesh = None            # the slab ring (parallel.mesh.Ring)
         self.spmd_edges = None      # the slab boundaries [d+1]
         self.spmd_caps = None       # (cap_g, cap_r) of a rank's chunk
-        self.spmd_domain = None     # a vacuum ring's (origin, extent)
+        self.spmd_domain = None     # a vacuum ring's (origin, extent, fill)
         self._spmd_step = None      # parallel.spmd.SpmdStep
         if mesh is not None:
             from gadget_leicester_tpu_torch.parallel.mesh import join
