@@ -2786,7 +2786,7 @@ def phase_potential(results: dict, state, card: str, device="cuda",
     say("potential", "a device sync around each part:")
     say_phases("potential", totals, 1, POTENTIAL_TIMED)
     check_kernels(recorded, f"2x{n_side}^3 potential", results, POTENTIAL,
-                  timed=True)
+                  timed=True, every=FULL_EVERY)
     say_against_earlier("potential", results, "shortrange_potential", card)
     check_potential_forces(recorded, f"2x{n_side}^3")
 
@@ -4034,7 +4034,7 @@ def phase_sinks(results: dict, card: str, device="cuda",
     # kernel H on the step's arguments, against its plain version, A's
     # force rows bit for bit, timed beside A (phase 6) and E (phase 8)
     check_kernels(recorded, f"2x{n_side}^3 step with sinks", results,
-                  POTENTIAL, timed=True)
+                  POTENTIAL, timed=True, every=FULL_EVERY)
     say_against_earlier("sinks", results, "shortrange_potential", card)
     check_step_potential_forces(recorded, f"2x{n_side}^3 step")
     del recorded
@@ -5040,10 +5040,15 @@ SLAB_BOUND = 5e-4
 # counted, held to this share of the particles, and left out of the bound
 SLAB_FLIP_SHARE = 1e-2
 # the slab modes are held to their float64 plain versions on every 8th
-# tile or block (the float32 plain version of A's slab mode alone takes 26
-# s on an H100 at 2x128^3); the timings keep them all
+# tile or block, every tile on (the float32 plain version of A's slab mode
+# alone takes 26 s on an H100 at 2x128^3); the timings keep them all
 SLAB_EVERY = 8
 SLAB_CLI_STEPS = 2
+# the full-width comparisons of A, C, D (phase 6) and H (phases 6 and 14)
+# with their float64 plain versions switch on every other tile (the
+# timings keep them all), so that the whole script keeps to its run's
+# time limit with phase 19 in it
+FULL_EVERY = 2
 SLAB_CLI_CADENCE = """
 TimeBetStatistics 0.00001
 TimeOfFirstSnapshot 0.0
@@ -5225,7 +5230,7 @@ def phase_slab(results: dict, card: str, device="cuda",
     cst = ring.canonical_state()
     check_finite("slab", cst)
     check_kernels(recorded, f"slab 2x{n_side}^3", results, SLAB_FORCE,
-                  timed=True, every=SLAB_EVERY)
+                  timed=True, every=SLAB_EVERY, n_cases=1)
     rcut = ring._spmd_step.rcut
     hold_slab("slab", "ring of one against one device after the first sync "
               "point", firsts[1], firsts[0], box, spacing, rcut)
@@ -5358,9 +5363,10 @@ def phase_slab_cli(card: str, device="cuda", n_side=N_SIDE_MAIN) -> None:
 SLAB_SINK_STEPS = 8
 # phase 19 holds A's slab mode with the potential to its float64 plain
 # version on every SLAB_EVERY-th tile and the vacuum modes on every 32nd,
-# each with every tile on (phase 18 also gates every other tile off, on the
-# same kernel code): the plain versions' timings at full width take some
-# 140 s of the phase, and the whole script keeps to the run's time limit
+# each with every tile on, as phase 18 holds its modes (every other tile
+# gated off is the same kernel code, which tests/test_torch_cuda.py runs):
+# the plain versions' timings at full width take some 140 s of the phase,
+# and the whole script keeps to the run's time limit
 SLAB_FORK_EVERY = 32
 SLAB_VACUUM_STEPS = 4
 SLAB_VACUUM_TARGETS = 4096
@@ -5825,7 +5831,12 @@ def main() -> int:
     phase_disc_small()
     sim, recorded, blocks_init, main_counts = phase_main(results, card)
     main_state = sim.state
-    check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, DENSE, timed=True)
+    # B has no tile flags to thin: all of its arguments
+    check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results,
+                  tuple(n for n in DENSE if n != "pm_deposit"), timed=True,
+                  every=FULL_EVERY)
+    check_kernels(recorded, f"2x{N_SIDE_MAIN}^3", results, ("pm_deposit",),
+                  timed=True)
     say_against_earlier("kernels", results, "sph_density", card)
     say_against_earlier("kernels", results, "pm_deposit", card)
     say("kernels", "registers: " + "; ".join(

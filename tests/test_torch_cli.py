@@ -5,7 +5,7 @@ sph_backend "auto" resolves to blocks with no flag), then a resume from
 its restart dump; without ``--device`` it asks for the card and stops
 here; ``--devices 2`` runs the slab step on two gloo processes and
 matches the single-device run's energy.txt; so does the gassphere, a
-vacuum run, on two ranks against one; a run the slab step does not take
+vacuum run, on two ranks; a run the slab step does not take
 stops with its ROADMAP item (``--makeglass`` runs:
 tests/test_torch_glass.py)."""
 
@@ -44,29 +44,6 @@ def cli(*args, timeout=240):
                           timeout=timeout)
 
 
-def cli_together(runs, timeout=600):
-    """Several CLI runs (argument lists) at once, each in its own child
-    process as :func:`cli` starts it; their CompletedProcess results in
-    order."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
-    procs = [subprocess.Popen([sys.executable, "-c", CODE, *map(str, args)],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for args in runs]
-    out = []
-    try:
-        for args, proc in zip(runs, procs):
-            stdout, stderr = proc.communicate(timeout=timeout)
-            out.append(subprocess.CompletedProcess(args, proc.returncode,
-                                                   stdout, stderr))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")
@@ -88,18 +65,18 @@ def runs(tmp_path_factory):
     # loaded machine: a longer limit
     ring = cli(param2, 0, "--device", "cpu", "--devices", 2, "--max-steps",
                1, timeout=600)
-    # a vacuum run (the gassphere) on rings of two and one, one sync point,
-    # the two at once (some two minutes each through the plain versions)
+    # a vacuum run (the gassphere), one sync point on a ring of two (some
+    # two minutes through the plain versions) and on one device
     vac_ics = tmp / "sphere.dat"
     chip_smoke.write_gassphere_ics(str(vac_ics))
-    sphere_args = []
-    for d in (2, 1):
-        vparam = tmp / f"sphere{d}.param"
+    spheres = {}
+    for d in (2, None):
+        vparam = tmp / f"sphere{d or 0}.param"
         vparam.write_text(chip_smoke.gassphere_param_text(
-            str(vac_ics), str(tmp / f"out_sphere{d}"), 0.1))
-        sphere_args.append((vparam, 0, "--device", "cpu", "--devices", d,
-                            "--max-steps", 1))
-    spheres = dict(zip((2, 1), cli_together(sphere_args)))
+            str(vac_ics), str(tmp / f"out_sphere{d or 0}"), 0.1))
+        ring_args = ("--devices", d) if d else ()
+        spheres[d] = cli(vparam, 0, "--device", "cpu", *ring_args,
+                         "--max-steps", 1, timeout=600)
     return dict(n=n, param=param, out=out, first=first,
                 rows_first=rows_first, resumed=resumed, ring=ring,
                 out_ring=out2, spheres=spheres, tmp=tmp)
@@ -177,19 +154,21 @@ def test_cli_devices_2_matches_one_device(runs):
         assert (runs["out_ring"] / name).exists(), name
 
 
-def test_cli_gassphere_devices_2_matches_devices_1(runs):
+def test_cli_gassphere_devices_2_matches_one_device(runs):
     """The gassphere, a vacuum run, with ``--device cpu --devices 2``: the
     slab step's vacuum TreePM on the mesh ``auto_pmgrid`` picks (named in
-    the "particles" line), one sync point, its energy.txt row held to
-    ``--devices 1``'s (RING_ENERGY_TOL of the row's largest |value|)."""
+    the "particles" line), one sync point, its energy.txt row held to the
+    single-device run's (direct gravity, all-pairs SPH) within
+    RING_ENERGY_TOL of the row's largest |value|."""
     rows = {}
     for d, proc in runs["spheres"].items():
         assert proc.returncode == 0, proc.stderr[-3000:]
-        assert f"x {d} ranks" in proc.stdout and "pmgrid=24" in proc.stdout
         assert "done: 1 steps" in proc.stdout
-        rows[d] = np.loadtxt(runs["tmp"] / f"out_sphere{d}" / "energy.txt",
-                             ndmin=2)
-    got, want = rows[2], rows[1]
+        rows[d] = np.loadtxt(runs["tmp"] / f"out_sphere{d or 0}"
+                             / "energy.txt", ndmin=2)
+    assert "x 2 ranks" in runs["spheres"][2].stdout
+    assert "pmgrid=24" in runs["spheres"][2].stdout
+    got, want = rows[2], rows[None]
     assert got.shape == want.shape == (1, 28) and np.isfinite(got).all()
     assert got[0, 0] == want[0, 0]
     np.testing.assert_allclose(got, want,

@@ -82,7 +82,7 @@ def vacuum_case():
     alive[::11] = False
     res = launch.spawn(launch.pm_vacuum_probe, 2,
                        (pos, mass, alive, V_ORIGIN, V_EXTENT, V_N),
-                       timeout=900, threads=2)
+                       timeout=900)
     got = {k: np.concatenate([r[k] for r in res]) for k in res[0]}
     t = [torch.from_numpy(a) for a in (pos, mass, alive)]
     single = pm_forces_nonperiodic(*t, torch.from_numpy(V_ORIGIN), V_EXTENT,

@@ -4,18 +4,18 @@ on rings of two gloo processes, from test_spmd_sinks.py's ICs at n_side 8
 inside a slab, one on the inner face and one on the periodic wrap, with
 uniform slab edges. Accretion alone, and with ``SinkFormationDensity`` at
 the gas density's 99th percentile (and the JAX test's SinkAccretionRadius)
-so that sinks form; held by pid to the
+so that sinks form, with Stamatellos cooling; held by pid to the
 port's single-device step (tallies by sink PID, survivors, masses,
 velocities, total mass, the in-step potential, the registry's round trip
 through ``spmd_to_canonical``) and, for accretion, to the JAX package's
-slab step with ``use_pallas="off"``. Stamatellos cooling with the sinks is
-held to the single device only: the JAX slab step reads the registry's
+slab step with ``use_pallas="off"``. Stamatellos cooling is held to the
+single device only: the JAX slab step reads the registry's
 PIDs as rows of each chunk there (ROADMAP queue 3), and the last test shows
 what the port does instead.
 
 Every run starts from the state the JAX package's ``set_ics`` gives (with
 the sinks registered), carried across with ``core/state.py ::
-from_numpy``; each ring is spawned once (two threads a rank)."""
+from_numpy``; each ring is spawned once (one thread a rank)."""
 
 import dataclasses
 
@@ -154,16 +154,14 @@ def init():
 
 
 def _case(name, init):
-    """(options, config fields replaced, sync points) of a case."""
-    thr = init[1]
+    """(options, config fields replaced) of a case: accretion alone, or
+    formation with Stamatellos cooling."""
     if name == "accretion":
-        return OPTS, None, N_STEPS
-    if name == "formation":
-        # the JAX test's radius: at BOX / 8 a candidate always has deeper
-        # gas within reach, and none forms
-        return OPTS, {"sink_formation_density": thr,
-                      "sink_accretion_radius": BOX / 16}, N_STEPS
-    return COOL_OPTS, None, 1
+        return OPTS, None
+    # the JAX test's radius: at BOX / 8 a candidate always has deeper gas
+    # within reach, and none forms
+    return COOL_OPTS, {"sink_formation_density": init[1],
+                       "sink_accretion_radius": BOX / 16}
 
 
 _SINGLE, _RING = {}, {}
@@ -172,13 +170,13 @@ _SINGLE, _RING = {}, {}
 def single(name, init):
     """The port's single-device step from the same state, by pid."""
     if name not in _SINGLE:
-        opts_kw, cfg_kw, n = _case(name, init)
+        opts_kw, cfg_kw = _case(name, init)
         cfg = parse_parameter_text(PARAM)
         if cfg_kw:
             cfg = cfg.replace(**cfg_kw)
         st = dataclasses.replace(from_numpy(init[0], "cpu"), grids=None)
         steps = []
-        for _ in range(n):
+        for _ in range(N_STEPS):
             st = sync_point_step(st, cfg, SimOptions(**opts_kw))
             steps.append(launch._by_pid(st))
         assert int(st.overflow_flags) == 0
@@ -189,11 +187,11 @@ def single(name, init):
 def ring(name, init):
     """The port's slab step on a ring of two at the uniform edges."""
     if name not in _RING:
-        opts_kw, cfg_kw, n = _case(name, init)
+        opts_kw, cfg_kw = _case(name, init)
         _RING[name] = launch.spawn(
             launch.slab_run, D,
-            (PARAM, opts_kw, init[0], n, "cpu", EDGES, cfg_kw, True),
-            timeout=RING_TIMEOUT, threads=2)[0]
+            (PARAM, opts_kw, init[0], N_STEPS, "cpu", EDGES, cfg_kw, True),
+            timeout=RING_TIMEOUT)[0]
     return _RING[name]
 
 
@@ -259,8 +257,8 @@ def _hold_sinks(got, want, got_tally, want_tally, what):
 
 @pytest.mark.parametrize("name", ["accretion", "formation"])
 def test_slab_sinks_match_single_device(init, name):
-    """Accretion (and formation) on a ring of two against the port's
-    single-device step by pid: survivors, sink masses and velocities,
+    """Accretion (and formation with Stamatellos cooling) on a ring of two
+    against the port's single-device step by pid: survivors, sink masses and velocities,
     tallies by sink PID, total mass, gas positions and velocities within
     5e-4, no overflow; every sink has a registry slot on both."""
     got = ring(name, init)
@@ -331,17 +329,24 @@ def test_slab_registry_round_trip(init):
 
 
 def test_slab_stamatellos_matches_single_device(init):
-    """Stamatellos cooling with the sinks on a ring of two (the point-mass
-    term over the ring's sinks) against the single-device step by pid:
-    dt_entropy and entropy of the gas within 5e-4 of their largest."""
-    got = ring("stamatellos", init)
-    want, ti, _ = single("stamatellos", init)
-    assert got["overflow"] == 0 and got["ti_current"] == ti
+    """Stamatellos cooling with the sinks (the formation case) on a ring of
+    two (the point-mass term over the ring's sinks) against the
+    single-device step by pid: dt_entropy and entropy of the gas the last
+    sync point kicked in both (cooling adds to every gas particle's
+    dt_entropy, hydro to the active ones') within 5e-4 of their
+    largest."""
+    got = ring("formation", init)
+    want, ti, _ = single("formation", init)
     np.testing.assert_array_equal(got["gas.pid"], want["gas.pid"])
+    kicked = np.intersect1d(want["pid"][want["ti_begstep"] == ti],
+                            got["pid"][got["ti_begstep"] == ti])
+    act = np.isin(want["gas.pid"], kicked)
+    assert act.sum() > 0
     for f in ("gas.dt_entropy", "gas.entropy"):
-        scale = np.abs(want[f]).max()
-        np.testing.assert_allclose(got[f], want[f], atol=TOL_SINGLE * scale,
-                                   rtol=0, err_msg=f)
+        scale = np.abs(want[f][act]).max()
+        np.testing.assert_allclose(got[f][act], want[f][act],
+                                   atol=TOL_SINGLE * scale, rtol=0,
+                                   err_msg=f)
 
 
 def test_slab_cooling_takes_the_ring_sinks(init):
@@ -351,8 +356,7 @@ def test_slab_cooling_takes_the_ring_sinks(init):
     that of rank 0's own sinks alone), and each rank's term equals the
     single device's by pid."""
     res = launch.spawn(launch.cooling_probe, D,
-                       (PARAM, OPTS, init[0], EDGES), timeout=RING_TIMEOUT,
-                       threads=2)
+                       (PARAM, OPTS, init[0], EDGES), timeout=RING_TIMEOUT)
     cfg = parse_parameter_text(PARAM)
     st = from_numpy(init[0], "cpu")
     ng = st.n_gas_max

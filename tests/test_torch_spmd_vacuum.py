@@ -11,7 +11,7 @@ d = 2 against d = 1 through the same vacuum code.
 
 Every ring starts from the state the JAX package's ``set_ics`` gives
 (carried across with ``core/state.py :: from_numpy``) and is spawned once
-(``parallel/launch.py``, two threads a rank)."""
+(``parallel/launch.py``, one thread a rank)."""
 
 import dataclasses
 
@@ -145,7 +145,7 @@ def ring4(jax_run):
     return launch.spawn(launch.slab_run, 4,
                         (PARAM, OPTS, jax_run["init"], N_STEPS, "cpu", None,
                          None, True),
-                        timeout=RING_TIMEOUT, threads=2)[0]
+                        timeout=RING_TIMEOUT)[0]
 
 
 def _hold(got, want, tol, scale_pos, what):
@@ -237,7 +237,7 @@ def gas_rings():
     opts_kw = dict(OPTS, sr_capacity=0)
     return {d: launch.spawn(launch.slab_run, d,
                             (PARAM, opts_kw, init, GAS_STEPS),
-                            timeout=RING_TIMEOUT, threads=2)[0]
+                            timeout=RING_TIMEOUT)[0]
             for d in (1, 2)}
 
 
