@@ -200,8 +200,8 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
             "run the periodic mesh over BoxSize, as the JAX package does: "
             "a fault of the reference, not a mode to port (ROADMAP queue "
             "3). Vacuum PM runs as gravity_mode=\"zoom\" with hr_types "
-            "(PLACEHIGHRESREGION); the slab's vacuum TreePM is ROADMAP "
-            "queue 1 item 14")
+            "(PLACEHIGHRESREGION), and vacuum TreePM on slabs "
+            "(Simulation(mesh=K), --devices K; ROADMAP queue 1 item 14)")
     if not opts.nogravity and mode == "zoom" and opts.pmgrid <= 0:
         raise ValueError("gravity_mode=\"zoom\" needs pmgrid > 0 (the "
                          "coarse mesh)")
