@@ -5,7 +5,7 @@ sph_backend "auto" resolves to blocks with no flag), then a resume from
 its restart dump; without ``--device`` it asks for the card and stops
 here; ``--devices 2`` runs the slab step on two gloo processes and
 matches the single-device run's energy.txt; so does the gassphere, a
-vacuum run, on two ranks; a run the slab step does not take
+vacuum run, on two ranks (``slow``); a run the slab step does not take
 stops with its ROADMAP item (``--makeglass`` runs:
 tests/test_torch_glass.py)."""
 
@@ -65,21 +65,9 @@ def runs(tmp_path_factory):
     # loaded machine: a longer limit
     ring = cli(param2, 0, "--device", "cpu", "--devices", 2, "--max-steps",
                1, timeout=600)
-    # a vacuum run (the gassphere), one sync point on a ring of two (some
-    # two minutes through the plain versions) and on one device
-    vac_ics = tmp / "sphere.dat"
-    chip_smoke.write_gassphere_ics(str(vac_ics))
-    spheres = {}
-    for d in (2, None):
-        vparam = tmp / f"sphere{d or 0}.param"
-        vparam.write_text(chip_smoke.gassphere_param_text(
-            str(vac_ics), str(tmp / f"out_sphere{d or 0}"), 0.1))
-        ring_args = ("--devices", d) if d else ()
-        spheres[d] = cli(vparam, 0, "--device", "cpu", *ring_args,
-                         "--max-steps", 1, timeout=600)
     return dict(n=n, param=param, out=out, first=first,
                 rows_first=rows_first, resumed=resumed, ring=ring,
-                out_ring=out2, spheres=spheres, tmp=tmp)
+                out_ring=out2)
 
 
 def test_cli_runs_on_cpu_without_jax(runs):
@@ -154,20 +142,30 @@ def test_cli_devices_2_matches_one_device(runs):
         assert (runs["out_ring"] / name).exists(), name
 
 
-def test_cli_gassphere_devices_2_matches_one_device(runs):
+@pytest.mark.slow
+def test_cli_gassphere_devices_2_matches_one_device(tmp_path):
     """The gassphere, a vacuum run, with ``--device cpu --devices 2``: the
     slab step's vacuum TreePM on the mesh ``auto_pmgrid`` picks (named in
     the "particles" line), one sync point, its energy.txt row held to the
     single-device run's (direct gravity, all-pairs SPH) within
-    RING_ENERGY_TOL of the row's largest |value|."""
-    rows = {}
-    for d, proc in runs["spheres"].items():
+    RING_ENERGY_TOL of the row's largest |value|. ``slow``: the ring's
+    one sync point takes some two minutes of two processes through the
+    plain block SPH (the Evrard centre packs 256 gas into a subcell)."""
+    vac_ics = tmp_path / "sphere.dat"
+    chip_smoke.write_gassphere_ics(str(vac_ics))
+    rows, procs = {}, {}
+    for d in (2, None):
+        out = tmp_path / f"out_sphere{d or 0}"
+        vparam = tmp_path / f"sphere{d or 0}.param"
+        vparam.write_text(chip_smoke.gassphere_param_text(str(vac_ics),
+                                                          str(out), 0.1))
+        ring_args = ("--devices", d) if d else ()
+        proc = procs[d] = cli(vparam, 0, "--device", "cpu", *ring_args,
+                              "--max-steps", 1, timeout=600)
         assert proc.returncode == 0, proc.stderr[-3000:]
         assert "done: 1 steps" in proc.stdout
-        rows[d] = np.loadtxt(runs["tmp"] / f"out_sphere{d or 0}"
-                             / "energy.txt", ndmin=2)
-    assert "x 2 ranks" in runs["spheres"][2].stdout
-    assert "pmgrid=24" in runs["spheres"][2].stdout
+        rows[d] = np.loadtxt(out / "energy.txt", ndmin=2)
+    assert "x 2 ranks" in procs[2].stdout and "pmgrid=24" in procs[2].stdout
     got, want = rows[2], rows[None]
     assert got.shape == want.shape == (1, 28) and np.isfinite(got).all()
     assert got[0, 0] == want[0, 0]
