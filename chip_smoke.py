@@ -11,7 +11,7 @@ imports nothing of JAX. Phases, each printing its own lines:
    ``gadget_leicester_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once; A's source holds A and H, E's its two modes, C's, D's, F's and
    G's their relative and absolute modes, M's A's slab mode with and
-   without the potential);
+   without the potential, I/J's and K's their ghost-row modes);
 3. kernels: the arguments the path gives each dense kernel's wrapper (A-D)
    while it initialises a small lcdm_gas box, and kernel H's while it then
    computes the full potential, replayed through the kernel and its plain
@@ -200,7 +200,18 @@ imports nothing of JAX. Phases, each printing its own lines:
    points, the first one's gravity against the dense split of the same
    TreePM on seeded targets, A's slab mode at image mask 0 and C's and
    D's anisotropic mode on clamped grids replayed and timed (rows of
-   their own in the kernels line); (e) a sync point of each by parts.
+   their own in the kernels line); (e) a sync point of each by parts;
+20. the slab step's coarse-cell SPH (:func:`phase_slab_cells`):
+   ``sph_backend="cells"`` on the 2x128^3 box through
+   ``Simulation(mesh=1)`` (NCCL) for ``SLAB_CELLS_STEPS`` sync points,
+   held by pid to the single-device coarse-cell step of the same ICs
+   (:func:`hold_slab`), the launch counts read (kernels I/J and K in their
+   ghost-row mode, never C and D); the two modes replayed on the path's
+   arguments on every ``SLAB_CELLS_EVERY``-th target cell against their
+   float64 plain versions and timed beside them; a sync point by parts;
+   the same ICs in vacuum, one sync point, the modes on the cells that
+   hold a target (rows of their own in the kernels line); and the force
+   test once at phase 9's statistics cadence (:func:`phase_forcetest`).
 
 Any failure raises, so the exit code is not 0. The line before the last
 is a JSON object of the kernels; the last line is
@@ -265,7 +276,8 @@ TOL = {"shortrange_gravity": 1e-4, "pm_deposit": 1e-5,
        "sph_hydro_abs": 1e-4, "sph_density_entries_abs": 1e-4,
        "sph_hydro_entries_abs": 1e-4, "shortrange_gravity_slab": 1e-4,
        "sph_density_aniso": 1e-4, "sph_hydro_aniso": 1e-4,
-       "shortrange_gravity_slab_pot": 1e-4}
+       "shortrange_gravity_slab_pot": 1e-4, "sph_cells_density_slab": 1e-4,
+       "sph_cells_hydro_slab": 1e-4}
 F32_FACTOR = 4.0
 
 # the coarse-cell SPH grids of the small comparisons, (cells per axis,
@@ -299,6 +311,10 @@ SLAB = SLAB_FORCE + SLAB_POT
 # rows of their own in the kernels line
 VACUUM = "_vacuum"
 SLAB_VACUUM = tuple(n + VACUUM for n in SLAB_FORCE)
+# the slab step's coarse-cell SPH (phase 20): I/J's and K's ghost-row mode
+# on the slab's (nx, n, n) cells, periodic (image mask 6) and in vacuum (0)
+SLAB_CELLS = ("sph_cells_density_slab", "sph_cells_hydro_slab")
+SLAB_CELLS_VACUUM = tuple(n + VACUUM for n in SLAB_CELLS)
 KERNELS = {
     "shortrange_gravity": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity.cu",
@@ -376,6 +392,22 @@ KERNELS = {
     "sph_hydro_aniso_vacuum": (
         "gadget_leicester_tpu_torch/csrc/sph_hydro.cu",
         "gadget_leicester_tpu/ops/sph_blocks.py:630"),
+    # I/J's and K's ghost-row mode, the slab step's coarse cells:
+    # density_adaptive_pallas(n_targets=, cl=) and hydro_force_pallas(
+    # n_targets=) with a tuple n_cells and periodic (False, pyz, pyz)
+    # (parallel/spmd.py:1216, :1282), on the sweep kernels of :1251, :1363
+    "sph_cells_density_slab": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_density.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1401"),
+    "sph_cells_hydro_slab": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_hydro.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1483"),
+    "sph_cells_density_slab_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_density.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1401"),
+    "sph_cells_hydro_slab_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/sph_cells_hydro.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:1483"),
 }
 # where the tile flags or entry ids sit among each wrapper's arguments (B
 # has none)
@@ -386,11 +418,12 @@ FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
              "sph_density_abs": 3, "sph_hydro_abs": 5,
              "sph_density_entries_abs": 3, "sph_hydro_entries_abs": 4,
              "shortrange_gravity_slab": 1, "sph_density_aniso": 3,
-             "sph_hydro_aniso": 5, "shortrange_gravity_slab_pot": 1}
+             "sph_hydro_aniso": 5, "shortrange_gravity_slab_pot": 1,
+             "sph_cells_density_slab": 2, "sph_cells_hydro_slab": 6}
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
 PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6,
-              "sph_hydro_aniso": 6}
-for _n in SLAB_FORCE:
+              "sph_hydro_aniso": 6, "sph_cells_hydro_slab": 1}
+for _n in SLAB_FORCE + SLAB_CELLS:
     TOL[_n + VACUUM] = TOL[_n]
     FLAGS_ARG[_n + VACUUM] = FLAGS_ARG[_n]
     if _n in PARAMS_ARG:
@@ -433,6 +466,10 @@ OPS_PER_PAIR.update({n: OPS_PER_PAIR[n.removesuffix("_abs")] - 3
                      for n in ABS})
 OPS_PER_PAIR.update(sph_density_aniso=OPS_PER_PAIR["sph_density"],
                     sph_hydro_aniso=OPS_PER_PAIR["sph_hydro"])
+# the ghost-row modes pay the cube's arithmetic: dx = t - (s + shift) on
+# every axis (a clamped axis adds a shift of 0)
+OPS_PER_PAIR.update(sph_cells_density_slab=OPS_PER_PAIR["sph_cells_density"],
+                    sph_cells_hydro_slab=OPS_PER_PAIR["sph_cells_hydro"])
 OPS_PER_DEPOSIT = 44
 MIN_IMAGE_OPS = 12
 TRUNC_OPS = 22
@@ -915,8 +952,11 @@ def kernel_pairs() -> dict:
             functools.partial(gravity_short.shortrange_gravity_slab_plain,
                               with_potential=True)),
     }
+    # the ghost-row modes: the same wrappers and plain versions, per-axis
+    pairs.update(sph_cells_density_slab=pairs["sph_cells_density"],
+                 sph_cells_hydro_slab=pairs["sph_cells_hydro"])
     # the vacuum slab step's modes: the same wrappers and plain versions
-    pairs.update({n + VACUUM: pairs[n] for n in SLAB_FORCE})
+    pairs.update({n + VACUUM: pairs[n] for n in SLAB_FORCE + SLAB_CELLS})
     return pairs
 
 
@@ -948,6 +988,17 @@ def cases(name: str, recorded: dict) -> list:
     import torch
     args = recorded[name]
     i = FLAGS_ARG.get(name)
+    if name.removesuffix(VACUUM) in SLAB_CELLS:
+        # the ghost-row modes: the cells that hold a target, K's flags on
+        # the list that I/J's last sweep took too (its own flags are that
+        # sweep's cells still iterating), and every other one of them
+        hydro = name.replace("density", "hydro")
+        on = recorded[hydro][FLAGS_ARG[hydro]]
+        half = on.clone()
+        half[1::2] = 0
+        return [(label, args[:i] + (f,) + args[i + 1:])
+                for label, f in (("target cells", on),
+                                 ("every other target cell", half))]
     if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
         ids = args[i]
         if name.startswith("sph_density_entries"):
@@ -1070,13 +1121,15 @@ def cells_pair_count(name: str, args: tuple) -> tuple:
     import torch
 
     from gadget_leicester_tpu_torch.ops import sph_cells as sc
-    if name == "sph_cells_density":
+    density = name.startswith("sph_cells_density")
+    if density:
         soa, h_slots, flags, n, box, periodic = args
         cells = torch.nonzero(flags > 0).flatten()
         live_row = 3
     else:
-        soa, _, n, box, periodic, _ = args
-        cells = torch.arange(soa.shape[0], device=soa.device)
+        soa, _, n, box, periodic, _ = args[:6]
+        cells = torch.arange(soa.shape[0], device=soa.device) \
+            if len(args) == 6 else torch.nonzero(args[6] > 0).flatten()
         live_row = 12
     stencil = in_cut = 0
     for k0 in range(0, cells.numel(), 64):
@@ -1085,7 +1138,7 @@ def cells_pair_count(name: str, args: tuple) -> tuple:
         s, inside = sc._gather_sources(soa, k, n, box, periodic,
                                        (0, 1, 2, 7, live_row))
         _, _, _, r, _, r2 = sc._pair_geometry(t, s)
-        if name == "sph_cells_density":
+        if density:
             ok = r < h_slots[k][:, :, None]
         else:
             ok = (r < torch.maximum(t[:, 7, :, None], s[3][:, None, :])) \
@@ -1143,8 +1196,8 @@ def pair_count(name: str, args: tuple) -> tuple:
     if name == "pm_deposit":
         n = int((args[0][:, 3] != 0).sum())
         return n, n
-    if name in CELLS:
-        return cells_pair_count(name, args)
+    if name.removesuffix(VACUUM) in CELLS + SLAB_CELLS:
+        return cells_pair_count(name.removesuffix(VACUUM), args)
     if name == "pm_gather":
         n = args[1].shape[0]
         return n, n
@@ -5813,6 +5866,196 @@ def phase_slab_fork(results: dict, card: str, device="cuda",
                              "differs from one device")
 
 
+# phase 20: the slab step's coarse-cell SPH. The comparisons switch on
+# every SLAB_CELLS_EVERY-th target cell (the float64 plain version of all
+# of them would take minutes; 59 shares no factor with the grids' sides,
+# so the cells it keeps wander through z); the force test's subset at phase 9's
+# statistics cadence (CLI_CADENCE) on the small box: the reference's force
+# test is a host sum (the Ewald lattice sum of 343 images and 342 waves a
+# pair in a periodic box), which at 2x128^3 would take hours
+SLAB_CELLS_STEPS = 3
+SLAB_CELLS_EVERY = 59
+FORCETEST_TARGETS = 16
+# the TreePM force (short-range plus PM) against the exact periodic sum
+# after the first sync point of the small box (pmgrid 32): in a box this
+# close to uniform the net force is a small remainder of its pair terms,
+# and the port's run on the CPU gave a median of 2.4e-2 and a largest of
+# 0.28 on a subset of 32 (utils/forcetest.py); a force missing its PM part
+# gave a median of 0.31 and a largest of 2.7
+FORCETEST_MEDIAN = 5e-2
+FORCETEST_MAX = 1.0
+
+
+def phase_forcetest(card: str, device="cuda", n_side=N_SIDE_SMALL) -> None:
+    """Phase 20 (d): ``Simulation.run`` of the lcdm_gas box at ``n_side``
+    with the force test on (``SimOptions.forcetest``: FORCETEST_TARGETS
+    particles), phase 9's cadence lines, one sync point: the force test
+    runs once, at the statistics time, and its forcetest.txt is held to
+    the bounds above."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.core.config import parse_parameter_text
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    _, opts, (pos, vel, mass, ptype, u) = setup(n_side)
+    work = Path(__file__).resolve().parent / "build" / "forcetest"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        cfg = parse_parameter_text(run_param_text(n_side, "x", str(work),
+                                                  CLI_CADENCE))
+        opts = opts.replace(forcetest=(FORCETEST_TARGETS + 0.5) / len(pos))
+        sim = Simulation(cfg, opts, device)
+        sim.set_ics(pos, vel, mass, ptype, u=u)
+        t0 = time.time()
+        sim.run(max_steps=1)
+        secs = time.time() - t0
+        rows = np.loadtxt(work / "forcetest.txt", ndmin=2)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    err = rows[:, 9]
+    say("forcetest", f"2x{n_side}^3 TreePM, one sync point through run() "
+        f"with the force test at the statistics time: {rows.shape[0]} "
+        f"particles, {rows.shape[1]} columns, relative error of the code's "
+        f"force from the exact periodic sum median {np.median(err):.3e}, "
+        f"largest {err.max():.3e} (bounds {FORCETEST_MEDIAN:g}, "
+        f"{FORCETEST_MAX:g}); the run {secs:.1f} s ({card})")
+    if rows.shape != (FORCETEST_TARGETS, 10) or not np.isfinite(rows).all():
+        raise AssertionError("forcetest: forcetest.txt is malformed")
+    if not (np.median(err) < FORCETEST_MEDIAN and err.max() < FORCETEST_MAX):
+        raise AssertionError("forcetest: the force errors are beyond the "
+                             "bounds")
+
+
+def phase_slab_cells(results: dict, card: str, device="cuda",
+                     n_side=N_SIDE_MAIN, steps=SLAB_CELLS_STEPS) -> None:
+    """Phase 20 (see the module docstring): the slab step's coarse-cell
+    SPH on a ring of one against one device, kernels I/J and K's
+    ghost-row mode, periodic and in vacuum, and the force test."""
+    import dataclasses
+
+    import torch
+
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.core.config import parse_parameter_text
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    from gadget_leicester_tpu_torch.parallel.launch import _by_pid
+    cfg, opts, (pos, vel, mass, ptype, u) = setup(n_side,
+                                                  sph_backend="cells")
+    box, spacing = float(cfg.box_size), float(cfg.box_size) / n_side
+    firsts = []
+    one = Simulation(cfg, opts, device)
+    one.set_ics(pos, vel, mass, ptype, u=u)
+    for i in range(steps):
+        one.step()
+        if i == 0:
+            firsts.append(_by_pid(one.state))
+    sync(device)
+    want = _by_pid(one.state)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ring = Simulation(cfg, opts, device, mesh=1)
+    t0 = time.time()
+    ring.set_ics(pos, vel, mass, ptype, u=u)
+    sync(device)
+    init_s = time.time() - t0
+    secs = []
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        for i in range(steps):
+            t0 = time.time()
+            ring.step()
+            sync(device)
+            secs.append(time.time() - t0)
+            if i == 0:
+                firsts.append(_by_pid(ring.canonical_state()))
+        counts = dict(kernels.launches)
+    recorded = dict(rec)
+    step = ring._spmd_step
+    geo = step.geometry(ring.state)
+    say("slab cells", f"2x{n_side}^3 under sph_backend=\"cells\" on a ring "
+        f"of one (NCCL): coarse cells {geo['nx_c']} x {geo['n_c']} x "
+        f"{geo['n_c']} of edge {geo['cell_c']:.6g} (the h cap and the "
+        f"ghosts' reach), {geo['cap_c']} slots a cell, ghost buffers "
+        f"{geo['gcap_c']} a side; set_ics {init_s:.3f} s, per-step seconds "
+        + ", ".join(f"{x:.3f}" for x in secs) + f" ({card}); launches over "
+        f"{steps} sync points {_nonzero(counts)}")
+    check_launches("slab cells", counts,
+                   SLAB_CELLS + ("shortrange_gravity_slab", "pm_gather"),
+                   "the slab steps under the coarse cells")
+    for name in SLAB_CELLS:
+        results.setdefault(name, {})["launches"] = counts[name]
+    cst = ring.canonical_state()
+    check_finite("slab cells", cst)
+    check_kernels(recorded, f"slab cells 2x{n_side}^3", results, SLAB_CELLS,
+                  timed=True, every=SLAB_CELLS_EVERY, n_cases=1)
+    rcut = step.rcut
+    hold_slab("slab cells", "coarse cells, ring of one against one device "
+              "after the first sync point", firsts[1], firsts[0], box,
+              spacing, rcut)
+    hold_slab("slab cells", f"coarse cells, ring of one against one device "
+              f"after {steps} sync points", _by_pid(cst), want, box, spacing,
+              rcut)
+    say("kernels", "registers: I/J's and K's ghost-row mode, periodic and in "
+        "vacuum " + str([n for frag in (
+            "sph_cells_density_kernelILi6E", "sph_cells_density_kernelILi0E",
+            "sph_cells_hydro_kernelILi6E", "sph_cells_hydro_kernelILi0E")
+            for _, n in ptxas_registers(frag)]))
+    del cst, want, firsts, recorded, rec
+    kernels.recorded.clear()
+    step.times = {}
+    ring.step()
+    sync(device)
+    parts, step.times = step.times, None
+    say("slab cells", "a coarse-cell slab sync point by parts (ms): "
+        + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in parts.items())
+        + f" ({card})")
+    del ring, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the vacuum mode: the same ICs with PeriodicBoundariesOn 0, one sync
+    # point (a capacity raise answered as the run loop answers it)
+    vcfg = parse_parameter_text(param_text(n_side).replace(
+        "PeriodicBoundariesOn 1", "PeriodicBoundariesOn 0"))
+    vac = Simulation(vcfg, dataclasses.replace(opts, periodic=False), device,
+                     mesh=1)
+    t0 = time.time()
+    vac.set_ics(pos, vel, mass, ptype, u=u)
+    sync(device)
+    init_s = time.time() - t0
+    with recorded_inputs() as rec:
+        kernels.reset_launches()
+        t0 = time.time()
+        raises = step_through_overflow(vac, "slab cells vacuum")
+        sync(device)
+        vac_s = time.time() - t0
+        counts = dict(kernels.launches)
+    recorded = {n + VACUUM: a for n, a in rec.items()}
+    geo = vac._spmd_step.geometry(vac.state)
+    say("slab cells vacuum", f"2x{n_side}^3 in vacuum on a ring of one: "
+        f"occupied share {vac.spmd_domain[2]:.3f}, coarse cells "
+        f"{geo['nx_c']} x {geo['n_c']} x {geo['n_c']} of edge "
+        f"{geo['cell_c']:.6g}, {geo['cap_c']} slots; set_ics {init_s:.3f} s, "
+        f"the sync point {vac_s:.3f} s ({card}), capacity raises {raises}; "
+        f"launches {_nonzero(counts)}")
+    check_launches("slab cells vacuum", counts,
+                   SLAB_CELLS + ("shortrange_gravity_slab", "pm_gather"),
+                   "the vacuum slab sync point under the coarse cells")
+    for name in SLAB_CELLS:
+        results.setdefault(name + VACUUM, {})["launches"] = counts[name]
+    check_finite("slab cells vacuum", vac.canonical_state())
+    check_kernels(recorded, f"vacuum slab cells 2x{n_side}^3", results,
+                  SLAB_CELLS_VACUUM, timed=True, every=SLAB_CELLS_EVERY,
+                  n_cases=1)
+    del vac, recorded, rec
+    kernels.recorded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_forcetest(card, device)
+
+
 def sync(device) -> None:
     import torch
     if device == "cuda":
@@ -5926,6 +6169,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_slab_fork(results, card)
     say("time", f"phase 19 done at {time.time() - t_start:.0f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_slab_cells(results, card)
+    say("time", f"phase 20 done at {time.time() - t_start:.0f} s")
 
     # no single PyTorch call computes an erfc-truncated softened pair sum,
     # an SPH kernel sum over a cell or block stencil or the CIC deposit of

@@ -15,9 +15,14 @@ this process on a ring of one, a larger K starts its ranks with
 fewer than K are visible. The slab step runs TreePM in a periodic box or
 in vacuum (``PeriodicBoundariesOn 0``: on a mesh of ``auto_pmgrid`` cells
 where ``--pmgrid`` is not given), with ``--sinks`` and ``--cooling
-stamatellos``; a run it does not take (the zoom, ``nogravity``, adaptive
-gas softening, ``--cooling beta``, a periodic box without a mesh) stops
-with a message naming ROADMAP queue 1 item 14.
+stamatellos``, its SPH on the blocks (the coarse cells through the Python
+API's ``SimOptions(sph_backend="cells")``: no flag selects a backend, as
+in the JAX CLI); a run it does not take (the zoom, ``nogravity``,
+adaptive gas softening, ``--cooling beta``, a periodic box without a
+mesh) stops with a message that names its reason before any rank
+starts. ``-DFORCETEST=frac`` in the ``.opts`` sidecar writes
+forcetest.txt at the statistics cadence, and the ``GLT_PROFILE_*`` and
+``GLT_CPU_DETAIL`` variables trace the run as in the reference.
 ``--isothermal`` runs the isothermal EOS. ``--cooling`` and ``--sinks``
 run the fork's physics. As
 in the JAX CLI, no sink is registered from the particle types: a run

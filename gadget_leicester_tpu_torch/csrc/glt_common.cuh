@@ -122,6 +122,28 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
+// One axis of a coarse-cell stencil (kernels I/J and K): the neighbour
+// coordinate i of a grid of n cells on that axis. A periodic axis (kWrap)
+// wraps i into [0, n) and sets the whole-tile shift sh to -+box across
+// the wrap (n >= 3, so a cell is met once); a clamped axis leaves sh
+// alone and says whether i lies inside the grid.
+template <bool kWrap>
+__device__ __forceinline__ bool stencil_axis(int& i, int n, float& sh,
+                                             float box) {
+  if constexpr (kWrap) {
+    if (i < 0) {
+      i += n;
+      sh = -box;
+    } else if (i >= n) {
+      i -= n;
+      sh = box;
+    }
+    return true;
+  } else {
+    return i >= 0 && i < n;
+  }
+}
+
 // The pair arithmetic below is shared by a dense kernel and its
 // active-entry twin (A and E, C and F; G repeats D's), so the two tiers of
 // a force differ only in the order of their sums. The coarse-cell density

@@ -7,6 +7,29 @@
 // of one function, one kernel here.
 // Plain PyTorch twin: ops/sph_cells.py :: density_sums_cells_plain.
 //
+// The ghost-row mode (C entry glt_sph_cells_density_slab) is the slab
+// step's: density_adaptive_pallas with a tuple n_cells = (nx, n_sph,
+// n_sph), periodic = (False, pyz, pyz), n_targets and a prebuilt cell list
+// (pallas_cells.py:1401-1480), as parallel/spmd.py :: _sph calls it. It is
+// this kernel with two generalisations, each a no-op on the cubic calls,
+// which stay bit for bit what they were:
+// - per-axis cell counts (nx, ny, nz); the cube passes (n, n, n);
+// - a per-axis image mask kPer (bit a set: axis a periodic), a template
+//   argument, as in kernel A's slab mode (shortrange_gravity_cells.cu): a
+//   tile across the wrap of a periodic axis is shifted by -+box as a
+//   whole, and a stencil cell beyond a clamped face adds nothing. The cube
+//   instantiates 7 and 0, the slab 6 (x clamped, y and z periodic) and 0.
+// The ghost rows need nothing of the kernel: they are slots like any
+// other, sources of the targets around them. The restriction to targets
+// lies in the flags: the caller sets the flag of a cell only where one of
+// its live slots is a target (its row below n_targets), and iterates the
+// Newton solve and scatters back the target slots only; a ghost slot in a
+// flagged cell is summed and its sums dropped. On the clamped x axis nx may
+// be 1 or 2 (a cell is never met twice), a particle past the grid's edge
+// is filed in the edge cell with its own coordinate (its pairs are exact,
+// and the caller caps h at the cell edge, so no pair is lost), and a
+// parked slot at -7 cells has m = 0 and never enters a box or a sum.
+//
 // What it computes. soa is the [C, 8, cap] pack of ops/sph_cells.py ::
 // pack_sph_soa (rows x, y, z ABSOLUTE, each the periodic image nearest its
 // cell's centre, so every slot of a tile lies in that tile's cell; m, vx,
@@ -86,14 +109,14 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 7;   // staged rows x, y, z, m, vx, vy, vz
 
-template <bool kPeriodic>
+template <int kPer>
 __global__ void __launch_bounds__(kThreads)
     sph_cells_density_kernel(const float* __restrict__ soa,
                              const float* __restrict__ h,
                              const int* __restrict__ flags,
                              const float* __restrict__ boxes,
-                             float* __restrict__ out, int n, int cap,
-                             int chunks, float box) {
+                             float* __restrict__ out, int nx, int ny, int nz,
+                             int cap, int chunks, float box) {
   const int c = blockIdx.x;
   const int t = blockIdx.y * blockDim.x + threadIdx.x;
   float* o = out + static_cast<size_t>(c) * 6 * cap;
@@ -108,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int s_slot[kThreads];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float(*ring)[kRows][32] = s_ring[warp];
-  const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
+  const int cx = c / (ny * nz), cy = (c / nz) % ny, cz = c % nz;
   const float* tile = soa + static_cast<size_t>(c) * 8 * cap;
 
   // 1. rank the block's slots: live ones by Morton key over their box,
@@ -136,19 +159,15 @@ __global__ void __launch_bounds__(kThreads)
   const glt::Box tbox = glt::warp_box(live, tx, ty, tz, ht);
 
   // stencil cell j: the flat id of the neighbour and its shift; false
-  // beyond the edge of a vacuum grid
+  // beyond the edge of a clamped axis
   auto neighbour = [&](int j, int& src, float (&sh)[3]) {
-    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    int ix = cx + j / 9 - 1, iy = cy + (j / 3) % 3 - 1, iz = cz + j % 3 - 1;
     sh[0] = sh[1] = sh[2] = 0.f;
-    if constexpr (kPeriodic) {
-      if (nx < 0) { nx += n; sh[0] = -box; } else if (nx >= n) { nx -= n; sh[0] = box; }
-      if (ny < 0) { ny += n; sh[1] = -box; } else if (ny >= n) { ny -= n; sh[1] = box; }
-      if (nz < 0) { nz += n; sh[2] = -box; } else if (nz >= n) { nz -= n; sh[2] = box; }
-    } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
-               nz >= n) {
+    if (!(glt::stencil_axis<(kPer & 1) != 0>(ix, nx, sh[0], box) &&
+          glt::stencil_axis<(kPer & 2) != 0>(iy, ny, sh[1], box) &&
+          glt::stencil_axis<(kPer & 4) != 0>(iz, nz, sh[2], box)))
       return false;
-    }
-    src = (nx * n + ny) * n + nz;
+    src = (ix * ny + iy) * nz + iz;
     return true;
   };
   // the items (j, chunk) u = j * chunks + k of group g that the warp needs
@@ -242,23 +261,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+int launch(const float* soa, const float* h, const int* flags, float* boxes,
+           float* out, int nx, int ny, int nz, int per, int cap, float box,
+           cudaStream_t st) {
+  const int cells = nx * ny * nz;
+  const int chunks = (cap + 31) / 32;
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
+  const dim3 grid(cells, (cap + threads - 1) / threads);
+  glt::launch_boxes<8, 3, -1>(soa, boxes, cells, cap, 32, st);
+  switch (per) {
+    case 7:   // the periodic cube
+      sph_cells_density_kernel<7><<<grid, threads, 0, st>>>(
+          soa, h, flags, boxes, out, nx, ny, nz, cap, chunks, box);
+      break;
+    case 6:   // the periodic box's slab grid: x clamped
+      sph_cells_density_kernel<6><<<grid, threads, 0, st>>>(
+          soa, h, flags, boxes, out, nx, ny, nz, cap, chunks, box);
+      break;
+    case 0:   // a vacuum cube or slab grid
+      sph_cells_density_kernel<0><<<grid, threads, 0, st>>>(
+          soa, h, flags, boxes, out, nx, ny, nz, cap, chunks, box);
+      break;
+    default:  // no other image mask is instantiated
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int glt_sph_cells_density(const float* soa, const float* h,
                                      const int* flags, float* boxes,
                                      float* out, int n, int cap, float box,
                                      int periodic, void* stream) {
-  const int cells = n * n * n;
-  const int chunks = (cap + 31) / 32;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
-  const dim3 grid(cells, (cap + threads - 1) / threads);
-  glt::launch_boxes<8, 3, -1>(soa, boxes, cells, cap, 32, st);
-  if (periodic)
-    sph_cells_density_kernel<true><<<grid, threads, 0, st>>>(
-        soa, h, flags, boxes, out, n, cap, chunks, box);
-  else
-    sph_cells_density_kernel<false><<<grid, threads, 0, st>>>(
-        soa, h, flags, boxes, out, n, cap, chunks, box);
-  return static_cast<int>(cudaGetLastError());
+  return launch(soa, h, flags, boxes, out, n, n, n, periodic ? 7 : 0, cap,
+                box, static_cast<cudaStream_t>(stream));
+}
+
+// the ghost-row mode of the slab step: per-axis cell counts and the image
+// mask per (bit a set: axis a periodic; the slab's 6, or 0 in vacuum)
+extern "C" int glt_sph_cells_density_slab(const float* soa, const float* h,
+                                          const int* flags, float* boxes,
+                                          float* out, int nx, int ny, int nz,
+                                          int per, int cap, float box,
+                                          void* stream) {
+  return launch(soa, h, flags, boxes, out, nx, ny, nz, per, cap, box,
+                static_cast<cudaStream_t>(stream));
 }

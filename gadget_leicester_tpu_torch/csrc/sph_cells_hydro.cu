@@ -5,6 +5,16 @@
 // (kernel body _make_hydro_kernel).
 // Plain PyTorch twin: ops/sph_cells.py :: hydro_sums_cells_plain.
 //
+// The ghost-row mode (C entry glt_sph_cells_hydro_slab) is the slab step's:
+// hydro_force_pallas with a tuple n_cells and n_targets
+// (pallas_cells.py:1483-1544), on the density pass's cell list. As in
+// sph_cells_density.cu it takes per-axis cell counts (nx, ny, nz) and the
+// image mask kPer (7 and 0 on the cube, 6 and 0 on the slab), and it
+// gains cell flags: a cell whose flag is 0 writes zeros and does nothing
+// else. The caller flags the cells that hold a live target slot (row below
+// n_targets), so cells of ghosts alone cost one write; the cubic entry
+// passes no flags (every cell is summed, as before, bit for bit).
+//
 // What it computes. soa16 is the [C, 16, cap] pack of ops/sph_cells.py ::
 // pack_hydro_cells: rows 0-7 x, y, z ABSOLUTE (each the periodic image
 // nearest its cell's centre), m, vx, vy, vz, h; rows 8-12
@@ -89,23 +99,29 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 13;   // staged rows 0-12 of the pack
 
-template <bool kPeriodic>
+template <int kPer>
 __global__ void __launch_bounds__(kThreads)
     sph_cells_hydro_kernel(const float* __restrict__ soa16,
                            const float* __restrict__ params,
+                           const int* __restrict__ flags,
                            const float* __restrict__ boxes,
-                           float* __restrict__ out, int n, int cap,
-                           int chunks, float box, float half_visc) {
+                           float* __restrict__ out, int nx, int ny, int nz,
+                           int cap, int chunks, float box, float half_visc) {
+  const int c = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  float* o = out + static_cast<size_t>(c) * 5 * cap;
+  if (flags != nullptr && flags[c] == 0) {
+    if (t < cap)
+      for (int r = 0; r < 5; ++r) o[r * cap + t] = 0.f;
+    return;
+  }
   __shared__ float s_ring[kWarps][2][kRows][32];
   __shared__ glt::Box s_tbox[kWarps];
   __shared__ unsigned s_key[kThreads];
   __shared__ int s_slot[kThreads];
-  const int c = blockIdx.x;
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float(*ring)[kRows][32] = s_ring[warp];
-  float* o = out + static_cast<size_t>(c) * 5 * cap;
-  const int cx = c / (n * n), cy = (c / n) % n, cz = c % n;
+  const int cx = c / (ny * nz), cy = (c / nz) % ny, cz = c % nz;
   const float* tile = soa16 + static_cast<size_t>(c) * 16 * cap;
 
   // 1. rank the block's slots: live ones by Morton key over their box,
@@ -139,19 +155,15 @@ __global__ void __launch_bounds__(kThreads)
   const float fac_mu = params[1];
 
   // stencil cell j: the flat id of the neighbour and its shift; false
-  // beyond the edge of a vacuum grid
+  // beyond the edge of a clamped axis
   auto neighbour = [&](int j, int& src, float (&sh)[3]) {
-    int nx = cx + j / 9 - 1, ny = cy + (j / 3) % 3 - 1, nz = cz + j % 3 - 1;
+    int ix = cx + j / 9 - 1, iy = cy + (j / 3) % 3 - 1, iz = cz + j % 3 - 1;
     sh[0] = sh[1] = sh[2] = 0.f;
-    if constexpr (kPeriodic) {
-      if (nx < 0) { nx += n; sh[0] = -box; } else if (nx >= n) { nx -= n; sh[0] = box; }
-      if (ny < 0) { ny += n; sh[1] = -box; } else if (ny >= n) { ny -= n; sh[1] = box; }
-      if (nz < 0) { nz += n; sh[2] = -box; } else if (nz >= n) { nz -= n; sh[2] = box; }
-    } else if (nx < 0 || nx >= n || ny < 0 || ny >= n || nz < 0 ||
-               nz >= n) {
+    if (!(glt::stencil_axis<(kPer & 1) != 0>(ix, nx, sh[0], box) &&
+          glt::stencil_axis<(kPer & 2) != 0>(iy, ny, sh[1], box) &&
+          glt::stencil_axis<(kPer & 4) != 0>(iz, nz, sh[2], box)))
       return false;
-    }
-    src = (nx * n + ny) * n + nz;
+    src = (ix * ny + iy) * nz + iz;
     return true;
   };
   // the items (j, chunk) u = j * chunks + k of group g that the warp needs
@@ -278,23 +290,56 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+int launch(const float* soa16, const float* params, const int* flags,
+           float* boxes, float* out, int nx, int ny, int nz, int per, int cap,
+           float box, float half_visc, cudaStream_t st) {
+  const int cells = nx * ny * nz;
+  const int chunks = (cap + 31) / 32;
+  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
+  const dim3 grid(cells, (cap + threads - 1) / threads);
+  glt::launch_boxes<16, 12, 7>(soa16, boxes, cells, cap, 32, st);
+  switch (per) {
+    case 7:   // the periodic cube
+      sph_cells_hydro_kernel<7><<<grid, threads, 0, st>>>(
+          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
+          half_visc);
+      break;
+    case 6:   // the periodic box's slab grid: x clamped
+      sph_cells_hydro_kernel<6><<<grid, threads, 0, st>>>(
+          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
+          half_visc);
+      break;
+    case 0:   // a vacuum cube or slab grid
+      sph_cells_hydro_kernel<0><<<grid, threads, 0, st>>>(
+          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
+          half_visc);
+      break;
+    default:  // no other image mask is instantiated
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int glt_sph_cells_hydro(const float* soa16, const float* params,
                                    float* boxes, float* out, int n, int cap,
                                    float box, int periodic, float half_visc,
                                    void* stream) {
-  const int cells = n * n * n;
-  const int chunks = (cap + 31) / 32;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = cap < kThreads ? ((cap + 31) / 32) * 32 : kThreads;
-  const dim3 grid(cells, (cap + threads - 1) / threads);
-  glt::launch_boxes<16, 12, 7>(soa16, boxes, cells, cap, 32, st);
-  if (periodic)
-    sph_cells_hydro_kernel<true><<<grid, threads, 0, st>>>(
-        soa16, params, boxes, out, n, cap, chunks, box, half_visc);
-  else
-    sph_cells_hydro_kernel<false><<<grid, threads, 0, st>>>(
-        soa16, params, boxes, out, n, cap, chunks, box, half_visc);
-  return static_cast<int>(cudaGetLastError());
+  return launch(soa16, params, nullptr, boxes, out, n, n, n,
+                periodic ? 7 : 0, cap, box, half_visc,
+                static_cast<cudaStream_t>(stream));
+}
+
+// the ghost-row mode of the slab step: per-axis cell counts, the image
+// mask per (bit a set: axis a periodic; the slab's 6, or 0 in vacuum) and
+// cell flags (a cell whose flag is 0 writes zeros: it holds no target)
+extern "C" int glt_sph_cells_hydro_slab(const float* soa16,
+                                        const float* params, const int* flags,
+                                        float* boxes, float* out, int nx,
+                                        int ny, int nz, int per, int cap,
+                                        float box, float half_visc,
+                                        void* stream) {
+  return launch(soa16, params, flags, boxes, out, nx, ny, nz, per, cap, box,
+                half_visc, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,9 @@ one (the ``_abs`` entries), the coarse-cell SPH density I/J and hydro K,
 L the CIC gather of the PM mesh, and M short-range gravity in absolute
 coordinates with the per-pair minimum image; the slab step's modes are A's
 slab mode, in M's source, with and without the potential row, and C's and
-D's relative mode on per-axis block grids, the ``_aniso`` entries) are compiled on first use
+D's relative mode on per-axis block grids, the ``_aniso`` entries, and
+I/J's and K's ghost-row mode on the slab's coarse cells, the ``_slab``
+entries in their own sources) are compiled on first use
 with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
@@ -96,6 +98,12 @@ SIGNATURES = {
                           _P),
     "sph_hydro_aniso": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _F, _F, _P),
+    # the ghost-row modes of I/J and K on the slab's coarse cells: per-axis
+    # cells, an image mask, cell flags (the cells that hold a target)
+    "sph_cells_density_slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                               _P),
+    "sph_cells_hydro_slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                             _P),
 }
 
 launches = {name: 0 for name in SIGNATURES}

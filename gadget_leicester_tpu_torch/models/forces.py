@@ -183,14 +183,11 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
         _refuse("dtype f64", "the kernels are float32")
     if opts.cooling not in ("none", "beta", "stamatellos"):
         raise ValueError(f"unknown cooling {opts.cooling!r}")
-    if opts.forcetest > 0:
-        _refuse("forcetest", "ROADMAP queue 1 item 11")
     if not isinstance(opts.periodic, bool):
         raise NotImplementedError(
             f"per-axis periodic {opts.periodic!r}: the option is a bool, as "
             "in the JAX package; the slab step (Simulation(mesh=K), "
-            "--devices K) builds its own per-axis grids (ROADMAP queue 2 "
-            "item 3)")
+            "--devices K) builds its own per-axis grids")
     mode = resolve_gravity_mode(opts, n_max)
     if mode not in ("treepm", "direct", "tree", "zoom"):
         raise ValueError(f"unknown gravity mode {mode!r}")
@@ -201,7 +198,7 @@ def check_supported(cfg: SimConfig, opts: SimOptions, n_max: int,
             "a fault of the reference, not a mode to port (ROADMAP queue "
             "3). Vacuum PM runs as gravity_mode=\"zoom\" with hr_types "
             "(PLACEHIGHRESREGION), and vacuum TreePM on slabs "
-            "(Simulation(mesh=K), --devices K; ROADMAP queue 1 item 14)")
+            "(Simulation(mesh=K), --devices K)")
     if not opts.nogravity and mode == "zoom" and opts.pmgrid <= 0:
         raise ValueError("gravity_mode=\"zoom\" needs pmgrid > 0 (the "
                          "coarse mesh)")

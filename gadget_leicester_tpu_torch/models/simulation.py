@@ -31,11 +31,19 @@ keeps its own chunk; outputs gather the chunks and take the canonical
 layout (``spmd_to_canonical``), and rank 0 alone writes energy.txt,
 cpu.txt, info.txt, snapshots and restart dumps.
 
-Left out, each an item of ROADMAP: on slabs the zoom, ``nogravity``,
-adaptive gas softening and beta cooling, and the coarse-cell SPH branch
-(queue 1 item 14), the ``GLT_PROFILE_DIR`` profiler hook and the
-``GLT_CPU_DETAIL`` probes (tracing), and ``forcetest``, which
-``check_supported`` refuses.
+``run()`` also keeps the reference's tracing hooks (:562-570, :455-475,
+:653-657): with ``GLT_PROFILE_DIR`` set, a ``torch.profiler`` trace of
+the sync points from ``GLT_PROFILE_START`` (2) for ``GLT_PROFILE_STEPS``
+(2) is written there (``utils/logfiles.py :: profile_steps`` traces a
+number of steps on demand); with ``GLT_CPU_DETAIL=1`` the statistics
+cadence times drift, gravity, hydro and kick as standalone passes on the
+current state (results dropped) into cpu.txt's sampled columns, without a
+ring, as in the reference; and with ``SimOptions.forcetest`` above 0 the
+force test (``utils/forcetest.py``) appends to forcetest.txt there.
+
+Left out on slabs, each refused with its reason
+(``parallel/spmd.py :: check_slab_supported``): the zoom, a periodic tree
+run, ``nogravity``, adaptive gas softening and beta cooling.
 """
 
 from __future__ import annotations
@@ -65,14 +73,43 @@ from gadget_leicester_tpu_torch.models.cooling import apply_cooling
 from gadget_leicester_tpu_torch.models.forces import (check_supported,
                                                       comoving_factors,
                                                       compute_forces,
-                                                      compute_potential)
+                                                      compute_potential,
+                                                      compute_sph)
 from gadget_leicester_tpu_torch.models.grids import (make_grid_cache,
                                                      resolve_sph_backend)
 from gadget_leicester_tpu_torch.models.sinks import (accrete_onto_sinks,
                                                      create_sinks)
 from gadget_leicester_tpu_torch.utils.diagnostics import (
     LayzerIrvineTracker, energy_statistics)
-from gadget_leicester_tpu_torch.utils.logfiles import RunLogs
+from gadget_leicester_tpu_torch.utils.forcetest import (run_forcetest,
+                                                        write_forcetest_file)
+from gadget_leicester_tpu_torch.utils.logfiles import RunLogs, start_profiler
+
+
+# the phases cpu.txt samples with GLT_CPU_DETAIL=1 (the reference's
+# _probe_* programs, :53-81): each a standalone pass on the current state
+def _probe_drift(state: SimState, cfg: SimConfig, opts: SimOptions):
+    ti_next = timeline.min_active_ti_end(state.p.ti_endstep, state.p.alive)
+    return integrate.drift_all(state, cfg, opts,
+                               torch.minimum(ti_next, state.pm_ti_endstep))
+
+
+def _probe_gravity(state: SimState, cfg: SimConfig, opts: SimOptions):
+    return compute_forces(state, cfg, opts, do_sph=False,
+                          do_pm=not uses_pm_split(opts))
+
+
+def _probe_hydro(state: SimState, cfg: SimConfig, opts: SimOptions):
+    fac = comoving_factors(cfg, state.ti_current)
+    active = (state.p.ti_endstep == state.ti_current) & state.p.alive
+    return compute_sph(state, cfg, opts, fac, active[:state.n_gas_max])
+
+
+def _probe_kick(state: SimState, cfg: SimConfig, opts: SimOptions):
+    state = integrate.advance_and_find_timesteps(state, cfg, opts)
+    if uses_pm_split(opts):
+        state = integrate.pm_step_update(state, cfg, opts, False)
+    return state
 
 
 def potential_pass(state: SimState, cfg: SimConfig,
@@ -516,6 +553,27 @@ class Simulation:
             return self.opts
         return dataclasses.replace(self.opts, pmgrid=0, gravity_mode="auto")
 
+    def _sample_cpu(self) -> dict:
+        """The sampled device seconds of cpu.txt [G2: run.c CPU_Gravity,
+        CPU_Hydro ... buckets], with ``GLT_CPU_DETAIL=1``: each phase run
+        alone on the current state, its result dropped, with a device sync
+        on both sides; none on a ring (the slab step has no standalone
+        phases), as in the reference."""
+        if self.mesh is not None or os.environ.get("GLT_CPU_DETAIL") != "1":
+            return {}
+        probes = [("drift", _probe_drift), ("gravity", _probe_gravity),
+                  ("kick", _probe_kick)]
+        if self.state.n_gas_max > 1:
+            probes.insert(2, ("hydro", _probe_hydro))
+        out = {}
+        for name, fn in probes:
+            _sync(self.device)
+            t0 = _time.time()
+            fn(self.state, self.cfg, self.opts)
+            _sync(self.device)
+            out[name] = _time.time() - t0
+        return out
+
     def _empty_grids(self):
         if self.mesh is None:
             return make_grid_cache(self.device)
@@ -589,6 +647,13 @@ class Simulation:
         limit = wall_limit_s if wall_limit_s is not None else \
             cfg.time_limit_cpu
         self.last_restart_wall = _time.time()
+        # the profiler hook: a torch.profiler trace of the sync points
+        # [GLT_PROFILE_START, GLT_PROFILE_START + GLT_PROFILE_STEPS) into
+        # GLT_PROFILE_DIR (the reference's jax.profiler trace)
+        pdir = os.environ.get("GLT_PROFILE_DIR")
+        pstart = int(os.environ.get("GLT_PROFILE_START", "2"))
+        pn = int(os.environ.get("GLT_PROFILE_STEPS", "2"))
+        prof = None
 
         for _ in range(max_steps):
             if int(self.state.ti_current) >= TIMEBASE:
@@ -602,6 +667,12 @@ class Simulation:
                 break
             t_before = self.time
             t0 = _time.time()
+            if pdir and self.step_count == pstart:
+                prof = start_profiler(pdir, self.device)
+            elif prof is not None and self.step_count == pstart + pn:
+                _sync(self.device)
+                prof.stop()
+                prof = None
             pm_beg_before = int(self.state.pm_ti_begstep)
             self.step()
             _sync(self.device)
@@ -639,6 +710,12 @@ class Simulation:
                             self.li_tracker = LayzerIrvineTracker()
                         self.li_drift = self.li_tracker.update(t_now, st)
                 phases["potential"] = _time.time() - tp0
+                phases.update(self._sample_cpu())
+                if self.opts.forcetest > 0 and self.is_root:
+                    # the force test [G2: gravity_forcetest()] on the
+                    # canonical state, at the statistics cadence
+                    write_forcetest_file(run_forcetest(cst, cfg, self.opts),
+                                         cst, cfg)
                 self.next_stats_time += cfg.time_bet_statistics
                 # work balance on the same cadence [G2: domain.c]
                 td0 = _time.time()
@@ -683,4 +760,7 @@ class Simulation:
                 self.last_restart_wall = _time.time()
                 phases["restart"] = _time.time() - tr0
             self.logs.log_cpu(self.step_count, t_now, phases)
+        if prof is not None:
+            _sync(self.device)
+            prof.stop()
         return self.state

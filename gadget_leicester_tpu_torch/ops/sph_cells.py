@@ -15,6 +15,17 @@ vacuum grid (``periodic=False``) adds nothing and leaves out the stencil
 cells beyond its edge. The two TPU density kernels are two schedules of
 one function, so one CUDA kernel stands for both.
 
+The ghost-row mode (``density_adaptive_pallas(n_targets=, cl=)`` and
+``hydro_force_pallas(n_targets=)``, :1401-1544 of the reference, as the
+slab step's coarse-cell branch calls them) takes the slab's anisotropic
+list: cell counts and periodicity per axis (x clamped, y and z periodic
+on a periodic box), given as tuples, which select the ``_slab`` C
+entries; rows from ``n_targets`` on (the ghosts) are sources only. The
+target restriction stays out of the pair loop: the sweeps flag only the
+cells that hold a target slot (K too, which takes no flags on the cube),
+the Newton solve masks the target slots, and only target rows are
+gathered back.
+
 A whole-tile shift is right only if every particle of a tile lies in that
 tile's cell. Rounding can file a particle on the far side of the wrap: a
 coordinate equal to the box (a float64 position just below it, rounded to
@@ -41,8 +52,8 @@ import torch
 
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
-                                                      build_cell_list,
-                                                      merge_rows)
+                                                      build_cell_list, dims3,
+                                                      merge_rows, per3)
 from gadget_leicester_tpu_torch.ops.sph_dense import (
     DENSITY_FILL, HydroResult, density_adaptive_generic, density_columns,
     density_result, hydro_params, hydro_result, hydro_table)
@@ -50,27 +61,29 @@ from gadget_leicester_tpu_torch.ops.sph_kernels import (kernel_dw_dr,
                                                         kernel_w_and_dwdh)
 
 
-def stencil_cells(n: int, cells: torch.Tensor, periodic: bool):
+def stencil_cells(n_cells, cells: torch.Tensor, periodic):
     """For target cells ``cells`` [K]: the flat ids [K, 27] of the 27
     cells around each, their wrap shifts in boxes [K, 27, 3] (-1 where
-    the neighbour lies below the grid, +1 above, on a periodic grid; 0 on
-    a vacuum grid) and whether each lies inside the grid [K, 27] (always,
-    on a periodic grid)."""
+    the neighbour lies below the grid, +1 above, along a periodic axis; 0
+    along a clamped one) and whether each lies inside the grid [K, 27]
+    (always, when every axis is periodic). ``n_cells`` and ``periodic``:
+    one for all axes, or per-axis tuples (the slab step's grid)."""
+    ncv, pv = dims3(n_cells), per3(periodic)
+    nv = torch.tensor(ncv, device=cells.device)
     j = torch.arange(27, device=cells.device)
     offs = torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], -1)
-    cxyz = torch.stack([cells // (n * n), (cells // n) % n, cells % n], -1)
+    cxyz = torch.stack([cells // (ncv[1] * ncv[2]), (cells // ncv[2])
+                        % ncv[1], cells % ncv[2]], -1)
     nb = cxyz[:, None, :] + offs[None]                     # [K, 27, 3]
-    below, above = nb < 0, nb >= n
-    if periodic:
-        shift = above.to(torch.int32) - below.to(torch.int32)
-        inside = torch.ones(nb.shape[:2], dtype=torch.bool,
-                            device=cells.device)
-        nb = torch.remainder(nb, n)
-    else:
-        shift = torch.zeros_like(nb, dtype=torch.int32)
-        inside = ~(below | above).any(-1)
-        nb = nb.clamp(0, n - 1)
-    return (nb[..., 0] * n + nb[..., 1]) * n + nb[..., 2], shift, inside
+    below, above = nb < 0, nb >= nv
+    wrap = torch.tensor(pv, device=cells.device)
+    shift = torch.where(wrap, above.to(torch.int32) - below.to(torch.int32),
+                        torch.zeros_like(nb, dtype=torch.int32))
+    inside = ~((below | above) & ~wrap).any(-1)
+    nb = torch.where(wrap, torch.remainder(nb, nv),
+                     torch.minimum(nb.clamp_min(0), nv - 1))
+    return (nb[..., 0] * ncv[1] + nb[..., 1]) * ncv[2] + nb[..., 2], shift, \
+        inside
 
 
 def _park(cl: CellList, rows: int, like: torch.Tensor) -> torch.Tensor:
@@ -95,14 +108,17 @@ def _cell_rows(cl: CellList, table, gas_mask, box: float) -> torch.Tensor:
     (:func:`_park`)."""
     idx, valid = _slot_valid(cl, gas_mask)
     rows = table[idx]                                      # [C, cap, R]
-    if cl.periodic:
-        n = cl.n_cells
-        c = torch.arange(n ** 3, device=table.device)
-        cxyz = torch.stack([c // (n * n), (c // n) % n, c % n], -1)
+    pv = per3(cl.periodic)
+    if any(pv):
+        nx, ny, nz = dims3(cl.n_cells)
+        c = torch.arange(nx * ny * nz, device=table.device)
+        cxyz = torch.stack([c // (ny * nz), (c // nz) % ny, c % nz], -1)
         centre = (cxyz.to(table.dtype) + 0.5) / cl.inv_cell + cl.origin
         rel = rows[:, :, :3] - centre[:, None, :]
-        rows = torch.cat([rows[:, :, :3] - box * torch.round(rel / box),
-                          rows[:, :, 3:]], dim=-1)
+        img = box * torch.round(rel / box)
+        img = torch.where(torch.tensor(pv, device=table.device), img,
+                          torch.zeros_like(img))
+        rows = torch.cat([rows[:, :, :3] - img, rows[:, :, 3:]], dim=-1)
     rows = torch.where(valid[:, :, None], rows,
                        _park(cl, table.shape[1], table))
     return rows.transpose(1, 2).contiguous()
@@ -122,7 +138,17 @@ def _chunk(cap: int, temporaries: int) -> int:
     return max(1, (1 << 30) // (temporaries * 4 * 27 * cap * cap))
 
 
-def _gather_sources(soa, cells, n: int, box: float, periodic: bool, rows):
+def _live_width(soa, live_row: int) -> int:
+    """The slots up to the last one that is live (row ``live_row`` > 0) in
+    any cell: every slot past it is parked in every cell, adds nothing as
+    a source and gets zeros as a target, so a plain version sums over the
+    first ones alone (the slab's coarse cells hold ~21 gas in 112 slots at
+    2x128^3)."""
+    live = torch.nonzero((soa[:, live_row] > 0).any(0)).flatten()
+    return int(live[-1]) + 1 if live.numel() else 1
+
+
+def _gather_sources(soa, cells, n, box: float, periodic, rows):
     """Source rows [K, 27 cap] of the 27 cells around ``cells`` [K], x, y
     and z (rows 0-2) with the wrap shift added to the whole tile, and the
     [K, 27 cap] mask of the lanes whose cell lies inside the grid."""
@@ -147,8 +173,8 @@ def _pair_geometry(t, s):
     return d[0], d[1], d[2], r2 * rinv, rinv, r2
 
 
-def _density_sums(t, ht, soa, cells, n: int, box: float,
-                  periodic: bool) -> torch.Tensor:
+def _density_sums(t, ht, soa, cells, n, box: float,
+                  periodic) -> torch.Tensor:
     """[K, 6, L] = rho, drho/dh, raw div v, raw rot v of the targets ``t``
     [K, 8, L] with smoothing lengths ``ht`` [K, L] of cells ``cells``
     [K]; zeros for parked targets."""
@@ -171,45 +197,62 @@ def _density_sums(t, ht, soa, cells, n: int, box: float,
     return torch.where(t[:, 3:4] > 0, sums, torch.zeros_like(sums))
 
 
-def density_sums_cells_plain(soa, h_slots, flags, n_cells: int, box: float,
-                             periodic: bool) -> torch.Tensor:
-    """Plain PyTorch version of kernels I and J: out [C, 6, cap] = rho,
-    drho/dh, raw div v, raw rot v (x, y, z); zeros where flags is 0."""
+def density_sums_cells_plain(soa, h_slots, flags, n_cells, box: float,
+                             periodic) -> torch.Tensor:
+    """Plain PyTorch version of kernels I and J, either mode: out [C, 6,
+    cap] = rho, drho/dh, raw div v, raw rot v (x, y, z); zeros where
+    flags is 0."""
     c, _, cap = soa.shape
-    chunk = _chunk(cap, 24)
+    w = _live_width(soa, 3)
+    soa, h_slots = soa[..., :w], h_slots[:, :w]
+    chunk = _chunk(w, 24)
     out = torch.zeros(c, 6, cap, dtype=soa.dtype, device=soa.device)
     todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
-        out[tc] = _density_sums(soa[tc], h_slots[tc], soa, tc, n_cells, box,
-                                periodic)
+        out[tc, :, :w] = _density_sums(soa[tc], h_slots[tc], soa, tc,
+                                       n_cells, box, periodic)
     return out
 
 
-def _check_grid(soa, rows: int, n_cells: int, periodic: bool) -> None:
+def _check_grid(soa, rows: int, n_cells, periodic) -> bool:
+    """Raise unless the pack fits the grid; True for the ghost-row (slab)
+    mode, a grid given per axis, False for the cube."""
     c, r, _ = soa.shape
-    if c != n_cells ** 3 or r != rows:
+    ncv, pv = dims3(n_cells), per3(periodic)
+    if c != ncv[0] * ncv[1] * ncv[2] or r != rows:
         raise ValueError(f"pack shape {tuple(soa.shape)} does not match "
-                         f"{n_cells}^3 cells of {rows} rows")
-    if periodic and n_cells < 3:
-        raise ValueError("a periodic 27-cell stencil needs n_cells >= 3")
+                         f"{ncv} cells of {rows} rows")
+    if any(p and n < 3 for n, p in zip(ncv, pv)):
+        raise ValueError("a periodic axis of the 27-cell stencil needs "
+                         f"n_cells >= 3: {ncv}, periodic {pv}")
+    return isinstance(n_cells, (tuple, list)) \
+        or isinstance(periodic, (tuple, list))
+
+
+def _image_mask(periodic) -> int:
+    """The C entries' image mask: bit a set where axis a is periodic."""
+    return sum(1 << a for a, p in enumerate(per3(periodic)) if p)
 
 
 def density_sums_cells(soa: torch.Tensor, h_slots: torch.Tensor,
-                       flags: torch.Tensor, n_cells: int, box: float,
-                       periodic: bool) -> torch.Tensor:
+                       flags: torch.Tensor, n_cells, box: float,
+                       periodic) -> torch.Tensor:
     """Kernels I and J: density sums [C, 6, cap] of every live target slot
     of the pack ``soa`` [C, 8, cap] (:func:`pack_sph_soa`) at its
     smoothing length ``h_slots`` [C, cap], over the 27 cells around its
-    own; cells whose flag is 0 are skipped (zeros). CPU tensors take the
+    own; cells whose flag is 0 are skipped (zeros). ``n_cells`` and
+    ``periodic`` one for all axes (the cube), or per-axis tuples: the
+    ghost-row mode of the slab step (``sph_cells_density_slab``; its
+    caller flags only the cells that hold a target). CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
-    _check_grid(soa, 8, n_cells, periodic)
+    slab = _check_grid(soa, 8, n_cells, periodic)
+    name = "sph_cells_density_slab" if slab else "sph_cells_density"
     c, _, cap = soa.shape
     kernels.check(soa, "soa", torch.float32)
     kernels.check(h_slots, "h_slots", torch.float32, (c, cap), soa.device)
     kernels.check(flags, "flags", torch.int32, (c,), soa.device)
-    kernels.note_call("sph_cells_density",
-                      (soa, h_slots, flags, n_cells, box, periodic))
+    kernels.note_call(name, (soa, h_slots, flags, n_cells, box, periodic))
     if not kernels.on_cuda(soa, h_slots, flags):
         return density_sums_cells_plain(soa, h_slots, flags, n_cells, box,
                                         periodic)
@@ -217,13 +260,17 @@ def density_sums_cells(soa: torch.Tensor, h_slots: torch.Tensor,
     # the kernel's workspace: the box of each 32-slot chunk of each cell
     boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
                         device=soa.device)
-    kernels.launch("sph_cells_density", soa.data_ptr(), h_slots.data_ptr(),
-                   flags.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-                   n_cells, cap, box, int(periodic))
+    ptrs = (soa.data_ptr(), h_slots.data_ptr(), flags.data_ptr(),
+            boxes.data_ptr(), out.data_ptr())
+    if slab:
+        kernels.launch(name, *ptrs, *dims3(n_cells), _image_mask(periodic),
+                       cap, box)
+    else:
+        kernels.launch(name, *ptrs, n_cells, cap, box, int(periodic))
     return out
 
 
-def _hydro_sums(t, soa16, cells, params, n: int, box: float, periodic: bool,
+def _hydro_sums(t, soa16, cells, params, n, box: float, periodic,
                 visc_const: float) -> torch.Tensor:
     """[K, 5, L] = ax, ay, az, raw dA/dt, max signal velocity of the
     targets ``t`` [K, 16, L] of cells ``cells`` [K]; every mask is a
@@ -266,89 +313,121 @@ def _hydro_sums(t, soa16, cells, params, n: int, box: float, periodic: bool,
     return torch.where(t[:, 12:13] > 0, sums, torch.zeros_like(sums))
 
 
-def hydro_sums_cells_plain(soa16, params, n_cells: int, box: float,
-                           periodic: bool, visc_const: float) -> torch.Tensor:
-    """Plain PyTorch version of kernel K: out [C, 5, cap] = ax, ay, az,
-    raw dA/dt, max signal velocity."""
+def hydro_sums_cells_plain(soa16, params, n_cells, box: float, periodic,
+                           visc_const: float, flags=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel K, either mode: out [C, 5, cap] =
+    ax, ay, az, raw dA/dt, max signal velocity; zeros where ``flags`` (the
+    ghost-row mode's) is 0."""
     c, _, cap = soa16.shape
-    chunk = _chunk(cap, 40)
-    out = torch.empty(c, 5, cap, dtype=soa16.dtype, device=soa16.device)
-    for k0 in range(0, c, chunk):
-        tc = torch.arange(k0, min(k0 + chunk, c), device=soa16.device)
-        out[tc] = _hydro_sums(soa16[tc], soa16, tc, params, n_cells, box,
-                              periodic, visc_const)
+    w = _live_width(soa16, 12)
+    soa16 = soa16[..., :w]
+    chunk = _chunk(w, 40)
+    out = torch.zeros(c, 5, cap, dtype=soa16.dtype, device=soa16.device)
+    todo = torch.arange(c, device=soa16.device) if flags is None \
+        else torch.nonzero(flags > 0).flatten()
+    for k0 in range(0, todo.numel(), chunk):
+        tc = todo[k0:k0 + chunk]
+        out[tc, :, :w] = _hydro_sums(soa16[tc], soa16, tc, params, n_cells,
+                                     box, periodic, visc_const)
     return out
 
 
-def hydro_sums_cells(soa16: torch.Tensor, params: torch.Tensor, n_cells: int,
-                     box: float, periodic: bool,
-                     visc_const: float) -> torch.Tensor:
+def hydro_sums_cells(soa16: torch.Tensor, params: torch.Tensor, n_cells,
+                     box: float, periodic, visc_const: float,
+                     flags: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel K: hydro sums [C, 5, cap] of every live target slot of the
     pack ``soa16`` [C, 16, cap] (:func:`pack_hydro_cells`: rows 0-7 x, y,
     z, m, vx, vy, vz, h; 8-12 rho, P/rho^2 f, c_sound, Balsara, valid)
     over the 27 cells around its own, pairs with 0 < r < max(h_i, h_j);
-    ``params`` [2] = (hubble_a2_flow, fac_mu). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    _check_grid(soa16, 16, n_cells, periodic)
+    ``params`` [2] = (hubble_a2_flow, fac_mu). With per-axis ``n_cells``
+    or ``periodic``, the ghost-row mode of the slab step
+    (``sph_cells_hydro_slab``), which takes cell ``flags`` [C] int32 (a
+    cell whose flag is 0 writes zeros); the cube takes none. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    slab = _check_grid(soa16, 16, n_cells, periodic)
+    if slab != (flags is not None):
+        raise ValueError("the ghost-row mode (a per-axis grid) takes cell "
+                         "flags, the cube none")
+    name = "sph_cells_hydro_slab" if slab else "sph_cells_hydro"
     c, _, cap = soa16.shape
     kernels.check(soa16, "soa16", torch.float32)
     kernels.check(params, "params", torch.float32, (2,), soa16.device)
-    kernels.note_call("sph_cells_hydro",
-                      (soa16, params, n_cells, box, periodic, visc_const))
-    if not kernels.on_cuda(soa16, params):
+    if slab:
+        kernels.check(flags, "flags", torch.int32, (c,), soa16.device)
+    kernels.note_call(name, (soa16, params, n_cells, box, periodic,
+                             visc_const) + ((flags,) if slab else ()))
+    if not kernels.on_cuda(soa16, params, *([flags] if slab else [])):
         return hydro_sums_cells_plain(soa16, params, n_cells, box, periodic,
-                                      visc_const)
+                                      visc_const, flags)
     out = torch.empty(c, 5, cap, dtype=soa16.dtype, device=soa16.device)
     # the kernel's workspace: the box and largest h of each 32-slot chunk
     # of each cell
     boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
                         device=soa16.device)
-    kernels.launch("sph_cells_hydro", soa16.data_ptr(), params.data_ptr(),
-                   boxes.data_ptr(), out.data_ptr(), n_cells, cap, box,
-                   int(periodic), 0.5 * visc_const)
+    if slab:
+        kernels.launch(name, soa16.data_ptr(), params.data_ptr(),
+                       flags.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+                       *dims3(n_cells), _image_mask(periodic), cap, box,
+                       0.5 * visc_const)
+    else:
+        kernels.launch(name, soa16.data_ptr(), params.data_ptr(),
+                       boxes.data_ptr(), out.data_ptr(), n_cells, cap, box,
+                       int(periodic), 0.5 * visc_const)
     return out
 
 
 def density_adaptive_cells(pos, vel, mass, hsml0, gas_mask,
                            des_num_ngb: float, max_dev: float, box: float,
-                           n_cells: int, capacity: int = 128, min_hsml=0.0,
-                           max_hsml=None, periodic: bool = True, origin=0.0,
-                           extent=None):
+                           n_cells, capacity: int = 128, min_hsml=0.0,
+                           max_hsml=None, periodic=True, origin=0.0,
+                           extent=None, n_targets: int | None = None,
+                           cl: CellList | None = None):
     """Adaptive-h density on kernels I/J over a fresh cell list of
     ``n_cells``^3 cells x ``capacity`` slots on [origin, origin + extent)
-    (``extent`` defaults to ``box``). The Newton/bisection loop runs in
-    slot space [C * cap]: a sweep moves only the h slots in and the sums
-    out, and each sweep after the first skips the cells whose slots have
-    all converged. One row gather at the end gives particle space; a
-    particle that a full cell dropped comes back with rho = 0 (h and
-    dhsml 1). Returns (DensityResult, CellList)."""
-    cl = build_cell_list(pos, gas_mask, origin,
-                         box if extent is None else extent, n_cells=n_cells,
-                         capacity=capacity, periodic=periodic)
+    (``extent`` defaults to ``box``), or over ``cl`` where given (the slab
+    step's anisotropic list). The Newton/bisection loop runs in slot space
+    [C * cap]: a sweep moves only the h slots in and the sums out, and
+    each sweep after the first skips the cells whose slots have all
+    converged. One row gather at the end gives particle space; a particle
+    that a full cell dropped comes back with rho = 0 (h and dhsml 1).
+
+    ``n_targets`` (the ghost-row mode of ``density_adaptive_pallas``): only
+    rows below it are targets; later rows (the slab's ghosts) source the
+    sums, never iterate, and are not in the outputs, which have
+    ``n_targets`` rows. A sweep flags only the cells that hold a target
+    slot still iterating. Returns (DensityResult, CellList)."""
+    if cl is None:
+        cl = build_cell_list(pos, gas_mask, origin,
+                             box if extent is None else extent,
+                             n_cells=n_cells, capacity=capacity,
+                             periodic=periodic)
     c, cap = cl.cells.shape
+    nt = pos.shape[0] if n_targets is None else n_targets
     soa = pack_sph_soa(cl, pos, vel, mass, torch.ones_like(mass), gas_mask,
                        box)
     idx, valid = _slot_valid(cl, gas_mask)
+    tgt = valid if n_targets is None else valid & (idx < nt)
     h0_slots = torch.where(valid, hsml0[idx], torch.ones_like(hsml0[idx]))
-    all_on = torch.ones(c, dtype=torch.int32, device=pos.device)
+    first = torch.ones(c, dtype=torch.int32, device=pos.device) \
+        if n_targets is None else tgt.any(dim=1).to(torch.int32)
 
     def sweep(h_slots, undone):
-        fl = all_on if undone is None else \
+        fl = first if undone is None else \
             undone.reshape(c, cap).any(dim=1).to(torch.int32)
-        out = density_sums_cells(soa, h_slots.reshape(c, cap), fl, n_cells,
-                                 box, periodic)
+        out = density_sums_cells(soa, h_slots.reshape(c, cap), fl,
+                                 cl.n_cells, box, cl.periodic)
         rot = out[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
         return (out[:, 0].reshape(-1), out[:, 1].reshape(-1),
                 out[:, 2].reshape(-1), rot)
 
     res = density_adaptive_generic(
         sweep, soa[:, 3, :].reshape(-1), h0_slots.reshape(-1),
-        valid.reshape(-1), des_num_ngb, max_dev, min_hsml=min_hsml,
+        tgt.reshape(-1), des_num_ngb, max_dev, min_hsml=min_hsml,
         max_hsml=max_hsml)
     slots = density_columns(res)
     slots = torch.cat([slots, slots.new_tensor([DENSITY_FILL])], 0)
     gidx = torch.where(cl.gslot >= 0, cl.gslot,
-                       torch.full_like(cl.gslot, c * cap)).long()
+                       torch.full_like(cl.gslot, c * cap)).long()[:nt]
     return density_result(slots[gidx], res.iters), cl
 
 
@@ -365,16 +444,28 @@ def pack_hydro_cells(cl: CellList, pos, vel, mass, hsml, rho, pressure,
 def hydro_force_cells(cl: CellList, pos, vel, mass, hsml, rho, pressure,
                       dhsml_factor, div_vel, curl_vel, gas_mask,
                       visc_const: float, box: float, hubble_a2_flow=0.0,
-                      hubble_a2_norm=1.0, fac_mu=1.0) -> HydroResult:
+                      hubble_a2_norm=1.0, fac_mu=1.0,
+                      n_targets: int | None = None) -> HydroResult:
     """Entropy-form hydro force on kernel K [G2: hydra.c ::
     hydro_evaluate()]; ``cl`` from :func:`density_adaptive_cells`. The
     comoving factors are 0-d tensors (or floats). Particles in no slot
-    get zeros."""
+    get zeros. ``n_targets`` (the ghost-row mode of
+    ``hydro_force_pallas``): rows from it on source the sums only, the
+    outputs have ``n_targets`` rows, and kernel K sums only the cells that
+    hold a target slot."""
     fac_mu = torch.as_tensor(fac_mu, dtype=pos.dtype, device=pos.device)
     soa16 = pack_hydro_cells(cl, pos, vel, mass, hsml, rho, pressure,
                              dhsml_factor, div_vel, curl_vel, gas_mask,
                              fac_mu, box)
-    out = hydro_sums_cells(soa16, hydro_params(hubble_a2_flow, fac_mu),
-                           cl.n_cells, box, cl.periodic, visc_const)
-    return hydro_result(merge_rows(out, cl, 5), rho, gas_mask,
+    params = hydro_params(hubble_a2_flow, fac_mu)
+    nt = pos.shape[0] if n_targets is None else n_targets
+    if n_targets is None:
+        out = hydro_sums_cells(soa16, params, cl.n_cells, box, cl.periodic,
+                               visc_const)
+    else:
+        idx, valid = _slot_valid(cl, gas_mask)
+        flags = (valid & (idx < nt)).any(dim=1).to(torch.int32)
+        out = hydro_sums_cells(soa16, params, dims3(cl.n_cells), box,
+                               per3(cl.periodic), visc_const, flags)
+    return hydro_result(merge_rows(out, cl, 5)[:nt], rho[:nt], gas_mask[:nt],
                         hubble_a2_norm)

@@ -12,8 +12,9 @@ static slab-grid geometry and its cache (``slab_grid_geom`` :290,
 :466, ``_ghost_exchange_rows`` :474, ``_wrap_to_slab`` :501, ``_ghost_x``
 :506, ``_ghost_cap`` :520, ``_insert_into_dead`` :530) and
 ``make_spmd_step`` (:555): ``_migrate`` (:673), ``_gravity`` (:763, with
-the in-step potential), ``_sph`` -> ``_sph_blocks`` (:941-1127),
-``_sinks`` (:1316) and ``local_step`` (:1479).
+the in-step potential), ``_sph_blocks`` (:941-1127) and the coarse-cell
+branch of ``_sph`` (:1120-1315), ``_sinks`` (:1316) and ``local_step``
+(:1479).
 
 Ownership: x-slabs, one a rank; each rank holds a fixed-capacity chunk
 [cap_g gas slots | cap_r other slots] of every particle array, so its
@@ -29,7 +30,13 @@ anisotropic grid over [x0 - reach, x1 + reach) x [0, box)^2, clamped in x,
 and runs kernel A's slab mode (``ops/cells.py ::
 shortrange_gravity_slab``) and kernels C and D on anisotropic blocks
 (``ops/sph_blocks.py``, ``fine_edge``) with its own particles as targets and
-the ghosts as sources. The PM runs across the ring
+the ghosts as sources. Under ``sph_backend="cells"`` the SPH takes the
+reference's coarse-cell branch instead: ghosts within one coarse cell edge,
+one cell list over (nx, n, n) cells clamped in x, and kernels I/J and K in
+their ghost-row mode (``ops/sph_cells.py``, ``n_targets``), fresh at every
+sync point as in the reference; every other backend takes the blocks (the
+reference picks its branch by ``use_pallas``: the blocks on a TPU, the
+coarse cells without kernels). The PM runs across the ring
 (``parallel/pm_sharded.py``). The next sync point is the ``pmin`` of the
 ranks' next ticks; the PM step's v_rms sums over the ring.
 
@@ -66,12 +73,14 @@ reduces first (:meth:`parallel.mesh.Ring.any`): the migration's any-hop
 test, the gravity grid's rebuild, the SPH lists' rebuild, the formation of
 a sink. The grid cache (:func:`make_spmd_grid_cache`) holds each rank's
 cell lists and ghost-row selections between rebuilds, as
-``models/grids.py`` does for one device; an empty slot means "build". Not
-ported (ROADMAP queue 1 item 14): the coarse-cell branch of ``_sph`` with
-kernels I and K's ghost rows, and the GSPMD placement of
-``parallel/step.py`` and ``mesh.py``; refused (:func:`check_slab_supported`):
-the zoom, ``nogravity``, adaptive gas softening and beta cooling on
-slabs, and float64.
+``models/grids.py`` does for one device; an empty slot means "build"
+(the coarse-cell branch keeps nothing there). The reference's GSPMD
+placement (``parallel/step.py``, ``mesh.py``) is
+``parallel/step.py :: make_sharded_step`` here, the single-device step on
+one device: this slab step is the port's multi-device path. Refused
+(:func:`check_slab_supported`, each with its reason): the zoom, a periodic
+tree run, ``nogravity``, adaptive gas softening and beta cooling on slabs,
+and float64.
 """
 
 from __future__ import annotations
@@ -107,6 +116,8 @@ from gadget_leicester_tpu_torch.ops.pm import ASMTH, RCUT
 from gadget_leicester_tpu_torch.ops.softening import SOFTFAC
 from gadget_leicester_tpu_torch.ops.sph_blocks import (
     build_block_lists, density_adaptive_blocks, hydro_force_blocks)
+from gadget_leicester_tpu_torch.ops.sph_cells import (density_adaptive_cells,
+                                                      hydro_force_cells)
 from gadget_leicester_tpu_torch.parallel.pm_sharded import (
     pm_local_forces, pm_local_forces_vacuum)
 
@@ -116,26 +127,33 @@ _G_FIELDS = [f.name for f in dataclasses.fields(GasState)]
 
 
 def check_slab_supported(opts: SimOptions) -> None:
-    """Refuse what the slab step does not run."""
-    item = "ROADMAP queue 1 item 14"
+    """Refuse what the slab step does not run, each with its reason. The
+    SPH backend picks the branch: ``cells`` the coarse cells, every other
+    one the blocks."""
+    if opts.sph_backend not in ("auto", "blocks", "cells", "dense"):
+        raise ValueError(f"unknown sph_backend {opts.sph_backend!r}")
     if opts.gravity_mode not in ("auto", "treepm"):
         raise NotImplementedError(
-            f"gravity_mode={opts.gravity_mode!r} on slabs is not ported "
-            f"({item}); the slab step runs TreePM, periodic or vacuum, the "
-            "zoom not")
+            f"gravity_mode={opts.gravity_mode!r} on slabs: the JAX slab "
+            "step runs TreePM alone, periodic or vacuum (its _gravity is "
+            "the PM plus the short-range pass), so there is no reference "
+            "for the zoom, the tree or the direct sum on slabs")
     if opts.periodic is True and opts.pmgrid <= 0:
         raise NotImplementedError(
             "the slab step runs a periodic box as TreePM (PERIODIC with "
-            f"PMGRID); a periodic tree run is not ported to slabs ({item})")
+            "PMGRID): the JAX slab step has no periodic tree (no Ewald "
+            "sum across slabs)")
     if opts.cooling == "beta":
         raise NotImplementedError(
             "beta cooling on slabs: the JAX slab step takes each slab's own "
             "non-gas mass as the central mass, and reads the registry's "
             "first sink slot, a PID there, as a row of the slab's chunk "
-            f"(ROADMAP queue 3); not ported ({item})")
+            "(ROADMAP queue 3), so it has no sound reference")
     if opts.nogravity or opts.adaptive_gravsoft_forgas:
-        raise NotImplementedError("nogravity and adaptive gas softening on "
-                                  f"slabs are not ported ({item})")
+        raise NotImplementedError(
+            "nogravity and adaptive gas softening on slabs: the JAX slab "
+            "step reads neither (its _gravity always runs, on the type "
+            "softening table), so there is no reference for them")
     if opts.dtype != "f32":
         raise NotImplementedError("dtype f64: the kernels are float32")
 
@@ -429,7 +447,37 @@ def slab_grid_geom(cfg: SimConfig, opts: SimOptions, d: int, box: float,
     out.update(nb_g=nb_g, subcap=subcap, subcell=subcell, nbx=nbx,
                gcap_s=gcap_s, margin_s=2.0 * KAPPA_SPH * subcell,
                max_hsml=(1.0 - 2.0 * KAPPA_SPH) * subcell)
+    if opts.sph_backend == "cells":
+        out.update(slab_cells_geom(cfg, opts, d, box, w_min, ng_loc, fill))
     return out
+
+
+def slab_cells_geom(cfg: SimConfig, opts: SimOptions, d: int, box: float,
+                    w_min: float, ng_loc: int, fill: float = 1.0) -> dict:
+    """The coarse-cell SPH branch's geometry, as the reference's branch
+    without kernels (``use_pallas`` off, ``parallel/spmd.py:1141-1201``)
+    takes it: the cell edge ``cell_c`` (also the h cap and the ghosts'
+    reach) from ``spacing_cells`` on the ring's gas count, floored so that
+    it never exceeds a slab width; ``n_c`` cells along y and z, ``nx_c``
+    along x over the widest slab's [x0 - cell_c, x1 + cell_c); the ghost
+    capacity ``gcap_c`` and the lane capacity ``cap_c`` (``sph_capacity``,
+    or three times the mean fill of the [locals | ghosts] rows, at least
+    64, rounded up to 8). A vacuum domain counts the gas over the share
+    ``fill`` it occupies (:func:`slab_grid_geom`)."""
+    n_glob = ng_loc * d / fill
+    spacing_cells = (n_glob ** (1.0 / 3.0)) / (
+        1.6 * (3.0 * cfg.des_num_ngb / (4.0 * 3.14159)) ** (1.0 / 3.0))
+    n_c = max(3, int(spacing_cells), int(np.ceil(1.02 * box / w_min)))
+    cell_c = box / n_c
+    if w_min < cell_c:
+        raise ValueError("slab thinner than the SPH cell edge")
+    gcap_c = _ghost_cap(ng_loc, cell_c, w_min, opts.spmd_ghost_frac)
+    nx_c = max(1, int((w_min + 2 * cell_c) / cell_c))
+    n_cat = int((ng_loc + 2 * gcap_c) / fill)
+    cap_c = opts.sph_capacity if opts.sph_capacity > 0 else max(
+        64, -(-3 * n_cat // (nx_c * n_c * n_c) // 8) * 8)
+    return dict(n_c=n_c, cell_c=cell_c, nx_c=nx_c, gcap_c=gcap_c,
+                cap_c=cap_c)
 
 
 def make_spmd_grid_cache(device) -> GridCache:
@@ -453,11 +501,13 @@ def raised_slab_capacities(opts: SimOptions, ovf: int, geo: dict,
     2 doubles the slab blocks' subcap, and ``buffers`` (the bits of the
     ghost and migration buffers; unknown, ``ovf & 7``, when None, as in
     the run loop, where they share bits 1, 2 and 4 with the lists)
-    doubles ``spmd_ghost_frac``."""
+    doubles ``spmd_ghost_frac``. Under ``sph_backend="cells"`` bit 2
+    doubles the coarse cells' lane capacity ``cap_c`` instead."""
     if ovf & 1:
         opts = dataclasses.replace(opts, sr_capacity=geo["cap_sr"] + 128)
     if ovf & 2:
-        opts = dataclasses.replace(opts, sph_capacity=2 * geo["subcap"])
+        opts = dataclasses.replace(opts, sph_capacity=2 * geo.get(
+            "cap_c", geo["subcap"]))
     if (ovf & 7 if buffers is None else buffers):
         opts = dataclasses.replace(opts, spmd_ghost_frac=min(
             1.0, 2 * (opts.spmd_ghost_frac or 0.25)))
@@ -637,6 +687,8 @@ class SpmdStep:
         self.x1 = self.edges_t[self.me + 1]
         self.xc = 0.5 * (self.x0 + self.x1)
         self.want_pot = in_step_potential(opts)
+        # the coarse-cell SPH branch; every other backend takes the blocks
+        self.cells = opts.sph_backend == "cells"
         self.last_rebuilt = {}
         self.times = None
 
@@ -907,15 +959,27 @@ class SpmdStep:
         cl, _, ovf, _, _ = self._grav_lists(st, soft, geo, None, True)
         bits = cl.overflow.to(torch.int32) | ovf.to(torch.int32) * 4
         if st.n_gas_max > 1:
-            cls, _, ovf_s, _ = self._sph_lists(st, geo, None, True)
-            bits = bits | cls[0].overflow.to(torch.int32) * 2 \
+            if self.cells:
+                cl_s, _, ovf_s, _ = self._sph_cells_lists(st, geo)
+            else:
+                cls, _, ovf_s, _ = self._sph_lists(st, geo, None, True)
+                cl_s = cls[0]
+            bits = bits | cl_s.overflow.to(torch.int32) * 2 \
                 | ovf_s.to(torch.int32) * 8
         bits = int(self.ring.or_bits(bits))
         return bits & 3, bits >> 2
 
     # -- SPH on anisotropic blocks ---------------------------------------
     def sph(self, st: SimState, active):
-        cfg, box, opts = self.cfg, self.box, self.opts
+        """The SPH of a sync point: the coarse cells under
+        ``sph_backend="cells"`` (:meth:`_sph_cells`), the anisotropic
+        blocks under every other backend."""
+        if self.cells:
+            return self._sph_cells(st, active)
+        return self._sph_blocks(st, active)
+
+    def _sph_blocks(self, st: SimState, active):
+        cfg, box = self.cfg, self.box
         gas, p = st.gas, st.p
         ng = gas.n_gas_max
         fac = comoving_factors(cfg, st.ti_current)
@@ -952,6 +1016,26 @@ class SpmdStep:
             h_cat, cat_mask, cfg.des_num_ngb, cfg.max_num_ngb_deviation, box,
             cls, max_hsml, min_hsml, act_cat, subcell)
 
+        def hydro(*fields):
+            return hydro_force_blocks(
+                cls, cat_pos, cat_vel, cat_mass, *fields,
+                cfg.art_bulk_visc_const, box, fac.hubble_a2_flow,
+                fac.hubble_a2_norm, fac.fac_mu, act_cat, subcell)
+        return self._sph_hydro(st, active_g, dres, rows, gv, gcap, hydro,
+                               cls[0].overflow | ovf1)
+
+    def _sph_hydro(self, st: SimState, active_g, dres, rows, gv, gcap: int,
+                   hydro, ovf):
+        """The tail of both SPH branches: the density results kept for the
+        active gas ``active_g``, the pressure, the second ghost round (the
+        density fields, on the first round's rows ``rows``; ``gv`` the
+        first round's ghost mask), the hydro pass ``hydro(h, rho, pressure,
+        dhsml, div v, curl v, mask)`` over [locals | ghosts], and the state
+        with the SPH fields and overflow bit 2 where ``ovf``."""
+        gas, p = st.gas, st.p
+        ng = gas.n_gas_max
+        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+
         def keep(new, old):
             return torch.where(active_g, new[:ng], old)
         rho = keep(dres.rho, gas.density)
@@ -960,7 +1044,7 @@ class SpmdStep:
         divv = keep(dres.div_vel, gas.div_vel)
         curlv = keep(dres.curl_vel, gas.curl_vel)
         nngb = keep(dres.num_ngb_eff, gas.num_ngb)
-        pressure = gas.entropy_pred * (rho if opts.isotherm_eqs
+        pressure = gas.entropy_pred * (rho if self.opts.isotherm_eqs
                                        else rho ** GAMMA)
         pressure = torch.where(gas_mask, pressure, torch.zeros_like(pressure))
 
@@ -968,24 +1052,18 @@ class SpmdStep:
         ghosts2, gv2 = self._timed(
             "ghosts (SPH 2)", _ghost_exchange_rows, self.ring,
             [hsml, rho, pressure, dhf, divv, curlv], gas_mask, rows, gcap)
-        g2h, g2rho, g2prs, g2dhf, g2div, g2curl = ghosts2
-        gv2 = gv2 & gv
+        local = [hsml, rho, pressure, dhf, divv, curlv]
         hres = self._timed(
-            "hydro", hydro_force_blocks, cls, cat_pos, cat_vel, cat_mass,
-            torch.cat([hsml, g2h]), torch.cat([rho, g2rho]),
-            torch.cat([pressure, g2prs]), torch.cat([dhf, g2dhf]),
-            torch.cat([divv, g2div]), torch.cat([curlv, g2curl]),
-            torch.cat([gas_mask, gv2]), cfg.art_bulk_visc_const, box,
-            fac.hubble_a2_flow, fac.hubble_a2_norm, fac.fac_mu, act_cat,
-            subcell)
+            "hydro", hydro, *[torch.cat([a, g]) for a, g in zip(local,
+                                                                 ghosts2)],
+            torch.cat([gas_mask, gv2 & gv]))
         hydro_acc = torch.where(active_g[:, None], hres.acc[:ng],
                                 gas.hydro_acc)
         dt_entropy = keep(hres.dt_entropy, gas.dt_entropy)
-        if opts.isotherm_eqs:
+        if self.opts.isotherm_eqs:
             dt_entropy = torch.zeros_like(dt_entropy)
         msv = keep(hres.max_signal_vel, gas.max_signal_vel)
-        flags = st.overflow_flags | (
-            (cls[0].overflow | ovf1).to(torch.int32) * 2)
+        flags = st.overflow_flags | (ovf.to(torch.int32) * 2)
         gas = dataclasses.replace(
             gas, density=rho, hsml=hsml, pressure=pressure, div_vel=divv,
             curl_vel=curlv, dhsml_density_factor=dhf, num_ngb=nngb,
@@ -1039,6 +1117,82 @@ class SpmdStep:
             cls = cached[:2]
         return cls, rows, ovf, (cat_pos, torch.cat([gas.vel_pred, gvel]),
                                 torch.cat([p.mass[:ng], gmass]), cat_mask)
+
+    # -- SPH on coarse cells (kernels I/J and K, ghost rows) -------------
+    def _sph_cells(self, st: SimState, active):
+        """The reference's coarse-cell branch of ``_sph``
+        (``parallel/spmd.py:1129-1313``): ghosts within one cell edge in two
+        rounds on one row selection, one cell list over (nx_c, n_c, n_c)
+        cells clamped in x, kernel I/J's ghost-row mode for the density
+        solve with this rank's gas as the targets, and kernel K's on the
+        same list for hydro. Everything is built fresh at every sync point,
+        as in the reference; all gas is solved and the active gas keeps the
+        results."""
+        cfg, box = self.cfg, self.box
+        gas, p = st.gas, st.p
+        ng = gas.n_gas_max
+        fac = comoving_factors(cfg, st.ti_current)
+        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+        active_g = active[:ng] & gas_mask
+        eps_gas = softening_table(cfg, fac.atime)[0]
+        min_hsml = cfg.min_gas_hsml_fractional * SOFTFAC * eps_gas
+        geo = self.geometry(st)
+        cell, gcap = geo["cell_c"], geo["gcap_c"]
+        cl, rows, ovf1, cat = self._sph_cells_lists(st, geo)
+        cat_pos, cat_vel, cat_mass, cat_mask = cat
+        h_cat = torch.cat([gas.hsml.clamp(max=cell),
+                           torch.ones(2 * gcap, dtype=gas.hsml.dtype,
+                                      device=gas.hsml.device)])
+        self.last_rebuilt["sph"] = True
+        dres, _ = self._timed(
+            "density", density_adaptive_cells, cat_pos, cat_vel, cat_mass,
+            h_cat, cat_mask, cfg.des_num_ngb, cfg.max_num_ngb_deviation, box,
+            cl.n_cells, cl.cells.shape[1], min_hsml, cell, cl.periodic, 0.0,
+            None, ng, cl)
+
+        # the hydro pass reuses the density pass's list (the reference's
+        # cl2 = cl: the positions and the mask are round 1's)
+        def hydro(*fields):
+            return hydro_force_cells(
+                cl, cat_pos, cat_vel, cat_mass, *fields,
+                cfg.art_bulk_visc_const, box, fac.hubble_a2_flow,
+                fac.hubble_a2_norm, fac.fac_mu, ng)
+        return self._sph_hydro(st, active_g, dres, rows, cat_mask[ng:], gcap,
+                               hydro, cl.overflow | ovf1)
+
+    def _sph_cells_lists(self, st: SimState, geo: dict):
+        """The coarse cells of a sync point: a fresh ghost-row selection
+        within one cell edge of each face, the first ghost round
+        (positions, velocities, masses), the [locals | ghosts] arrays in
+        the slab's grids' frame and the cell list over (nx_c, n_c, n_c)
+        cells on [x0 - cell, x1 + cell) x [0, box)^2. Returns (list, ghost
+        rows, ghost overflow, (pos, vel, mass, mask) of the
+        concatenation)."""
+        p, gas, box = st.p, st.gas, self.box
+        ng = gas.n_gas_max
+        gas_mask = p.alive[:ng] & (p.ptype[:ng] == 0)
+        cell, gcap = geo["cell_c"], geo["gcap_c"]
+        rows, ovf = _ghost_rows_select(self._wx(p.pos[:ng, 0]), gas_mask,
+                                       self.x0, self.x1, cell, gcap)
+        ghosts, gv = self._timed(
+            "ghosts (SPH 1)", _ghost_exchange_rows, self.ring,
+            [p.pos[:ng], gas.vel_pred, p.mass[:ng]], gas_mask, rows, gcap)
+        gpos, gvel, gmass = ghosts
+        gpos = self._dompos(gpos).clone()
+        gpos[:, 0], gv = self._fix_ghost_x(gpos[:, 0], cell, gv, gcap)
+        lpos = self._local_pos(p.pos[:ng])
+        cat_pos = torch.cat([lpos, gpos])
+        cat_mask = torch.cat([gas_mask, gv])
+        f32 = lpos.dtype
+        zero = torch.zeros((), dtype=f32, device=lpos.device)
+        origin3 = torch.stack([self.x0 - cell, zero, zero])
+        extent3 = torch.stack([self.x1 - self.x0 + 2.0 * cell,
+                               zero + box, zero + box])
+        cl = build_cell_list(cat_pos, cat_mask, origin3, extent3,
+                             n_cells=(geo["nx_c"], geo["n_c"], geo["n_c"]),
+                             capacity=geo["cap_c"], periodic=self.periodic3)
+        return cl, rows, ovf, (cat_pos, torch.cat([gas.vel_pred, gvel]),
+                               torch.cat([p.mass[:ng], gmass]), cat_mask)
 
     # -- the fork's physics ---------------------------------------------
     def ring_sinks(self, st: SimState):

@@ -108,13 +108,14 @@ def test_cli_defaults_to_the_card(runs):
 
 
 @pytest.mark.parametrize("flag,item", [(("--devices", "2", "--cooling",
-                                        "beta"), "item 14")])
+                                        "beta"), "queue 3")])
 def test_cli_refuses_what_is_not_ported(runs, flag, item):
     """Beta cooling on slabs (each slab's own central mass in the JAX
-    slab step) stops, naming its item, before any rank starts."""
+    slab step) stops, naming the reference's fault and its item, before
+    any rank starts."""
     proc = cli(runs["param"], 0, "--device", "cpu", *flag)
     assert proc.returncode != 0
-    assert f"ROADMAP queue 1 {item}" in proc.stderr
+    assert f"ROADMAP {item}" in proc.stderr
     assert "beta" in proc.stderr
 
 

@@ -29,7 +29,10 @@ modes (A's slab mode, C's and D's anisotropic mode) get the arguments of
 two slab sync points of a 2x16^3 box on a ring of one, a slab frame with
 heavy sources at rcut (1 -+ 1e-5) across the y and z seams and beyond the
 clamped x faces (3 and 40 cells along x by 34 x 34), and an anisotropic
-block grid with empty trailing x blocks."""
+block grid with empty trailing x blocks. I/J's and K's ghost-row mode
+(the slab step's coarse cells) get the arguments of two such sync points
+under ``sph_backend="cells"`` and a slab frame of 4 x 5 x 5 coarse cells
+with ghosts, periodic and in vacuum, at capacities 40 and 160."""
 
 import pytest
 import torch
@@ -1567,6 +1570,115 @@ def test_slab_modes_on_the_path_on_card(recorded_slab, name, case):
     """Each mode on the arguments the slab step gave it, all tiles and
     every other tile gated off (an inactive tile writes zeros)."""
     _check(recorded_slab, name, case)
+
+
+@pytest.fixture(scope="module")
+def recorded_slab_cells():
+    """The wrappers' arguments in two slab sync points of the 2x16^3 box
+    under ``sph_backend="cells"`` on a ring of one (NCCL): I/J's and K's
+    ghost-row mode."""
+    _need_card()
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg, opts, (pos, vel, mass, ptype, u) = chip_smoke.setup(
+        16, sph_backend="cells")
+    sim = Simulation(cfg, opts, "cuda", mesh=1)
+    sim.set_ics(pos, vel, mass, ptype, u=u)
+    with chip_smoke.recorded_inputs() as rec:
+        sim.step(2)
+    assert int(sim.state.overflow_flags) == 0
+    return dict(rec)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("name", chip_smoke.SLAB_CELLS)
+def test_slab_cells_modes_on_the_path_on_card(recorded_slab_cells, name,
+                                              case):
+    """Each ghost-row mode on the arguments the slab step gave it, on the
+    cells that hold a target and on every other one of them (a cell
+    flagged off writes zeros)."""
+    _check(recorded_slab_cells, name, case)
+
+
+def _slab_cells_case(periodic: bool, cap: int, seed: int):
+    """A slab frame as the slab step builds it: targets in [1, 3) x [0,
+    5)^2 (one on the face at float32 x == 3, one at y == 5 on a periodic
+    box), ghosts in the strips [0, 1) and [3, 4), a grid of 4 x 5 x 5
+    cells of edge 1 clamped in x (and in y and z in vacuum), ``cap`` slots
+    a cell; each mode's arguments with the cells that hold a target
+    flagged, the list, and the target-cell flags."""
+    import numpy as np
+
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
+    rng = np.random.default_rng(seed)
+    nt, ng = 900, 360
+    tgt = np.column_stack([rng.uniform(1.0, 3.0, nt),
+                           rng.uniform(0.0, 5.0, (nt, 2))])
+    tgt[0, 0] = 3.0
+    if periodic:
+        tgt[1, 1] = 5.0
+    gx = np.where(rng.uniform(size=ng) < 0.5, rng.uniform(0.0, 1.0, ng),
+                  rng.uniform(3.0, 4.0, ng))
+    ghost = np.column_stack([gx, rng.uniform(0.0, 5.0, (ng, 2))])
+    n = nt + ng
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    mask[nt - 3:nt] = False
+    pos = _cuda(np.concatenate([tgt, ghost]))
+    per = (False, periodic, periodic)
+    n3 = (4, 5, 5)
+    cl = build_cell_list(pos, mask, _cuda([0.0, 0.0, 0.0]),
+                         _cuda([4.0, 5.0, 5.0]), n3, cap, per)
+    assert not bool(cl.overflow)
+    vel, mass = _cuda(rng.normal(size=(n, 3))), _cuda(rng.uniform(0.5, 1.5,
+                                                                  n) / n)
+    h = _cuda(rng.uniform(0.4, 1.0, n))
+    idx = cl.cells.clamp_min(0).long()
+    flags = ((cl.cells >= 0) & mask[idx] & (idx < nt)).any(1).to(torch.int32)
+    soa = sc.pack_sph_soa(cl, pos, vel, mass, torch.ones_like(mass), mask,
+                          5.0)
+    h_slots = torch.where(cl.cells >= 0, h[idx], torch.ones_like(h[idx]))
+    dens = (soa, h_slots.contiguous(), flags, n3, 5.0, per)
+    rho = _cuda(rng.uniform(0.8, 1.2, n))
+    soa16 = sc.pack_hydro_cells(
+        cl, pos, vel, mass, h, rho, 0.5 * rho ** (5.0 / 3.0),
+        _cuda(rng.uniform(0.9, 1.1, n)), _cuda(rng.normal(size=n)),
+        _cuda(rng.uniform(0.0, 1.0, n)), mask,
+        torch.tensor(0.9, device="cuda"), 5.0)
+    hyd = (soa16, _cuda([0.1, 0.9]), n3, 5.0, per, 0.8, flags)
+    return dens, hyd, cl, flags
+
+
+@pytest.mark.parametrize("cap", [40, 160])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_slab_cells_kernels_edges_on_card(periodic, cap):
+    """I/J's and K's ghost-row mode against their float64 plain versions
+    on a slab frame: a capacity that is no multiple of 32 (40, the slab
+    step's formula rounds to 8) and one of two thread blocks a cell (160),
+    nx != ny, a target on the face x == x1, parked slots at -7 cells on
+    the clamped axis; a cell that holds ghosts alone writes zeros, and the
+    target on the face has its neighbours."""
+    _need_card()
+    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
+    dens, hyd, cl, flags = _slab_cells_case(periodic, cap, cap + periodic)
+    off = flags == 0
+    assert bool(off.any())
+    for name, fn, plain, args in (
+            ("sph_cells_density_slab", sc.density_sums_cells,
+             sc.density_sums_cells_plain, dens),
+            ("sph_cells_hydro_slab", sc.hydro_sums_cells,
+             sc.hydro_sums_cells_plain, hyd)):
+        before = kernels.launches[name]
+        got = fn(*args)
+        assert kernels.launches[name] == before + 1
+        want = plain(*args)
+        exact = plain(*chip_smoke.as_float64(args))
+        torch.cuda.synchronize()
+        *_, used = chip_smoke.compare(name, got, want, exact)
+        assert used <= 1.0, name
+        assert not bool(got[off].any()), name
+        rows = merge_rows(got, cl, got.shape[1])
+        assert bool((rows[0] != 0).all()), name
 
 
 SLAB_BOX, SLAB_NYZ, SLAB_RCUT = 34.0, 34, 0.95

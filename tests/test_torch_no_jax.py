@@ -7,7 +7,8 @@ and Stamatellos cooling), two of a small Evrard sphere under direct
 gravity and all-pairs SPH, three of a small Leicester disc with beta
 cooling and sinks and two of it under block SPH on its vacuum grid, and
 one of a Plummer sphere under the tree, with a periodic tree force
-through the Ewald table."""
+through the Ewald table; the force test, the placed step and the host
+helpers of utils/native.py run on the sphere."""
 
 import os
 import pathlib
@@ -30,7 +31,8 @@ for name in names:
 new = {"__main__", "io.restart", "io.snapshot", "io.state_io",
        "utils.diagnostics", "utils.logfiles", "ops.sph_cells",
        "ops.gravity_direct", "ops.sph_dense", "ops.tree", "ops.ewald",
-       "models.cooling", "models.sinks"}
+       "models.cooling", "models.sinks", "parallel.step", "utils.forcetest",
+       "utils.native"}
 assert {pkg.__name__ + "." + m for m in new} <= set(names), names
 import chip_smoke
 from gadget_leicester_tpu_torch.core.config import SimOptions, parse_parameter_text
@@ -83,6 +85,15 @@ gsim = Simulation(gcfg, SimOptions(periodic=False), "cpu")
 gsim.set_ics(pos, vel, mass, ptype, u=u)
 gsim.step(2)
 assert torch.isfinite(gsim.state.p.vel).all() and int(gsim.state.ti_current) > 0
+# the force test, the placed step and the host helpers
+from gadget_leicester_tpu_torch.utils.forcetest import run_forcetest
+assert run_forcetest(gsim.state, gcfg, SimOptions(forcetest=0.1))["rel_err"].max() < 1e-2
+from gadget_leicester_tpu_torch.parallel.step import make_sharded_step
+pstep, pst = make_sharded_step(gsim.state, gcfg, SimOptions(periodic=False), "cpu")
+assert int(pstep(pst).ti_current) > int(gsim.state.ti_current)
+from gadget_leicester_tpu_torch.utils import native
+import numpy as np
+assert len(native.peano_hilbert_order(np.random.rand(50, 3), 0.0, 1.0)) == 50
 # the tree path: a Plummer sphere through the tree, a periodic box through
 # the Ewald correction (its table is built under build/ewald/)
 from gadget_leicester_tpu_torch.models.ics import plummer_ics

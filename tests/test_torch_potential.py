@@ -148,9 +148,15 @@ def test_compute_potential_matches_jax():
 
 
 def test_compute_potential_refuses_outside_slice():
+    """float64 lies outside the slice (the kernels are float32) and is
+    refused; the force test's fraction no longer does: with it set the
+    potential pass runs and gives the same p.pot bit for bit."""
     _, st, _, _, cfg, opts = _lcdm_states()
-    with pytest.raises(NotImplementedError):
-        compute_potential(st, cfg, dataclasses.replace(opts, forcetest=0.1))
+    with pytest.raises(NotImplementedError, match="float32"):
+        compute_potential(st, cfg, dataclasses.replace(opts, dtype="f64"))
+    want = compute_potential(st, cfg, opts)
+    got = compute_potential(st, cfg, dataclasses.replace(opts, forcetest=0.1))
+    assert torch.equal(got.p.pot, want.p.pot)
 
 
 def test_isolated_particle_has_zero_short_range_potential():

@@ -132,15 +132,16 @@ def jax_run():
 _RINGS = {}
 
 
-def ring_run(jax_run, d):
+def ring_run(jax_run, d, opts=None):
     """The port's slab step on d gloo ranks from the JAX init state (run
-    once a module)."""
-    if d not in _RINGS:
-        _RINGS[d] = launch.spawn(
-            launch.slab_run, d,
-            (PARAM, SLAB_OPTS, jax_run["init"], N_STEPS),
+    once a module for each ring and options: SLAB_OPTS by default)."""
+    opts = SLAB_OPTS if opts is None else opts
+    key = (d, tuple(sorted(opts.items())))
+    if key not in _RINGS:
+        _RINGS[key] = launch.spawn(
+            launch.slab_run, d, (PARAM, opts, jax_run["init"], N_STEPS),
             timeout=RING_TIMEOUT)[0]
-    return _RINGS[d]
+    return _RINGS[key]
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +187,93 @@ def test_slab_step_matches_single_device(jax_run, single_run, d):
     want, ti = single_run
     assert got["overflow"] == 0 and got["ti_current"] == ti
     _hold(got, want, TOL_SINGLE, f"d = {d} against one device")
+
+
+# the coarse-cell branch: the JAX run's own (use_pallas off, 64 slots a
+# cell); 16 slots hold the slab's cells here (about 4 gas a cell of the
+# 10,000 edge, none overflows) at a quarter of the pairs of 32, as the
+# capped h's 40 density sweeps are paid on one thread a rank
+CELLS_OPTS = dict(SLAB_OPTS, sph_backend="cells")
+
+
+def test_slab_cells_d4_matches_jax(jax_run):
+    """``sph_backend="cells"`` on the slab step at d = 4 (gloo; kernels I/J
+    and K's ghost-row mode, their plain versions here) against the JAX
+    package's slab step at d = 4 with ``use_pallas="off"``, whose coarse
+    cells it mirrors, by pid, within 2e-4; the same edges, no overflow."""
+    got = ring_run(jax_run, 4, CELLS_OPTS)
+    np.testing.assert_array_equal(got["edges"], jax_run["edges"])
+    assert got["overflow"] == 0
+    assert got["ti_current"] == int(jax_run["state"].ti_current)
+    _hold(got, jax_run["by_pid"], TOL_JAX, "cells, d = 4 against JAX")
+
+
+@pytest.fixture(scope="module")
+def cells_ring_of_one(jax_run):
+    """The coarse-cell branch on a ring of one in this process (gloo),
+    N_STEPS sync points from the JAX init state with every kernel call
+    recorded, and the port's single-device ``sph_backend="cells"`` step
+    from the same state; 48 slots a slab cell (about 19 gas a cell of the
+    16,667 edge, which is also the single device's, so neither caps h)."""
+    from gadget_leicester_tpu_torch import kernels
+    from gadget_leicester_tpu_torch.models.simulation import Simulation
+    cfg = parse_parameter_text(PARAM)
+    opts = SimOptions(**dict(OPTS, sph_backend="cells", sph_capacity=48))
+    ring = Simulation(cfg, opts, "cpu", mesh=1)
+    ring.state = from_numpy(jax_run["init"], "cpu")
+    ring._decompose()
+    kernels.history = []
+    try:
+        ring.step(N_STEPS)
+        calls = [name for name, _ in kernels.history]
+    finally:
+        kernels.history = None
+    st = dataclasses.replace(from_numpy(jax_run["init"], "cpu"), grids=None)
+    for _ in range(N_STEPS):
+        st = sync_point_step(st, cfg, opts)
+    assert int(st.overflow_flags) == int(ring.state.overflow_flags) == 0
+    return (launch._by_pid(ring.canonical_state()), int(ring.state.ti_current),
+            calls, launch._by_pid(st), int(st.ti_current),
+            ring._spmd_step.geometry(ring.state))
+
+
+def test_slab_cells_ring_of_one_matches_single_device(cells_ring_of_one):
+    """The coarse-cell branch on a ring of one against the port's
+    single-device coarse-cell step from the same state, by pid, within
+    5e-4."""
+    got, ti, _, want, ti_want, _ = cells_ring_of_one
+    assert ti == ti_want
+    _hold(got, want, TOL_SINGLE, "cells, a ring of one against one device")
+
+
+def test_slab_cells_takes_the_cells_branch(cells_ring_of_one):
+    """``sph_backend="cells"`` on slabs runs kernels I/J and K in their
+    ghost-row mode, never the blocks' C and D: each density sweep and
+    hydro pass of the sync points called the ``_slab`` wrappers, on the
+    (nx, n, n) grid of the geometry, clamped in x; the blocks stay the
+    branch of every other backend."""
+    _, _, calls, _, _, geo = cells_ring_of_one
+    assert "sph_cells_density_slab" in calls
+    assert calls.count("sph_cells_hydro_slab") == N_STEPS
+    assert not {"sph_density_aniso", "sph_hydro_aniso", "sph_cells_density",
+                "sph_cells_hydro"} & set(calls)
+    assert geo["n_c"] == 3 and geo["nx_c"] == 5 and geo["cap_c"] == 48
+    cfg = parse_parameter_text(PARAM)
+    for backend, cells in (("cells", True), ("blocks", False),
+                           ("auto", False), ("dense", False)):
+        step = spmd.SpmdStep(cfg, SimOptions(**dict(OPTS,
+                                                    sph_backend=backend)),
+                             _FakeRing(), np.array([0.0, BOX]))
+        assert step.cells is cells
+    with pytest.raises(ValueError, match="unknown sph_backend"):
+        spmd.check_slab_supported(SimOptions(**dict(OPTS,
+                                                    sph_backend="tree")))
+
+
+class _FakeRing:
+    """The rank, size and device of a ring of one, for a step that is
+    built and never run."""
+    rank, size, device = 0, 1, torch.device("cpu")
 
 
 def test_to_spmd_round_trip_exact(jax_run):

@@ -363,11 +363,10 @@ def test_set_ics_raises_the_short_range_capacity_on_a_zoom_overflow():
 
 def test_check_supported_takes_the_zoom_and_the_switches():
     """Zoom, nogravity, adaptive gas softening and the isothermal EOS are
-    accepted; forcetest (queue 1 item 11) and per-axis periodic tuples
-    (queue 2 item 3, with item 14) are still refused, and so is TreePM
-    with vacuum boundaries,
-    a fault of the reference, with a message naming the zoom; a zoom
-    without a coarse mesh is an error."""
+    accepted, and so is the force test; per-axis periodic tuples (the
+    slab step builds its own) are refused, and so is TreePM with vacuum
+    boundaries, a fault of the reference, with a message naming the zoom
+    and the slab step; a zoom without a coarse mesh is an error."""
     from gadget_leicester_tpu_torch.models.forces import check_supported
     cfg = parse_parameter_text(PARAM)
     for over in ({}, dict(nogravity=True), dict(adaptive_gravsoft_forgas=True),
@@ -377,12 +376,11 @@ def test_check_supported_takes_the_zoom_and_the_switches():
                  dict(adaptive_gravsoft_forgas=True)):
         check_supported(cfg, SimOptions(periodic=True, pmgrid=32, **over),
                         3500, 3000)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check_supported(cfg, SimOptions(**OPTS, forcetest=0.1), 3500, 1)
+    check_supported(cfg, SimOptions(**OPTS, forcetest=0.1), 3500, 1)
     with pytest.raises(NotImplementedError, match="per-axis periodic"):
         check_supported(cfg, SimOptions(periodic=(False, True, True)), 10, 1)
     with pytest.raises(NotImplementedError,
-                       match='gravity_mode="zoom".*item 14'):
+                       match='gravity_mode="zoom".*--devices K'):
         check_supported(cfg, SimOptions(periodic=False, pmgrid=32,
                                         gravity_mode="treepm"), 3500, 1)
     check_supported(cfg, SimOptions(periodic=False, pmgrid=32,
