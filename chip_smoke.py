@@ -453,7 +453,9 @@ for _n in SLAB_FORCE + SLAB_CELLS:
 # only (MIN_IMAGE_OPS / 3 an axis: two on a periodic slab, none in
 # vacuum), and with the potential row H's potential on top (OPS_PER_PAIR
 # of H less A's: the softened potential, its erfc and the sum); C's and
-# D's anisotropic mode their relative mode's, in vacuum too.
+# D's anisotropic mode their relative mode's, in vacuum too. Kernels I/J
+# and K, either mode, move only the rows of their live slots and the
+# output rows of the live slots they sum (:func:`cells_bytes`).
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = {"shortrange_gravity": 50, "shortrange_gravity_entries": 50,
@@ -952,9 +954,13 @@ def kernel_pairs() -> dict:
             functools.partial(gravity_short.shortrange_gravity_slab_plain,
                               with_potential=True)),
     }
-    # the ghost-row modes: the same wrappers and plain versions, per-axis
-    pairs.update(sph_cells_density_slab=pairs["sph_cells_density"],
-                 sph_cells_hydro_slab=pairs["sph_cells_hydro"])
+    # the ghost-row modes: the same wrappers, counted apart, and plain
+    # versions, per-axis
+    pairs.update(sph_cells_density_slab=(
+        functools.partial(sc.density_sums_cells, ghost_rows=True),
+        sc.density_sums_cells_plain), sph_cells_hydro_slab=(
+        functools.partial(sc.hydro_sums_cells, ghost_rows=True),
+        sc.hydro_sums_cells_plain))
     # the vacuum slab step's modes: the same wrappers and plain versions
     pairs.update({n + VACUUM: pairs[n] for n in SLAB_FORCE + SLAB_CELLS})
     return pairs
@@ -1158,8 +1164,7 @@ def gravity_cells_pair_count(args: tuple, flags=None) -> tuple:
     cells ``flags`` switches on)."""
     import torch
 
-    from gadget_leicester_tpu_torch.ops import gravity_short as gs
-    from gadget_leicester_tpu_torch.ops.neighbors import per3
+    from gadget_leicester_tpu_torch.ops.neighbors import per3, stencil_cells
     soa, n, box, periodic, _, rcut = args
     pv = per3(periodic)
     live = (soa[:, 5] > 0).any(-1)
@@ -1169,7 +1174,7 @@ def gravity_cells_pair_count(args: tuple, flags=None) -> tuple:
     stencil = in_cut = 0
     for k0 in range(0, cells.numel(), 64):
         k = cells[k0:k0 + 64]
-        ids, inside = gs.stencil_cells(n, k, periodic)
+        ids, _, inside = stencil_cells(n, k, periodic)
         t, s = soa[k], soa[ids]
         d2 = 0.0
         for a in range(3):
@@ -1543,7 +1548,7 @@ def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
     each target slot walks [K, cap, 27 cap], both in slot order)."""
     import torch
 
-    from gadget_leicester_tpu_torch.ops import sph_cells as sc
+    from gadget_leicester_tpu_torch.ops.neighbors import stencil_cells
     dev, f32 = soa.device, torch.float32
     k, cap = len(cells), soa.shape[2]
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
@@ -1557,7 +1562,7 @@ def _cells_walk(soa, ht_slots, live_row: int, h_row, n: int, box: float,
     reach = torch.where(lvr & ~torch.isnan(hr), hr, torch.zeros_like(hr))
     reach = reach.amax(-1).clamp(min=0.0)                     # [K, W]
     # the 27 stencil cells, their shifts and their chunk boxes
-    ids, shift, inside = sc.stencil_cells(n, cells, periodic)
+    ids, shift, inside = stencil_cells(n, cells, periodic)
     sh = shift.to(f32) * torch.tensor(box, dtype=f32)         # [K, 27, 3]
     s = soa[ids]                                              # [K, 27, R, cap]
     chunks = -(-cap // 32)
@@ -1799,12 +1804,12 @@ def gravity_cells_walk(args: tuple, cells):
     import numpy as np
     import torch
 
-    from gadget_leicester_tpu_torch.ops import gravity_short as gs
+    from gadget_leicester_tpu_torch.ops.neighbors import stencil_cells
     soa, n, box, periodic, _, rcut = args
     f32 = torch.float32
     t = soa[cells]
     _, xyz, lvr, tlo, thi = _ranked_by_box(t[:, :3], t[:, 5] > 0)
-    ids, inside = gs.stencil_cells(n, cells, periodic)
+    ids, _, inside = stencil_cells(n, cells, periodic)
     s = soa[ids]                                              # [K, 27, 8, cap]
     sxyz = s[:, :, :3].transpose(1, 2).flatten(2)             # [K, 3, 27 cap]
     up = float(rcut) * float(rcut) * (1.0 + 1e-6)
@@ -2054,25 +2059,67 @@ def deposit_bytes(args: tuple) -> int:
     return (soa.shape[0] * soa.shape[2] + 4 * packed) * soa.element_size()
 
 
+def cells_bytes(name: str, args: tuple) -> int:
+    """The bytes kernel I/J or K (either mode) must move for ``args``: of
+    the cells it sums (those its flags switch on; K without flags, all)
+    and the cells of their 27-cell stencils on the grid, the rows it reads
+    of each live slot (I/J: x, y, z, m, vx, vy, vz, with m > 0; K: rows
+    0-12, with valid > 0), each once; the smoothing length of each live
+    slot it sums (I/J's h_slots; K's is in its rows), the flags and K's two
+    parameters; and the output rows of each live slot it sums (I/J 6, K
+    5). Parked slots and cells that no summed cell reaches are neither
+    read nor written for the function: a slab's coarse cells hold ~21 gas
+    in 112 slots, and a vacuum grid's cells beyond the cloud are empty."""
+    import torch
+
+    from gadget_leicester_tpu_torch.ops.neighbors import stencil_cells
+    if name.removesuffix(VACUUM).startswith("sph_cells_density"):
+        soa, h_slots, flags, n, _, periodic = args
+        live_row, rows, out_rows = 3, 7, 6
+        extra = h_slots.element_size()
+        side = flags.numel() * flags.element_size()
+    else:
+        soa, params, n, _, periodic = args[:5]
+        flags = args[6] if len(args) > 6 else None
+        live_row, rows, out_rows, extra = 12, 13, 5, 0
+        side = params.numel() * params.element_size() + (
+            0 if flags is None else flags.numel() * flags.element_size())
+    summed = torch.arange(soa.shape[0], device=soa.device) if flags is None \
+        else torch.nonzero(flags > 0).flatten()
+    live = soa[:, live_row] > 0                            # [C, cap]
+    reached = torch.zeros(soa.shape[0], dtype=torch.bool, device=soa.device)
+    for k0 in range(0, summed.numel(), 4096):
+        ids, _, inside = stencil_cells(n, summed[k0:k0 + 4096], periodic)
+        reached[ids[inside]] = True
+    n_src, n_tgt = int(live[reached].sum()), int(live[summed].sum())
+    return (rows * n_src + out_rows * n_tgt) * soa.element_size() \
+        + extra * n_tgt + side
+
+
 def kernel_bound(name: str, args: tuple, out) -> dict:
     """The least time the card could take for what a kernel computes on
     ``args`` (into ``out``), by the rule at PEAK_FLOPS; an entries kernel
     counts only the sources its switched-on entries reach
     (:func:`entries_bytes`), kernel B only the rows of its pack that it
     must read (:func:`deposit_bytes`), kernel L only the mesh cells its
-    particles' corners name (:func:`gather_bytes`)."""
+    particles' corners name (:func:`gather_bytes`), kernels I/J and K,
+    either mode, only the live slots they read and write
+    (:func:`cells_bytes`, their output included)."""
     import torch
     stencil, in_cut = pair_count(name, args)
-    if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
-        nbytes = entries_bytes(name, args)
-    elif name == "pm_deposit":
-        nbytes = deposit_bytes(args)
-    elif name == "pm_gather":
-        nbytes = gather_bytes(args)
+    if name.removesuffix(VACUUM) in CELLS + SLAB_CELLS:
+        nbytes = cells_bytes(name, args)
     else:
-        nbytes = sum(a.numel() * a.element_size() for a in args
-                     if torch.is_tensor(a))
-    nbytes += out.numel() * out.element_size()
+        if name in ENTRIES + POTENTIAL_ENTRIES + ABS_ENTRIES:
+            nbytes = entries_bytes(name, args)
+        elif name == "pm_deposit":
+            nbytes = deposit_bytes(args)
+        elif name == "pm_gather":
+            nbytes = gather_bytes(args)
+        else:
+            nbytes = sum(a.numel() * a.element_size() for a in args
+                         if torch.is_tensor(a))
+        nbytes += out.numel() * out.element_size()
     if name == "pm_deposit":
         ops = stencil * OPS_PER_DEPOSIT
     elif name == "pm_gather":
@@ -6000,7 +6047,8 @@ def phase_slab_cells(results: dict, card: str, device="cuda",
     say("kernels", "registers: I/J's and K's ghost-row mode, periodic and in "
         "vacuum " + str([n for frag in (
             "sph_cells_density_kernelILi6E", "sph_cells_density_kernelILi0E",
-            "sph_cells_hydro_kernelILi6E", "sph_cells_hydro_kernelILi0E")
+            "sph_cells_hydro_kernelILi6ELb1E",
+            "sph_cells_hydro_kernelILi0ELb1E")
             for _, n in ptxas_registers(frag)]))
     del cst, want, firsts, recorded, rec
     kernels.recorded.clear()

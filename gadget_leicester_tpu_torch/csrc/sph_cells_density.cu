@@ -7,7 +7,7 @@
 // of one function, one kernel here.
 // Plain PyTorch twin: ops/sph_cells.py :: density_sums_cells_plain.
 //
-// The ghost-row mode (C entry glt_sph_cells_density_slab) is the slab
+// The ghost-row mode (the same C entry, glt_sph_cells_density) is the slab
 // step's: density_adaptive_pallas with a tuple n_cells = (nx, n_sph,
 // n_sph), periodic = (False, pyz, pyz), n_targets and a prebuilt cell list
 // (pallas_cells.py:1401-1480), as parallel/spmd.py :: _sph calls it. It is
@@ -290,21 +290,14 @@ int launch(const float* soa, const float* h, const int* flags, float* boxes,
 
 }  // namespace
 
+// one entry for both modes: per-axis cell counts (the cube passes (n, n,
+// n)) and the image mask per (bit a set: axis a periodic; the cube's 7 or
+// 0, the slab's 6 or 0)
 extern "C" int glt_sph_cells_density(const float* soa, const float* h,
                                      const int* flags, float* boxes,
-                                     float* out, int n, int cap, float box,
-                                     int periodic, void* stream) {
-  return launch(soa, h, flags, boxes, out, n, n, n, periodic ? 7 : 0, cap,
-                box, static_cast<cudaStream_t>(stream));
-}
-
-// the ghost-row mode of the slab step: per-axis cell counts and the image
-// mask per (bit a set: axis a periodic; the slab's 6, or 0 in vacuum)
-extern "C" int glt_sph_cells_density_slab(const float* soa, const float* h,
-                                          const int* flags, float* boxes,
-                                          float* out, int nx, int ny, int nz,
-                                          int per, int cap, float box,
-                                          void* stream) {
+                                     float* out, int nx, int ny, int nz,
+                                     int per, int cap, float box,
+                                     void* stream) {
   return launch(soa, h, flags, boxes, out, nx, ny, nz, per, cap, box,
                 static_cast<cudaStream_t>(stream));
 }

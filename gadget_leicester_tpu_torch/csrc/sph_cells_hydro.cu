@@ -5,15 +5,17 @@
 // (kernel body _make_hydro_kernel).
 // Plain PyTorch twin: ops/sph_cells.py :: hydro_sums_cells_plain.
 //
-// The ghost-row mode (C entry glt_sph_cells_hydro_slab) is the slab step's:
-// hydro_force_pallas with a tuple n_cells and n_targets
+// The ghost-row mode (the same C entry, glt_sph_cells_hydro) is the slab
+// step's: hydro_force_pallas with a tuple n_cells and n_targets
 // (pallas_cells.py:1483-1544), on the density pass's cell list. As in
 // sph_cells_density.cu it takes per-axis cell counts (nx, ny, nz) and the
 // image mask kPer (7 and 0 on the cube, 6 and 0 on the slab), and it
 // gains cell flags: a cell whose flag is 0 writes zeros and does nothing
 // else. The caller flags the cells that hold a live target slot (row below
-// n_targets), so cells of ghosts alone cost one write; the cubic entry
-// passes no flags (every cell is summed, as before, bit for bit).
+// n_targets), so cells of ghosts alone cost one write. The flags are a
+// template argument, kFlags: the cube passes none (nullptr), and its
+// instances compile without the test and sum every cell, as before, bit
+// for bit.
 //
 // What it computes. soa16 is the [C, 16, cap] pack of ops/sph_cells.py ::
 // pack_hydro_cells: rows 0-7 x, y, z ABSOLUTE (each the periodic image
@@ -99,7 +101,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 13;   // staged rows 0-12 of the pack
 
-template <int kPer>
+template <int kPer, bool kFlags>
 __global__ void __launch_bounds__(kThreads)
     sph_cells_hydro_kernel(const float* __restrict__ soa16,
                            const float* __restrict__ params,
@@ -107,18 +109,20 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ boxes,
                            float* __restrict__ out, int nx, int ny, int nz,
                            int cap, int chunks, float box, float half_visc) {
-  const int c = blockIdx.x;
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
-  float* o = out + static_cast<size_t>(c) * 5 * cap;
-  if (flags != nullptr && flags[c] == 0) {
-    if (t < cap)
-      for (int r = 0; r < 5; ++r) o[r * cap + t] = 0.f;
-    return;
-  }
   __shared__ float s_ring[kWarps][2][kRows][32];
   __shared__ glt::Box s_tbox[kWarps];
   __shared__ unsigned s_key[kThreads];
   __shared__ int s_slot[kThreads];
+  const int c = blockIdx.x;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  float* o = out + static_cast<size_t>(c) * 5 * cap;
+  if constexpr (kFlags) {
+    if (flags[c] == 0) {
+      if (t < cap)
+        for (int r = 0; r < 5; ++r) o[r * cap + t] = 0.f;
+      return;
+    }
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float(*ring)[kRows][32] = s_ring[warp];
   const int cx = c / (ny * nz), cy = (c / nz) % ny, cz = c % nz;
@@ -290,6 +294,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// one image mask, with or without cell flags
+template <int kPer>
+void run(const dim3& grid, int threads, cudaStream_t st, const float* soa16,
+         const float* params, const int* flags, const float* boxes,
+         float* out, int nx, int ny, int nz, int cap, int chunks, float box,
+         float half_visc) {
+  if (flags != nullptr)
+    sph_cells_hydro_kernel<kPer, true><<<grid, threads, 0, st>>>(
+        soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
+        half_visc);
+  else
+    sph_cells_hydro_kernel<kPer, false><<<grid, threads, 0, st>>>(
+        soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
+        half_visc);
+}
+
 int launch(const float* soa16, const float* params, const int* flags,
            float* boxes, float* out, int nx, int ny, int nz, int per, int cap,
            float box, float half_visc, cudaStream_t st) {
@@ -300,19 +320,16 @@ int launch(const float* soa16, const float* params, const int* flags,
   glt::launch_boxes<16, 12, 7>(soa16, boxes, cells, cap, 32, st);
   switch (per) {
     case 7:   // the periodic cube
-      sph_cells_hydro_kernel<7><<<grid, threads, 0, st>>>(
-          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
-          half_visc);
+      run<7>(grid, threads, st, soa16, params, flags, boxes, out, nx, ny, nz,
+             cap, chunks, box, half_visc);
       break;
     case 6:   // the periodic box's slab grid: x clamped
-      sph_cells_hydro_kernel<6><<<grid, threads, 0, st>>>(
-          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
-          half_visc);
+      run<6>(grid, threads, st, soa16, params, flags, boxes, out, nx, ny, nz,
+             cap, chunks, box, half_visc);
       break;
     case 0:   // a vacuum cube or slab grid
-      sph_cells_hydro_kernel<0><<<grid, threads, 0, st>>>(
-          soa16, params, flags, boxes, out, nx, ny, nz, cap, chunks, box,
-          half_visc);
+      run<0>(grid, threads, st, soa16, params, flags, boxes, out, nx, ny, nz,
+             cap, chunks, box, half_visc);
       break;
     default:  // no other image mask is instantiated
       return static_cast<int>(cudaErrorInvalidValue);
@@ -322,24 +339,14 @@ int launch(const float* soa16, const float* params, const int* flags,
 
 }  // namespace
 
+// one entry for both modes: per-axis cell counts (the cube passes (n, n,
+// n)), the image mask per (bit a set: axis a periodic; the cube's 7 or 0,
+// the slab's 6 or 0) and cell flags, or nullptr to sum every cell (the
+// cube): a cell whose flag is 0 writes zeros (it holds no target)
 extern "C" int glt_sph_cells_hydro(const float* soa16, const float* params,
-                                   float* boxes, float* out, int n, int cap,
-                                   float box, int periodic, float half_visc,
-                                   void* stream) {
-  return launch(soa16, params, nullptr, boxes, out, n, n, n,
-                periodic ? 7 : 0, cap, box, half_visc,
-                static_cast<cudaStream_t>(stream));
-}
-
-// the ghost-row mode of the slab step: per-axis cell counts, the image
-// mask per (bit a set: axis a periodic; the slab's 6, or 0 in vacuum) and
-// cell flags (a cell whose flag is 0 writes zeros: it holds no target)
-extern "C" int glt_sph_cells_hydro_slab(const float* soa16,
-                                        const float* params, const int* flags,
-                                        float* boxes, float* out, int nx,
-                                        int ny, int nz, int per, int cap,
-                                        float box, float half_visc,
-                                        void* stream) {
+                                   const int* flags, float* boxes, float* out,
+                                   int nx, int ny, int nz, int per, int cap,
+                                   float box, float half_visc, void* stream) {
   return launch(soa16, params, flags, boxes, out, nx, ny, nz, per, cap, box,
                 half_visc, static_cast<cudaStream_t>(stream));
 }

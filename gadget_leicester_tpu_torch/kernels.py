@@ -10,10 +10,10 @@ L the CIC gather of the PM mesh, and M short-range gravity in absolute
 coordinates with the per-pair minimum image; the slab step's modes are A's
 slab mode, in M's source, with and without the potential row, and C's and
 D's relative mode on per-axis block grids, the ``_aniso`` entries, and
-I/J's and K's ghost-row mode on the slab's coarse cells, the ``_slab``
-entries in their own sources) are compiled on first use
-with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
-together, and linked into one shared library with a plain C
+I/J's and K's ghost-row mode on the slab's coarse cells, which launch
+the cube's C entry and are counted apart, :data:`MODES`) are compiled
+on first use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
 interface, written under ``build/torch_kernels/<hash of the sources and
 flags>/`` at the root of the checkout, and loaded with ``ctypes``. Every C
 entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
@@ -74,8 +74,10 @@ SIGNATURES = {
     "sph_hydro_entries": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _F, _P),
     "shortrange_potential": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
-    "sph_cells_density": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
-    "sph_cells_hydro": (_P, _P, _P, _P, _I, _I, _F, _I, _F, _P),
+    # I/J and K, either mode: per-axis cells, an image mask, cell flags
+    # (K's nullable: the cube sums every cell)
+    "sph_cells_density": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "sph_cells_hydro": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "pm_gather": (_P, _P, _P, _I, _I, _I, _D, _I, _P),
     "shortrange_gravity_cells": (_P, _P, _I, _I, _F, _I, _F, _F, _P),
     "shortrange_potential_entries": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
@@ -98,15 +100,13 @@ SIGNATURES = {
                           _P),
     "sph_hydro_aniso": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _F, _F, _P),
-    # the ghost-row modes of I/J and K on the slab's coarse cells: per-axis
-    # cells, an image mask, cell flags (the cells that hold a target)
-    "sph_cells_density_slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                               _P),
-    "sph_cells_hydro_slab": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                             _P),
 }
+# modes counted apart from the C entry they launch: I/J's and K's ghost-row
+# mode (the slab step's coarse cells, the cells that hold a target flagged)
+MODES = {"sph_cells_density_slab": "sph_cells_density",
+         "sph_cells_hydro_slab": "sph_cells_hydro"}
 
-launches = {name: 0 for name in SIGNATURES}
+launches = {name: 0 for name in (*SIGNATURES, *MODES)}
 recording = False
 recorded: dict = {}   # kernel -> argument tuple of its wrapper's last call
 history = None        # a list: (kernel, arguments) of every call
@@ -204,10 +204,11 @@ def library() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry ``glt_<name>`` on the current stream; count it."""
+    """Call C entry ``glt_<name>`` (of a mode of :data:`MODES`, its
+    kernel's) on the current stream; count it as ``name``."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, f"glt_{name}")(*args, stream)
+    rc = getattr(lib, f"glt_{MODES.get(name, name)}")(*args, stream)
     if rc != 0:
         msg = lib.glt_error_string(rc).decode()
         raise RuntimeError(f"kernel {name} failed to launch: {msg} ({rc})")

@@ -153,30 +153,6 @@ def shortrange_gravity_entries_plain(soa, entry_cell, tgt, n_cells: int,
     return out
 
 
-def stencil_cells(n_cells, cells: torch.Tensor, periodic):
-    """For target cells ``cells`` [K]: the flat ids [K, 27] of the 27
-    cells around each, wrapped along the periodic axes and clamped along
-    the others, and which of them are cells of the grid [K, 27] (all, when
-    every axis is periodic). ``n_cells`` and ``periodic``: one for all
-    axes, or per-axis tuples."""
-    from gadget_leicester_tpu_torch.ops.neighbors import dims3, per3
-    (nx, ny, nz), pv = dims3(n_cells), per3(periodic)
-    j = torch.arange(27, device=cells.device)
-    offs = torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], -1)
-    cxyz = torch.stack([cells // (ny * nz), (cells // nz) % ny, cells % nz],
-                       -1)
-    nb = cxyz[:, None, :] + offs[None]
-    inside = torch.ones(nb.shape[:2], dtype=torch.bool, device=nb.device)
-    axes = []
-    for a, n in enumerate((nx, ny, nz)):
-        if pv[a]:
-            axes.append(torch.remainder(nb[..., a], n))
-        else:
-            inside = inside & (nb[..., a] >= 0) & (nb[..., a] < n)
-            axes.append(nb[..., a].clamp(0, n - 1))
-    return (axes[0] * ny + axes[1]) * nz + axes[2], inside
-
-
 def _stencil_sums_abs(t, soa, cells, n_cells, box: float, periodic,
                       asmth: float, rcut: float,
                       with_potential: bool = False) -> torch.Tensor:
@@ -188,8 +164,8 @@ def _stencil_sums_abs(t, soa, cells, n_cells, box: float, periodic,
     own pack slot at r == 0 exactly, so the self-pair adds nothing. With
     ``with_potential``, [K, 4, L] with the erfc-truncated softened
     potential as row 3 (A's slab mode with the potential)."""
-    from gadget_leicester_tpu_torch.ops.neighbors import per3
-    ids, inside = stencil_cells(n_cells, cells, periodic)
+    from gadget_leicester_tpu_torch.ops.neighbors import per3, stencil_cells
+    ids, _, inside = stencil_cells(n_cells, cells, periodic)
     s = soa[ids]                                       # [K, 27, 8, cap]
     sx, sy, sz, sm, sh, shinv = (s[:, :, r].flatten(1)
                                  for r in (0, 1, 2, 3, 4, 6))

@@ -15,6 +15,9 @@ takes them: the slab step's grid is clamped along x and periodic along y
 and z (``parallel/spmd.py``). ``gslot`` is the inverse map used to merge kernel outputs back
 to particles with one row gather; :func:`scatter_rows` merges the
 active-entry kernels' outputs with one drop-mode row scatter.
+:func:`stencil_cells` names the 27 cells around a cell, with their wrap
+shifts, on a cubic or per-axis grid (kernels A, I/J, K, M and their plain
+versions).
 :func:`apply_pairwise` evaluates a pair function over blocks of targets
 and the candidates of their 27-cell stencils (the zoom's short-range
 passes, ``models/forces.py``).
@@ -51,6 +54,32 @@ def per3(periodic) -> tuple:
     """A bool or a 3-tuple of per-axis periodicity as a 3-tuple."""
     return tuple(bool(v) for v in periodic) \
         if isinstance(periodic, (tuple, list)) else (bool(periodic),) * 3
+
+
+def stencil_cells(n_cells, cells: torch.Tensor, periodic):
+    """For target cells ``cells`` [K]: the flat ids [K, 27] of the 27
+    cells around each, wrapped along the periodic axes and clamped along
+    the others; their wrap shifts in boxes [K, 27, 3] int32 (-1 where the
+    neighbour lies below the grid along a periodic axis, +1 above, else
+    0); and which of them are cells of the grid [K, 27] (all, when every
+    axis is periodic). ``n_cells`` and ``periodic``: one for all axes, or
+    per-axis tuples (the slab step's grids)."""
+    ncv, pv = dims3(n_cells), per3(periodic)
+    nv = torch.tensor(ncv, device=cells.device)
+    j = torch.arange(27, device=cells.device)
+    offs = torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], -1)
+    cxyz = torch.stack([cells // (ncv[1] * ncv[2]), (cells // ncv[2])
+                        % ncv[1], cells % ncv[2]], -1)
+    nb = cxyz[:, None, :] + offs[None]                     # [K, 27, 3]
+    below, above = nb < 0, nb >= nv
+    wrap = torch.tensor(pv, device=cells.device)
+    shift = torch.where(wrap, above.to(torch.int32) - below.to(torch.int32),
+                        torch.zeros_like(nb, dtype=torch.int32))
+    inside = ~((below | above) & ~wrap).any(-1)
+    nb = torch.where(wrap, torch.remainder(nb, nv),
+                     torch.minimum(nb.clamp_min(0), nv - 1))
+    return (nb[..., 0] * ncv[1] + nb[..., 1]) * ncv[2] + nb[..., 2], shift, \
+        inside
 
 
 def merge_rows(out: torch.Tensor, cl: CellList, n_rows: int,

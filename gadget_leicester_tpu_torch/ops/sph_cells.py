@@ -19,12 +19,12 @@ The ghost-row mode (``density_adaptive_pallas(n_targets=, cl=)`` and
 ``hydro_force_pallas(n_targets=)``, :1401-1544 of the reference, as the
 slab step's coarse-cell branch calls them) takes the slab's anisotropic
 list: cell counts and periodicity per axis (x clamped, y and z periodic
-on a periodic box), given as tuples, which select the ``_slab`` C
-entries; rows from ``n_targets`` on (the ghosts) are sources only. The
-target restriction stays out of the pair loop: the sweeps flag only the
-cells that hold a target slot (K too, which takes no flags on the cube),
-the Newton solve masks the target slots, and only target rows are
-gathered back.
+on a periodic box), through the same C entries as the cube; rows from
+``n_targets`` on (the ghosts) are sources only. The target restriction
+stays out of the pair loop: the sweeps flag only the cells that hold a
+target slot (K too, which takes no flags on the cube), the Newton solve
+masks the target slots, and only target rows are gathered back. The
+wrappers count these calls apart (``ghost_rows``).
 
 A whole-tile shift is right only if every particle of a tile lies in that
 tile's cell. Rounding can file a particle on the far side of the wrap: a
@@ -53,37 +53,13 @@ import torch
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
                                                       build_cell_list, dims3,
-                                                      merge_rows, per3)
+                                                      merge_rows, per3,
+                                                      stencil_cells)
 from gadget_leicester_tpu_torch.ops.sph_dense import (
     DENSITY_FILL, HydroResult, density_adaptive_generic, density_columns,
     density_result, hydro_params, hydro_result, hydro_table)
 from gadget_leicester_tpu_torch.ops.sph_kernels import (kernel_dw_dr,
                                                         kernel_w_and_dwdh)
-
-
-def stencil_cells(n_cells, cells: torch.Tensor, periodic):
-    """For target cells ``cells`` [K]: the flat ids [K, 27] of the 27
-    cells around each, their wrap shifts in boxes [K, 27, 3] (-1 where
-    the neighbour lies below the grid, +1 above, along a periodic axis; 0
-    along a clamped one) and whether each lies inside the grid [K, 27]
-    (always, when every axis is periodic). ``n_cells`` and ``periodic``:
-    one for all axes, or per-axis tuples (the slab step's grid)."""
-    ncv, pv = dims3(n_cells), per3(periodic)
-    nv = torch.tensor(ncv, device=cells.device)
-    j = torch.arange(27, device=cells.device)
-    offs = torch.stack([j // 9 - 1, (j // 3) % 3 - 1, j % 3 - 1], -1)
-    cxyz = torch.stack([cells // (ncv[1] * ncv[2]), (cells // ncv[2])
-                        % ncv[1], cells % ncv[2]], -1)
-    nb = cxyz[:, None, :] + offs[None]                     # [K, 27, 3]
-    below, above = nb < 0, nb >= nv
-    wrap = torch.tensor(pv, device=cells.device)
-    shift = torch.where(wrap, above.to(torch.int32) - below.to(torch.int32),
-                        torch.zeros_like(nb, dtype=torch.int32))
-    inside = ~((below | above) & ~wrap).any(-1)
-    nb = torch.where(wrap, torch.remainder(nb, nv),
-                     torch.minimum(nb.clamp_min(0), nv - 1))
-    return (nb[..., 0] * ncv[1] + nb[..., 1]) * ncv[2] + nb[..., 2], shift, \
-        inside
 
 
 def _park(cl: CellList, rows: int, like: torch.Tensor) -> torch.Tensor:
@@ -215,9 +191,8 @@ def density_sums_cells_plain(soa, h_slots, flags, n_cells, box: float,
     return out
 
 
-def _check_grid(soa, rows: int, n_cells, periodic) -> bool:
-    """Raise unless the pack fits the grid; True for the ghost-row (slab)
-    mode, a grid given per axis, False for the cube."""
+def _check_grid(soa, rows: int, n_cells, periodic) -> None:
+    """Raise unless the pack fits the grid."""
     c, r, _ = soa.shape
     ncv, pv = dims3(n_cells), per3(periodic)
     if c != ncv[0] * ncv[1] * ncv[2] or r != rows:
@@ -226,8 +201,6 @@ def _check_grid(soa, rows: int, n_cells, periodic) -> bool:
     if any(p and n < 3 for n, p in zip(ncv, pv)):
         raise ValueError("a periodic axis of the 27-cell stencil needs "
                          f"n_cells >= 3: {ncv}, periodic {pv}")
-    return isinstance(n_cells, (tuple, list)) \
-        or isinstance(periodic, (tuple, list))
 
 
 def _image_mask(periodic) -> int:
@@ -236,18 +209,19 @@ def _image_mask(periodic) -> int:
 
 
 def density_sums_cells(soa: torch.Tensor, h_slots: torch.Tensor,
-                       flags: torch.Tensor, n_cells, box: float,
-                       periodic) -> torch.Tensor:
+                       flags: torch.Tensor, n_cells, box: float, periodic,
+                       ghost_rows: bool = False) -> torch.Tensor:
     """Kernels I and J: density sums [C, 6, cap] of every live target slot
     of the pack ``soa`` [C, 8, cap] (:func:`pack_sph_soa`) at its
     smoothing length ``h_slots`` [C, cap], over the 27 cells around its
     own; cells whose flag is 0 are skipped (zeros). ``n_cells`` and
-    ``periodic`` one for all axes (the cube), or per-axis tuples: the
-    ghost-row mode of the slab step (``sph_cells_density_slab``; its
-    caller flags only the cells that hold a target). CPU tensors take the
+    ``periodic``: one for all axes (the cube), or per axis (the slab
+    step's grid). ``ghost_rows``: the call is the ghost-row mode, whose
+    caller flags only the cells that hold a target; the kernel is the
+    same, counted as ``sph_cells_density_slab``. CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
-    slab = _check_grid(soa, 8, n_cells, periodic)
-    name = "sph_cells_density_slab" if slab else "sph_cells_density"
+    _check_grid(soa, 8, n_cells, periodic)
+    name = "sph_cells_density_slab" if ghost_rows else "sph_cells_density"
     c, _, cap = soa.shape
     kernels.check(soa, "soa", torch.float32)
     kernels.check(h_slots, "h_slots", torch.float32, (c, cap), soa.device)
@@ -260,13 +234,9 @@ def density_sums_cells(soa: torch.Tensor, h_slots: torch.Tensor,
     # the kernel's workspace: the box of each 32-slot chunk of each cell
     boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
                         device=soa.device)
-    ptrs = (soa.data_ptr(), h_slots.data_ptr(), flags.data_ptr(),
-            boxes.data_ptr(), out.data_ptr())
-    if slab:
-        kernels.launch(name, *ptrs, *dims3(n_cells), _image_mask(periodic),
-                       cap, box)
-    else:
-        kernels.launch(name, *ptrs, n_cells, cap, box, int(periodic))
+    kernels.launch(name, soa.data_ptr(), h_slots.data_ptr(),
+                   flags.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+                   *dims3(n_cells), _image_mask(periodic), cap, box)
     return out
 
 
@@ -334,29 +304,32 @@ def hydro_sums_cells_plain(soa16, params, n_cells, box: float, periodic,
 
 def hydro_sums_cells(soa16: torch.Tensor, params: torch.Tensor, n_cells,
                      box: float, periodic, visc_const: float,
-                     flags: torch.Tensor | None = None) -> torch.Tensor:
+                     flags: torch.Tensor | None = None,
+                     ghost_rows: bool = False) -> torch.Tensor:
     """Kernel K: hydro sums [C, 5, cap] of every live target slot of the
     pack ``soa16`` [C, 16, cap] (:func:`pack_hydro_cells`: rows 0-7 x, y,
     z, m, vx, vy, vz, h; 8-12 rho, P/rho^2 f, c_sound, Balsara, valid)
     over the 27 cells around its own, pairs with 0 < r < max(h_i, h_j);
-    ``params`` [2] = (hubble_a2_flow, fac_mu). With per-axis ``n_cells``
-    or ``periodic``, the ghost-row mode of the slab step
-    (``sph_cells_hydro_slab``), which takes cell ``flags`` [C] int32 (a
-    cell whose flag is 0 writes zeros); the cube takes none. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    slab = _check_grid(soa16, 16, n_cells, periodic)
-    if slab != (flags is not None):
-        raise ValueError("the ghost-row mode (a per-axis grid) takes cell "
-                         "flags, the cube none")
-    name = "sph_cells_hydro_slab" if slab else "sph_cells_hydro"
+    ``params`` [2] = (hubble_a2_flow, fac_mu). ``n_cells`` and
+    ``periodic``: one for all axes (the cube), or per axis (the slab
+    step's grid); cell ``flags`` [C] int32 where given (a cell whose flag
+    is 0 writes zeros), else every cell is summed. ``ghost_rows``: the
+    call is the ghost-row mode, whose caller flags the cells that hold a
+    target; the kernel is the same, counted as ``sph_cells_hydro_slab``.
+    CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    _check_grid(soa16, 16, n_cells, periodic)
+    name = "sph_cells_hydro_slab" if ghost_rows else "sph_cells_hydro"
     c, _, cap = soa16.shape
     kernels.check(soa16, "soa16", torch.float32)
     kernels.check(params, "params", torch.float32, (2,), soa16.device)
-    if slab:
+    tensors = [soa16, params]
+    if flags is not None:
         kernels.check(flags, "flags", torch.int32, (c,), soa16.device)
+        tensors.append(flags)
     kernels.note_call(name, (soa16, params, n_cells, box, periodic,
-                             visc_const) + ((flags,) if slab else ()))
-    if not kernels.on_cuda(soa16, params, *([flags] if slab else [])):
+                             visc_const) + tuple(tensors[2:]))
+    if not kernels.on_cuda(*tensors):
         return hydro_sums_cells_plain(soa16, params, n_cells, box, periodic,
                                       visc_const, flags)
     out = torch.empty(c, 5, cap, dtype=soa16.dtype, device=soa16.device)
@@ -364,15 +337,10 @@ def hydro_sums_cells(soa16: torch.Tensor, params: torch.Tensor, n_cells,
     # of each cell
     boxes = torch.empty(c * ((cap + 31) // 32) * 8, dtype=torch.float32,
                         device=soa16.device)
-    if slab:
-        kernels.launch(name, soa16.data_ptr(), params.data_ptr(),
-                       flags.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-                       *dims3(n_cells), _image_mask(periodic), cap, box,
-                       0.5 * visc_const)
-    else:
-        kernels.launch(name, soa16.data_ptr(), params.data_ptr(),
-                       boxes.data_ptr(), out.data_ptr(), n_cells, cap, box,
-                       int(periodic), 0.5 * visc_const)
+    kernels.launch(name, soa16.data_ptr(), params.data_ptr(),
+                   None if flags is None else flags.data_ptr(),
+                   boxes.data_ptr(), out.data_ptr(), *dims3(n_cells),
+                   _image_mask(periodic), cap, box, 0.5 * visc_const)
     return out
 
 
@@ -415,7 +383,8 @@ def density_adaptive_cells(pos, vel, mass, hsml0, gas_mask,
         fl = first if undone is None else \
             undone.reshape(c, cap).any(dim=1).to(torch.int32)
         out = density_sums_cells(soa, h_slots.reshape(c, cap), fl,
-                                 cl.n_cells, box, cl.periodic)
+                                 cl.n_cells, box, cl.periodic,
+                                 ghost_rows=n_targets is not None)
         rot = out[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
         return (out[:, 0].reshape(-1), out[:, 1].reshape(-1),
                 out[:, 2].reshape(-1), rot)
@@ -459,13 +428,12 @@ def hydro_force_cells(cl: CellList, pos, vel, mass, hsml, rho, pressure,
                              fac_mu, box)
     params = hydro_params(hubble_a2_flow, fac_mu)
     nt = pos.shape[0] if n_targets is None else n_targets
-    if n_targets is None:
-        out = hydro_sums_cells(soa16, params, cl.n_cells, box, cl.periodic,
-                               visc_const)
-    else:
+    flags = None
+    if n_targets is not None:
         idx, valid = _slot_valid(cl, gas_mask)
         flags = (valid & (idx < nt)).any(dim=1).to(torch.int32)
-        out = hydro_sums_cells(soa16, params, dims3(cl.n_cells), box,
-                               per3(cl.periodic), visc_const, flags)
+    out = hydro_sums_cells(soa16, params, cl.n_cells, box, cl.periodic,
+                           visc_const, flags,
+                           ghost_rows=n_targets is not None)
     return hydro_result(merge_rows(out, cl, 5)[:nt], rho[:nt], gas_mask[:nt],
                         hubble_a2_norm)

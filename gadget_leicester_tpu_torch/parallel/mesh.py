@@ -2,21 +2,19 @@
 ``torch.distributed`` (NCCL for CUDA tensors, gloo for CPU ones).
 
 Counterpart of ``gadget_leicester_tpu/parallel/mesh.py`` (``AXIS``,
-``make_mesh`` :14, and the placement of a state, ``state_shardings``,
-``shard_state``, ``replicate_state`` :38-50) and of the collectives the JAX package's slab step
+``make_mesh`` :14) and of the collectives the JAX package's slab step
 calls inside ``shard_map`` (``parallel/spmd.py``: ``lax.pmin``,
 ``lax.pmax``, ``lax.psum``, the OR of the overflow bits, and ``_ring`` :431, a
 ``ppermute`` one hop around the slab ring). The reference's single
 controller over a device mesh becomes K processes, each owning one slab;
 :class:`Ring` is the handle they pass around.
 
-The placement: PyTorch has no GSPMD, no partitioning of one program's
-arrays across devices. A state lives on one device, the placement's
-(:func:`placement_device`: a device or its name, a :class:`Ring`'s, or
-``cuda`` by default); :func:`shard_state` and :func:`replicate_state` put
-every tensor of it there, and :func:`state_shardings` names that device
-for each. The slab step (``parallel/spmd.py``) is the port's way across
-devices: one process and one slab a rank.
+The reference's placement of a state over its mesh (``state_shardings``,
+``shard_state``, ``replicate_state`` :38-50) has no counterpart here:
+PyTorch has no GSPMD, no partitioning of one program's arrays across
+devices, so a state lives on one device (``parallel/step.py ::
+make_sharded_step`` puts it there). The slab step (``parallel/spmd.py``)
+is the port's way across devices: one process and one slab a rank.
 
 A ring of one takes the identity for its one-hop exchange (a ``ppermute``
 to itself is the identity); its reductions and the PM's collectives still
@@ -27,7 +25,6 @@ value :func:`Ring.any` or :func:`Ring.psum` reduced first.
 
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import os
 import socket
@@ -197,54 +194,3 @@ def join(mesh, device) -> Ring:
         raise RuntimeError(f"mesh={k}, but the process group has "
                            f"{dist.get_world_size()} ranks")
     return Ring(None, device)
-
-
-# ---------------------------------------------------------------------------
-# The placement of a state
-# ---------------------------------------------------------------------------
-def placement_device(mesh=None) -> torch.device:
-    """The one device a state is placed on: ``mesh`` a device or its
-    name, a :class:`Ring` (its device), or None (``cuda``: the entry
-    points run on the card unless the caller asks for the CPU)."""
-    if mesh is None:
-        return torch.device("cuda")
-    if isinstance(mesh, Ring):
-        return mesh.device
-    return torch.device(mesh)
-
-
-def _tree_map(fn, node):
-    """``fn`` applied to every tensor of a state: dataclasses (SimState,
-    its parts, the grid cache and its cell lists), tuples and lists are
-    walked; anything else is kept."""
-    if isinstance(node, torch.Tensor):
-        return fn(node)
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return dataclasses.replace(node, **{
-            f.name: _tree_map(fn, getattr(node, f.name))
-            for f in dataclasses.fields(node) if f.init})
-    if isinstance(node, (tuple, list)):
-        return type(node)(_tree_map(fn, v) for v in node)
-    return node
-
-
-def state_shardings(state, mesh=None):
-    """The device of every tensor of ``state`` under the placement (the
-    state's shape, each tensor replaced by the device): one device holds
-    it all."""
-    dev = placement_device(mesh)
-    return _tree_map(lambda _: dev, state)
-
-
-def shard_state(state, mesh=None):
-    """``state`` with every tensor on the placement's device (the
-    reference shards the particle axis over its devices; one device here
-    holds every particle)."""
-    dev = placement_device(mesh)
-    return _tree_map(lambda t: t.to(dev), state)
-
-
-def replicate_state(state, mesh=None):
-    """``state`` whole on the placement's device: on one device the same
-    as :func:`shard_state`."""
-    return shard_state(state, mesh)

@@ -1669,7 +1669,7 @@ def test_slab_cells_kernels_edges_on_card(periodic, cap):
             ("sph_cells_hydro_slab", sc.hydro_sums_cells,
              sc.hydro_sums_cells_plain, hyd)):
         before = kernels.launches[name]
-        got = fn(*args)
+        got = fn(*args, ghost_rows=True)
         assert kernels.launches[name] == before + 1
         want = plain(*args)
         exact = plain(*chip_smoke.as_float64(args))

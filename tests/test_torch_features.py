@@ -5,9 +5,11 @@ package's on the same state, subset and seed; the force test, the
 ``GLT_CPU_DETAIL`` probes and the ``GLT_PROFILE_*`` trace at the
 statistics cadence of ``Simulation.run``; ``utils/logfiles.py ::
 profile_steps``; ``OutputListOn``; ``parallel/step.py ::
-make_sharded_step`` against the single-device trajectory. All on the
+make_sharded_step``: every tensor of the state placed on the device asked
+for, and the placed step against the single-device trajectory. All on the
 subsampled Evrard sphere with G = 1 (direct gravity, all-pairs SPH)."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -26,8 +28,6 @@ from gadget_leicester_tpu_torch.core.config import (SimOptions,
 from gadget_leicester_tpu_torch.models.simulation import (Simulation,
                                                           init_state,
                                                           sync_point_step)
-from gadget_leicester_tpu_torch.parallel.mesh import (replicate_state,
-                                                      state_shardings)
 from gadget_leicester_tpu_torch.parallel.step import make_sharded_step
 from gadget_leicester_tpu_torch.utils.forcetest import (run_forcetest,
                                                         write_forcetest_file)
@@ -155,8 +155,9 @@ def test_output_list_run(tmp_path):
 
 def test_sharded_step_matches_single_device():
     """test_parallel.py's case and tolerances: the placed step's trajectory
-    (three sync points) against the single-device one; every tensor of
-    the placed state on the placement's device."""
+    (three sync points) against the single-device one; and every tensor of
+    a state that went through a sync point (its grid cache too) placed on
+    the device asked for (``meta``, which no tensor of it is on)."""
     cfg = parse_parameter_text(_text())
     opts = SimOptions()
     ics = _ics(4)
@@ -165,8 +166,6 @@ def test_sharded_step_matches_single_device():
     for _ in range(3):
         s1 = sync_point_step(s1, cfg, opts)
     step, s8 = make_sharded_step(state, cfg, opts, "cpu")
-    devs = state_shardings(s8, "cpu")
-    assert devs.p.pos == torch.device("cpu") and s8.p.pos.device == devs.p.pos
     for _ in range(3):
         s8 = step(s8)
     np.testing.assert_allclose(s1.p.pos.numpy(), s8.p.pos.numpy(),
@@ -176,5 +175,19 @@ def test_sharded_step_matches_single_device():
     np.testing.assert_allclose(s1.gas.entropy.numpy(),
                                s8.gas.entropy.numpy(), rtol=1e-4, atol=1e-6)
     assert int(s1.ti_current) == int(s8.ti_current)
-    rep = replicate_state(s8, "cpu")
-    assert torch.equal(rep.p.pos, s8.p.pos)
+    _, placed = make_sharded_step(s1, cfg, opts, "meta")
+    devices = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            devices.append(node.device)
+        elif dataclasses.is_dataclass(node):
+            for f in dataclasses.fields(node):
+                walk(getattr(node, f.name))
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+
+    walk(placed)
+    assert len(devices) > 20 and set(devices) == {torch.device("meta")}
+    assert s1.p.pos.device == torch.device("cpu")

@@ -267,8 +267,9 @@ def test_walk_model_of_kernel_m_keeps_every_pair_inside_rcut(grid):
     after the per-pair minimum image, as the kernel takes it) is walked;
     with a cut, the walk leaves out some pairs."""
     import chip_smoke
-    from gadget_leicester_tpu_torch.ops.gravity_short import (
-        shortrange_gravity_fresh, stencil_cells)
+    from gadget_leicester_tpu_torch.ops.gravity_short import \
+        shortrange_gravity_fresh
+    from gadget_leicester_tpu_torch.ops.neighbors import stencil_cells
     periodic = grid == "periodic"
     box, n_cells, n = 10.0, 3, 4000
     rcut = 1e30 if grid.endswith("no cut") else 3.15
@@ -301,7 +302,7 @@ def test_walk_model_of_kernel_m_keeps_every_pair_inside_rcut(grid):
             if periodic:
                 d = d - fbox * torch.round(d * (1.0 / fbox))
             d2 = d2 + d * d
-        ids, on = stencil_cells(n_cells, cells, periodic)
+        ids, _, on = stencil_cells(n_cells, cells, periodic)
         src = ((soa[ids][:, :, 3] != 0) & on[:, :, None]).flatten(1)
         pair = lv[..., None] & src[:, None, None, :]
         in_cut = pair & (d2 > 0) & (d2 < up)

@@ -154,7 +154,8 @@ def test_ghost_modes_match_jax_jnp_path(periodic, cap):
 def test_ghost_mode_sums_only_target_cells():
     """The cells that hold no target slot are flagged off in both modes'
     plain versions (zeros there), the other cells' sums equal an all-on
-    pass bit for bit, and a ghost row never reaches the outputs."""
+    pass bit for bit (K's without flags too), and a ghost row never
+    reaches the outputs."""
     d = _slab(9, True)
     t, _ = _lists(d, 64, True)
     n_cells, per, _, _ = _grid(True)
@@ -181,9 +182,83 @@ def test_ghost_mode_sums_only_target_cells():
                              tgt.to(torch.int32))
     hf = sc.hydro_sums_cells(soa16, params, n_cells, BOX, per, 0.8, on)
     assert not hp[~tgt].any() and torch.equal(hp[tgt], hf[tgt])
-    with pytest.raises(ValueError, match="flags"):
-        sc.hydro_sums_cells(soa16, params, n_cells, BOX, per, 0.8)
+    # no flags: every cell summed, as the cube takes it
+    assert torch.equal(sc.hydro_sums_cells(soa16, params, n_cells, BOX, per,
+                                           0.8), hf)
     with pytest.raises(ValueError, match="n_cells >= 3"):
         sc.density_sums_cells(soa.reshape(20, 5, 8, 64)[:, :2].reshape(
             40, 8, 64).contiguous(), h_slots[:40].contiguous(), on[:40],
             (4, 2, 5), BOX, per)
+
+
+def _reached(on, n_cells, per):
+    """The cells of the grid in the 27-cell stencils of the cells ``on``,
+    by walking the grid."""
+    nx, ny, nz = n_cells
+    reach = np.zeros(nx * ny * nz, bool)
+    for c in np.nonzero(on)[0]:
+        cxyz = (c // (ny * nz), c // nz % ny, c % nz)
+        for off in np.ndindex(3, 3, 3):
+            ijk = [i + o - 1 for i, o in zip(cxyz, off)]
+            if any(not p and not 0 <= i < n
+                   for i, n, p in zip(ijk, n_cells, per)):
+                continue
+            x, y, z = (i % n for i, n in zip(ijk, n_cells))
+            reach[(x * ny + y) * nz + z] = True
+    return reach
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_cells_bytes_counts_live_slots(periodic):
+    """chip_smoke.cells_bytes on the ghost modes' arguments: of the cells
+    that hold a target and the cells of their stencils on the grid (found
+    by walking the grid), I/J's seven rows of each live slot, h of each
+    live slot it sums, the flags and six output rows a summed slot; K's
+    rows 0-12, its two parameters and five output rows; with the cells
+    that hold a target flagged and with one cell alone; K without flags
+    sums every cell. kernel_bound counts these bytes and no others."""
+    import chip_smoke
+    d = _slab(10, periodic)
+    t, _ = _lists(d, 64, periodic)
+    n_cells, per, _, _ = _grid(periodic)
+    pos, vel, mass, h, mask = _t(*[d[k] for k in ("pos", "vel", "mass", "h",
+                                                  "mask")])
+    soa = sc.pack_sph_soa(t, pos, vel, mass, torch.ones_like(mass), mask,
+                          BOX)
+    idx = t.cells.clamp_min(0).long()
+    flags = ((t.cells >= 0) & mask[idx] & (idx < N_TGT)).any(1).to(
+        torch.int32)
+    h_slots = torch.where(t.cells >= 0, h[idx], torch.ones_like(h[idx]))
+    soa16 = sc.pack_hydro_cells(t, pos, vel, mass, h, torch.ones_like(mass),
+                                torch.ones_like(mass), torch.ones_like(mass),
+                                torch.zeros_like(mass), torch.zeros_like(mass),
+                                mask, torch.tensor(1.0), BOX)
+    params = torch.tensor([0.0, 1.0])
+    live = soa[:, 3].numpy() > 0
+    assert np.array_equal(live, soa16[:, 12].numpy() > 0)
+    # the cells that hold a target, and the first of them alone
+    one = torch.zeros_like(flags)
+    one[int(torch.nonzero(flags)[0])] = 1
+    for fl in (flags, one):
+        on = fl.numpy() > 0
+        reach = _reached(on, n_cells, per)
+        assert on.any() and not on.all()
+        n_src, n_tgt, c = int(live[reach].sum()), int(live[on].sum()), len(on)
+        dens = (soa, h_slots, fl, n_cells, BOX, per)
+        hyd = (soa16, params, n_cells, BOX, per, 0.8, fl)
+        want = {"sph_cells_density_slab":
+                4 * (7 * n_src + 6 * n_tgt + n_tgt + c),
+                "sph_cells_hydro_slab": 4 * (13 * n_src + 5 * n_tgt + 2 + c)}
+        for name, args, fn in (("sph_cells_density_slab", dens,
+                                sc.density_sums_cells),
+                               ("sph_cells_hydro_slab", hyd,
+                                sc.hydro_sums_cells)):
+            assert chip_smoke.cells_bytes(name, args) == want[name]
+            assert chip_smoke.cells_bytes(name + "_vacuum", args) \
+                == want[name]
+            bound = chip_smoke.kernel_bound(name, args, fn(*args))
+            assert bound["bytes"] == want[name]
+    assert not reach.all()
+    everything = int(live.sum())
+    assert chip_smoke.cells_bytes("sph_cells_hydro", hyd[:6]) \
+        == 4 * (18 * everything + 2)
