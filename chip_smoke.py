@@ -299,7 +299,7 @@ GRAVITY_CELLS = ("shortrange_gravity_cells",)
 ABS_DENSE = ("sph_density_abs", "sph_hydro_abs")
 ABS_ENTRIES = ("sph_density_entries_abs", "sph_hydro_entries_abs")
 ABS = ABS_DENSE + ABS_ENTRIES
-# the slab step's modes: A's slab mode on M's kernel, C and D on
+# the slab step's modes: A's slab mode, C and D on
 # anisotropic block grids (phase 18), A's slab mode with the potential row
 # (phase 19: sinks, Stamatellos cooling)
 SLAB_FORCE = ("shortrange_gravity_slab", "sph_density_aniso",
@@ -311,6 +311,9 @@ SLAB = SLAB_FORCE + SLAB_POT
 # rows of their own in the kernels line
 VACUUM = "_vacuum"
 SLAB_VACUUM = tuple(n + VACUUM for n in SLAB_FORCE)
+# A's slab mode with the potential in vacuum: on no path (the vacuum run
+# has no sinks), held and timed on the vacuum slab's arguments (phase 19)
+SLAB_POT_VACUUM = ("shortrange_gravity_slab_pot" + VACUUM,)
 # the slab step's coarse-cell SPH (phase 20): I/J's and K's ghost-row mode
 # on the slab's (nx, n, n) cells, periodic (image mask 6) and in vacuum (0)
 SLAB_CELLS = ("sph_cells_density_slab", "sph_cells_hydro_slab")
@@ -368,7 +371,7 @@ KERNELS = {
         "gadget_leicester_tpu_torch/csrc/sph_hydro_entries.cu",
         "gadget_leicester_tpu/ops/sph_blocks.py:1175"),
     # the slab step's modes: A's with a tuple n_cells, periodic (False,
-    # True, True), absolute, cl= (parallel/spmd.py:889-898), on M's kernel;
+    # True, True), absolute, cl= (parallel/spmd.py:889-898), in M's source;
     # C and D with per-axis blocks and fine_edge (spmd.py:1054, :1087)
     "shortrange_gravity_slab": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
@@ -384,6 +387,9 @@ KERNELS = {
         "gadget_leicester_tpu/ops/pallas_cells.py:669"),
     # the vacuum slab step's modes: periodic=(False, False, False)
     "shortrange_gravity_slab_vacuum": (
+        "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
+        "gadget_leicester_tpu/ops/pallas_cells.py:669"),
+    "shortrange_gravity_slab_pot_vacuum": (
         "gadget_leicester_tpu_torch/csrc/shortrange_gravity_cells.cu",
         "gadget_leicester_tpu/ops/pallas_cells.py:669"),
     "sph_density_aniso_vacuum": (
@@ -423,7 +429,7 @@ FLAGS_ARG = {"shortrange_gravity": 1, "sph_density": 3, "sph_hydro": 5,
 # where (hubble_a2_flow, fac_mu) sits among the hydro wrappers' arguments
 PARAMS_ARG = {"sph_hydro": 6, "sph_cells_hydro": 1, "sph_hydro_abs": 6,
               "sph_hydro_aniso": 6, "sph_cells_hydro_slab": 1}
-for _n in SLAB_FORCE + SLAB_CELLS:
+for _n in SLAB_FORCE + SLAB_POT + SLAB_CELLS:
     TOL[_n + VACUUM] = TOL[_n]
     FLAGS_ARG[_n + VACUUM] = FLAGS_ARG[_n]
     if _n in PARAMS_ARG:
@@ -962,7 +968,8 @@ def kernel_pairs() -> dict:
         functools.partial(sc.hydro_sums_cells, ghost_rows=True),
         sc.hydro_sums_cells_plain))
     # the vacuum slab step's modes: the same wrappers and plain versions
-    pairs.update({n + VACUUM: pairs[n] for n in SLAB_FORCE + SLAB_CELLS})
+    pairs.update({n + VACUUM: pairs[n]
+                  for n in SLAB_FORCE + SLAB_POT + SLAB_CELLS})
     return pairs
 
 
@@ -1306,7 +1313,8 @@ def pair_count(name: str, args: tuple) -> tuple:
 # h_chunk) for a chunk (its largest source h) and max(h_max, h_s) for a
 # source. F and G: :func:`_entries_walk`. E: :func:`entries_gravity_walk`;
 # M: :func:`gravity_cells_walk` (I/J's ranking, A's walk with a torus-aware
-# box test).
+# box test); A's slab mode: :func:`slab_gravity_walk` (whole-cell ranking,
+# chunk boxes, then single sources).
 A_THREADS = 128
 A_KEY_CELLS = 8
 CULL_MARGIN2 = 1.00002
@@ -1507,19 +1515,22 @@ def density_evaluated_pairs(args: tuple) -> int:
     return total
 
 
-def _ranked_by_box(xyz, live):
+def _ranked_by_box(xyz, live, whole: bool = False):
     """The targets ``xyz`` [K, 3, cap] of a cell, ``live`` [K, cap], as
     ``glt::rank_by_box`` orders them (kernels I/J, K and M): passes of
     A_THREADS slots (fewer for a smaller cap, whole warps), each ranked by
     the Morton key of its slots on an A_KEY_CELLS^3 grid over the box of
-    the pass's live ones. Returns (the slot of each rank [K, P nt], the
-    ranked coordinates [K, 3, W, 32] and live mask [K, W, 32], each warp's
-    box lo, hi [K, 3, W])."""
+    the pass's live ones; with ``whole``, one pass of all the cell's slots
+    (A's slab mode). Returns (the slot of each rank [K, P nt], the ranked
+    coordinates [K, 3, W, 32] and live mask [K, W, 32], each warp's box
+    lo, hi [K, 3, W])."""
     import torch
     k, _, cap = xyz.shape
     f32, dev = torch.float32, xyz.device
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
-    nt = min(-(-cap // 32) * 32, A_THREADS)
+    nt = -(-cap // 32) * 32
+    if not whole:
+        nt = min(nt, A_THREADS)
     width = -(-cap // nt) * nt
     x = torch.nn.functional.pad(xyz, (0, width - cap))
     live = torch.nn.functional.pad(live, (0, width - cap))
@@ -1837,6 +1848,117 @@ def gravity_cells_walk(args: tuple, cells):
     return xyz, lvr, sxyz, near
 
 
+def _image_gap(lo, hi, boxf, periodic: bool):
+    """The distance of the intervals [lo, hi] of dx from the nearest
+    multiple of the box ``boxf`` on a periodic axis (0 where an interval
+    spans half the box or more), from 0 on a clamped one: the kernels'
+    ``image_gap``."""
+    import torch
+    if not periodic:
+        return torch.clamp(torch.maximum(lo, -hi), min=0.0)
+    kb = torch.round(0.5 * (lo + hi) * (1.0 / boxf)) * boxf
+    e = None
+    for k in (kb, kb - boxf, kb + boxf):
+        g = torch.clamp(torch.maximum(lo - k, k - hi), min=0.0)
+        e = g if e is None else torch.minimum(e, g)
+    return torch.where(hi - lo < 0.5 * boxf, e, torch.zeros_like(e))
+
+
+def slab_gravity_walk(args: tuple, cells, ranked=None):
+    """Kernel A's slab mode's walk (either mode) over the target cells
+    ``cells`` [K] of ``args``: every cell's live slots (row 5 > 0) ranked
+    whole by ``glt::rank_by_box``'s key, a warp a chunk of 32 ranks; a warp
+    takes the chunks of its stencil's cells on the grid whose box of live
+    ranks lies within the cut of its box (per axis by :func:`_image_gap` on
+    the axes of the image mask), and of those the sources with m != 0
+    within the cut of its box (rcut squared times (1 + 1e-6), clamped to
+    the largest float, times CULL_MARGIN2). ``ranked``: the ranking of
+    every cell of the grid, :func:`slab_ranked` (made here if None).
+    Returns (the ranked targets [K, 3, W, 32], their live mask [K, W, 32],
+    the ranked sources of the stencil [K, 3, 27 W 32], the sources each
+    warp walks [K, W, 27 W 32])."""
+    import numpy as np
+    import torch
+
+    from gadget_leicester_tpu_torch.ops.neighbors import per3, stencil_cells
+    soa, _, n, box, periodic, _, rcut = args
+    f32, dev = torch.float32, soa.device
+    xyz_all, m_all, lo_all, hi_all = ranked or slab_ranked(soa)
+    w = lo_all.shape[-1]
+    pv = per3(periodic)
+    ids, _, inside = stencil_cells(n, cells, pv)              # [K, 27]
+    up = float(rcut) * float(rcut) * (1.0 + 1e-6)
+    cull2 = (torch.tensor(min(up, float(np.finfo(np.float32).max)),
+                          dtype=f32)
+             * torch.tensor(CULL_MARGIN2, dtype=f32)).to(dev)  # inf at 1e30
+    boxf = torch.tensor(box, dtype=f32, device=dev)
+    tlo, thi = lo_all[cells], hi_all[cells]                   # [K, 3, W]
+    slo = lo_all[ids].transpose(1, 2).flatten(2)              # [K, 3, 27 W]
+    shi = hi_all[ids].transpose(1, 2).flatten(2)
+    sxyz = xyz_all[ids].transpose(1, 2).flatten(2)            # [K, 3, 27 W 32]
+    c2 = s2 = 0.0
+    for a in range(3):
+        e = _image_gap(tlo[:, a, :, None] - shi[:, None, a],
+                       thi[:, a, :, None] - slo[:, None, a], boxf, pv[a])
+        c2 = c2 + e * e
+        sa = sxyz[:, None, a]
+        e = _image_gap(tlo[:, a, :, None] - sa, thi[:, a, :, None] - sa,
+                       boxf, pv[a])
+        s2 = s2 + e * e
+    chunk = (c2 < cull2) & inside.repeat_interleave(w, 1)[:, None, :]
+    src = (m_all[ids] != 0).flatten(1)[:, None, :]            # [K, 1, 27 W 32]
+    near = chunk.repeat_interleave(32, -1) & (s2 < cull2) & src
+    return (xyz_all[cells].unflatten(-1, (w, 32)), _slab_live(soa, cells, w),
+            sxyz, near)
+
+
+def slab_ranked(soa):
+    """(ranked coordinates [C, 3, W 32] and masses [C, W 32], zeros past
+    the live ranks; each chunk's box lo, hi [C, 3, W]) of every cell of the
+    pack ``soa``, as A's slab mode's ranking launch writes them."""
+    import torch
+    c, _, cap = soa.shape
+    out = [], [], [], []
+    for c0 in range(0, c, 4096):
+        t = soa[c0:c0 + 4096]
+        live = t[:, 5] > 0
+        order, xyz, lvr, lo, hi = _ranked_by_box(t[:, :3], live, whole=True)
+        k, _, w, _ = xyz.shape
+        lv = lvr.flatten(1)
+        m = torch.nn.functional.pad(t[:, 3], (0, 32 * w - cap)).gather(
+            1, order)
+        out[0].append(torch.where(lv[:, None], xyz.flatten(2), 0.0))
+        out[1].append(torch.where(lv, m, 0.0))
+        out[2].append(lo)
+        out[3].append(hi)
+    return tuple(torch.cat(o) for o in out)
+
+
+def _slab_live(soa, cells, w: int):
+    """[K, W, 32]: the ranks of cells ``cells`` that hold a live slot (the
+    first ones: parked slots rank last)."""
+    import torch
+    n_in = (soa[cells, 5] > 0).sum(-1)
+    r = torch.arange(32 * w, device=soa.device)
+    return (r[None] < n_in[:, None]).view(len(cells), w, 32)
+
+
+def slab_evaluated_pairs(args: tuple) -> int:
+    """The pairs of a live target and a source that kernel A's slab mode
+    (either mode) tests for the cut on ``args``: each near source of a
+    warp's walk (:func:`slab_gravity_walk`) against each of its live
+    lanes, the cheap part; the dear part then takes only the pairs inside
+    the cut's square."""
+    import torch
+    cells = torch.nonzero(args[1] > 0).flatten()
+    ranked = slab_ranked(args[0])
+    total = 0
+    for k0 in range(0, cells.numel(), 64):
+        _, lv, _, near = slab_gravity_walk(args, cells[k0:k0 + 64], ranked)
+        total += int((near.sum(-1) * lv.sum(-1)).sum())
+    return total
+
+
 def gravity_cells_evaluated_pairs(args: tuple) -> int:
     """The pairs of a live target and a source that kernel M evaluates on
     ``args``."""
@@ -1867,7 +1989,11 @@ EVALUATED = {"shortrange_gravity": gravity_evaluated_pairs,
              "sph_density": density_evaluated_pairs,
              "sph_density_abs": density_evaluated_pairs,
              "sph_hydro": hydro_evaluated_pairs,
-             "sph_hydro_abs": hydro_evaluated_pairs}
+             "sph_hydro_abs": hydro_evaluated_pairs,
+             **{n: slab_evaluated_pairs for n in (
+                 "shortrange_gravity_slab", "shortrange_gravity_slab_pot",
+                 "shortrange_gravity_slab_vacuum",
+                 "shortrange_gravity_slab_pot_vacuum")}}
 
 # the times of kernels C, H, I/J, K, F, G, B, E and M in their earlier
 # designs (one thread a target walking every staged source of its
@@ -1892,7 +2018,14 @@ EARLIER_MS = {"sph_density": 8.665, "sph_density_abs": 12.776,
               "sph_hydro_entries_abs_disc": 2.091,
               "pm_deposit": 0.281, "shortrange_gravity_entries": 0.595,
               "shortrange_potential_entries": 0.763,
-              "shortrange_gravity_cells": 25.849}
+              "shortrange_gravity_cells": 25.849,
+              # A's slab mode on M's kernel: phases 18 and 19; with the
+              # potential in vacuum, on no path, timed first in turns with
+              # its redesign (PERF.md section 6)
+              "shortrange_gravity_slab": 33.746,
+              "shortrange_gravity_slab_pot": 53.271,
+              "shortrange_gravity_slab_vacuum": 36.064,
+              "shortrange_gravity_slab_pot_vacuum": 60.640}
 # the fragment of each kernel's mangled name in nvcc's -Xptxas=-v output
 # (:func:`ptxas_registers`)
 PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
@@ -1915,14 +2048,13 @@ PTXAS_NAME = {"shortrange_gravity": "shortrange_gravity_kernelILb0E",
               "shortrange_potential_entries":
                   "shortrange_gravity_entries_kernelILb1E",
               "shortrange_gravity_cells": "shortrange_gravity_cells_kernel",
-              "shortrange_gravity_slab":
-                  "shortrange_gravity_cells_kernelILi6ELb0E",
-              "shortrange_gravity_slab_pot":
-                  "shortrange_gravity_cells_kernelILi6ELb1E",
+              "shortrange_gravity_slab": "slab_gravity_kernelILi6ELb0E",
+              "shortrange_gravity_slab_pot": "slab_gravity_kernelILi6ELb1E",
               "shortrange_gravity_slab_vacuum":
-                  "shortrange_gravity_cells_kernelILi0ELb0E",
+                  "slab_gravity_kernelILi0ELb0E",
               "shortrange_gravity_slab_pot_vacuum":
-                  "shortrange_gravity_cells_kernelILi0ELb1E"}
+                  "slab_gravity_kernelILi0ELb1E",
+              "slab_rank": "slab_rank_kernel"}
 
 
 def ptxas_registers(fragment: str) -> list:
@@ -2134,7 +2266,8 @@ def kernel_bound(name: str, args: tuple, out) -> dict:
         periodic, asmth = args[4], args[5]
         pot = (OPS_PER_PAIR["shortrange_potential"]
                - OPS_PER_PAIR["shortrange_gravity"]
-               if name == "shortrange_gravity_slab_pot" else 0)
+               if name.removesuffix(VACUUM) == "shortrange_gravity_slab_pot"
+               else 0)
         ops = in_cut * (OPS_PER_PAIR["shortrange_gravity"] + 2 + pot
                         + MIN_IMAGE_OPS // 3 * sum(periodic)
                         - (0 if asmth > 0 else TRUNC_OPS))
@@ -5353,6 +5486,7 @@ def phase_slab(results: dict, card: str, device="cuda",
     check_finite("slab", cst)
     check_kernels(recorded, f"slab 2x{n_side}^3", results, SLAB_FORCE,
                   timed=True, every=SLAB_EVERY, n_cases=1)
+    say_against_earlier("kernels", results, "shortrange_gravity_slab", card)
     rcut = ring._spmd_step.rcut
     hold_slab("slab", "ring of one against one device after the first sync "
               "point", firsts[1], firsts[0], box, spacing, rcut)
@@ -5759,6 +5893,8 @@ def phase_slab_fork(results: dict, card: str, device="cuda",
     # (b) A's slab mode with the potential on (a)'s arguments
     check_kernels(recorded, f"slab 2x{n_side}^3 with sinks", results,
                   SLAB_POT, timed=True, every=SLAB_EVERY, n_cases=1)
+    say_against_earlier("kernels", results, "shortrange_gravity_slab_pot",
+                        card)
     args = recorded["shortrange_gravity_slab_pot"]
     pot4 = cells.shortrange_gravity_slab(*args, with_potential=True)
     force = cells.shortrange_gravity_slab(*args)
@@ -5892,11 +6028,33 @@ def phase_slab_fork(results: dict, card: str, device="cuda",
     del first, oracle, got
     check_kernels(recorded, f"vacuum slab 2x{n_side}^3", results,
                   SLAB_VACUUM, timed=True, every=SLAB_FORK_EVERY, n_cases=1)
+    # A's slab mode with the potential in vacuum, on no path: held and
+    # timed on the force-only mode's arguments, its rows 0-2 equal to that
+    # mode's bit for bit
+    (pot_v,) = SLAB_POT_VACUUM
+    recorded[pot_v] = recorded["shortrange_gravity_slab" + VACUUM]
+    check_kernels(recorded, f"vacuum slab 2x{n_side}^3", results,
+                  SLAB_POT_VACUUM, timed=True, every=SLAB_FORK_EVERY,
+                  n_cases=1)
+    results[pot_v]["launches"] = 0
+    for n in ("shortrange_gravity_slab" + VACUUM, pot_v):
+        say_against_earlier("kernels", results, n, card)
+    args = cases(pot_v, recorded)[0][1]
+    same = bool(torch.equal(
+        cells.shortrange_gravity_slab(*args, with_potential=True)[:, :3],
+        cells.shortrange_gravity_slab(*args)))
+    say("kernels", f"{pot_v}: rows 0-2 equal to the force-only mode's bit "
+        f"for bit: {same}; {results[pot_v]['ms']:.3f} ms beside the "
+        f"force-only mode's {results['shortrange_gravity_slab' + VACUUM]['ms']:.3f}"
+        f" ms on the same arguments ({card})")
+    if not same:
+        raise AssertionError("A's slab mode with the potential in vacuum: "
+                             "rows 0-2 differ from the force-only mode's")
     say("kernels", "registers: A's slab mode in vacuum, with the potential "
-        "in vacuum " + str(
+        "in vacuum, the ranking launch " + str(
             [ptxas_registers(PTXAS_NAME[n]) for n in (
                 "shortrange_gravity_slab_vacuum",
-                "shortrange_gravity_slab_pot_vacuum")]))
+                "shortrange_gravity_slab_pot_vacuum", "slab_rank")]))
     del recorded, rec
     kernels.recorded.clear()
     step.times = {}

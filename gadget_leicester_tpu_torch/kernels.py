@@ -89,13 +89,14 @@ SIGNATURES = {
                                 _P),
     "sph_hydro_entries_abs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                               _P),
-    # the slab step's modes: A's on M's kernel (per-axis cells, an image
-    # mask, tile flags), C's and D's relative mode on per-axis blocks
-    "shortrange_gravity_slab": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                                _P),
+    # the slab step's modes: A's in M's source (per-axis cells, an image
+    # mask, tile flags, a workspace), C's and D's relative mode on per-axis
+    # blocks
+    "shortrange_gravity_slab": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                _F, _P),
     # A's slab mode with the potential row (the in-step potential on slabs)
-    "shortrange_gravity_slab_pot": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                    _F, _P),
+    "shortrange_gravity_slab_pot": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                    _F, _F, _P),
     "sph_density_aniso": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P),
     "sph_hydro_aniso": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -36,9 +36,12 @@ absolute pack with a per-pair minimum image, on a periodic or a clamped
 grid, with A's warp-box culling under a box test that allows for the
 image. Kernel A's slab mode, :func:`shortrange_gravity_slab` (the
 reference's ``shortrange_gravity_pallas_dma9`` on the slab step's grid:
-per-axis cell counts, clamped x, absolute coordinates), runs on M's
-kernel with per-axis counts, an image on the periodic axes only and A's
-tile flags; its ``with_potential`` mode adds H's potential row. Their plain versions are in ``ops/gravity_short.py``.
+per-axis cell counts, clamped x, absolute coordinates), has a kernel of
+its own in M's source: each cell ranked once into a workspace, a warp a
+chunk of 32 ranked targets walking the stencil's near chunks, per-lane
+cut masks, an image on the periodic axes only and A's tile flags; its
+``with_potential`` mode adds H's potential row on the force's pair.
+Their plain versions are in ``ops/gravity_short.py``.
 """
 
 from __future__ import annotations
@@ -215,7 +218,8 @@ def shortrange_gravity_slab(soa: torch.Tensor, flags: torch.Tensor,
     ``shortrange_gravity_slab_pot``; the slab's periodicities only):
     [C, 4, cap], the erfc-truncated softened potential as row 3 and rows
     0-2 those of the force-only mode. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (M's, ``csrc/shortrange_gravity_cells.cu``)."""
+    CUDA tensors launch the kernel (``csrc/shortrange_gravity_cells.cu``:
+    a ranking launch into a workspace, then the walk; mask 7 takes M's)."""
     ncv, pv = dims3(n_cells), per3(periodic)
     c, rows, cap = soa.shape
     if c != ncv[0] * ncv[1] * ncv[2] or rows != 8:
@@ -239,10 +243,22 @@ def shortrange_gravity_slab(soa: torch.Tensor, flags: torch.Tensor,
                                              rcut, with_potential)
     out = torch.empty(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
                       device=soa.device)
+    work = torch.empty(slab_workspace_bytes(c, cap), dtype=torch.uint8,
+                       device=soa.device)
     kernels.launch(name, soa.data_ptr(), flags.data_ptr(), out.data_ptr(),
-                   *ncv, mask, cap, box,
+                   work.data_ptr(), *ncv, mask, cap, box,
                    0.5 / asmth if asmth > 0.0 else 0.0, rcut)
     return out
+
+
+def slab_workspace_bytes(c: int, cap: int) -> int:
+    """The bytes of kernel A's slab-mode workspace for ``c`` cells of
+    ``cap`` slots (``SlabWork`` in ``csrc/shortrange_gravity_cells.cu``):
+    in rank order, (x, y, z, m) and (soft, 1/soft) float32 and the slot
+    int32 of each of the cell's ``capp`` = 32 ceil(cap / 32) ranks, the box
+    of each chunk of 32 ranks (8 float32), and the live count."""
+    nch = -(-cap // 32)
+    return c * (32 * nch * (16 + 8 + 4) + 32 * nch + 4)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from gadget_leicester_tpu_torch.ops.neighbors import live_width
 from gadget_leicester_tpu_torch.ops.softening import (erfc_trunc,
                                                       grav_fac_nodiv,
                                                       grav_pot_nodiv)
@@ -109,16 +110,20 @@ def shortrange_gravity_tiles_plain(soa, flags, n_cells: int, box: float,
                                    with_potential: bool = False):
     """Plain PyTorch version of kernel A: out [C, 3, cap] (no G); with
     ``with_potential``, kernel H's [C, 4, cap] with the erfc-truncated
-    softened potential as row 3. Zeros in cells whose flag is 0."""
+    softened potential as row 3. Zeros in cells whose flag is 0 and at
+    parked slots (it sums the slots up to the last live one of any cell,
+    :func:`live_width`)."""
     c, _, cap = soa.shape
-    chunk = _chunk(cap, cap)
+    w = live_width(soa, 5)
+    live = soa[..., :w]
+    chunk = _chunk(w, w)
     out = torch.zeros(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
                       device=soa.device)
     todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
-        out[tc] = _stencil_sums(soa[tc], soa, tc, n_cells, box, asmth, rcut,
-                                with_potential)
+        out[tc, :, :w] = _stencil_sums(live[tc], live, tc, n_cells, box,
+                                       asmth, rcut, with_potential)
     return out
 
 
@@ -140,14 +145,15 @@ def shortrange_gravity_entries_plain(soa, entry_cell, tgt, n_cells: int,
     softened potential as row 3 (E's potential mode). Padded entries (-1)
     and dead lanes (row 5 = 0) are 0."""
     k, _, lanes = tgt.shape
-    chunk = _chunk(lanes, soa.shape[2])
+    src = soa[..., :live_width(soa, 5)]
+    chunk = _chunk(lanes, src.shape[2])
     out = torch.zeros(k, 4 if with_potential else 3, lanes, dtype=soa.dtype,
                       device=soa.device)
     todo = torch.nonzero(entry_cell >= 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         e = todo[k0:k0 + chunk]
         t = tgt[e]
-        acc = _stencil_sums(t, soa, entry_cell[e].long(), n_cells, box,
+        acc = _stencil_sums(t, src, entry_cell[e].long(), n_cells, box,
                             asmth, rcut, with_potential)
         out[e] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
     return out
@@ -199,17 +205,20 @@ def shortrange_gravity_cells_plain(soa, n_cells: int, box: float,
                                    rcut: float) -> torch.Tensor:
     """Plain PyTorch version of kernel M: out [C, 3, cap] (no G) on the
     absolute pack ``soa``, chunked over target cells; zeros at parked
-    slots."""
+    slots (it sums the slots up to the last live one of any cell)."""
     c, _, cap = soa.shape
-    chunk = _chunk(cap, cap)
+    w = live_width(soa, 5)
+    live = soa[..., :w]
+    chunk = _chunk(w, w)
     out = torch.zeros(c, 3, cap, dtype=soa.dtype, device=soa.device)
     todo = torch.nonzero((soa[:, 5] > 0).any(-1)).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
-        t = soa[tc]
-        acc = _stencil_sums_abs(t, soa, tc, n_cells, box, periodic, asmth,
+        t = live[tc]
+        acc = _stencil_sums_abs(t, live, tc, n_cells, box, periodic, asmth,
                                 rcut)
-        out[tc] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
+        out[tc, :, :w] = torch.where(t[:, 5:6] > 0, acc,
+                                     torch.zeros_like(acc))
     return out
 
 
@@ -224,18 +233,22 @@ def shortrange_gravity_slab_plain(soa, flags, n_cells: tuple, box: float,
     holds True, stencil cells beyond a clamped face left out; zeros where
     ``flags`` is 0 and at parked slots. With ``with_potential``, the mode
     with the potential: [C, 4, cap], the erfc-truncated softened potential
-    as row 3, rows 0-2 as without it."""
+    as row 3, rows 0-2 as without it. It sums the slots up to the last
+    live one of any cell."""
     c, _, cap = soa.shape
-    chunk = _chunk(cap, cap)
+    w = live_width(soa, 5)
+    live = soa[..., :w]
+    chunk = _chunk(w, w)
     out = torch.zeros(c, 4 if with_potential else 3, cap, dtype=soa.dtype,
                       device=soa.device)
     todo = torch.nonzero(flags > 0).flatten()
     for k0 in range(0, todo.numel(), chunk):
         tc = todo[k0:k0 + chunk]
-        t = soa[tc]
-        acc = _stencil_sums_abs(t, soa, tc, n_cells, box, periodic, asmth,
+        t = live[tc]
+        acc = _stencil_sums_abs(t, live, tc, n_cells, box, periodic, asmth,
                                 rcut, with_potential)
-        out[tc] = torch.where(t[:, 5:6] > 0, acc, torch.zeros_like(acc))
+        out[tc, :, :w] = torch.where(t[:, 5:6] > 0, acc,
+                                     torch.zeros_like(acc))
     return out
 
 

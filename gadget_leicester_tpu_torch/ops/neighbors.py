@@ -94,6 +94,16 @@ def merge_rows(out: torch.Tensor, cl: CellList, n_rows: int,
     return rows[gidx.long()]
 
 
+def live_width(soa: torch.Tensor, live_row: int) -> int:
+    """The slots of a [C, R, cap] pack up to the last one that is live
+    (row ``live_row`` > 0) in any cell: every slot past it is parked in
+    every cell, adds nothing as a source and gets zeros as a target, so a
+    plain version sums over the first ones alone (a cell list fills each
+    cell's slots from the first)."""
+    live = torch.nonzero((soa[:, live_row] > 0).any(0)).flatten()
+    return int(live[-1]) + 1 if live.numel() else 1
+
+
 def scatter_rows(out: torch.Tensor, pidx: torch.Tensor, valid: torch.Tensor,
                  n: int, fill=None) -> torch.Tensor:
     """Active-entry output ``[K, R, L]`` -> ``[n, R]``: each valid lane's

@@ -53,8 +53,8 @@ import torch
 from gadget_leicester_tpu_torch import kernels
 from gadget_leicester_tpu_torch.ops.neighbors import (CellList,
                                                       build_cell_list, dims3,
-                                                      merge_rows, per3,
-                                                      stencil_cells)
+                                                      live_width, merge_rows,
+                                                      per3, stencil_cells)
 from gadget_leicester_tpu_torch.ops.sph_dense import (
     DENSITY_FILL, HydroResult, density_adaptive_generic, density_columns,
     density_result, hydro_params, hydro_result, hydro_table)
@@ -114,16 +114,6 @@ def _chunk(cap: int, temporaries: int) -> int:
     return max(1, (1 << 30) // (temporaries * 4 * 27 * cap * cap))
 
 
-def _live_width(soa, live_row: int) -> int:
-    """The slots up to the last one that is live (row ``live_row`` > 0) in
-    any cell: every slot past it is parked in every cell, adds nothing as
-    a source and gets zeros as a target, so a plain version sums over the
-    first ones alone (the slab's coarse cells hold ~21 gas in 112 slots at
-    2x128^3)."""
-    live = torch.nonzero((soa[:, live_row] > 0).any(0)).flatten()
-    return int(live[-1]) + 1 if live.numel() else 1
-
-
 def _gather_sources(soa, cells, n, box: float, periodic, rows):
     """Source rows [K, 27 cap] of the 27 cells around ``cells`` [K], x, y
     and z (rows 0-2) with the wrap shift added to the whole tile, and the
@@ -179,7 +169,7 @@ def density_sums_cells_plain(soa, h_slots, flags, n_cells, box: float,
     cap] = rho, drho/dh, raw div v, raw rot v (x, y, z); zeros where
     flags is 0."""
     c, _, cap = soa.shape
-    w = _live_width(soa, 3)
+    w = live_width(soa, 3)
     soa, h_slots = soa[..., :w], h_slots[:, :w]
     chunk = _chunk(w, 24)
     out = torch.zeros(c, 6, cap, dtype=soa.dtype, device=soa.device)
@@ -289,7 +279,7 @@ def hydro_sums_cells_plain(soa16, params, n_cells, box: float, periodic,
     ax, ay, az, raw dA/dt, max signal velocity; zeros where ``flags`` (the
     ghost-row mode's) is 0."""
     c, _, cap = soa16.shape
-    w = _live_width(soa16, 12)
+    w = live_width(soa16, 12)
     soa16 = soa16[..., :w]
     chunk = _chunk(w, 40)
     out = torch.zeros(c, 5, cap, dtype=soa16.dtype, device=soa16.device)

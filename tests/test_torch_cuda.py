@@ -1682,29 +1682,80 @@ def test_slab_cells_kernels_edges_on_card(periodic, cap):
 
 
 SLAB_BOX, SLAB_NYZ, SLAB_RCUT = 34.0, 34, 0.95
+# the layouts of A's slab-mode edge cases beside the heavy pairs across the
+# seams and faces (every layout keeps them): "seams" those alone; "full"
+# one cell holding 384 live slots (the slab grid's capacity after its
+# first raise, 12 chunks of 32 ranks); "straddle" a cell whose slots lie
+# at y = 0, y = box (float32, filed in cell 0) and either side of the y
+# seam, so that its warps' boxes span the wrap; "lanes" a tight clump of
+# 64 (every lane of a batch inside the cut) and a row of 32 targets with a
+# clump of sources within the cut of its last one alone (one lane of a
+# batch); "gated" the full cell switched off while its slots stay sources,
+# with every third tile; "faces" sources and targets on the grid's six
+# faces and beyond the clamped x faces (image mask 0)
+SLAB_LAYOUTS = ("seams", "full", "straddle", "lanes", "gated", "faces")
+SLAB_FULL_CELL = (1, 5, 5)
 
 
-def _slab_gravity_case(nx: int, sign: int):
+def _slab_gravity_case(nx: int, sign: int, layout: str = "seams"):
     """A slab frame of ``nx`` clamped cells of edge 1 along x (the slab
     [rcut, nx - rcut), its ghost strips one cell wide where nx = 3) by
     34 x 34 periodic cells of a box of 34: a light background reaching
     0.2 beyond the clamped faces, and heavy sources at rcut (1 + sign
     1e-5) of a target across the y seam, across the z seam and beyond
-    each clamped face; about a fifth of the tiles gated off. Returns the
-    wrapper's arguments, the cell list and the targets' rows."""
+    each clamped face; about a fifth of the tiles gated off; and the
+    particles of ``layout`` (:data:`SLAB_LAYOUTS`). Returns the wrapper's
+    arguments (periodic in y and z; clamped on every axis for "faces"),
+    the cell list and the targets' rows."""
     import numpy as np
 
     from gadget_leicester_tpu_torch.ops.cells import (grav_tile_flags,
                                                       pack_cells_abs)
     from gadget_leicester_tpu_torch.ops.neighbors import build_cell_list
-    rng = np.random.default_rng(nx * 2 + (sign > 0))
+    rng = np.random.default_rng(nx * 2 + (sign > 0)
+                                + 10 * SLAB_LAYOUTS.index(layout))
     box, rc = SLAB_BOX, SLAB_RCUT
     ext = float(nx)
     r = rc * (1.0 + sign * 1e-5)
     n_bg = 4000 if nx > 3 else 1500
     pts = np.stack([rng.uniform(-0.2, ext + 0.2, n_bg),
                     rng.uniform(0, box, n_bg), rng.uniform(0, box, n_bg)], 1)
-    mass = list(np.ones(n_bg))
+    cap = 128
+    full = np.asarray(SLAB_FULL_CELL, float)
+    if layout in ("full", "gated"):
+        cap = 384
+        inside = np.all(np.floor(pts) == full, axis=1)
+        pts = np.concatenate([pts[~inside],
+                              full + rng.uniform(0, 1, (cap, 3))])
+    extra = np.zeros((0, 3))
+    if layout == "straddle":
+        y = np.concatenate([np.full(8, box), np.zeros(8),
+                            box - rng.uniform(0, 0.3, 16),
+                            rng.uniform(0, 0.3, 16)])
+        extra = np.stack([1.5 + rng.uniform(-0.4, 0.4, 48), y,
+                          11.5 + rng.uniform(-0.4, 0.4, 48)], 1)
+    elif layout == "lanes":
+        clump = np.asarray([1.5, 17.5, 17.5]) + rng.uniform(-0.05, 0.05,
+                                                            (64, 3))
+        row = np.stack([1.05 + 0.03 * np.arange(32), np.full(32, 25.5),
+                        np.full(32, 25.5)], 1)
+        far = np.asarray([1.05 + 0.03 * 31 + 0.94, 25.5, 25.5]) \
+            + rng.uniform(-1e-3, 1e-3, (40, 3))
+        extra = np.concatenate([clump, row, far])
+    elif layout == "faces":
+        k = 12
+        u = rng.uniform(0.5, box - 0.5, (6, k, 2))
+        extra = np.concatenate([
+            np.stack([np.full(k, -0.2), u[0, :, 0], u[0, :, 1]], 1),
+            np.stack([np.full(k, ext + 0.2), u[1, :, 0], u[1, :, 1]], 1),
+            np.stack([ext * u[2, :, 0] / box, np.zeros(k), u[2, :, 1]], 1),
+            np.stack([ext * u[3, :, 0] / box, np.full(k, box), u[3, :, 1]],
+                     1),
+            np.stack([ext * u[4, :, 0] / box, u[4, :, 1], np.zeros(k)], 1),
+            np.stack([ext * u[5, :, 0] / box, u[5, :, 1], np.full(k, box)],
+                     1)])
+    pts = np.concatenate([pts, extra])
+    mass = list(np.ones(len(pts)))
     targets, planted = [], []
     for t, s in (((1.5, 0.3, 7.0), (1.5, 0.3 - r + box, 7.0)),
                  ((1.5, 9.0, box - 0.2), (1.5, 9.0, r - 0.2)),
@@ -1720,31 +1771,44 @@ def _slab_gravity_case(nx: int, sign: int):
     m = torch.from_numpy(mass).to(dev)
     soft = torch.full_like(m, 0.05)
     alive = torch.ones_like(m, dtype=torch.bool)
-    per = (False, True, True)
+    per = (False, False, False) if layout == "faces" else (False, True, True)
     n3 = (nx, SLAB_NYZ, SLAB_NYZ)
     cl = build_cell_list(pos, alive, torch.tensor([0.0, 0.0, 0.0], device=dev),
                          torch.tensor([ext, box, box], device=dev),
-                         n_cells=n3, capacity=128, periodic=per)
+                         n_cells=n3, capacity=cap, periodic=per)
     assert not bool(cl.overflow)
     soa = pack_cells_abs(cl, pos, m, soft, alive)
     active = torch.from_numpy(rng.uniform(size=len(m)) < 0.8).to(dev)
     active[targets] = True
     flags = grav_tile_flags(cl, active)
+    c_full = (int(full[0]) * SLAB_NYZ + int(full[1])) * SLAB_NYZ \
+        + int(full[2])
+    if layout in ("full", "gated"):
+        assert int((soa[c_full, 5] > 0).sum()) == cap
+    if layout == "gated":
+        flags[::3] = 0
+        flags[cl.cell_of[targets].long()] = 1
+        flags[c_full] = 0
     args = (soa, flags, n3, box, per, rc / 4.5, rc)
     return args, cl, targets
 
 
-@pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("nx", [3, 40])
-def test_slab_gravity_kernel_edges_on_card(nx, sign):
+SLAB_EDGE_CASES = [(nx, sign, "seams") for nx in (3, 40) for sign in (-1, 1)] \
+    + [(3, -1, layout) for layout in SLAB_LAYOUTS[1:]]
+
+
+@pytest.mark.parametrize("nx,sign,layout", SLAB_EDGE_CASES)
+def test_slab_gravity_kernel_edges_on_card(nx, sign, layout):
     """A's slab mode where its culling and its stencil are tight: heavy
     sources at rcut (1 - 1e-5) of a target across the y and z seams and
-    beyond each clamped face pull it, at rcut (1 + 1e-5) add nothing;
-    within the bound of its float64 plain version, gated tiles zero."""
+    beyond each clamped face pull it, at rcut (1 + 1e-5) add nothing (in
+    vacuum, "faces", no image: the seams' sources add nothing either);
+    and the layouts of :data:`SLAB_LAYOUTS`; within the bound of its
+    float64 plain version, gated tiles zero."""
     _need_card()
     from gadget_leicester_tpu_torch.ops import cells, gravity_short
     from gadget_leicester_tpu_torch.ops.neighbors import merge_rows
-    args, cl, targets = _slab_gravity_case(nx, sign)
+    args, cl, targets = _slab_gravity_case(nx, sign, layout)
     got = cells.shortrange_gravity_slab(*args)
     want = gravity_short.shortrange_gravity_slab_plain(*args)
     exact = gravity_short.shortrange_gravity_slab_plain(
@@ -1756,13 +1820,22 @@ def test_slab_gravity_kernel_edges_on_card(nx, sign):
     assert not bool(got[args[1] == 0].any())
     acc = merge_rows(got, cl, 3)[targets].abs().amax(1)
     # a heavy pull at rcut is ~20 (G = 1); the background's is below 1
-    assert bool(((acc > 5.0) == (sign < 0)).all()), acc
+    pulled = torch.tensor([sign < 0] * 4, device=acc.device)
+    if layout == "faces":
+        pulled[:2] = False
+    assert bool(((acc > 5.0) == pulled).all()), acc
 
 
-@pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("nx", [3, 40])
-@pytest.mark.parametrize("per", [(False, True, True), (False, False, False)])
-def test_slab_potential_kernel_edges_on_card(nx, sign, per):
+SLAB_POT_EDGE_CASES = [
+    (nx, sign, "seams", per) for nx in (3, 40) for sign in (-1, 1)
+    for per in ((False, True, True), (False, False, False))] \
+    + [(3, -1, layout, per) for layout in SLAB_LAYOUTS[1:-1]
+       for per in ((False, True, True), (False, False, False))] \
+    + [(3, -1, "faces", (False, False, False))]
+
+
+@pytest.mark.parametrize("nx,sign,layout,per", SLAB_POT_EDGE_CASES)
+def test_slab_potential_kernel_edges_on_card(nx, sign, layout, per):
     """A's slab mode with the potential on the edge cases of
     test_slab_gravity_kernel_edges_on_card (periodic in y and z, and
     clamped on every axis): within the bound of its float64 plain
@@ -1770,7 +1843,7 @@ def test_slab_potential_kernel_edges_on_card(nx, sign, per):
     tiles zero."""
     _need_card()
     from gadget_leicester_tpu_torch.ops import cells, gravity_short
-    args, _, _ = _slab_gravity_case(nx, sign)
+    args, _, _ = _slab_gravity_case(nx, sign, layout)
     args = args[:4] + (per,) + args[5:]
     got = cells.shortrange_gravity_slab(*args, with_potential=True)
     force = cells.shortrange_gravity_slab(*args)

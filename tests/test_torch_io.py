@@ -166,10 +166,12 @@ def test_snapshot_from_state_matches_jax(tmp_path):
 
 
 def _small_sim(tmp_path):
+    """lcdm_gas 2x10^3 under the slice's options, initialised: a resumed
+    run's equality bit for bit does not depend on the box's size."""
     cfg = parse_parameter_text(PARAM.replace(
         "OutputDir  /tmp/grid_cache_test", f"OutputDir  {tmp_path}"))
     pos, vel, mass, ptype, u = lcdm_gas_ics(
-        n_side=12, box=cfg.box_size, omega0=0.3, omega_b=0.04,
+        n_side=10, box=cfg.box_size, omega0=0.3, omega_b=0.04,
         hubble=cfg.hubble_internal, g=cfg.grav_internal)
     sim = Simulation(cfg, SimOptions(**OPTS), "cpu")
     sim.set_ics(pos, vel, mass, ptype, u=u)

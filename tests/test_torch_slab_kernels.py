@@ -251,6 +251,73 @@ def test_gravity_slab_on_a_cube_equals_kernel_m(periodic):
     assert torch.equal(m, slab)
 
 
+@pytest.mark.parametrize("grid", ["slab", "vacuum", "vacuum, no cut"])
+def test_walk_model_of_the_slab_mode_keeps_every_pair_inside_rcut(grid):
+    """chip_smoke.slab_gravity_walk, the model of the culling of A's slab
+    mode (csrc/shortrange_gravity_cells.cu: each cell ranked whole, a warp
+    a chunk of 32 ranks, chunk boxes, then single sources), on a slab grid
+    of 3 x 4 x 4 cells of up to 160 slots (a clump fills one cell past
+    128: five chunks of live ranks), with coordinates equal to the box filed in cell 0
+    on the periodic axes; periodic in y and z, clamped on every axis, and
+    clamped with rcut = 1e30 (nothing may be culled). Every pair of a live
+    target and a source with m != 0 of a stencil cell on the grid at 0 <
+    r2 < rcut^2 (1 + 1e-6) (float32, after the per-axis minimum image, as
+    the kernel takes it) is walked; with a cut, the walk leaves out some
+    pairs."""
+    import chip_smoke
+    from gadget_leicester_tpu_torch.ops.neighbors import stencil_cells
+    per = SLAB_PER if grid == "slab" else VACUUM_PER
+    box, ncv, n = 4.0, (3, 4, 4), 600
+    rcut = 1e30 if grid.endswith("no cut") else 0.9
+    rng = np.random.default_rng(23)
+    pos = np.stack([rng.uniform(-0.2, 3.2, n), rng.uniform(0, box, n),
+                    rng.uniform(0, box, n)], 1).astype(np.float32)
+    pos[:140] = np.asarray([1.5, 2.5, 2.5]) + rng.uniform(-0.5, 0.5,
+                                                          (140, 3))
+    pos[140:143] = [[1.0, box, 1.0], [0.5, 0.0, box], [2.0, box, box]]
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    alive = np.ones(n, bool)
+    alive[-9:] = False
+    t = [torch.from_numpy(a) for a in (pos, mass, np.full(n, 0.05,
+                                                          np.float32),
+                                       alive)]
+    cl = build_cell_list(t[0], t[3], torch.tensor([0.0, 0.0, 0.0]),
+                         torch.tensor([3.0, box, box]), n_cells=ncv,
+                         capacity=160, periodic=per)
+    assert not bool(cl.overflow)
+    soa = tc.pack_cells_abs(cl, *t)
+    assert int((soa[:, 5] > 0).sum(1).max()) > 128
+    flags = torch.ones(soa.shape[0], dtype=torch.int32)
+    args = (soa, flags, ncv, box, per, 0.2, rcut)
+    ranked = chip_smoke.slab_ranked(soa)
+    up = torch.tensor(min(rcut * rcut * (1.0 + 1e-6),
+                          float(np.finfo(np.float32).max)))
+    fbox = torch.tensor(box)
+    inside = kept = walked = stencil = 0
+    for c0 in range(0, soa.shape[0], 16):
+        cells = torch.arange(c0, c0 + 16)
+        xyz, lv, sxyz, near = chip_smoke.slab_gravity_walk(args, cells,
+                                                           ranked)
+        ids, _, on = stencil_cells(ncv, cells, per)
+        w = xyz.shape[2]
+        src = (ranked[1][ids] != 0).flatten(1) \
+            & on.repeat_interleave(32 * w, 1)
+        d2 = 0.0
+        for a in range(3):
+            d = xyz[:, a, :, :, None] - sxyz[:, a, None, None, :]
+            if per[a]:
+                d = d - fbox * torch.round(d * (1.0 / fbox))
+            d2 = d2 + d * d
+        pair = lv[..., None] & src[:, None, None, :]
+        in_cut = pair & (d2 > 0) & (d2 < up)
+        inside += int(in_cut.sum())
+        kept += int((in_cut & near[:, :, None, :]).sum())
+        walked += int((pair & near[:, :, None, :]).sum())
+        stencil += int(pair.sum())
+    assert inside > 0 and kept == inside
+    assert (walked < stencil) == (rcut < 1e30)
+
+
 # --------------------------------------------------------------------------
 # kernels C and D on anisotropic block grids
 # --------------------------------------------------------------------------
