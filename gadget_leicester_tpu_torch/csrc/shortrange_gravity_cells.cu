@@ -364,23 +364,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-
 // ---------------------------------------------------------------------------
 // Kernel A's slab mode
 // ---------------------------------------------------------------------------
+constexpr int kRankThreads = 256;
 constexpr int kSlabWarps = 4;   // chunks of one cell a block
 constexpr int kSlabThreads = 32 * kSlabWarps;
 // at most 64 registers in every instance (8 blocks of 128 an SM)
 constexpr int kSlabBlocksPerSm = 8;
 constexpr int kRing = 64;   // queued near sources a warp, two batches
 
-// A queued source: (x, y, z, m), (soft, 1/soft), 32 bytes
+// A queued source: (x, y, z, m), (soft, 1/soft), padded to 32 bytes
 struct Queued {
   float4 q;
   float2 h;
   float2 pad;
 };
-constexpr int kRankThreads = 256;
 
 // The workspace of the two launches, for C cells of cap slots in nch =
 // ceil(cap / 32) chunks of 32 ranks (capp = 32 nch): pos [C capp] (x, y,
