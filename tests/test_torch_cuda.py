@@ -28,7 +28,9 @@ is not a multiple of 4, cells too large for any slab). The slab step's
 modes (A's slab mode, C's and D's anisotropic mode) get the arguments of
 two slab sync points of a 2x16^3 box on a ring of one, a slab frame with
 heavy sources at rcut (1 -+ 1e-5) across the y and z seams and beyond the
-clamped x faces (3 and 40 cells along x by 34 x 34), and an anisotropic
+clamped x faces (3 and 40 cells along x by 34 x 34; with A's slab mode's
+layouts: a full cell, a warp across the seam, one or all lanes in the
+cut, gated tiles, the vacuum faces), and an anisotropic
 block grid with empty trailing x blocks. I/J's and K's ghost-row mode
 (the slab step's coarse cells) get the arguments of two such sync points
 under ``sph_backend="cells"`` and a slab frame of 4 x 5 x 5 coarse cells
